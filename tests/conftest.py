@@ -36,6 +36,12 @@ jax.config.update("jax_enable_x64", True)
 _TESTS_SINCE_CLEAR = {"n": 0}
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips without a device"
+    )
+
+
 @pytest.fixture(autouse=True)
 def _bound_live_executables():
     yield
