@@ -10,9 +10,10 @@ It needs one CUDA device (Hopper: the kernels are built for sm_90a) and
 in order; any failure raises, so the exit code is nonzero:
 
 0. device line (``nvidia-smi`` name and power limit), versions, kernel build;
-1. every kernel (K1 stencil matvec, K5 / K4 fused CG phases) against its
-   plain PyTorch version on the card, at small odd shapes and at the main
-   path's 4096^2 shape;
+1. every kernel against its plain PyTorch version on the card, at small odd
+   shapes and at the main paths' 4096^2 shape: K1 stencil matvec (real and
+   complex), K2 const stencil matvec, K3 / K5 / K4 fused CG phases, K8 / K9
+   damped-Jacobi sweeps;
 2. golden CG in float64 on ``diag([1e-3, 2..100])``;
 3. the twin of ``__graft_entry__.entry()`` (compiled CG on ``poisson_2d(128)``)
    and a converging solve of the same operator;
@@ -21,8 +22,17 @@ in order; any failure raises, so the exit code is nonzero:
    on ``diffusion_2d`` with lognormal coefficients, with launch counts,
    trajectory agreement and bitwise repeatability; at 1024^2 the kernel
    trajectory against a float64 CPU run of the plain versions;
+4b. the same on the constant-coefficient ``poisson_2d_const(4096)``
+   (the reference bench's ``cg100`` configuration: K3 + K4 fused, K2 in
+   generic ``cg``);
+4c. multigrid-preconditioned CG: ``poisson_2d_const(4096)`` with a
+   manufactured solution to 1e-6 (the reference bench's ``cg_mg``
+   configuration, K8) and a Galerkin hierarchy on a smooth ``diffusion_2d``
+   at 1024^2 (K9), each held at 256^2 to a float64 CPU run;
 5. timings with CUDA events, each printed beside the card's name and power
-   limit.
+   limit: every kernel and its plain version at 4096^2, per-iteration
+   slopes of the solvers, time to solution of cg100 and of MG-CG with the
+   device's idle share (``torch.profiler``), and each V-cycle level's share.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -54,16 +64,20 @@ def card_line():
     return out[0]
 
 
+def wide(t):
+    """``t`` in float64 (complex128 for complex tensors)."""
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
 def max_err(got, want):
-    return float((got.double() - want.double()).abs().max())
+    return float((wide(got) - wide(want)).abs().max())
 
 
 def check_close(name, got, want, atol, rtol=0.0):
     err = max_err(got, want)
-    bound = atol + rtol * float(want.double().abs().max())
+    bound = atol + rtol * float(wide(want).abs().max())
     ok = bool(
-        ((got.double() - want.double()).abs()
-         <= atol + rtol * want.double().abs()).all()
+        ((wide(got) - wide(want)).abs() <= atol + rtol * wide(want).abs()).all()
     )
     log(f"  {name}: max_abs_err {err:.3e} (atol {atol:.3e}, rtol {rtol:g}, "
         f"bound at max {bound:.3e}) {'ok' if ok else 'FAIL'}")
@@ -177,6 +191,127 @@ def check_fused(name, got, want):
                                    atol=1e-5 * float(w.abs().max())))
     check_close(f"{name} scalar", got[2], want[2], atol=0.0, rtol=1e-4)
     return err
+
+
+def rel_close(name, got, want, tol):
+    """``got`` against ``want`` at ``tol`` of ``max |want|`` (bf16 outputs
+    also at rtol 1e-2, one bf16 rounding apart)."""
+    rtol = 1e-2 if got.dtype == torch.bfloat16 else 0.0
+    scale = float(wide(want).abs().max())
+    return check_close(name, got, want, atol=tol * scale, rtol=rtol)
+
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5,
+       torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+def random_bands(rng, M, ny, dtype, dev):
+    """A seeded 25-band plane stack with every offset in [-2, 2]^2 (the
+    shape of a Galerkin coarse level) and a weight plane."""
+    pairs = [(a, b) for a in range(-2, 3) for b in range(-2, 3)]
+    c = torch.from_numpy(rng.standard_normal((len(pairs), M, ny))).to(dev, dtype)
+    w = torch.from_numpy(0.1 + rng.random((M, ny))).to(dev, dtype)
+    return c, tuple(p[0] for p in pairs), tuple(p[1] for p in pairs), w
+
+
+def phase_kernels_const(dev, cs, st, A_div):
+    """Complex K1, K2, K3, K8 and K9 against their plain versions: small
+    odd shapes, then the main paths' 4096^2 shapes."""
+    rng = np.random.default_rng(SEED + 10)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+
+    log("phase 1b: complex K1, K2, K3, K8, K9 against their plain versions")
+    A = st.poisson_2d(37, 45, device=dev)
+    ro, co = A.row_offsets, A.col_offsets
+    for cd, xd in ((torch.complex64, torch.complex64), (torch.float32, torch.complex64),
+                   (torch.complex128, torch.complex128)):
+        c = A.coeffs2d
+        if cd.is_complex:
+            c = c + 1j * rand(c.shape, torch.float64)
+        c = c.to(cd)
+        x = (rand(A.grid, torch.float64) + 1j * rand(A.grid, torch.float64)).to(xd)
+        for tag, xx in (("", x), (" batch3", torch.stack([x, 2 * x, -x]))):
+            rel_close(f"K1 poisson_2d(37,45) {cd}/{xd}{tag}",
+                      cs.stencil2d_matvec(c, xx, ro, co),
+                      cs.stencil2d_matvec_plain(c, xx, ro, co), TOL[xd])
+
+    nonherm = st.ConstStencilOperator(
+        (37, 45), [(0, 0), (1, 0), (0, -1), (1, 2), (-2, 1)],
+        [4.0, -1.5, -0.5, 0.25, -0.75])
+    const_ops = [("poisson_2d_const(37,45)", st.poisson_2d_const(37, 45)),
+                 ("poisson_3d_const(6,7,50)", st.poisson_3d_const(6, 7, 50)),
+                 ("non-hermitian (37,45)", nonherm)]
+    for label, Ac in const_ops:
+        M, ny = Ac.grid
+        h = cs.halo_rows([b[0] for b in Ac.bands])
+        x64, xb64 = rand((M, ny), torch.float64), rand((3, M, ny), torch.float64)
+        top, bot = rand((h, ny), torch.float64), rand((h, ny), torch.float64)
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            x = x64.to(dtype)
+            for tag, args, kw in (
+                ("", (x, Ac.kernel_bands), {}),
+                (" batch3", (xb64.to(dtype), Ac.kernel_bands), {}),
+                (" row0+halos", (x, Ac.bands),
+                 dict(row0=5, top_halo=top.to(dtype), bot_halo=bot.to(dtype))),
+            ):
+                got = cs.const_stencil2d_matvec(*args, **kw)
+                assert got.dtype == dtype
+                rel_close(f"K2 {label} {dtype}{tag}", got,
+                          cs.const_stencil2d_matvec_plain(*args, **kw), TOL[dtype])
+        for dtype in (torch.float64, torch.float32):
+            z, r = x64.to(dtype), rand((M, ny), dtype)
+            for update in (True, False):
+                rel_close(f"K8 {label} {dtype} update={update}",
+                          cs.jacobi_sweep_const(0.2, z, r, Ac.kernel_bands, update),
+                          cs.jacobi_sweep_const_plain(0.2, z, r, Ac.kernel_bands, update),
+                          TOL[dtype])
+        r, p = rand((M, ny)), rand((M, ny))
+        om = torch.tensor(0.7, device=dev)
+        check_fused(f"K3 {label}", cs.cg_fused_phase_a(om, r, p, Ac.kernel_bands),
+                    cs.cg_fused_phase_a_plain(om, r, p, Ac.kernel_bands))
+
+    a_small = np.exp(rng.standard_normal((45, 70)))
+    Ad = st.diffusion_2d(a_small, device=dev)
+    var_cases = [("diffusion_2d(45,70) 5 bands", Ad.coeffs2d, Ad.row_offsets,
+                  Ad.col_offsets, 0.8 / Ad.diagonal().reshape(Ad.grid)),
+                 ("random 25 bands (37,45)",) + random_bands(rng, 37, 45, torch.float64, dev)]
+    for label, c64, ro, co, w64 in var_cases:
+        for dtype in (torch.float64, torch.float32):
+            c, w = c64.to(dtype), w64.to(dtype)
+            z, r = rand(c.shape[1:], dtype), rand(c.shape[1:], dtype)
+            for update in (True, False):
+                rel_close(f"K9 {label} {dtype} update={update}",
+                          cs.jacobi_sweep_var(w, z, r, c, ro, co, update),
+                          cs.jacobi_sweep_var_plain(w, z, r, c, ro, co, update),
+                          TOL[dtype])
+
+    # the main paths' shapes: poisson_2d_const(4096) and diffusion_2d(4096)
+    errs = {}
+    Ac = st.poisson_2d_const(BIG)
+    kb = Ac.kernel_bands
+    x, r = rand((BIG, BIG)), rand((BIG, BIG))
+    errs["const_stencil2d_matvec"] = rel_close(
+        f"K2 poisson_2d_const({BIG}) f32", cs.const_stencil2d_matvec(x, kb),
+        cs.const_stencil2d_matvec_plain(x, kb), TOL[torch.float32])
+    om = torch.tensor(0.7, device=dev)
+    errs["cg_fused_phase_a"] = check_fused(
+        f"K3 poisson_2d_const({BIG})", cs.cg_fused_phase_a(om, r, x, kb),
+        cs.cg_fused_phase_a_plain(om, r, x, kb))
+    errs["jacobi_sweep_const"] = max(
+        rel_close(f"K8 poisson_2d_const({BIG}) f32 update={u}",
+                  cs.jacobi_sweep_const(0.2, x, r, kb, u),
+                  cs.jacobi_sweep_const_plain(0.2, x, r, kb, u), TOL[torch.float32])
+        for u in (True, False))
+    c, ro, co = A_div.coeffs2d, A_div.row_offsets, A_div.col_offsets
+    w = 0.8 / A_div.diagonal().reshape(A_div.grid)
+    errs["jacobi_sweep_var"] = max(
+        rel_close(f"K9 diffusion_2d({BIG}) f32 update={u}",
+                  cs.jacobi_sweep_var(w, x, r, c, ro, co, u),
+                  cs.jacobi_sweep_var_plain(w, x, r, c, ro, co, u), TOL[torch.float32])
+        for u in (True, False))
+    return errs
 
 
 def phase_golden(dev, kt):
@@ -300,6 +435,145 @@ def phase_main(dev, kt, cs, st, A_div):
     return totals
 
 
+def phase_const_cg(dev, kt, cs, st):
+    """The reference bench's cg100 configuration: 100 iterations of fused
+    CG on poisson_2d_const(4096) (K3 + K4), against generic cg (K2)."""
+    log(f"phase 4b: fused const CG on poisson_2d_const({BIG}), 100 iterations")
+    iters = 100
+    A = st.poisson_2d_const(BIG, device=dev)
+    b = torch.ones(A.grid, dtype=torch.float32, device=dev)
+    (i_cg, i_fu), (n_cg, n_fu) = solve_pair(A, b, kt, cs, iters)
+    log(f"  launches cg {n_cg} fused {n_fu}")
+    assert i_cg.numsteps == i_fu.numsteps == iters
+    assert n_cg["const_stencil2d_matvec"] >= iters
+    assert n_fu["cg_fused_phase_a"] == n_fu["cg_fused_phase_b"] == iters
+    for info in (i_cg, i_fu):
+        assert bool(torch.isfinite(info.xk).all()) and np.isfinite(info.resnorms).all()
+    log(f"  resnorm ratio after {iters} {i_cg.resnorms[-1] / i_cg.resnorms[0]:.4e}")
+    agree("poisson_2d_const cg vs fused", i_fu, i_cg, iters)
+    (j_cg, j_fu), _ = solve_pair(A, b, kt, cs, iters)
+    same_fu = np.array_equal(j_fu.resnorms, i_fu.resnorms) and torch.equal(j_fu.xk, i_fu.xk)
+    same_cg = np.array_equal(j_cg.resnorms, i_cg.resnorms) and torch.equal(j_cg.xk, i_cg.xk)
+    log(f"  repeat bitwise equal: fused {same_fu}, cg {same_cg}")
+    assert same_fu and same_cg
+
+    log(f"  at {MID}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
+    A_gpu, A_cpu = st.poisson_2d_const(MID, device=dev), st.poisson_2d_const(MID, dtype=np.float64)
+    b = torch.ones(A_gpu.grid, dtype=torch.float32, device=dev)
+    (g_cg, g_fu), _ = solve_pair(A_gpu, b, kt, cs, iters)
+    _, ref = kt.cg_stencil(A_cpu, b.double().cpu(), tol=0.0, atol=0.0, maxiter=iters)
+    for name, info in (("cg", g_cg), ("fused", g_fu)):
+        agree(f"poisson_2d_const {name} f32 GPU vs f64 CPU", info, ref, iters)
+    totals = dict.fromkeys(cs.LAUNCHES, 0)
+    for n in (n_cg, n_fu):
+        for k in totals:
+            totals[k] += n[k]
+    return totals
+
+
+def smooth_field(n):
+    """The reference tests' smooth coefficient field 1 + 0.9 sin cos."""
+    X, Y = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    return 1.0 + 0.9 * np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y)
+
+
+def mg_cg(kt, A, b, M=None):
+    """The reference bench's cg_mg solve: generic cg, one V(2,2) cycle as
+    M, tol 1e-6, compiled driver."""
+    M = kt.MultigridPreconditioner(A) if M is None else M
+    return kt.cg(A, b, M=M, inner=inner, tol=1e-6, maxiter=30, backend="while_loop")
+
+
+def manufactured(A, dev, seed):
+    xs = torch.from_numpy(np.random.default_rng(seed).standard_normal(A.grid)
+                          .astype(np.float32)).to(dev)
+    return xs, A @ xs
+
+
+def agree_converged(what, info, ref):
+    """Converged solves: equal numsteps, every recurrence entry at
+    TRAJ_RTOL; the last entry (the explicit residual, at each precision's
+    rounding floor) only has to pass the criterion, which success says."""
+    rel = np.abs(info.resnorms - ref.resnorms[: len(info.resnorms)]) / ref.resnorms[
+        : len(info.resnorms)]
+    log(f"  {what}: numsteps {info.numsteps} vs {ref.numsteps}; max rel over the "
+        f"recurrence {rel[:-1].max():.3e} (rtol {TRAJ_RTOL}); last entries "
+        f"{info.resnorms[-1] / info.resnorms[0]:.3e} vs {ref.resnorms[-1] / ref.resnorms[0]:.3e}")
+    assert info.success and ref.success and info.numsteps == ref.numsteps
+    assert rel[:-1].max() <= TRAJ_RTOL
+
+
+def phase_mg(dev, kt, cs, st):
+    """MG-preconditioned CG: the cg_mg configuration at 4096^2 (K8 on every
+    level's smoothing and residual) and a Galerkin hierarchy at 1024^2
+    (K9), each held at 256^2 to a float64 CPU run of the plain versions."""
+    log(f"phase 4c: multigrid-preconditioned CG, poisson_2d_const({BIG})")
+    totals = dict.fromkeys(cs.LAUNCHES, 0)
+    A = st.poisson_2d_const(BIG, device=dev)
+    xs, b = manufactured(A, dev, SEED + 20)
+    t0 = time.perf_counter()
+    M = kt.MultigridPreconditioner(A)
+    log(f"  hierarchy: {M.n_levels} levels {M._nd_shapes[0]} .. {M._nd_shapes[-1]}, "
+        f"set-up {time.perf_counter() - t0:.2f} s")
+    runs = []
+    for _ in range(2):
+        cs.reset_launches()
+        _, info = mg_cg(kt, A, b, M)
+        torch.cuda.synchronize()
+        runs.append((info, dict(cs.LAUNCHES)))
+    (info, n), (again, _) = runs
+    fwd = float(torch.linalg.norm(info.xk - xs) / torch.linalg.norm(xs))
+    sweeps = 4 * (M.n_levels - 1)  # per cycle: smooth - 1 + 1 + smooth sweeps a level
+    log(f"  success {info.success} numsteps {info.numsteps} resnorm ratio "
+        f"{info.resnorms[-1] / info.resnorms[0]:.3e} forward error |x - x*|/|x*| "
+        f"{fwd:.3e}; launches {n}")
+    assert info.success and info.numsteps <= 12
+    assert n["jacobi_sweep_const"] >= (info.numsteps + 1) * sweeps
+    assert n["jacobi_sweep_const"] % sweeps == 0 and n["jacobi_sweep_var"] == 0
+    assert n["const_stencil2d_matvec"] >= info.numsteps
+    same = np.array_equal(info.resnorms, again.resnorms) and torch.equal(info.xk, again.xk)
+    log(f"  repeat bitwise equal: {same}")
+    assert same
+    for k in totals:
+        totals[k] += n[k]
+
+    log(f"  Galerkin hierarchy on diffusion_2d({MID}), a = 1 + 0.9 sin cos")
+    Ag = st.diffusion_2d(smooth_field(MID).astype(np.float32), device=dev)
+    xs, b = manufactured(Ag, dev, SEED + 21)
+    t0 = time.perf_counter()
+    Mg = kt.MultigridPreconditioner(Ag)
+    log(f"  hierarchy: {Mg.n_levels} levels, bands per level "
+        f"{[len(op.row_offsets) for op in Mg._ops]}, host set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    cs.reset_launches()
+    _, ig = mg_cg(kt, Ag, b, Mg)
+    torch.cuda.synchronize()
+    n = dict(cs.LAUNCHES)
+    fwd = float(torch.linalg.norm(ig.xk - xs) / torch.linalg.norm(xs))
+    log(f"  success {ig.success} numsteps {ig.numsteps} resnorm ratio "
+        f"{ig.resnorms[-1] / ig.resnorms[0]:.3e} forward error {fwd:.3e}; launches {n}")
+    sweeps = 4 * (Mg.n_levels - 1)
+    assert ig.success and n["jacobi_sweep_var"] >= (ig.numsteps + 1) * sweeps
+    assert n["jacobi_sweep_var"] % sweeps == 0 and n["jacobi_sweep_const"] == 0
+    assert n["stencil2d_matvec"] >= ig.numsteps
+    for k in totals:
+        totals[k] += n[k]
+
+    small = 256
+    log(f"  at {small}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
+    for label, make in (
+        ("poisson_2d_const", lambda dt, d: st.poisson_2d_const(small, dtype=dt, device=d)),
+        ("diffusion_2d Galerkin", lambda dt, d: st.diffusion_2d(
+            smooth_field(small).astype(np.float32).astype(dt), device=d)),
+    ):
+        A_gpu, A_cpu = make(np.float32, dev), make(np.float64, None)
+        _, b = manufactured(A_gpu, dev, SEED + 22)
+        _, g = mg_cg(kt, A_gpu, b)
+        _, ref = mg_cg(kt, A_cpu, b.double().cpu())
+        agree_converged(f"{label} MG-CG f32 GPU vs f64 CPU", g, ref)
+    return totals
+
+
 def phase_timing(dev, kt, cs, st, A_div, card):
     log(f"phase 5: timings on {card}")
     N = BIG * BIG
@@ -311,6 +585,10 @@ def phase_timing(dev, kt, cs, st, A_div, card):
     pn, ap = torch.empty_like(x), torch.empty_like(x)
     om, al = torch.tensor(0.7, device=dev), torch.tensor(1e-3, device=dev)
     times = {}
+
+    def gbs(ms, words):
+        return words * N * 4 / (ms * 1e-3) / 1e9
+
     for label, A in (("poisson_2d", A_p), ("diffusion_2d", A_div)):
         c, ro, co = A.coeffs2d, A.row_offsets, A.col_offsets
         nd = c.shape[0]
@@ -319,7 +597,6 @@ def phase_timing(dev, kt, cs, st, A_div, card):
         k5 = time_ms(lambda: cs.cg_fused_phase_a_var(om, r, x, c, ro, co,
                                                      out=(pn, ap)), 50)
         k5p = time_ms(lambda: cs.cg_fused_phase_a_var_plain(om, r, x, c, ro, co), 10)
-        gbs = lambda ms, words: words * N * 4 / (ms * 1e-3) / 1e9  # noqa: E731
         log(f"  [{card}] {label} {BIG}^2 K1 stencil2d_matvec {k1 * 1e3:.1f} us "
             f"({gbs(k1, nd + 2):.0f} GB/s by the (ndiag+2)*N*4 byte model); "
             f"plain {k1p * 1e3:.1f} us")
@@ -333,8 +610,30 @@ def phase_timing(dev, kt, cs, st, A_div, card):
         f"({6 * N * 4 / (k4 * 1e-3) / 1e9:.0f} GB/s by 6*N*4); plain {k4p * 1e3:.1f} us")
     times["diffusion_2d"]["cg_fused_phase_b"] = (k4, k4p)
 
+    # the const kernels on poisson_2d_const(4096), K9 on diffusion_2d's planes
+    A_c = st.poisson_2d_const(BIG, device=dev)
+    kb = A_c.kernel_bands
+    c, ro, co = A_div.coeffs2d, A_div.row_offsets, A_div.col_offsets
+    w = 0.8 / A_div.diagonal().reshape(A_div.grid)
+    for name, kernel, plain, words, model in (
+        ("const_stencil2d_matvec", lambda: cs.const_stencil2d_matvec(x, kb, out=y),
+         lambda: cs.const_stencil2d_matvec_plain(x, kb), 2, "2*N*4"),
+        ("cg_fused_phase_a", lambda: cs.cg_fused_phase_a(om, r, x, kb, out=(pn, ap)),
+         lambda: cs.cg_fused_phase_a_plain(om, r, x, kb), 4, "4*N*4"),
+        ("jacobi_sweep_const", lambda: cs.jacobi_sweep_const(0.2, x, r, kb, out=y),
+         lambda: cs.jacobi_sweep_const_plain(0.2, x, r, kb), 3, "3*N*4 (update)"),
+        ("jacobi_sweep_var", lambda: cs.jacobi_sweep_var(w, x, r, c, ro, co, out=y),
+         lambda: cs.jacobi_sweep_var_plain(w, x, r, c, ro, co), c.shape[0] + 4,
+         "(ndiag+4)*N*4 (update, 5 bands)"),
+    ):
+        ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 10)
+        log(f"  [{card}] {BIG}^2 {name} {ms * 1e3:.1f} us ({gbs(ms, words):.0f} GB/s by "
+            f"{model}); plain {plain_ms * 1e3:.1f} us")
+        times["const"] = dict(times.get("const", {}), **{name: (ms, plain_ms)})
+
     # marginal per-iteration cost: slope of whole-solve time over maxiter
-    for label, A in (("poisson_2d", A_p), ("diffusion_2d", A_div)):
+    for label, A in (("poisson_2d", A_p), ("diffusion_2d", A_div),
+                     ("poisson_2d_const", A_c)):
         b = torch.ones(A.grid, dtype=torch.float32, device=dev)
         for name, solve in (
             ("cg", lambda n: kt.cg(A, b, inner=inner, tol=0.0, atol=0.0,
@@ -352,7 +651,79 @@ def phase_timing(dev, kt, cs, st, A_div, card):
             us = (t[120] - t[20]) / 100 * 1e6
             log(f"  [{card}] {label} {BIG}^2 {name}: {us:.1f} us/iteration "
                 f"(slope over maxiter 20..120, best of 2)")
-    return times
+
+    # time to solution, best of 3: cg100 (fused const CG, 100 iterations)
+    # and MG-CG to 1e-6 on a manufactured solution (set-up excluded)
+    b = torch.ones(A_c.grid, dtype=torch.float32, device=dev)
+    M = kt.MultigridPreconditioner(A_c)
+    _, b_mg = manufactured(A_c, dev, SEED + 20)
+    for name, solve in (
+        ("cg100 cg_stencil fused", lambda: kt.cg_stencil(A_c, b, tol=0.0, atol=0.0,
+                                                         maxiter=100, fused=True)),
+        ("MG-CG V(2,2) to 1e-6", lambda: mg_cg(kt, A_c, b_mg, M)),
+    ):
+        solve()  # warm-up
+        best = 1e9
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = solve()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        log(f"  [{card}] poisson_2d_const {BIG}^2 {name}: {best * 1e3:.2f} ms, "
+            f"{info.numsteps} iterations, {best / info.numsteps * 1e6:.1f} us/iteration "
+            f"(best of 3)")
+        wall, busy, rows = profiled(solve, reps=3)
+        log(f"  [{card}]   device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} ms wall, idle "
+            f"share {1 - busy / wall:.3f}; largest kernels (us per iteration): " + "; ".join(
+                f"{key[:40]} x{count / info.numsteps:.1f} {us / info.numsteps:.1f}"
+                for key, us, count in sorted(rows, key=lambda q: -q[1])[:6]))
+    mg_levels(dev, M, card)
+    return dict(times["diffusion_2d"], **times["const"])
+
+
+def profiled(fn, reps=1):
+    """(unprofiled wall s, best of ``reps`` synchronized calls; device-busy
+    s per call; [(kernel, us, count)] per call) of ``fn``, by
+    ``torch.profiler``'s CUDA kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall = 1e9
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = min(wall, time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / reps, e.count / reps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall, sum(q[1] for q in rows) * 1e-6, rows
+
+
+def mg_levels(dev, M, card):
+    """Each level's own share of one V(2,2) cycle: the cycle started at the
+    level less the cycle started one level down, in kernel launches and
+    device-busy time.  The wall time is the whole cycle's: the cycle is
+    host-bound at every depth, so differences of wall times are noise."""
+    rng = np.random.default_rng(SEED + 23)
+    costs = []
+    for level, shape in enumerate(M._nd_shapes):
+        r = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        wall, busy, rows = profiled(lambda r=r, level=level: M._vcycle(level, r), reps=20)
+        costs.append((shape, wall, busy, sum(q[2] for q in rows)))
+    _, wall, busy, launches = costs[0]
+    log(f"  [{card}] V(2,2) cycle on poisson_2d_const({BIG}): wall {wall * 1e6:.1f} us "
+        f"(best of 20), device busy {busy * 1e6:.1f} us, {launches:.0f} kernel launches "
+        f"({wall / launches * 1e6:.1f} us of wall each); per level (launches, device us):")
+    costs.append((None, 0.0, 0.0, 0))
+    for (shape, _, busy, n), (_, _, busy_c, n_c) in zip(costs, costs[1:]):
+        log(f"    level {str(shape):>14}: {n - n_c:5.0f} {(busy - busy_c) * 1e6:8.1f}")
 
 
 def main():
@@ -376,20 +747,30 @@ def main():
             log("   ", line.strip())
 
     errs, A_div = phase_kernels(dev, cs, st)
+    errs.update(phase_kernels_const(dev, cs, st, A_div))
     phase_golden(dev, kt)
     phase_entry(dev, kt, st)
     launches = phase_main(dev, kt, cs, st, A_div)
+    for more in (phase_const_cg(dev, kt, cs, st), phase_mg(dev, kt, cs, st)):
+        for k in launches:
+            launches[k] += more[k]
     times = phase_timing(dev, kt, cs, st, A_div, card)
 
     src = "krylov_tpu_torch/csrc/stencil.cu"
     replaces = {
         "stencil2d_matvec": "krylov_tpu/ops/pallas_stencil.py:144",
-        "cg_fused_phase_a_var": "krylov_tpu/ops/pallas_stencil.py:685",
+        "const_stencil2d_matvec": "krylov_tpu/ops/pallas_stencil.py:300",
+        "cg_fused_phase_a": "krylov_tpu/ops/pallas_stencil.py:909",
         "cg_fused_phase_b": "krylov_tpu/ops/pallas_stencil.py:959",
+        "cg_fused_phase_a_var": "krylov_tpu/ops/pallas_stencil.py:685",
+        "jacobi_sweep_const": "krylov_tpu/ops/pallas_stencil.py:438",
+        "jacobi_sweep_var": "krylov_tpu/ops/pallas_stencil.py:524",
     }
+    unlaunched = [name for name in replaces if launches[name] == 0]
+    assert not unlaunched, f"kernels no main path launched: {unlaunched}"
     kernels = []
     for name, where in replaces.items():
-        ms, plain_ms = times["diffusion_2d"][name]
+        ms, plain_ms = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": where,
             "launches": launches[name], "max_abs_err": errs[name],

@@ -9,9 +9,10 @@ explicit device.  The grid-stencil kernels are hand-written CUDA for Hopper
 (``krylov_tpu_torch/csrc``), built with ``nvcc`` at first use; on CPU
 tensors the same entry points run the kernels' plain PyTorch versions.
 
-This slice ports compiled CG on grid stencils: :func:`cg`,
-:func:`cg_stencil`, the banded and grid-stencil operators, and the L0
-operator and driver layer.
+Ported so far: compiled CG on grid stencils (:func:`cg`, :func:`cg_stencil`,
+the banded and grid-stencil operators, the L0 operator and driver layer),
+the constant-coefficient stencil operator with its fused CG, and the
+geometric multigrid preconditioner (:class:`MultigridPreconditioner`).
 """
 
 from . import convert, ops
@@ -25,6 +26,8 @@ from ._operators import (
     jacobi_preconditioner,
 )
 from .errors import ArgumentError
+from .multigrid import MultigridPreconditioner
+from .ops.stencil import poisson_2d_const, poisson_3d_const
 from .solvers import cg, cg_stencil
 
 __all__ = [
@@ -33,6 +36,7 @@ __all__ = [
     "Identity",
     "Info",
     "MatrixOperator",
+    "MultigridPreconditioner",
     "Product",
     "as_operator",
     "cg",
@@ -40,4 +44,6 @@ __all__ = [
     "convert",
     "jacobi_preconditioner",
     "ops",
+    "poisson_2d_const",
+    "poisson_3d_const",
 ]

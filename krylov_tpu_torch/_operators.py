@@ -163,13 +163,13 @@ def as_operator(A, device=None):
     """
     if isinstance(A, (torch.Tensor, np.ndarray)):
         return MatrixOperator(torch.as_tensor(A, device=device))
+    if hasattr(A, "rmatvec"):
+        return A
     if hasattr(A, "tocsr"):
         raise NotImplementedError(
             "scipy sparse operators are not ported yet (ROADMAP Queue 1, "
             "general sparsity)"
         )
-    if hasattr(A, "rmatvec"):
-        return A
     if not hasattr(A, "__matmul__"):
         raise ValueError(f"Unknown linear operator A = {A}")
     return CallableOperatorWrapper(A)

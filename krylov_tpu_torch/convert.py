@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from ._operators import DiagonalOperator, MatrixOperator
-from .ops.stencil import BandedOperator, GridStencilOperator
+from .multigrid import MultigridPreconditioner
+from .ops.stencil import BandedOperator, ConstStencilOperator, GridStencilOperator
 
 
 def _tensor(arr, device):
@@ -30,8 +31,26 @@ def grid_stencil_from_numpy(coeffs2d, offsets, ny, hermitian=False, device=None)
 
 
 def from_reference(op, device=None):
-    """The port's twin of a reference ``GridStencilOperator``,
-    ``BandedOperator``, ``MatrixOperator`` or ``DiagonalOperator``."""
+    """The port's twin of a reference ``MultigridPreconditioner``,
+    ``ConstStencilOperator``, ``GridStencilOperator``, ``BandedOperator``,
+    ``MatrixOperator`` or ``DiagonalOperator``.
+
+    A multigrid cycle comes across level by level as the reference built
+    it: each level's operator, its Jacobi weight (a float on const levels,
+    a plane on grid levels) and the coarsest level's dense inverse.
+    """
+    if hasattr(op, "_vcycle") and hasattr(op, "_nd_shapes"):
+        return MultigridPreconditioner.from_parts(
+            [from_reference(level, device) for level in op._ops],
+            [float(np.asarray(w)) if np.ndim(w) == 0 else _tensor(w, device)
+             for w in op._winv],
+            None if op._coarse_inv is None else _tensor(op._coarse_inv, device),
+            op._nd_shapes, op._r_scale, smooth=op.smooth, omega=op.omega,
+            coarse_iters=op.coarse_iters,
+        )
+    if hasattr(op, "shape_nd") and hasattr(op, "weights"):
+        return ConstStencilOperator(op.shape_nd, op.offsets_nd, op.weights,
+                                    dtype=np.dtype(op.dtype), device=device)
     if hasattr(op, "coeffs2d") and hasattr(op, "ny"):
         return grid_stencil_from_numpy(
             op.coeffs2d, op.offsets, op.ny, hermitian=op.hermitian, device=device

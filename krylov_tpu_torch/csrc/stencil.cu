@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels for the grid-stencil CG slice.
+// Hand-written Hopper (sm_90a) kernels for the grid-stencil solvers.
 //
 // Plain C interface, loaded with ctypes (krylov_tpu_torch/ops/cuda_stencil.py).
 // Every entry point launches on the caller's stream, allocates nothing and
@@ -12,15 +12,18 @@
 //
 // Neighbours outside the grid read as zero: rows i + dr outside [0, M) come
 // from the caller's top/bottom halo rows when given (zeros otherwise), and
-// columns j + dc outside [0, ny) are zero.  Dirichlet masking lives in the
-// coefficient data: the constructors zero every coefficient whose neighbour
-// leaves the grid.
+// columns j + dc outside [0, ny) are zero.  Variable-coefficient kernels
+// (K1, K5, K9) carry Dirichlet masking in the coefficient data: the
+// constructors zero every coefficient whose neighbour leaves the grid.
+// Constant-coefficient kernels (K2, K3, K8) carry scalar weights and mask
+// in the kernel (ConstBands below).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #define KRYLOV_MAX_BANDS 32
+#define KRYLOV_MAX_CONSTRAINTS 4  // row constraints per const band (5-D grids)
 #define KRYLOV_THREADS 256  // threads per block, laid along ny
 #define KRYLOV_ROWS 8       // grid rows each block walks in its row loop
 #define KRYLOV_MAX_GRID_Y 65535
@@ -32,14 +35,83 @@ struct Bands {
   int dc[KRYLOV_MAX_BANDS];
 };
 
-static Bands make_bands(int ndiag, const int* dr, const int* dc) {
-  Bands b;
-  b.n = ndiag;
+static bool make_bands(int ndiag, const int* dr, const int* dc, Bands* b) {
+  if (ndiag < 1 || ndiag > KRYLOV_MAX_BANDS) return false;
+  b->n = ndiag;
   for (int d = 0; d < ndiag; ++d) {
-    b.dr[d] = dr[d];
-    b.dc[d] = dc[d];
+    b->dr[d] = dr[d];
+    b->dc[d] = dc[d];
   }
-  return b;
+  return true;
+}
+
+// Constant-coefficient bands: a scalar weight per band, and per band up to
+// KRYLOV_MAX_CONSTRAINTS row constraints (stride, size, step).  Band d is
+// valid on global row g iff 0 <= (g / stride) % size + step < size for each
+// of its constraints (the n-D coordinate along each collapsed axis stays in
+// the grid), and at column j iff 0 <= j + dc < ny.  Weights are stored in
+// the accumulation type, rounded from the host's doubles as the reference's
+// weak-typed Python floats round.
+template <typename A>
+struct ConstBands {
+  int n;
+  int hr, hc;    // max |dr|, max |dc|
+  int any_cons;  // whether any band has a row constraint
+  int dr[KRYLOV_MAX_BANDS];
+  int dc[KRYLOV_MAX_BANDS];
+  int ncons[KRYLOV_MAX_BANDS];
+  int cons[KRYLOV_MAX_BANDS][KRYLOV_MAX_CONSTRAINTS][3];
+  A w[KRYLOV_MAX_BANDS];
+};
+
+// cons holds KRYLOV_MAX_CONSTRAINTS (stride, size, step) triples per band.
+template <typename A>
+static bool make_const_bands(int ndiag, const int* dr, const int* dc,
+                             const double* w, const int* ncons,
+                             const int* cons, ConstBands<A>* b) {
+  if (ndiag < 1 || ndiag > KRYLOV_MAX_BANDS) return false;
+  b->n = ndiag;
+  b->hr = b->hc = b->any_cons = 0;
+  for (int d = 0; d < ndiag; ++d) {
+    if (ncons[d] < 0 || ncons[d] > KRYLOV_MAX_CONSTRAINTS) return false;
+    b->hr = dr[d] > b->hr ? dr[d] : (-dr[d] > b->hr ? -dr[d] : b->hr);
+    b->hc = dc[d] > b->hc ? dc[d] : (-dc[d] > b->hc ? -dc[d] : b->hc);
+    b->any_cons |= ncons[d] > 0;
+    b->dr[d] = dr[d];
+    b->dc[d] = dc[d];
+    b->w[d] = static_cast<A>(w[d]);
+    b->ncons[d] = ncons[d];
+    for (int k = 0; k < KRYLOV_MAX_CONSTRAINTS; ++k) {
+      for (int t = 0; t < 3; ++t) {
+        b->cons[d][k][t] = cons[(d * KRYLOV_MAX_CONSTRAINTS + k) * 3 + t];
+      }
+      if (k < ncons[d] && (b->cons[d][k][0] < 1 || b->cons[d][k][1] < 1)) {
+        return false;
+      }
+    }
+  }
+  return true;
+}
+
+// Complex value as two reals: the layout of torch.complex64/complex128.
+// Products and sums follow the textbook formulas, as XLA's do.
+template <typename R>
+struct alignas(2 * sizeof(R)) cplx {
+  R re, im;
+  cplx() = default;
+  __host__ __device__ constexpr cplx(R r, R i = R(0)) : re(r), im(i) {}
+};
+
+template <typename R>
+__device__ __forceinline__ cplx<R> operator*(cplx<R> a, cplx<R> b) {
+  return cplx<R>(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
+}
+
+template <typename R>
+__device__ __forceinline__ cplx<R>& operator+=(cplx<R>& a, cplx<R> b) {
+  a.re += b.re;
+  a.im += b.im;
+  return a;
 }
 
 template <typename A, typename T>
@@ -81,6 +153,101 @@ static dim3 grid_2d(int M, int ny, int batch) {
   return dim3(gx, gy, batch);
 }
 
+// Bit d set iff band d's row constraints hold on global row g: evaluated
+// once per row, not once per element.
+template <typename A>
+__device__ __forceinline__ unsigned const_row_mask(const ConstBands<A>& b, int g) {
+  unsigned ok = 0u;
+  for (int d = 0; d < b.n; ++d) {
+    bool v = true;
+    for (int k = 0; k < b.ncons[d]; ++k) {
+      const int size = b.cons[d][k][1];
+      const int s = (g / b.cons[d][k][0]) % size + b.cons[d][k][2];
+      v = v && s >= 0 && s < size;
+    }
+    if (v) ok |= 1u << d;
+  }
+  return ok;
+}
+
+// The const stencil on the KRYLOV_ROWS rows i0.. of column j:
+// acc[r] = sum over the bands valid at (i0 + r, j) of w[d] * src(neighbour),
+// bands in the order given (the wrappers sort them by (dr, dc)); masked
+// terms are skipped, where the reference selects 0 for them.
+// src.at(q) reads the operand at flat index q inside the grid;
+// src.outside(ii, jj) reads a row ii outside [0, M) (a halo row, or 0).
+// Blocks whose neighbours all lie inside the grid take a fast path: the
+// band loop outside, the rows unrolled inside, so the per-band set-up is
+// paid once per KRYLOV_ROWS points and KRYLOV_ROWS loads are in flight
+// (measured on the H100 at 4096^2, f32, 5 bands: 59 us against 102 us for a
+// band loop per point and 54 us for a hard-coded 5-point kernel).  CONS: the
+// bands carry row constraints, evaluated once per row.
+template <bool CONS, typename A, typename Src>
+__device__ __forceinline__ void const_rows(const ConstBands<A>& b, const Src& src,
+                                           int i0, int j, int M, int ny,
+                                           int row0, A (&acc)[KRYLOV_ROWS]) {
+#pragma unroll
+  for (int r = 0; r < KRYLOV_ROWS; ++r) acc[r] = A(0);
+  if (i0 - b.hr >= 0 && i0 + KRYLOV_ROWS + b.hr <= M && j - b.hc >= 0 &&
+      j + b.hc < ny) {
+    unsigned ok[KRYLOV_ROWS];
+#pragma unroll
+    for (int r = 0; r < KRYLOV_ROWS; ++r) ok[r] = CONS ? const_row_mask(b, row0 + i0 + r) : ~0u;
+    const long long q0 = (long long)i0 * ny + j;
+    for (int d = 0; d < b.n; ++d) {
+      const A w = b.w[d];
+      const long long qd = q0 + (long long)b.dr[d] * ny + b.dc[d];
+#pragma unroll
+      for (int r = 0; r < KRYLOV_ROWS; ++r) {
+        if (!CONS || ((ok[r] >> d) & 1u)) acc[r] += w * src.at(qd + (long long)r * ny);
+      }
+    }
+    return;
+  }
+  for (int r = 0; r < KRYLOV_ROWS && i0 + r < M; ++r) {
+    const int i = i0 + r;
+    const unsigned ok = CONS ? const_row_mask(b, row0 + i) : ~0u;
+    for (int d = 0; d < b.n; ++d) {
+      const int ii = i + b.dr[d];
+      const int jj = j + b.dc[d];
+      if (((ok >> d) & 1u) && jj >= 0 && jj < ny) {
+        acc[r] += b.w[d] * ((ii >= 0 && ii < M) ? src.at((long long)ii * ny + jj)
+                                                : src.outside(ii, jj));
+      }
+    }
+  }
+}
+
+// Operand readers for const_rows.
+template <typename TX, typename A>
+struct HaloSrc {  // x, with the caller's halo rows (or zeros) outside the grid
+  const TX* __restrict__ x;
+  const TX* __restrict__ top;
+  const TX* __restrict__ bot;
+  int M, ny, h;
+  __device__ __forceinline__ A at(long long q) const { return to_acc<A>(x[q]); }
+  __device__ __forceinline__ A outside(int ii, int jj) const {
+    if (ii < 0 && top != nullptr) return to_acc<A>(top[(size_t)(h + ii) * ny + jj]);
+    if (ii >= M && bot != nullptr) return to_acc<A>(bot[(size_t)(ii - M) * ny + jj]);
+    return A(0);
+  }
+};
+
+template <typename T>
+struct ZeroSrc {  // z, zero outside the grid
+  const T* __restrict__ z;
+  __device__ __forceinline__ T at(long long q) const { return z[q]; }
+  __device__ __forceinline__ T outside(int, int) const { return T(0); }
+};
+
+struct PUpdateSrc {  // r + omega * p, zero outside the grid
+  const float* __restrict__ r;
+  const float* __restrict__ p;
+  float om;
+  __device__ __forceinline__ float at(long long q) const { return r[q] + om * p[q]; }
+  __device__ __forceinline__ float outside(int, int) const { return 0.0f; }
+};
+
 // ---------------------------------------------------------------------------
 // K1: variable-coefficient stencil matvec.
 //
@@ -93,7 +260,8 @@ static dim3 grid_2d(int M, int ny, int batch) {
 // are in L1/L2 and device memory sees x about once.  Neighbour rows are read
 // straight from x (the TPU's pre-gathered halo planes are a Mosaic
 // workaround), so y must not alias x: block i+1 reads rows of block i.
-// Accumulates in A (float for f32/bf16, double for f64), stores TY.
+// Accumulates in A (float for f32/bf16, double for f64, the complex type
+// for complex vectors, as the reference's XLA form does), stores TY.
 // ---------------------------------------------------------------------------
 template <typename TC, typename TX, typename TY, typename A>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
@@ -139,6 +307,58 @@ static void launch_stencil2d(const void* c, const void* x, const void* top,
       static_cast<const TC*>(c), static_cast<const TX*>(x),
       static_cast<const TX*>(top), static_cast<const TX*>(bot),
       static_cast<TY*>(y), M, ny, h, bands);
+}
+
+// ---------------------------------------------------------------------------
+// K2: constant-coefficient stencil matvec.
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:const_stencil2d_matvec
+// (_const_kernel).  Bound on this card: memory traffic, 2 N words (x read,
+// y written; no coefficient planes).  Design: K1's layout (one thread per
+// column, KRYLOV_ROWS rows per block, neighbour rows read from x through
+// L1/L2), with scalar weights in the by-value ConstBands and the Dirichlet
+// masks computed in the kernel (const_rows): the row constraints once per
+// row, the column bound as a zero read.  row0 is the first global row of
+// this slab (the masks are defined on global rows); halos as K1.  bf16
+// vectors accumulate in float and round once on the store.
+// ---------------------------------------------------------------------------
+template <bool CONS, typename TX, typename A>
+__global__ void __launch_bounds__(KRYLOV_THREADS)
+const_stencil2d_kernel(const TX* __restrict__ x, const TX* __restrict__ top,
+                       const TX* __restrict__ bot, TX* __restrict__ y, int M,
+                       int ny, int h, int row0, ConstBands<A> bands) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ny) return;
+  const size_t plane = (size_t)M * ny;
+  const HaloSrc<TX, A> src{x + (size_t)blockIdx.z * plane, top, bot, M, ny, h};
+  TX* yb = y + (size_t)blockIdx.z * plane;
+  const int nrb = (M + KRYLOV_ROWS - 1) / KRYLOV_ROWS;
+  for (int rb = blockIdx.y; rb < nrb; rb += gridDim.y) {
+    const int i0 = rb * KRYLOV_ROWS;
+    A acc[KRYLOV_ROWS];
+    const_rows<CONS>(bands, src, i0, j, M, ny, row0, acc);
+#pragma unroll
+    for (int r = 0; r < KRYLOV_ROWS; ++r) {
+      if (i0 + r < M) yb[(size_t)(i0 + r) * ny + j] = from_acc<TX>(acc[r]);
+    }
+  }
+}
+
+template <typename TX, typename A>
+static void launch_const_stencil2d(const void* x, const void* top, const void* bot,
+                                   void* y, int batch, int M, int ny, int h,
+                                   int row0, const ConstBands<A>& b,
+                                   cudaStream_t s) {
+  const dim3 g = grid_2d(M, ny, batch);
+  const TX* xt = static_cast<const TX*>(x);
+  const TX* tt = static_cast<const TX*>(top);
+  const TX* bt = static_cast<const TX*>(bot);
+  TX* yt = static_cast<TX*>(y);
+  if (b.any_cons) {
+    const_stencil2d_kernel<true, TX, A><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
+  } else {
+    const_stencil2d_kernel<false, TX, A><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -194,6 +414,139 @@ cg_phase_a_var_kernel(const float* __restrict__ omega,
 }
 
 // ---------------------------------------------------------------------------
+// K3: fused CG phase A, constant coefficients (f32).
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:cg_fused_phase_a (_cg_a_kernel).
+// Computes p_new = r + omega * p, Ap = A_const p_new (masked in the kernel)
+// and one partial <p_new, Ap> per block.  Bound on this card: memory
+// traffic, 4 N words (r, p read; p_new, Ap written).  Design: K5 with K2's
+// const bands (const_rows over the p-update).  The TPU writes p_new into
+// p's buffer (input_output_aliases={2: 0}); here other blocks still read
+// p's neighbour rows, so p_new goes to a separate buffer and cg_stencil
+// ping-pongs two.
+// ---------------------------------------------------------------------------
+template <bool CONS>
+__global__ void __launch_bounds__(KRYLOV_THREADS)
+cg_phase_a_const_kernel(const float* __restrict__ omega,
+                        const float* __restrict__ r,
+                        const float* __restrict__ p, float* __restrict__ pn,
+                        float* __restrict__ ap, float* __restrict__ partials,
+                        int M, int ny, ConstBands<float> bands) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const PUpdateSrc src{r, p, *omega};
+  float part = 0.0f;
+  if (j < ny) {
+    const int nrb = (M + KRYLOV_ROWS - 1) / KRYLOV_ROWS;
+    for (int rb = blockIdx.y; rb < nrb; rb += gridDim.y) {
+      const int i0 = rb * KRYLOV_ROWS;
+      float acc[KRYLOV_ROWS];
+      const_rows<CONS>(bands, src, i0, j, M, ny, 0, acc);
+#pragma unroll
+      for (int k = 0; k < KRYLOV_ROWS; ++k) {
+        if (i0 + k < M) {
+          const long long q = (long long)(i0 + k) * ny + j;
+          const float pc = src.at(q);
+          pn[q] = pc;
+          ap[q] = acc[k];
+          part += pc * acc[k];
+        }
+      }
+    }
+  }
+  part = block_sum(part);
+  if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = part;
+}
+
+// ---------------------------------------------------------------------------
+// K8: damped-Jacobi sweep, constant coefficients (f32, f64).
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:jacobi_sweep_const
+// (_jacobi_sweep_kernel).  update != 0: out = z + w * (r - A z); update ==
+// 0: out = r - A z (w unread).  Bound on this card: memory traffic, 3 N
+// words (z, r read; out written).  Design: K2's layout and masks
+// (const_rows); out must be neither z nor r (the TPU writes z' into z's
+// buffer, a race here since other blocks read z's neighbour rows): the
+// multigrid smoother alternates two buffers per level.
+// ---------------------------------------------------------------------------
+template <bool CONS, typename T>
+__global__ void __launch_bounds__(KRYLOV_THREADS)
+jacobi_const_kernel(T w, const T* __restrict__ z, const T* __restrict__ r,
+                    T* __restrict__ out, int update, int M, int ny,
+                    ConstBands<T> bands) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ny) return;
+  const ZeroSrc<T> src{z};
+  const int nrb = (M + KRYLOV_ROWS - 1) / KRYLOV_ROWS;
+  for (int rb = blockIdx.y; rb < nrb; rb += gridDim.y) {
+    const int i0 = rb * KRYLOV_ROWS;
+    T acc[KRYLOV_ROWS];
+    const_rows<CONS>(bands, src, i0, j, M, ny, 0, acc);
+#pragma unroll
+    for (int k = 0; k < KRYLOV_ROWS; ++k) {
+      if (i0 + k < M) {
+        const size_t q = (size_t)(i0 + k) * ny + j;
+        const T res = r[q] - acc[k];
+        out[q] = update ? z[q] + w * res : res;
+      }
+    }
+  }
+}
+
+template <typename T>
+static void launch_jacobi_const(T w, const void* z, const void* r, void* out,
+                                int update, int M, int ny, const ConstBands<T>& b,
+                                cudaStream_t s) {
+  const dim3 g = grid_2d(M, ny, 1);
+  const T* zt = static_cast<const T*>(z);
+  const T* rt = static_cast<const T*>(r);
+  T* ot = static_cast<T*>(out);
+  if (b.any_cons) {
+    jacobi_const_kernel<true, T><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
+  } else {
+    jacobi_const_kernel<false, T><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9: damped-Jacobi sweep, variable coefficients (f32, f64).
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:jacobi_sweep_var
+// (_jacobi_sweep_var_kernel).  w != null: out = z + w * (r - A z) with a
+// per-point weight plane w = omega / diag; w == null: out = r - A z, and
+// the plane is not streamed.  Bound on this card: memory traffic,
+// (ndiag + 4) N words in update mode (planes, w, z, r read; out written),
+// (ndiag + 3) N as a residual.  Design: K1's layout and loop; up to
+// KRYLOV_MAX_BANDS bands (the Galerkin levels of the multigrid hierarchy
+// have 25, |dr|, |dc| <= 2); out must be neither z nor r, as K8.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(KRYLOV_THREADS)
+jacobi_var_kernel(const T* __restrict__ c, const T* __restrict__ w,
+                  const T* __restrict__ z, const T* __restrict__ r,
+                  T* __restrict__ out, int M, int ny, Bands bands) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ny) return;
+  const size_t plane = (size_t)M * ny;
+  const int nrb = (M + KRYLOV_ROWS - 1) / KRYLOV_ROWS;
+  for (int rb = blockIdx.y; rb < nrb; rb += gridDim.y) {
+    const int i_end = min(M, (rb + 1) * KRYLOV_ROWS);
+    for (int i = rb * KRYLOV_ROWS; i < i_end; ++i) {
+      T acc = T(0);
+      for (int d = 0; d < bands.n; ++d) {
+        const int ii = i + bands.dr[d];
+        const int jj = j + bands.dc[d];
+        T zv = T(0);
+        if (jj >= 0 && jj < ny && ii >= 0 && ii < M) zv = z[(size_t)ii * ny + jj];
+        acc += c[(size_t)d * plane + (size_t)i * ny + j] * zv;
+      }
+      const size_t q = (size_t)i * ny + j;
+      const T res = r[q] - acc;
+      out[q] = w != nullptr ? z[q] + w[q] * res : res;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K4: fused CG phase B (f32).
 //
 // Replaces krylov_tpu/ops/pallas_stencil.py:cg_fused_phase_b (_cg_b_kernel).
@@ -223,7 +576,7 @@ cg_phase_b_kernel(const float* __restrict__ alpha, float* __restrict__ y,
   if (threadIdx.x == 0) partials[blockIdx.x] = part;
 }
 
-// Second pass of K5 and K4: one block sums the per-block partials in a
+// Second pass of K3, K5 and K4: one block sums the per-block partials in a
 // fixed order, in double, and stores the f32 result.
 __global__ void __launch_bounds__(1024)
 finalize_sum(const float* __restrict__ partials, int n, float* __restrict__ out) {
@@ -240,7 +593,13 @@ static int phase_b_blocks(long long n) {
 }
 
 // dtype codes, shared with cuda_stencil.py
-enum { KRYLOV_F32 = 0, KRYLOV_BF16 = 1, KRYLOV_F64 = 2 };
+enum {
+  KRYLOV_F32 = 0,
+  KRYLOV_BF16 = 1,
+  KRYLOV_F64 = 2,
+  KRYLOV_C64 = 3,
+  KRYLOV_C128 = 4
+};
 
 extern "C" {
 
@@ -250,6 +609,8 @@ const char* krylov_error_string(int code) {
 
 int krylov_max_bands() { return KRYLOV_MAX_BANDS; }
 
+int krylov_max_constraints() { return KRYLOV_MAX_CONSTRAINTS; }
+
 long long krylov_phase_a_partials(int M, int ny) {
   const dim3 g = grid_2d(M, ny, 1);
   return (long long)g.x * g.y;
@@ -258,16 +619,19 @@ long long krylov_phase_a_partials(int M, int ny) {
 long long krylov_phase_b_partials(long long n) { return phase_b_blocks(n); }
 
 // K1.  tc/tx: dtype codes of c and x; y has the promoted type (f32 for
-// f32/bf16 mixes, bf16 for bf16/bf16, f64 for f64/f64).  x and y hold
-// `batch` grids back to back; top/bot are (h, ny) rows or null.
+// f32/bf16 mixes, bf16 for bf16/bf16, f64 for f64/f64, the complex type
+// when either side is complex).  x and y hold `batch` grids back to back;
+// top/bot are (h, ny) rows or null.
 int krylov_stencil2d(int tc, int tx, const void* c, const void* x,
                      const void* top, const void* bot, void* y, int batch,
                      int M, int ny, int ndiag, const int* dr, const int* dc,
                      int h, void* stream) {
-  if (ndiag < 1 || ndiag > KRYLOV_MAX_BANDS || batch < 1 || batch > 65535)
+  Bands bands;
+  if (!make_bands(ndiag, dr, dc, &bands) || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const Bands bands = make_bands(ndiag, dr, dc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef cplx<float> c64;
+  typedef cplx<double> c128;
   if (tc == KRYLOV_F32 && tx == KRYLOV_F32) {
     launch_stencil2d<float, float, float, float>(c, x, top, bot, y, batch, M, ny, h, bands, s);
   } else if (tc == KRYLOV_BF16 && tx == KRYLOV_BF16) {
@@ -279,6 +643,112 @@ int krylov_stencil2d(int tc, int tx, const void* c, const void* x,
     launch_stencil2d<float, __nv_bfloat16, float, float>(c, x, top, bot, y, batch, M, ny, h, bands, s);
   } else if (tc == KRYLOV_F64 && tx == KRYLOV_F64) {
     launch_stencil2d<double, double, double, double>(c, x, top, bot, y, batch, M, ny, h, bands, s);
+  } else if (tc == KRYLOV_C64 && tx == KRYLOV_C64) {
+    launch_stencil2d<c64, c64, c64, c64>(c, x, top, bot, y, batch, M, ny, h, bands, s);
+  } else if (tc == KRYLOV_F32 && tx == KRYLOV_C64) {
+    launch_stencil2d<float, c64, c64, c64>(c, x, top, bot, y, batch, M, ny, h, bands, s);
+  } else if (tc == KRYLOV_C128 && tx == KRYLOV_C128) {
+    launch_stencil2d<c128, c128, c128, c128>(c, x, top, bot, y, batch, M, ny, h, bands, s);
+  } else if (tc == KRYLOV_F64 && tx == KRYLOV_C128) {
+    launch_stencil2d<double, c128, c128, c128>(c, x, top, bot, y, batch, M, ny, h, bands, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2.  tx: dtype code of x (and y).  The const bands come as ndiag entries
+// of dr, dc, w and ncons, and KRYLOV_MAX_CONSTRAINTS (stride, size, step)
+// triples per band in cons.
+int krylov_const_stencil2d(int tx, const void* x, const void* top,
+                           const void* bot, void* y, int batch, int M, int ny,
+                           int h, int row0, int ndiag, const int* dr,
+                           const int* dc, const double* w, const int* ncons,
+                           const int* cons, void* stream) {
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tx == KRYLOV_F32 || tx == KRYLOV_BF16) {
+    ConstBands<float> b;
+    if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    if (tx == KRYLOV_F32) {
+      launch_const_stencil2d<float, float>(x, top, bot, y, batch, M, ny, h, row0, b, s);
+    } else {
+      launch_const_stencil2d<__nv_bfloat16, float>(x, top, bot, y, batch, M, ny, h, row0, b, s);
+    }
+  } else if (tx == KRYLOV_F64) {
+    ConstBands<double> b;
+    if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_const_stencil2d<double, double>(x, top, bot, y, batch, M, ny, h, row0, b, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3.  `partials` holds krylov_phase_a_partials(M, ny) floats; *pap gets
+// <p_new, Ap>.
+int krylov_cg_phase_a_const(const float* omega, const float* r, const float* p,
+                            float* pn, float* ap, float* partials, float* pap,
+                            int M, int ny, int ndiag, const int* dr,
+                            const int* dc, const double* w, const int* ncons,
+                            const int* cons, void* stream) {
+  ConstBands<float> b;
+  if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 g = grid_2d(M, ny, 1);
+  if (b.any_cons) {
+    cg_phase_a_const_kernel<true><<<g, KRYLOV_THREADS, 0, s>>>(omega, r, p, pn, ap,
+                                                               partials, M, ny, b);
+  } else {
+    cg_phase_a_const_kernel<false><<<g, KRYLOV_THREADS, 0, s>>>(omega, r, p, pn, ap,
+                                                                partials, M, ny, b);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  finalize_sum<<<1, 1024, 0, s>>>(partials, (int)(g.x * g.y), pap);
+  return (int)cudaGetLastError();
+}
+
+// K8.  tz: dtype code of z, r and out (f32 or f64); w is the Jacobi weight,
+// rounded to that type.
+int krylov_jacobi_sweep_const(int tz, double w, const void* z, const void* r,
+                              void* out, int update, int M, int ny, int ndiag,
+                              const int* dr, const int* dc, const double* wts,
+                              const int* ncons, const int* cons, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tz == KRYLOV_F32) {
+    ConstBands<float> b;
+    if (!make_const_bands(ndiag, dr, dc, wts, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_jacobi_const<float>((float)w, z, r, out, update, M, ny, b, s);
+  } else if (tz == KRYLOV_F64) {
+    ConstBands<double> b;
+    if (!make_const_bands(ndiag, dr, dc, wts, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_jacobi_const<double>(w, z, r, out, update, M, ny, b, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K9.  tz: dtype code of c, w, z, r and out (f32 or f64); w is null in
+// residual mode.
+int krylov_jacobi_sweep_var(int tz, const void* c, const void* w, const void* z,
+                            const void* r, void* out, int M, int ny, int ndiag,
+                            const int* dr, const int* dc, void* stream) {
+  Bands bands;
+  if (!make_bands(ndiag, dr, dc, &bands)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 g = grid_2d(M, ny, 1);
+  if (tz == KRYLOV_F32) {
+    jacobi_var_kernel<float><<<g, KRYLOV_THREADS, 0, s>>>(
+        static_cast<const float*>(c), static_cast<const float*>(w),
+        static_cast<const float*>(z), static_cast<const float*>(r),
+        static_cast<float*>(out), M, ny, bands);
+  } else if (tz == KRYLOV_F64) {
+    jacobi_var_kernel<double><<<g, KRYLOV_THREADS, 0, s>>>(
+        static_cast<const double*>(c), static_cast<const double*>(w),
+        static_cast<const double*>(z), static_cast<const double*>(r),
+        static_cast<double*>(out), M, ny, bands);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -292,8 +762,8 @@ int krylov_cg_phase_a_var(const float* omega, const float* c, const float* r,
                           float* partials, float* pap, int M, int ny,
                           int ndiag, const int* dr, const int* dc,
                           void* stream) {
-  if (ndiag < 1 || ndiag > KRYLOV_MAX_BANDS) return (int)cudaErrorInvalidValue;
-  const Bands bands = make_bands(ndiag, dr, dc);
+  Bands bands;
+  if (!make_bands(ndiag, dr, dc, &bands)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g = grid_2d(M, ny, 1);
   cg_phase_a_var_kernel<<<g, KRYLOV_THREADS, 0, s>>>(omega, c, r, p, pn, ap,

@@ -1,20 +1,38 @@
 """Grid-stencil kernels: CUDA wrappers, their plain PyTorch versions and
 launch counters.
 
-Counterpart of ``krylov_tpu.ops.pallas_stencil`` for the three kernels the
-grid-stencil CG path runs (sources in ``krylov_tpu_torch/csrc/stencil.cu``):
+Counterpart of ``krylov_tpu.ops.pallas_stencil`` (sources in
+``krylov_tpu_torch/csrc/stencil.cu``):
 
 * K1 :func:`stencil2d_matvec` — ``y[i,j] = sum_d c[d,i,j] * x[i+dr_d, j+dc_d]``,
-* K5 :func:`cg_fused_phase_a_var` — ``p = r + omega p``, ``Ap``, ``<p, Ap>``,
-* K4 :func:`cg_fused_phase_b` — ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``.
+* K2 :func:`const_stencil2d_matvec` — the same with scalar weights and
+  in-kernel Dirichlet masks,
+* K3 :func:`cg_fused_phase_a` — ``p = r + omega p``, ``Ap`` (const), ``<p, Ap>``,
+* K5 :func:`cg_fused_phase_a_var` — K3 with coefficient planes,
+* K4 :func:`cg_fused_phase_b` — ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``,
+* K8 :func:`jacobi_sweep_const` — ``z + w (r - A z)`` or ``r - A z`` (const),
+* K9 :func:`jacobi_sweep_var` — K8 with coefficient planes and a weight plane.
 
 A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``; the plain versions count nothing.
 
-Unlike the TPU kernels, K1 and K5 never write into a buffer they read:
-blocks run in parallel and block i+1 reads rows of block i.  Scalars
-(omega, alpha, pAp, rho) stay in 0-d device tensors.
+Const bands are the reference's ``(dr, dc, weight, row_constraints)``
+tuples (``ConstStencilOperator.bands``): band d is valid on global row g
+iff ``0 <= (g // stride) % size + step < size`` for each ``(stride, size,
+step)`` of its constraints, and at column j iff ``0 <= j + dc < ny``.  K2,
+K3 and K8 and their plain versions sum the bands in ascending ``(dr, dc)``
+order, the order of the variable-coefficient operator's bands, and not in
+the order they are listed: the reference's Laplacians list the centre
+first, and ``4x - x - x - x - x`` summed from the centre rounds at four
+times the neighbours' magnitude.  Measured on the CPU (poisson 512^2, f32
+CG against f64 over 100 steps, b = 1): 1.2e-4 in the listed order, 2e-6 in
+grid order; in grid order a const Laplacian's f32 matvec equals the
+variable-coefficient one's bit for bit.
+
+Unlike the TPU kernels, no kernel here writes into a buffer whose
+neighbour rows it reads: blocks run in parallel and block i+1 reads rows
+of block i.  Scalars (omega, alpha, pAp, rho) stay in 0-d device tensors.
 """
 
 import ctypes
@@ -23,10 +41,19 @@ import functools
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"stencil2d_matvec": 0, "cg_fused_phase_a_var": 0, "cg_fused_phase_b": 0}
+LAUNCHES = {
+    "stencil2d_matvec": 0,
+    "const_stencil2d_matvec": 0,
+    "cg_fused_phase_a": 0,
+    "cg_fused_phase_a_var": 0,
+    "cg_fused_phase_b": 0,
+    "jacobi_sweep_const": 0,
+    "jacobi_sweep_var": 0,
+}
 
 # dtype codes of csrc/stencil.cu
-_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
+          torch.complex64: 3, torch.complex128: 4}
 # (coefficient dtype, vector dtype) pairs K1 is instantiated for
 _K1_PAIRS = {
     (torch.float32, torch.float32),
@@ -34,7 +61,14 @@ _K1_PAIRS = {
     (torch.bfloat16, torch.float32),
     (torch.float32, torch.bfloat16),
     (torch.float64, torch.float64),
+    (torch.complex64, torch.complex64),
+    (torch.float32, torch.complex64),
+    (torch.complex128, torch.complex128),
+    (torch.float64, torch.complex128),
 }
+# vector dtypes of K2, and of the Jacobi sweeps K8/K9
+_K2_TYPES = {torch.float32, torch.bfloat16, torch.float64}
+_SWEEP_TYPES = {torch.float32, torch.float64}
 
 
 def reset_launches():
@@ -52,23 +86,25 @@ def _lib():
     from .. import _build
 
     lib = _build.load()
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.krylov_error_string.argtypes = [i32]
-    lib.krylov_error_string.restype = ctypes.c_char_p
-    lib.krylov_max_bands.argtypes = []
-    lib.krylov_max_bands.restype = i32
-    lib.krylov_phase_a_partials.argtypes = [i32, i32]
-    lib.krylov_phase_a_partials.restype = i64
-    lib.krylov_phase_b_partials.argtypes = [i64]
-    lib.krylov_phase_b_partials.restype = i64
-    lib.krylov_stencil2d.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, vp, i32, vp
-    ]
-    lib.krylov_stencil2d.restype = i32
-    lib.krylov_cg_phase_a_var.argtypes = [vp] * 8 + [i32, i32, i32, vp, vp, vp]
-    lib.krylov_cg_phase_a_var.restype = i32
-    lib.krylov_cg_phase_b.argtypes = [vp] * 7 + [i64, vp]
-    lib.krylov_cg_phase_b.restype = i32
+    vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    cb = [i32, vp, vp, vp, vp, vp]  # a const band set: ndiag, dr, dc, w, ncons, cons
+    for name, args, res in (
+        ("krylov_error_string", [i32], ctypes.c_char_p),
+        ("krylov_max_bands", [], i32),
+        ("krylov_max_constraints", [], i32),
+        ("krylov_phase_a_partials", [i32, i32], i64),
+        ("krylov_phase_b_partials", [i64], i64),
+        ("krylov_stencil2d", [i32, i32] + [vp] * 5 + [i32] * 4 + [vp, vp, i32, vp], i32),
+        ("krylov_const_stencil2d", [i32] + [vp] * 4 + [i32] * 5 + cb + [vp], i32),
+        ("krylov_cg_phase_a_const", [vp] * 7 + [i32, i32] + cb + [vp], i32),
+        ("krylov_jacobi_sweep_const", [i32, f64, vp, vp, vp, i32, i32, i32] + cb + [vp],
+         i32),
+        ("krylov_jacobi_sweep_var", [i32] + [vp] * 5 + [i32, i32, i32, vp, vp, vp], i32),
+        ("krylov_cg_phase_a_var", [vp] * 8 + [i32, i32, i32, vp, vp, vp], i32),
+        ("krylov_cg_phase_b", [vp] * 7 + [i64, vp], i32),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
     return lib
 
 
@@ -84,6 +120,34 @@ def _bands(lib, row_offsets, col_offsets):
     if not 1 <= n <= lib.krylov_max_bands() or len(col_offsets) != n:
         raise ValueError(f"unsupported band set {row_offsets}, {col_offsets}")
     return (ctypes.c_int * n)(*row_offsets), (ctypes.c_int * n)(*col_offsets)
+
+
+def grid_order(bands):
+    """Const bands in the order the kernels sum them: ascending (dr, dc)."""
+    return tuple(sorted(bands, key=lambda b: (b[0], b[1])))
+
+
+def _const_bands(lib, bands):
+    """ctypes arrays of a const band set in summation order, laid out as
+    krylov_const_stencil2d takes them (ndiag, dr, dc, w, ncons, cons)."""
+    bands = grid_order(bands)
+    n, maxc = len(bands), lib.krylov_max_constraints()
+    if not 1 <= n <= lib.krylov_max_bands():
+        raise ValueError(f"{n} bands: the kernels take 1 to {lib.krylov_max_bands()}")
+    cons = [0] * (n * maxc * 3)
+    for d, (_, _, _, cs) in enumerate(bands):
+        if len(cs) > maxc:
+            raise ValueError(f"band {d} has {len(cs)} row constraints; at most {maxc}")
+        for k, triple in enumerate(cs):
+            cons[(d * maxc + k) * 3:(d * maxc + k + 1) * 3] = triple
+    return (
+        n,
+        (ctypes.c_int * n)(*(b[0] for b in bands)),
+        (ctypes.c_int * n)(*(b[1] for b in bands)),
+        (ctypes.c_double * n)(*(float(b[2]) for b in bands)),
+        (ctypes.c_int * n)(*(len(b[3]) for b in bands)),
+        (ctypes.c_int * len(cons))(*cons),
+    )
 
 
 def _stream(t):
@@ -120,6 +184,47 @@ def _disjoint(a, b):
     return a1 <= b0 or b1 <= a0
 
 
+def _grid_out(out, like, dtype, *reads):
+    """``out`` checked (contiguous, ``like``'s shape, ``dtype``, disjoint
+    from every tensor in ``reads``), or a new tensor when None."""
+    if out is None:
+        return torch.empty(like.shape, dtype=dtype, device=like.device)
+    _require(out.dtype == dtype and out.shape == like.shape and out.is_contiguous(),
+             f"out must be a contiguous {dtype} tensor of shape {tuple(like.shape)}")
+    for t in reads:
+        if t is not None:
+            _require(_disjoint(out, t), "out must not overlap an input")
+    return out
+
+
+def _halos(top_halo, bot_halo, h, ny, dtype, batched):
+    """The caller's (h, ny) halo rows, cast to the vector dtype, or None."""
+    halos = []
+    for halo in (top_halo, bot_halo):
+        if halo is None or h == 0:
+            halos.append(None)
+            continue
+        _require(not batched, "halos apply to a single (M, ny) grid")
+        _require(tuple(halo.shape) == (h, ny), f"halo {tuple(halo.shape)} != {(h, ny)}")
+        halos.append(halo.to(dtype).contiguous())
+    return halos
+
+
+def _x_ext(x, h_real, acc, top_halo, bot_halo):
+    """``x`` in the accumulation dtype, extended by ``max(h_real, 1)`` rows
+    of halo (zeros when omitted) above and below, as the reference's XLA
+    forms build it."""
+    h = max(h_real, 1)
+    lead, ny = tuple(x.shape[:-2]), x.shape[-1]
+
+    def edge(halo):
+        if halo is None or h_real == 0:
+            return torch.zeros(lead + (h, ny), dtype=acc, device=x.device)
+        return halo.to(x.dtype).to(acc).expand(lead + (h, ny))
+
+    return torch.cat([edge(top_halo), x.to(acc), edge(bot_halo)], dim=-2), h
+
+
 # ---------------------------------------------------------------------------
 # K1: stencil matvec
 # ---------------------------------------------------------------------------
@@ -137,17 +242,8 @@ def stencil2d_matvec_plain(coeffs, x, row_offsets, col_offsets,
     """
     out_dtype = torch.promote_types(coeffs.dtype, x.dtype)
     acc = torch.promote_types(out_dtype, torch.float32)
-    M, ny = x.shape[-2:]
-    h_real = halo_rows(row_offsets)
-    h = max(h_real, 1)
-    lead = tuple(x.shape[:-2])
-
-    def edge(halo):
-        if halo is None or h_real == 0:
-            return torch.zeros(lead + (h, ny), dtype=acc, device=x.device)
-        return halo.to(x.dtype).to(acc).expand(lead + (h, ny))
-
-    x_ext = torch.cat([edge(top_halo), x.to(acc), edge(bot_halo)], dim=-2)
+    M = x.shape[-2]
+    x_ext, h = _x_ext(x, halo_rows(row_offsets), acc, top_halo, bot_halo)
     y = None
     for d, (dr, dc) in enumerate(zip(row_offsets, col_offsets)):
         seg = x_ext[..., h + dr : h + dr + M, :]
@@ -168,15 +264,14 @@ def stencil2d_matvec(coeffs, x, row_offsets, col_offsets, top_halo=None,
     batch sharing the coefficients.  Out-of-grid neighbours read as zero,
     except rows taken from ``top_halo``/``bot_halo`` (``(h, ny)``, 2-D ``x``
     only).  Output dtype ``promote_types(coeffs, x)``; ``out`` (optional)
-    must not overlap ``x``.
+    must not overlap ``x``.  Real and complex (complex64, complex128)
+    coefficients and vectors.
     """
     if _on_cpu(coeffs, x, top_halo, bot_halo, out):
         y = stencil2d_matvec_plain(coeffs, x, row_offsets, col_offsets,
                                    top_halo, bot_halo)
         return y if out is None else out.copy_(y)
 
-    if coeffs.is_complex() or x.is_complex():
-        raise NotImplementedError("complex stencils have no CUDA kernel yet")
     if (coeffs.dtype, x.dtype) not in _K1_PAIRS:
         raise TypeError(
             f"no stencil kernel for coefficients {coeffs.dtype} and vector "
@@ -189,21 +284,8 @@ def stencil2d_matvec(coeffs, x, row_offsets, col_offsets, top_halo=None,
     _require(coeffs.is_contiguous() and x.is_contiguous(),
              "coeffs and x must be contiguous")
     h = halo_rows(row_offsets)
-    halos = []
-    for halo in (top_halo, bot_halo):
-        if halo is None or h == 0:
-            halos.append(None)
-            continue
-        _require(not batched, "halos apply to a single (M, ny) grid")
-        _require(tuple(halo.shape) == (h, ny), f"halo {tuple(halo.shape)} != {(h, ny)}")
-        halos.append(halo.to(x.dtype).contiguous())
-    y_dtype = torch.promote_types(coeffs.dtype, x.dtype)
-    if out is None:
-        out = torch.empty(x.shape, dtype=y_dtype, device=x.device)
-    else:
-        _require(out.dtype == y_dtype and out.shape == x.shape and out.is_contiguous(),
-                 "out must be a contiguous tensor of x's shape and the output dtype")
-        _require(_disjoint(out, x), "out must not overlap x")
+    halos = _halos(top_halo, bot_halo, h, ny, x.dtype, batched)
+    out = _grid_out(out, x, torch.promote_types(coeffs.dtype, x.dtype), x)
 
     lib = _lib()
     dr, dc = _bands(lib, row_offsets, col_offsets)
@@ -219,8 +301,90 @@ def stencil2d_matvec(coeffs, x, row_offsets, col_offsets, top_halo=None,
 
 
 # ---------------------------------------------------------------------------
-# K5: fused CG phase A (variable coefficients)
+# K2: constant-coefficient stencil matvec
 # ---------------------------------------------------------------------------
+
+
+def const_stencil2d_matvec_plain(x, bands, row0=None, top_halo=None,
+                                 bot_halo=None):
+    """Plain version of K2: the reference's halo-extended window with
+    boundary masks (``ConstStencilOperator._apply_grid``'s XLA form), bands
+    summed in grid order (:func:`grid_order`).
+
+    ``x`` is ``(M, ny)`` or a ``(B, M, ny)`` batch; ``row0`` is the first
+    global row (the masks are defined on global rows).  Accumulates in
+    float32 for bfloat16 (as the reference's kernel does) and in ``x``'s
+    own type otherwise; returns ``x.dtype``.
+    """
+    acc = torch.promote_types(x.dtype, torch.float32)
+    M, ny = x.shape[-2:]
+    x_ext, h = _x_ext(x, halo_rows([b[0] for b in bands]), acc, top_halo, bot_halo)
+    rows = torch.arange(M, device=x.device)[:, None] + (0 if row0 is None else int(row0))
+    cols = torch.arange(ny, device=x.device)[None, :]
+    y = None
+    for dr, dc, w, constraints in grid_order(bands):
+        seg = x_ext[..., h + dr : h + dr + M, :]
+        if dc:
+            seg = torch.roll(seg, -dc, dims=-1)  # the mask below kills the wrap
+        m = None
+        for stride, size, step in constraints:
+            c = (rows // stride) % size
+            mm = (c + step >= 0) & (c + step < size)
+            m = mm if m is None else m & mm
+        if dc:
+            mc = (cols + dc >= 0) & (cols + dc < ny)
+            m = mc if m is None else m & mc
+        term = w * seg
+        if m is not None:
+            term = torch.where(m, term, 0)
+        y = term if y is None else y + term
+    return y.to(x.dtype)
+
+
+def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
+                           out=None):
+    """K2: the constant-coefficient stencil ``bands`` applied to ``x``
+    (``(M, ny)`` or a ``(B, M, ny)`` batch), masked on global rows
+    ``row0 + i``.  Rows outside the grid read as zero, except rows taken
+    from ``top_halo``/``bot_halo`` (``(h, ny)``, 2-D ``x`` only).  Returns
+    ``x.dtype``; ``out`` (optional) must not overlap ``x``.
+    """
+    if _on_cpu(x, top_halo, bot_halo, out):
+        y = const_stencil2d_matvec_plain(x, bands, row0, top_halo, bot_halo)
+        return y if out is None else out.copy_(y)
+
+    if x.dtype not in _K2_TYPES:
+        raise TypeError(f"no const stencil kernel for vectors of {x.dtype}")
+    M, ny = x.shape[-2:]
+    batched = x.ndim == 3
+    _require(x.ndim in (2, 3) and x.is_contiguous(), "x must be a contiguous grid")
+    h = halo_rows([b[0] for b in bands])
+    halos = _halos(top_halo, bot_halo, h, ny, x.dtype, batched)
+    out = _grid_out(out, x, x.dtype, x)
+
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.krylov_const_stencil2d(
+            _CODES[x.dtype], _ptr(x), _ptr(halos[0]), _ptr(halos[1]), _ptr(out),
+            x.shape[0] if batched else 1, M, ny, h,
+            0 if row0 is None else int(row0), *_const_bands(lib, bands), _stream(x),
+        )
+    _check(lib, err, "const_stencil2d_matvec")
+    LAUNCHES["const_stencil2d_matvec"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 / K5: fused CG phase A (const / variable coefficients)
+# ---------------------------------------------------------------------------
+
+
+def cg_fused_phase_a_plain(omega, r, p, bands):
+    """Plain version of K3: ``p_new = r + omega p``, ``Ap = A p_new`` (by
+    the K2 plain version), ``<p_new, Ap>``."""
+    pn = r + omega * p
+    ap = const_stencil2d_matvec_plain(pn, bands)
+    return pn, ap, torch.sum(pn * ap)
 
 
 def cg_fused_phase_a_var_plain(omega, r, p, coeffs, row_offsets, col_offsets):
@@ -231,6 +395,57 @@ def cg_fused_phase_a_var_plain(omega, r, p, coeffs, row_offsets, col_offsets):
     return pn, ap, torch.sum(pn * ap)
 
 
+def _phase_a_outputs(r, p, out):
+    for t in (r, p):
+        _require(t.dtype == torch.float32, "the fused CG phases are float32-only")
+        _require(t.ndim == 2 and t.shape == r.shape and t.is_contiguous(),
+                 "r and p must be contiguous grids of one shape")
+    pn_out, ap_out = (None, None) if out is None else out
+    pn_out = _grid_out(pn_out, r, torch.float32, r, p)
+    ap_out = _grid_out(ap_out, r, torch.float32, r, p, pn_out)
+    return pn_out, ap_out
+
+
+def _phase_a(name, launch, omega, r, p, out):
+    """Allocate K3/K5's outputs and scratch, launch, count."""
+    pn_out, ap_out = _phase_a_outputs(r, p, out)
+    _require(omega.dtype == torch.float32, "omega must be float32")
+    lib = _lib()
+    M, ny = r.shape
+    partials = torch.empty(lib.krylov_phase_a_partials(M, ny), dtype=torch.float32,
+                           device=r.device)
+    pap = torch.empty((), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        err = launch(lib, pn_out, ap_out, partials, pap)
+    _check(lib, err, name)
+    LAUNCHES[name] += 1
+    return pn_out, ap_out, pap
+
+
+def cg_fused_phase_a(omega, r, p, bands, out=None):
+    """K3: returns ``(p_new, Ap, pAp)`` in one pass over const ``bands``
+    (float32; no ``row0``/halos: unsharded).
+
+    ``omega`` is a 0-d tensor on the vectors' device.  ``out=(p_new, Ap)``
+    (optional) are written in place and must overlap neither ``r`` nor
+    ``p``: the caller ping-pongs two ``p`` buffers.
+    """
+    omega = torch.as_tensor(omega, dtype=r.dtype, device=r.device)
+    if _on_cpu(omega, r, p, *(out or ())):
+        pn, ap, pap = cg_fused_phase_a_plain(omega, r, p, bands)
+        if out is not None:
+            pn, ap = out[0].copy_(pn), out[1].copy_(ap)
+        return pn, ap, pap
+
+    def launch(lib, pn, ap, partials, pap):
+        return lib.krylov_cg_phase_a_const(
+            _ptr(omega), _ptr(r), _ptr(p), _ptr(pn), _ptr(ap), _ptr(partials),
+            _ptr(pap), *r.shape, *_const_bands(lib, bands), _stream(r),
+        )
+
+    return _phase_a("cg_fused_phase_a", launch, omega, r, p, out)
+
+
 def cg_fused_phase_a_var(omega, r, p, coeffs, row_offsets, col_offsets, out=None):
     """K5: returns ``(p_new, Ap, pAp)`` in one pass (float32).
 
@@ -238,46 +453,28 @@ def cg_fused_phase_a_var(omega, r, p, coeffs, row_offsets, col_offsets, out=None
     (optional) are written in place and must overlap neither ``r`` nor
     ``p``: the caller ping-pongs two ``p`` buffers.
     """
-    pn_out, ap_out = (None, None) if out is None else out
     omega = torch.as_tensor(omega, dtype=r.dtype, device=r.device)
-    if _on_cpu(omega, r, p, coeffs, pn_out, ap_out):
+    if _on_cpu(omega, r, p, coeffs, *(out or ())):
         pn, ap, pap = cg_fused_phase_a_var_plain(
             omega, r, p, coeffs, row_offsets, col_offsets
         )
         if out is not None:
-            pn, ap = pn_out.copy_(pn), ap_out.copy_(ap)
+            pn, ap = out[0].copy_(pn), out[1].copy_(ap)
         return pn, ap, pap
 
-    ndiag, M, ny = coeffs.shape
-    for t in (r, p, coeffs, omega):
-        _require(t.dtype == torch.float32, "cg_fused_phase_a_var is float32-only")
-    for t in (r, p):
-        _require(tuple(t.shape) == (M, ny) and t.is_contiguous(),
-                 f"r and p must be contiguous {(M, ny)} grids")
-    _require(coeffs.is_contiguous(), "coeffs must be contiguous")
-    if out is None:
-        pn_out, ap_out = torch.empty_like(r), torch.empty_like(r)
-    for o in (pn_out, ap_out):
-        _require(o.dtype == torch.float32 and o.shape == r.shape and o.is_contiguous(),
-                 "outputs must be contiguous float32 grids")
-        _require(_disjoint(o, r) and _disjoint(o, p),
-                 "p_new and Ap must not overlap r or p")
-    _require(_disjoint(pn_out, ap_out), "p_new and Ap must not overlap")
+    _require(coeffs.dtype == torch.float32 and coeffs.is_contiguous()
+             and tuple(coeffs.shape[1:]) == tuple(r.shape),
+             "coeffs must be a contiguous float32 (ndiag, M, ny) stack")
 
-    lib = _lib()
-    dr, dc = _bands(lib, row_offsets, col_offsets)
-    partials = torch.empty(lib.krylov_phase_a_partials(M, ny), dtype=torch.float32,
-                           device=r.device)
-    pap = torch.empty((), dtype=torch.float32, device=r.device)
-    with torch.cuda.device(r.device):
-        err = lib.krylov_cg_phase_a_var(
-            _ptr(omega), _ptr(coeffs), _ptr(r), _ptr(p), _ptr(pn_out),
-            _ptr(ap_out), _ptr(partials), _ptr(pap), M, ny, ndiag, dr, dc,
+    def launch(lib, pn, ap, partials, pap):
+        dr, dc = _bands(lib, row_offsets, col_offsets)
+        return lib.krylov_cg_phase_a_var(
+            _ptr(omega), _ptr(coeffs), _ptr(r), _ptr(p), _ptr(pn), _ptr(ap),
+            _ptr(partials), _ptr(pap), *r.shape, len(row_offsets), dr, dc,
             _stream(r),
         )
-    _check(lib, err, "cg_fused_phase_a_var")
-    LAUNCHES["cg_fused_phase_a_var"] += 1
-    return pn_out, ap_out, pap
+
+    return _phase_a("cg_fused_phase_a_var", launch, omega, r, p, out)
 
 
 # ---------------------------------------------------------------------------
@@ -324,3 +521,84 @@ def cg_fused_phase_b(alpha, y, r, p, ap):
     _check(lib, err, "cg_fused_phase_b")
     LAUNCHES["cg_fused_phase_b"] += 1
     return y, r, rho
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9: damped-Jacobi sweeps (multigrid smoothing and residuals)
+# ---------------------------------------------------------------------------
+
+
+def jacobi_sweep_const_plain(w, z, r, bands, update=True):
+    """Plain version of K8: ``z + w * (r - A z)`` or ``r - A z`` (``A z``
+    by the K2 plain version)."""
+    res = r - const_stencil2d_matvec_plain(z, bands)
+    return z + w * res if update else res
+
+
+def jacobi_sweep_var_plain(w, z, r, coeffs, row_offsets, col_offsets, update=True):
+    """Plain version of K9: ``z + w * (r - A z)`` with a weight plane ``w``,
+    or ``r - A z`` (``A z`` by the K1 plain version)."""
+    res = r - stencil2d_matvec_plain(coeffs, z, row_offsets, col_offsets)
+    return z + w * res if update else res
+
+
+def _sweep_checks(z, r, out, *planes):
+    _require(z.dtype in _SWEEP_TYPES, f"no Jacobi sweep kernel for {z.dtype}")
+    for t in (r,) + planes:
+        _require(t.dtype == z.dtype, "the sweep's tensors must share one dtype")
+    for t in (z, r) + planes:
+        _require(t.is_contiguous() and tuple(t.shape[-2:]) == tuple(z.shape),
+                 "z, r and the planes must be contiguous grids of z's shape")
+    _require(z.ndim == 2, "the sweeps take one (M, ny) grid")
+    return _grid_out(out, z, z.dtype, z, r)
+
+
+def jacobi_sweep_const(w, z, r, bands, update=True, out=None):
+    """K8: ``z + w * (r - A z)`` (``update=True``) or the residual
+    ``r - A z`` for the const ``bands`` on one ``(M, ny)`` grid, in one
+    pass (float32, float64).
+
+    ``w`` is the damped-Jacobi weight as a Python float (the caller rounds
+    it to the operator's dtype; residual mode ignores it).  ``out``
+    (optional) must overlap neither ``z`` nor ``r``.
+    """
+    if _on_cpu(z, r, out):
+        y = jacobi_sweep_const_plain(w, z, r, bands, update)
+        return y if out is None else out.copy_(y)
+
+    out = _sweep_checks(z, r, out)
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        err = lib.krylov_jacobi_sweep_const(
+            _CODES[z.dtype], float(w) if update else 0.0, _ptr(z), _ptr(r), _ptr(out),
+            int(update), *z.shape, *_const_bands(lib, bands), _stream(z),
+        )
+    _check(lib, err, "jacobi_sweep_const")
+    LAUNCHES["jacobi_sweep_const"] += 1
+    return out
+
+
+def jacobi_sweep_var(w, z, r, coeffs, row_offsets, col_offsets, update=True,
+                     out=None):
+    """K9: ``z + w * (r - A z)`` with the ``(M, ny)`` weight plane ``w``
+    (``update=True``; ``w = omega / diag``) or the residual ``r - A z``
+    (``w`` unread) for the coefficient planes ``coeffs`` ``(ndiag, M, ny)``
+    on one ``(M, ny)`` grid, in one pass (float32, float64).  ``out``
+    (optional) must overlap neither ``z`` nor ``r``.
+    """
+    w = w if update else None
+    if _on_cpu(w, z, r, coeffs, out):
+        y = jacobi_sweep_var_plain(w, z, r, coeffs, row_offsets, col_offsets, update)
+        return y if out is None else out.copy_(y)
+
+    out = _sweep_checks(z, r, out, coeffs, *(() if w is None else (w,)))
+    lib = _lib()
+    dr, dc = _bands(lib, row_offsets, col_offsets)
+    with torch.cuda.device(z.device):
+        err = lib.krylov_jacobi_sweep_var(
+            _CODES[z.dtype], _ptr(coeffs), _ptr(w), _ptr(z), _ptr(r), _ptr(out),
+            *z.shape, len(row_offsets), dr, dc, _stream(z),
+        )
+    _check(lib, err, "jacobi_sweep_var")
+    LAUNCHES["jacobi_sweep_var"] += 1
+    return out

@@ -3,8 +3,8 @@
 Counterpart of ``krylov_tpu.solvers.cg``: left preconditioner ``Ml``, SPD
 preconditioner ``M`` defining the inner-product geometry, arbitrary
 ``inner``, multi-RHS blocking, per-iteration callback, ``return_arnoldi``
-reconstruction of the underlying Lanczos relation (``eager`` backend only)
-and the ``num_operations`` cost model.
+reconstruction of the underlying Lanczos relation and the
+``num_operations`` cost model.
 
 The recurrence is a functional ``step`` on a :class:`CGState` driven by
 :mod:`krylov_tpu_torch._driver`.  The k==0 search-direction special case is
@@ -50,11 +50,6 @@ def cg(
     callback: Optional[Callable] = None,
     backend: str = EAGER,
 ):
-    if return_arnoldi and backend != EAGER:
-        raise NotImplementedError(
-            "return_arnoldi is ported for backend='eager' only (ROADMAP "
-            "Queue 1 item 3)"
-        )
     x0_default = x0 is None
     A, b, x0, N, inner, maxiter = setup(A, b, x0=x0, inner=inner, maxiter=maxiter)
     M = preconditioner(M, b.device)
@@ -120,10 +115,13 @@ def cg(
     def explicit_resnorm(xk):
         return torch.sqrt(residual_and_norm2(xk)[2])
 
-    # optional Lanczos-relation reconstruction (host-side bookkeeping)
+    if return_arnoldi and backend != EAGER:
+        step = _arnoldi_on_device(step, state0, b.shape, maxiter)
+
+    # optional Lanczos-relation reconstruction (eager: host-side bookkeeping)
     on_step = None
     arnoldi_acc = None
-    if return_arnoldi:
+    if return_arnoldi and backend == EAGER:
         safe0 = torch.where(resnorm0 > 0.0, resnorm0, 1.0)
         arnoldi_acc = {
             "V": [M_Ml_r0 / safe0],
@@ -177,12 +175,52 @@ def cg(
     }
 
     arnoldi = None
-    if return_arnoldi:
+    if return_arnoldi and backend == EAGER:
         H = arnoldi_acc["H"][: arnoldi_acc["k"] + 1, : arnoldi_acc["k"]]
         arnoldi = [arnoldi_acc["V"], H, arnoldi_acc["P"]]
+    elif return_arnoldi:
+        Vb, Hb, Pb = step.buffers
+        arnoldi = [list(Vb[: k + 1]), Hb[: k + 1, :k].cpu().numpy(), list(Pb[: k + 1])]
 
     info = Info(success, xk, k, resnorms, num_operations, arnoldi)
     return (xk if success else None), info
+
+
+def _arnoldi_on_device(step, state0, b_shape, maxiter):
+    """``step`` wrapped to record the Lanczos relation on the device, as
+    the reference's compiled backend does: the V and P bases in fixed
+    ``(maxiter + 1, *b.shape)`` buffers, the tridiagonal H in a
+    ``(maxiter + 1, maxiter, *b.shape[1:])`` buffer, each written from
+    device scalars.  The step count is a host integer, so nothing is read
+    back.  The buffers are the wrapper's ``buffers`` attribute."""
+    vdt = state0.M_Ml_rk.dtype
+    dev = state0.M_Ml_rk.device
+    safe0 = torch.where(state0.resnorm > 0.0, state0.resnorm, 1.0)
+    Vb = torch.zeros((maxiter + 1,) + tuple(b_shape), dtype=vdt, device=dev)
+    Pb = torch.zeros_like(Vb)
+    Vb[0] = state0.M_Ml_rk / safe0
+    Pb[0] = state0.Ml_rk / safe0
+    Hb = torch.zeros((maxiter + 1, maxiter) + tuple(b_shape[1:]),
+                     dtype=torch.promote_types(state0.rho.dtype, vdt), device=dev)
+    k = 0
+    alpha_old = None
+
+    def arn_step(s: CGState, criterion) -> CGState:
+        nonlocal k, alpha_old
+        ns = step(s, criterion)
+        sign = 1.0 if (k + 1) % 2 == 0 else -1.0
+        Vb[k + 1] = sign * ns.M_Ml_rk / ns.resnorm
+        Pb[k + 1] = sign * ns.Ml_rk / ns.resnorm
+        Hb[k, k] = 1.0 / ns.alpha if k == 0 else 1.0 / ns.alpha + ns.omega / alpha_old
+        if k > 0:
+            Hb[k - 1, k] = Hb[k, k - 1]  # mirror last step's subdiagonal
+        Hb[k + 1, k] = torch.sqrt(ns.rho / ns.rho_old) / ns.alpha
+        alpha_old = ns.alpha
+        k += 1
+        return ns
+
+    arn_step.buffers = (Vb, Hb, Pb)
+    return arn_step
 
 
 def _host(t):

@@ -1,19 +1,22 @@
-"""Fused conjugate gradient for grid-stencil operators.
+"""Fused conjugate gradient for stencil operators (const- and
+variable-coefficient).
 
 Counterpart of ``krylov_tpu.solvers.cg_stencil`` for
-:class:`GridStencilOperator`.  Mathematically identical to :func:`cg`
-(same recurrence, division guards, explicit-residual double-check), but
-with ``fused=True`` each float32 iteration runs as two fused kernels
+:class:`ConstStencilOperator` and :class:`GridStencilOperator`.
+Mathematically identical to :func:`cg` (same recurrence, division guards,
+explicit-residual double-check), but with ``fused=True`` each float32
+iteration runs as two fused kernels
 (:mod:`krylov_tpu_torch.ops.cuda_stencil`):
 
-  phase A (K5): ``p = r + omega p``, ``Ap = A p``, ``<p, Ap>``
+  phase A (K3 const, K5 variable): ``p = r + omega p``, ``Ap = A p``, ``<p, Ap>``
   phase B (K4): ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``
 
-cutting the per-iteration memory traffic from about 19N to 15N words at
-five bands.  Phase A writes the new direction into the second of two ``p``
-buffers (the kernel reads neighbour rows of the old one); phase B updates
-``y`` and ``r`` in place.  Unpreconditioned or Jacobi-preconditioned CG on
-a single grid-shaped right-hand side.
+cutting the per-iteration memory traffic from about 15N to 10N words on
+the const operator, 19N to 15N at five coefficient planes.  Phase A writes
+the new direction into the second of two ``p`` buffers (the kernel reads
+neighbour rows of the old one); phase B updates ``y`` and ``r`` in place.
+Unpreconditioned (both operators) or Jacobi-preconditioned
+(:class:`GridStencilOperator`) CG on a single grid-shaped right-hand side.
 """
 
 from typing import NamedTuple, Optional
@@ -23,7 +26,7 @@ import torch
 from .._driver import WHILE_LOOP, Method, run
 from .._info import Info
 from ..ops import cuda_stencil
-from ..ops.stencil import GridStencilOperator
+from ..ops.stencil import ConstStencilOperator, GridStencilOperator
 from ._common import initial_residual
 
 
@@ -46,22 +49,29 @@ def cg_stencil(
     fused: bool = False,
     M=None,
 ):
-    """CG for :class:`GridStencilOperator` on grid vectors.
+    """CG for :class:`ConstStencilOperator` / :class:`GridStencilOperator`
+    on grid vectors.
 
     ``fused=True`` runs the two fused kernels per iteration for float32
     vectors (other dtypes take the unfused composition, as in the
-    reference).  ``M="jacobi"`` runs diagonally preconditioned CG with the
-    recurrence and resnorm convention (``sqrt(<r, M r>)``) of :func:`cg`
-    with ``M=DiagonalOperator(1/diag)``; its fused kernels are not ported
-    yet, so ``fused=True`` with it raises for float32.
+    reference).  ``M="jacobi"`` (GridStencilOperator only) runs diagonally
+    preconditioned CG with the recurrence and resnorm convention
+    (``sqrt(<r, M r>)``) of :func:`cg` with ``M=DiagonalOperator(1/diag)``;
+    its fused kernels are not ported yet, so ``fused=True`` with it raises
+    for float32.  The const operator holds no tensors: its solve runs on
+    ``b``'s device.
     """
-    if not isinstance(A, GridStencilOperator):
+    if isinstance(A, ConstStencilOperator):
+        const = True
+        b = torch.as_tensor(b)
+    elif isinstance(A, GridStencilOperator):
+        const = False
+        b = torch.as_tensor(b, device=A.device)
+    else:
         raise TypeError(
-            "cg_stencil requires a GridStencilOperator (ConstStencilOperator "
-            "is not ported yet: ROADMAP Queue 1 item 4)"
+            "cg_stencil requires a ConstStencilOperator or GridStencilOperator"
         )
     Mg, ny = A.grid
-    b = torch.as_tensor(b, device=A.device)
     flat_in = b.ndim == 1
     b2 = b.reshape(Mg, ny) if flat_in else b
     if tuple(b2.shape) != (Mg, ny):
@@ -74,6 +84,11 @@ def cg_stencil(
     if M is None:
         dinv2 = None
     elif M == "jacobi":
+        if const:
+            raise ValueError(
+                "M='jacobi' requires a GridStencilOperator (a constant-"
+                "coefficient Jacobi preconditioner is a scalar scaling)"
+            )
         if use_fused:
             raise NotImplementedError(
                 "fused Jacobi CG needs kernels K6/K7, not ported yet (ROADMAP "
@@ -110,7 +125,12 @@ def cg_stencil(
     def step(s: _FusedState, criterion) -> _FusedState:
         nonlocal p_spare
         omega = s.rho / torch.where(s.rho_old != 0, s.rho_old, 1.0)
-        if use_fused:
+        if use_fused and const:
+            p, Ap, pAp = cuda_stencil.cg_fused_phase_a(
+                omega, s.r, s.p, A.kernel_bands, out=(p_spare, ap_buf),
+            )
+            p_spare = s.p
+        elif use_fused:
             p, Ap, pAp = cuda_stencil.cg_fused_phase_a_var(
                 omega, s.r, s.p, A.coeffs2d, A.row_offsets, A.col_offsets,
                 out=(p_spare, ap_buf),

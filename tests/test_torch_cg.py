@@ -226,9 +226,52 @@ def test_return_arnoldi_eager_matches_reference():
 
 
 def test_return_arnoldi_while_loop_not_ported():
+    """The while_loop backend now records the Lanczos relation too: on the
+    golden problem its (V, H, P) equal the eager backend's bit for bit."""
     A, b = _golden()
-    with pytest.raises(NotImplementedError, match="eager"):
-        kt.cg(A, b, return_arnoldi=True, backend="while_loop")
+    _, iw = kt.cg(A, b, maxiter=12, tol=1e-30, atol=0.0, return_arnoldi=True,
+                  backend="while_loop")
+    _, ie = kt.cg(A, b, maxiter=12, tol=1e-30, atol=0.0, return_arnoldi=True)
+    (Vw, Hw, Pw), (Ve, He, Pe) = iw.arnoldi, ie.arnoldi
+    assert len(Vw) == len(Pw) == 13 and Hw.shape == He.shape == (13, 12)
+    np.testing.assert_array_equal(Hw, He)
+    assert torch.equal(torch.stack(Vw), torch.stack(Ve))
+    assert torch.equal(torch.stack(Pw), torch.stack(Pe))
+
+
+def _spd40():
+    rng = np.random.default_rng(11)
+    q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    return (q * np.linspace(1.0, 50.0, 40)) @ q.T, rng.standard_normal(40)
+
+
+@pytest.mark.parametrize("problem", ["spd40", "poisson_2d_grid"])
+def test_return_arnoldi_while_loop_matches_reference(problem):
+    """(V, H, P) of the compiled backend against the reference's compiled
+    backend and the port's eager one, f64: a 40x40 SPD matrix, and
+    poisson_2d(8, 16) on grid vectors (H then carries the grid's trailing
+    axis, as the reference's does)."""
+    if problem == "spd40":
+        A, b = _spd40()
+        At, Aj, bt, bj, kw = A, A, b, jnp.asarray(b), {}
+    else:
+        b = np.random.default_rng(12).standard_normal((8, 16))
+        At, Aj = ts.poisson_2d(8, 16), js.poisson_2d(8, 16)
+        bt, bj = b, jnp.asarray(b)
+        kw = {"inner": lambda u, v: torch.sum(u * v)}
+    args = dict(maxiter=10, tol=1e-30, atol=0.0, return_arnoldi=True)
+    _, iw = kt.cg(At, torch.from_numpy(bt), backend="while_loop", **args, **kw)
+    _, ie = kt.cg(At, torch.from_numpy(bt), **args, **kw)
+    kwj = {} if not kw else {"inner": lambda u, v: jnp.sum(u * v)}
+    _, ij = krylov_tpu.cg(Aj, bj, backend="while_loop", **args, **kwj)
+    (Vw, Hw, Pw), (Vj, Hj, Pj) = iw.arnoldi, ij.arnoldi
+    assert iw.numsteps == int(ij.numsteps) == 10 and Hw.shape == np.asarray(Hj).shape
+    np.testing.assert_allclose(Hw, np.asarray(Hj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(torch.stack(Vw).numpy(), np.stack(Vj), atol=1e-10)
+    np.testing.assert_allclose(torch.stack(Pw).numpy(), np.stack(Pj), atol=1e-10)
+    np.testing.assert_allclose(Hw, ie.arnoldi[1], rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(torch.stack(Vw).numpy(), torch.stack(ie.arnoldi[0]).numpy(),
+                               atol=1e-13)
 
 
 def test_operator_normalization():

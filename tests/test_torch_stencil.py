@@ -250,9 +250,10 @@ def test_convert_round_trip():
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, krylov_tpu_torch, krylov_tpu_torch.convert, "
-        "krylov_tpu_torch.ops.cuda_stencil, krylov_tpu_torch._build; "
+        "krylov_tpu_torch.ops.cuda_stencil, krylov_tpu_torch._build, "
+        "krylov_tpu_torch.multigrid; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'krylov_tpu', 'triton')]; "
+        "('jax', 'jaxlib', 'krylov_tpu', 'triton', 'scipy')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
