@@ -6,14 +6,14 @@ Run from the root of the repository, with nothing built beforehand:
     python3 chip_smoke.py
 
 It needs one CUDA device (Hopper: the kernels are built for sm_90a) and
-``nvcc``, and imports only torch, numpy and ``krylov_tpu_torch``.  Phases,
-in order; any failure raises, so the exit code is nonzero:
+``nvcc``, and imports only torch, numpy, scipy and ``krylov_tpu_torch``.
+Phases, in order; any failure raises, so the exit code is nonzero:
 
 0. device line (``nvidia-smi`` name and power limit), versions, kernel build;
-1. every kernel against its plain PyTorch version on the card, at small odd
-   shapes and at the main paths' 4096^2 shape: K1 stencil matvec (real and
-   complex), K2 const stencil matvec, K3 / K5 / K4 fused CG phases, K8 / K9
-   damped-Jacobi sweeps;
+1. every stencil kernel against its plain PyTorch version on the card, at
+   small odd shapes and at the main paths' 4096^2 shape: K1 stencil matvec,
+   K2 const stencil matvec, K3 / K5 / K4 fused CG phases, K8 / K9
+   damped-Jacobi sweeps; 1b: K1, K2, K8 and K9 also on complex vectors;
 2. golden CG in float64 on ``diag([1e-3, 2..100])``;
 3. the twin of ``__graft_entry__.entry()`` (compiled CG on ``poisson_2d(128)``)
    and a converging solve of the same operator;
@@ -29,10 +29,21 @@ in order; any failure raises, so the exit code is nonzero:
    manufactured solution to 1e-6 (the reference bench's ``cg_mg``
    configuration, K8) and a Galerkin hierarchy on a smooth ``diffusion_2d``
    at 1024^2 (K9), each held at 256^2 to a float64 CPU run;
+6. general sparsity, the reference bench's sparse section: (a) K10 CSR
+   SpMV (f32 and bf16 values, the adjoint, an RCM-reordered scrambled
+   Poisson), K11 CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM
+   (blocksizes 32, 64, 128, four dtypes) against their plain versions;
+   (b) BiCGSTAB + Jacobi, GMRES (mgs, householder, cgs) and Jacobi CG on
+   the bench's 1M-row scipy CSR matrices through ``as_operator`` ->
+   ``PETOperator`` (K10), against their ``CSROperator`` twins on the card,
+   repeated bitwise, and at 256^2 against a float64 CPU run; (c) CG with
+   an ``(N, 8)`` right-hand side on the Poisson CSR (K11) and on a
+   block-structured SPD matrix routed to ``BSROperator`` (K12);
 5. timings with CUDA events, each printed beside the card's name and power
-   limit: every kernel and its plain version at 4096^2, per-iteration
-   slopes of the solvers, time to solution of cg100 and of MG-CG with the
-   device's idle share (``torch.profiler``), and each V-cycle level's share.
+   limit: every kernel and its plain version, per-iteration slopes of the
+   stencil solvers, time to solution of cg100, of MG-CG and of phase 6b's
+   solves with the device's idle share (``torch.profiler``), and each
+   V-cycle level's share.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -222,7 +233,7 @@ def phase_kernels_const(dev, cs, st, A_div):
     def rand(shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
 
-    log("phase 1b: complex K1, K2, K3, K8, K9 against their plain versions")
+    log("phase 1b: complex K1, K2, K8, K9; K2, K3, K8, K9 against their plain versions")
     A = st.poisson_2d(37, 45, device=dev)
     ro, co = A.row_offsets, A.col_offsets
     for cd, xd in ((torch.complex64, torch.complex64), (torch.float32, torch.complex64),
@@ -248,20 +259,29 @@ def phase_kernels_const(dev, cs, st, A_div):
         h = cs.halo_rows([b[0] for b in Ac.bands])
         x64, xb64 = rand((M, ny), torch.float64), rand((3, M, ny), torch.float64)
         top, bot = rand((h, ny), torch.float64), rand((h, ny), torch.float64)
-        for dtype in (torch.float64, torch.float32, torch.bfloat16):
-            x = x64.to(dtype)
+        # complex vectors: the same real parts and a seeded imaginary part
+        cx = {id(t): t + 1j * rand(t.shape, torch.float64) for t in (x64, xb64, top, bot)}
+
+        def as_(t, dtype):
+            return (cx[id(t)] if dtype.is_complex else t).to(dtype)
+
+        for dtype in (torch.float64, torch.float32, torch.bfloat16, torch.complex64,
+                      torch.complex128):
+            x = as_(x64, dtype)
             for tag, args, kw in (
                 ("", (x, Ac.kernel_bands), {}),
-                (" batch3", (xb64.to(dtype), Ac.kernel_bands), {}),
+                (" batch3", (as_(xb64, dtype), Ac.kernel_bands), {}),
                 (" row0+halos", (x, Ac.bands),
-                 dict(row0=5, top_halo=top.to(dtype), bot_halo=bot.to(dtype))),
+                 dict(row0=5, top_halo=as_(top, dtype), bot_halo=as_(bot, dtype))),
             ):
                 got = cs.const_stencil2d_matvec(*args, **kw)
                 assert got.dtype == dtype
                 rel_close(f"K2 {label} {dtype}{tag}", got,
                           cs.const_stencil2d_matvec_plain(*args, **kw), TOL[dtype])
-        for dtype in (torch.float64, torch.float32):
-            z, r = x64.to(dtype), rand((M, ny), dtype)
+        r64 = rand((M, ny), torch.float64)
+        cx[id(r64)] = r64 + 1j * rand((M, ny), torch.float64)
+        for dtype in (torch.float64, torch.float32, torch.complex64, torch.complex128):
+            z, r = as_(x64, dtype), as_(r64, dtype)
             for update in (True, False):
                 rel_close(f"K8 {label} {dtype} update={update}",
                           cs.jacobi_sweep_const(0.2, z, r, Ac.kernel_bands, update),
@@ -278,14 +298,26 @@ def phase_kernels_const(dev, cs, st, A_div):
                   Ad.col_offsets, 0.8 / Ad.diagonal().reshape(Ad.grid)),
                  ("random 25 bands (37,45)",) + random_bands(rng, 37, 45, torch.float64, dev)]
     for label, c64, ro, co, w64 in var_cases:
-        for dtype in (torch.float64, torch.float32):
-            c, w = c64.to(dtype), w64.to(dtype)
-            z, r = rand(c.shape[1:], dtype), rand(c.shape[1:], dtype)
+        # (plane dtype, vector dtype): real, and complex vectors with real or
+        # complex planes (K1's pairs)
+        for cd, xd in ((torch.float64, torch.float64), (torch.float32, torch.float32),
+                       (torch.complex64, torch.complex64), (torch.float32, torch.complex64),
+                       (torch.complex128, torch.complex128),
+                       (torch.float64, torch.complex128)):
+            c, w = c64.to(cd), w64.to(cd)
+            if cd.is_complex:
+                c = c + 1j * rand(c.shape, torch.float64).to(cd)
+                w = w + 0.1j * rand(w.shape, torch.float64).to(cd)
+            z, r = rand(c.shape[1:], torch.float64), rand(c.shape[1:], torch.float64)
+            if xd.is_complex:
+                z = z + 1j * rand(z.shape, torch.float64)
+                r = r + 1j * rand(r.shape, torch.float64)
+            z, r = z.to(xd), r.to(xd)
             for update in (True, False):
-                rel_close(f"K9 {label} {dtype} update={update}",
+                rel_close(f"K9 {label} {cd}/{xd} update={update}",
                           cs.jacobi_sweep_var(w, z, r, c, ro, co, update),
                           cs.jacobi_sweep_var_plain(w, z, r, c, ro, co, update),
-                          TOL[dtype])
+                          TOL[xd])
 
     # the main paths' shapes: poisson_2d_const(4096) and diffusion_2d(4096)
     errs = {}
@@ -726,11 +758,397 @@ def mg_levels(dev, M, card):
         log(f"    level {str(shape):>14}: {n - n_c:5.0f} {(busy - busy_c) * 1e6:8.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: general sparsity (scipy matrices through as_operator; K10-K12)
+
+NPG = 1024  # the reference bench's Poisson side: 1,048,576 rows
+SMALL_NPG = 256  # the size held to a float64 CPU run
+NCSR = 1 << 20  # rows of the bench's irregular matrix
+NBLK = 4096  # block rows of the block-structured SPD matrix
+
+
+def irregular_csr():
+    """The reference bench's irregular matrix (bench.py's csr_pet cell):
+    2^20 rows, 5..49 entries a row, columns within +-512, f32, seed 7."""
+    import scipy.sparse
+
+    ncsr = NCSR
+    crng = np.random.default_rng(7)
+    row_nnz = crng.integers(5, 50, ncsr)
+    cnnz = int(row_nnz.sum())
+    indptr = np.zeros(ncsr + 1, np.int64)
+    indptr[1:] = np.cumsum(row_nnz)
+    rr = np.repeat(np.arange(ncsr), row_nnz)
+    cc = np.clip(rr + crng.integers(-512, 512, cnnz), 0, ncsr - 1)
+    return scipy.sparse.csr_matrix(
+        (crng.standard_normal(cnnz).astype(np.float32), cc.astype(np.int32), indptr),
+        shape=(ncsr, ncsr))
+
+
+def poisson_csr(npg, diag=4.5):
+    """The reference bench's Poisson CSR (f32), shifted by 0.5 unless
+    ``diag=4.0``."""
+    import scipy.sparse
+
+    n = npg * npg
+    return scipy.sparse.diags([-1.0, -1.0, diag, -1.0, -1.0], [-npg, -1, 0, 1, npg],
+                              shape=(n, n), format="csr", dtype=np.float32)
+
+
+def convected_csr(npg):
+    """The bench's nonsymmetric variant for GMRES: + convection (-0.4, 0.4)."""
+    import scipy.sparse
+
+    n = npg * npg
+    conv = scipy.sparse.diags([-0.4, 0.4], [-1, 1], shape=(n, n), format="csr",
+                              dtype=np.float32)
+    return (poisson_csr(npg) + conv).tocsr()
+
+
+def block_spd_csr(R=32, seed=SEED + 40):
+    """A block-tridiagonal SPD matrix of dense R x R blocks (f32):
+    diagonal blocks Q Q^T / R + 3 I, couplings 0.1 N(0, 1) and their
+    transposes; ``detect_blocksize`` routes it to BSROperator."""
+    import scipy.sparse
+
+    nb = NBLK
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((nb, R, R))
+    diag = q @ q.transpose(0, 2, 1) / R + 3.0 * np.eye(R)
+    up = 0.1 * rng.standard_normal((nb - 1, R, R))
+    rows = np.concatenate([np.arange(nb), np.arange(nb - 1), np.arange(1, nb)])
+    cols = np.concatenate([np.arange(nb), np.arange(1, nb), np.arange(nb - 1)])
+    blocks = np.concatenate([diag, up, up.transpose(0, 2, 1)])
+    order = np.lexsort((cols, rows))
+    indptr = np.searchsorted(rows[order], np.arange(nb + 1))
+    return scipy.sparse.bsr_matrix((blocks[order].astype(np.float32), cols[order], indptr),
+                                   shape=(nb * R, nb * R)).tocsr()
+
+
+def scrambled_poisson(npg, seed=SEED + 41):
+    import scipy.sparse
+
+    perm = np.random.default_rng(seed).permutation(npg * npg)
+    return poisson_csr(npg, 4.0)[perm][:, perm].tocsr()
+
+
+def csr_tensors(sp, dev, value_dtype=torch.float32):
+    return (torch.from_numpy(sp.indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(sp.indices.astype(np.int32)).to(dev),
+            torch.from_numpy(sp.data).to(dev, value_dtype))
+
+
+def phase_sparse_kernels(dev, sv, bs):
+    """6a: K10, K11 and K12 against their plain versions on the card."""
+    log("phase 6a: K10, K11, K12 against their plain versions")
+    errs = {"csr_matvec": 0.0, "csr_matmat": 0.0, "bsr_spmm": 0.0}
+    rng = np.random.default_rng(SEED + 42)
+
+    def vec(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    sp = irregular_csr()
+    log(f"  irregular matrix: {sp.shape[0]} rows, {sp.nnz} entries, "
+        f"{sp.nnz / sp.shape[0]:.1f} a row, lanes {sv.lanes_for(sp.nnz, sp.shape[0])}")
+    ip, ix, data = csr_tensors(sp, dev)
+    x = vec(sp.shape[1])
+    for vdt in (torch.float32, torch.bfloat16):
+        d = data.to(vdt)
+        got = sv.csr_matvec(ip, ix, d, x)
+        torch.cuda.synchronize()
+        err = rel_close(f"K10 irregular values {vdt}", got, sv.csr_matvec_plain(ip, ix, d, x),
+                        1e-5)
+        errs["csr_matvec"] = max(errs["csr_matvec"], err)
+    for k in (1, 3, 8, 16, 17):
+        X = vec((sp.shape[1], k))
+        got = sv.csr_matmat(ip, ix, data, X)
+        torch.cuda.synchronize()
+        errs["csr_matmat"] = max(errs["csr_matmat"], rel_close(
+            f"K11 irregular k={k}", got, sv.csr_matvec_plain(ip, ix, data, X), 1e-5))
+    op = sv.PETOperator.from_scipy(sp, with_rmatvec=True, device=dev)
+    spt = sp.T.tocsr()
+    tp, tx, tdata = csr_tensors(spt, dev)
+    got = op.rmatvec(x)
+    torch.cuda.synchronize()
+    errs["csr_matvec"] = max(errs["csr_matvec"], rel_close(
+        "K10 irregular rmatvec (CSR of A^T)", got, sv.csr_matvec_plain(tp, tx, tdata, x), 1e-5))
+    del op, tp, tx, tdata, spt
+    scr = scrambled_poisson(NPG)
+    op = sv.PETOperator.from_scipy(scr, reorder="rcm", device=dev)
+    sip, six, sdata = csr_tensors(scr, dev)
+    x = vec(scr.shape[1])
+    got = op @ x
+    torch.cuda.synchronize()
+    errs["csr_matvec"] = max(errs["csr_matvec"], rel_close(
+        f"K10 scrambled poisson({NPG}) reorder=rcm", got,
+        sv.csr_matvec_plain(sip, six, sdata, x), 1e-5))
+
+    for R in (32, 64, 128):
+        nbrows, max_blocks, nbcols = 64, 3, 64
+        cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks))
+                                .astype(np.int32)).to(dev)
+        for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+            blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))).to(dev)
+            if dtype.is_complex:
+                blocks = blocks + 1j * torch.from_numpy(
+                    rng.standard_normal(blocks.shape)).to(dev)
+            blocks = blocks.to(dtype)
+            for k in (1, 8):
+                xb = torch.from_numpy(rng.standard_normal((nbcols * R, k))).to(dev)
+                xb = (xb + 1j * xb.flip(0) if dtype.is_complex else xb).to(dtype)
+                got = bs.bsr_spmm(blocks, cols, xb)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype
+                errs["bsr_spmm"] = max(errs["bsr_spmm"], rel_close(
+                    f"K12 R=C={R} {dtype} k={k}", got, bs.bsr_spmm_plain(blocks, cols, xb),
+                    TOL[dtype]))
+    return errs
+
+
+def agree_sparse(what, info, twin, failures, hold=None):
+    """Two f32 solves of one system: numsteps within 1 and every common
+    resnorm entry within TRAJ_RTOL (over the first ``hold`` steps when
+    given); prints where the histories leave the band."""
+    n = min(len(info.resnorms), len(twin.resnorms))
+    rel = np.abs(info.resnorms[:n] - twin.resnorms[:n]) / twin.resnorms[:n]
+    out = np.flatnonzero(rel > TRAJ_RTOL)
+    first = "never" if out.size == 0 else f"at step {out[0]}"
+    span = n if hold is None else min(n, hold + 1)
+    ok = abs(info.numsteps - twin.numsteps) <= 1 and rel[:span].max() <= TRAJ_RTOL
+    log(f"  {what}: numsteps {info.numsteps} vs {twin.numsteps}; max rel "
+        f"{rel[:span].max():.3e} over steps 0..{span - 1} (rtol {TRAJ_RTOL}), leaves the "
+        f"band {first} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(what)
+
+
+def sparse_solves(kt, dev, npg, b_seed, dtype=np.float32):
+    """The 6b solves of the reference bench on its matrices at side
+    ``npg``, as {name: (matrix, solve)}: ``solve(A)`` runs the solve on
+    ``A``, the scipy matrix (routed by as_operator) or an operator built
+    from it."""
+    lap, conv, lap0 = (m.astype(dtype) for m in (poisson_csr(npg), convected_csr(npg),
+                                                  poisson_csr(npg, 4.0)))
+    b = torch.from_numpy(np.random.default_rng(b_seed).standard_normal(npg * npg)
+                         .astype(dtype)).to(dev)
+
+    def jac(sp):
+        return kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+
+    cases = {
+        "bicgstab Ml=Jacobi": (lap, lambda A: kt.bicgstab(
+            A, b, Ml=jac(lap), tol=1e-4, maxiter=400, backend="while_loop")),
+        "cg M=Jacobi (unshifted, 1500 steps)": (lap0, lambda A: kt.cg(
+            A, b, M=jac(lap0), tol=1e-4, maxiter=1500, backend="while_loop")),
+    }
+    for ortho in ("mgs", "householder", "cgs"):
+        cases[f"gmres {ortho}"] = (conv, lambda A, o=ortho: kt.gmres(
+            A, b, ortho=o, tol=1e-4, maxiter=120, backend="while_loop"))
+    return cases, b
+
+
+def phase_sparse_solves(dev, kt, sv):
+    """6b: the reference bench's solves on its 1M-row CSR matrices through
+    as_operator -> PETOperator (K10), against their CSROperator twins on
+    the card, repeated bitwise, and at 256^2 against a float64 CPU run."""
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    log(f"phase 6b: sparse solves on the {NPG}^2 Poisson CSR ({NPG * NPG} rows)")
+    failures, launches, results = [], 0, {}
+    cases, _ = sparse_solves(kt, dev, NPG, SEED + 30)
+    for name, (sp, solve) in cases.items():
+        op = kt.as_operator(sp, dev)
+        assert type(op).__name__ == "PETOperator", type(op)
+        runs = []
+        for _ in range(2):
+            sv.reset_launches()
+            _, info = solve(sp)
+            torch.cuda.synchronize()
+            runs.append((info, sv.LAUNCHES["csr_matvec"]))
+        (info, n), (again, _) = runs
+        launches += n
+        per_step = {"bicgstab": 3, "cg": 1, "gmres": 1}[name.split()[0]]
+        log(f"  {name}: success {info.success} numsteps {info.numsteps} resnorm ratio "
+            f"{info.resnorms[-1] / info.resnorms[0]:.3e}; K10 launches {n}")
+        assert bool(torch.isfinite(info.xk).all()) and np.isfinite(info.resnorms).all()
+        assert n >= per_step * info.numsteps, "K10 did not carry every matvec"
+        if not name.startswith("cg"):  # the bench's cg_jacobi stops at 1500 unconverged
+            assert info.success, f"{name} did not converge"
+        same = np.array_equal(info.resnorms, again.resnorms) and torch.equal(info.xk, again.xk)
+        log(f"  {name}: repeat bitwise equal: {same}")
+        assert same
+        twin = CSROperator.from_scipy(sp, device=dev)
+        _, tinfo = solve(twin)
+        agree_sparse(f"{name} PETOperator vs CSROperator", info, tinfo, failures)
+        results[name] = info
+        del twin
+
+    log(f"  at {SMALL_NPG}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
+    small, _ = sparse_solves(kt, dev, SMALL_NPG, SEED + 31)
+    ref, _ = sparse_solves(kt, torch.device("cpu"), SMALL_NPG, SEED + 31, np.float64)
+    for name, (sp, solve) in small.items():
+        if name.startswith("cg"):
+            continue  # 1500 unconverged steps: a float64 run parts from f32 by design
+        assert type(kt.as_operator(sp, dev)).__name__ == "PETOperator"
+        _, g = solve(sp)
+        sp64, rsolve = ref[name]
+        _, r = rsolve(sp64)  # float64 CSROperator on the CPU
+        agree_sparse(f"{name} f32 GPU vs f64 CPU at {SMALL_NPG}^2", g, r, failures)
+        assert g.success and r.success
+    if failures:
+        raise AssertionError(f"sparse trajectories disagree: {failures}")
+    return launches, results
+
+
+def phase_sparse_blocked(dev, kt, sv, bs):
+    """6c: cg with an (N, 8) right-hand side on the Poisson CSR (K11) and on
+    a block-structured SPD matrix routed to BSROperator (K12).  The
+    residual is scipy's float64 product on the host, so it does not rerun
+    the kernel under test; after the counted solve each kernel is also
+    held to its plain version on the solve's own operator and ``B``."""
+    log("phase 6c: blocked right-hand sides, cg with b of shape (N, 8)")
+    out, errs = {}, {}
+    rng = np.random.default_rng(SEED + 43)
+    for label, sp, kind, key in (
+        (f"poisson CSR {NPG}^2", poisson_csr(NPG), "PETOperator", "csr_matmat"),
+        (f"block-tridiagonal SPD, {NBLK} blocks of 32x32", block_spd_csr(), "BSROperator",
+         "bsr_spmm"),
+    ):
+        op = kt.as_operator(sp, dev)
+        assert type(op).__name__ == kind, type(op)
+        B = torch.from_numpy(rng.standard_normal((sp.shape[0], 8)).astype(np.float32)).to(dev)
+        sv.reset_launches()
+        bs.reset_launches()
+        x, info = kt.cg(sp, B, tol=1e-5, maxiter=300, backend="while_loop")
+        torch.cuda.synchronize()
+        n = {**sv.LAUNCHES, **bs.LAUNCHES}
+        B64 = B.double().cpu().numpy()
+        res = B64 - sp.astype(np.float64) @ x.double().cpu().numpy()
+        rel = np.linalg.norm(res, axis=0) / np.linalg.norm(B64, axis=0)
+        log(f"  {label}: routed to {type(op).__name__}; success {info.success} numsteps "
+            f"{info.numsteps}; max explicit |b-Ax|/|b| (scipy, float64) {rel.max():.3e}; "
+            f"launches {n}")
+        assert info.success and tuple(x.shape) == tuple(B.shape) and rel.max() <= 2e-5
+        assert n[key] >= info.numsteps
+        out[key] = n[key]
+        if kind == "PETOperator":
+            arrays = (op._csr.indptr, op._csr.indices, op._csr.data)
+            got, want = sv.csr_matmat(*arrays, B), sv.csr_matvec_plain(*arrays, B)
+        else:
+            got, want = bs.bsr_spmm(op.data, op.cols, B), bs.bsr_spmm_plain(op.data, op.cols, B)
+        torch.cuda.synchronize()
+        errs[key] = rel_close(f"{key} on the 6c operator and B, k=8", got, want, 1e-5)
+    return out, errs
+
+
+def sparse_timing(dev, kt, sv, bs, card):
+    """Phase 5's general-sparsity part: K10, K11 and K12 with their plain
+    versions (GB/s by the kernels' byte models), and the 6b solves' time to
+    tolerance with the device's idle share."""
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    times = {}
+    rng = np.random.default_rng(SEED + 44)
+    sp = irregular_csr()
+    ip, ix, data = csr_tensors(sp, dev)
+    n, nnz = sp.shape[0], sp.nnz
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    for vdt, vb in ((torch.float32, 4), (torch.bfloat16, 2)):
+        d = data.to(vdt)
+        ms = time_ms(lambda: sv.csr_matvec(ip, ix, d, x), 50)
+        plain = time_ms(lambda: sv.csr_matvec_plain(ip, ix, d, x), 10)
+        by = nnz * (4 + vb) + 8 * n + 4 * n
+        log(f"  [{card}] K10 csr_matvec irregular {n} rows {nnz} nnz, {vdt}, "
+            f"{sv.lanes_for(nnz, n)} lanes a row: {ms * 1e3:.1f} us "
+            f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by (4+{vb})*nnz + 8*n + 4*n); plain "
+            f"{plain * 1e3:.1f} us")
+        if vdt == torch.float32:
+            times["csr_matvec"] = (ms, plain)
+    lap = poisson_csr(NPG)
+    pip, pix, pdata = csr_tensors(lap, dev)
+    m = lap.shape[0]
+    ms = time_ms(lambda: sv.csr_matvec(pip, pix, pdata, x[:m]), 50)
+    log(f"  [{card}] K10 csr_matvec poisson {NPG}^2 ({lap.nnz} nnz, "
+        f"{sv.lanes_for(lap.nnz, m)} lanes a row): {ms * 1e3:.1f} us "
+        f"({(lap.nnz * 8 + 12 * m) / (ms * 1e-3) / 1e9:.0f} GB/s by 8*nnz + 12*n)")
+    for k in (8, 16):
+        X = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+        ms = time_ms(lambda: sv.csr_matmat(pip, pix, pdata, X), 50)
+        plain = time_ms(lambda: sv.csr_matvec_plain(pip, pix, pdata, X), 10)
+        tiles = -(-k // 8)
+        by = tiles * (lap.nnz * 8 + 4 * m) + 2 * 4 * m * k
+        log(f"  [{card}] K11 csr_matmat poisson {NPG}^2 k={k}: {ms * 1e3:.1f} us "
+            f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by tiles*(8*nnz + 4*n) + 8*n*k); plain "
+            f"{plain * 1e3:.1f} us")
+        if k == 8:
+            times["csr_matmat"] = (ms, plain)
+    nbrows, max_blocks, R = 256, 3, 128
+    cols = torch.from_numpy(rng.integers(0, nbrows, (nbrows, max_blocks)).astype(np.int32)).to(dev)
+    blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))
+                              .astype(np.float32)).to(dev)
+    for k in (1, 8):
+        xb = torch.from_numpy(rng.standard_normal((nbrows * R, k)).astype(np.float32)).to(dev)
+        ms = time_ms(lambda: bs.bsr_spmm(blocks, cols, xb), 50)
+        plain = time_ms(lambda: bs.bsr_spmm_plain(blocks, cols, xb), 10)
+        by = blocks.numel() * 4 + 2 * nbrows * R * k * 4
+        log(f"  [{card}] K12 bsr_spmm {nbrows} block rows x {max_blocks} blocks of {R}x{R} f32, "
+            f"k={k}: {ms * 1e3:.1f} us ({by / (ms * 1e-3) / 1e9:.0f} GB/s by the block bytes + "
+            f"x + y); plain {plain * 1e3:.1f} us")
+
+    # K12 at phase 6c's own shape: the block-tridiagonal SPD matrix's
+    # operator, NBLK block rows x 3 blocks of 32x32, k = 8
+    bop = kt.as_operator(block_spd_csr(), dev)
+    xb = torch.from_numpy(rng.standard_normal((bop.shape[1], 8)).astype(np.float32)).to(dev)
+    ms = time_ms(lambda: bs.bsr_spmm(bop.data, bop.cols, xb), 50)
+    plain = time_ms(lambda: bs.bsr_spmm_plain(bop.data, bop.cols, xb), 10)
+    by = bop.data.numel() * 4 + 2 * bop.shape[0] * 8 * 4
+    log(f"  [{card}] K12 bsr_spmm 6c's operator, {bop.cols.shape[0]} block rows x "
+        f"{bop.cols.shape[1]} blocks of 32x32 f32, k=8: {ms * 1e3:.1f} us "
+        f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by the block bytes + x + y); plain "
+        f"{plain * 1e3:.1f} us")
+    times["bsr_spmm"] = (ms, plain)
+    del bop, xb
+
+    # a solve given the scipy matrix pays as_operator's route-cache lookup
+    # (a CRC of the whole matrix, as the reference's) on every call: timed
+    # apart, and the solves below take the routed operator
+    kt.as_operator(lap, dev)
+    best = 1e9
+    for _ in range(3):
+        t0 = time.perf_counter()
+        kt.as_operator(lap, dev)
+        best = min(best, time.perf_counter() - t0)
+    log(f"  [{card}] as_operator cache hit on the poisson {NPG}^2 CSR ({lap.nnz} nnz): "
+        f"{best * 1e3:.2f} ms (best of 3)")
+    cases, _ = sparse_solves(kt, dev, NPG, SEED + 30)
+    for name, (sp, solve) in cases.items():
+        for route, A in (("PETOperator", kt.as_operator(sp, dev)),
+                         ("CSROperator", CSROperator.from_scipy(sp, device=dev))):
+            solve(A)
+            best = 1e9
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, info = solve(A)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            wall, busy, rows = profiled(lambda: solve(A))
+            log(f"  [{card}] {name} on {route}: {best * 1e3:.2f} ms to "
+                f"{'tolerance' if info.success else 'maxiter'}, {info.numsteps} iterations "
+                f"(best of 2); device busy {busy * 1e3:.2f} of {wall * 1e3:.2f} ms, idle share "
+                f"{1 - busy / wall:.3f}; largest: " + "; ".join(
+                    f"{key[:32]} x{count:.0f} {us / 1e3:.2f} ms"
+                    for key, us, count in sorted(rows, key=lambda q: -q[1])[:4]))
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
     import krylov_tpu_torch as kt
     from krylov_tpu_torch import _build
+    from krylov_tpu_torch.ops import cuda_bsr as bs
+    from krylov_tpu_torch.ops import cuda_spmv as sv
     from krylov_tpu_torch.ops import cuda_stencil as cs
     from krylov_tpu_torch.ops import stencil as st
 
@@ -754,22 +1172,33 @@ def main():
     for more in (phase_const_cg(dev, kt, cs, st), phase_mg(dev, kt, cs, st)):
         for k in launches:
             launches[k] += more[k]
+    errs.update(phase_sparse_kernels(dev, sv, bs))
+    n_spmv, _ = phase_sparse_solves(dev, kt, sv)
+    n_blocked, blocked_errs = phase_sparse_blocked(dev, kt, sv, bs)
+    launches.update(csr_matvec=n_spmv, **n_blocked)
+    for name, err in blocked_errs.items():
+        errs[name] = max(errs[name], err)
     times = phase_timing(dev, kt, cs, st, A_div, card)
+    times.update(sparse_timing(dev, kt, sv, bs, card))
 
-    src = "krylov_tpu_torch/csrc/stencil.cu"
+    stencil, spmv, bsr = (f"krylov_tpu_torch/csrc/{f}" for f in ("stencil.cu", "spmv.cu",
+                                                                  "bsr.cu"))
     replaces = {
-        "stencil2d_matvec": "krylov_tpu/ops/pallas_stencil.py:144",
-        "const_stencil2d_matvec": "krylov_tpu/ops/pallas_stencil.py:300",
-        "cg_fused_phase_a": "krylov_tpu/ops/pallas_stencil.py:909",
-        "cg_fused_phase_b": "krylov_tpu/ops/pallas_stencil.py:959",
-        "cg_fused_phase_a_var": "krylov_tpu/ops/pallas_stencil.py:685",
-        "jacobi_sweep_const": "krylov_tpu/ops/pallas_stencil.py:438",
-        "jacobi_sweep_var": "krylov_tpu/ops/pallas_stencil.py:524",
+        "stencil2d_matvec": (stencil, "krylov_tpu/ops/pallas_stencil.py:144"),
+        "const_stencil2d_matvec": (stencil, "krylov_tpu/ops/pallas_stencil.py:300"),
+        "cg_fused_phase_a": (stencil, "krylov_tpu/ops/pallas_stencil.py:909"),
+        "cg_fused_phase_b": (stencil, "krylov_tpu/ops/pallas_stencil.py:959"),
+        "cg_fused_phase_a_var": (stencil, "krylov_tpu/ops/pallas_stencil.py:685"),
+        "jacobi_sweep_const": (stencil, "krylov_tpu/ops/pallas_stencil.py:438"),
+        "jacobi_sweep_var": (stencil, "krylov_tpu/ops/pallas_stencil.py:524"),
+        "csr_matvec": (spmv, "krylov_tpu/ops/pallas_spmv.py:861"),
+        "csr_matmat": (spmv, "krylov_tpu/ops/pallas_spmv.py:690"),
+        "bsr_spmm": (bsr, "krylov_tpu/ops/pallas_bsr.py:58"),
     }
     unlaunched = [name for name in replaces if launches[name] == 0]
     assert not unlaunched, f"kernels no main path launched: {unlaunched}"
     kernels = []
-    for name, where in replaces.items():
+    for name, (src, where) in replaces.items():
         ms, plain_ms = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": where,

@@ -11,8 +11,10 @@ tensors the same entry points run the kernels' plain PyTorch versions.
 
 Ported so far: compiled CG on grid stencils (:func:`cg`, :func:`cg_stencil`,
 the banded and grid-stencil operators, the L0 operator and driver layer),
-the constant-coefficient stencil operator with its fused CG, and the
-geometric multigrid preconditioner (:class:`MultigridPreconditioner`).
+the constant-coefficient stencil operator with its fused CG, the geometric
+multigrid preconditioner (:class:`MultigridPreconditioner`), and general
+sparsity: scipy matrices through :func:`as_operator` (CSR, BSR and the CSR
+kernels), :func:`bicgstab`, :func:`gmres` and the Arnoldi processes.
 """
 
 from . import convert, ops
@@ -25,23 +27,44 @@ from ._operators import (
     as_operator,
     jacobi_preconditioner,
 )
+from .arnoldi import (
+    ArnoldiCGS,
+    ArnoldiHouseholder,
+    ArnoldiLanczos,
+    ArnoldiMGS,
+    arnoldi_res,
+)
 from .errors import ArgumentError
+from .givens import givens
+from .householder import Householder
 from .multigrid import MultigridPreconditioner
 from .ops.stencil import poisson_2d_const, poisson_3d_const
-from .solvers import cg, cg_stencil
+from .solvers import bicgstab, cg, cg_stencil, gmres
+
+aslinearoperator = as_operator  # the reference's alias
 
 __all__ = [
     "ArgumentError",
+    "ArnoldiCGS",
+    "ArnoldiHouseholder",
+    "ArnoldiLanczos",
+    "ArnoldiMGS",
     "DiagonalOperator",
+    "Householder",
     "Identity",
     "Info",
     "MatrixOperator",
     "MultigridPreconditioner",
     "Product",
+    "arnoldi_res",
     "as_operator",
+    "aslinearoperator",
+    "bicgstab",
     "cg",
     "cg_stencil",
     "convert",
+    "givens",
+    "gmres",
     "jacobi_preconditioner",
     "ops",
     "poisson_2d_const",

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use.
 
-``build()`` compiles ``krylov_tpu_torch/csrc/*.cu`` with ``nvcc`` into one
-shared library with a plain C interface, named by a hash of the sources and
-flags, under ``krylov_tpu_torch/_build/`` (listed in ``.gitignore``).  A
-library of the same hash is reused, so an edited source rebuilds and an
-unchanged one does not.  Nothing but the package's own sources goes in.
+``build()`` compiles each ``krylov_tpu_torch/csrc/*.cu`` with its own
+``nvcc``, all started together, and links the objects into one shared
+library with a plain C interface, named by a hash of the sources and flags,
+under ``krylov_tpu_torch/_build/`` (listed in ``.gitignore``).  A library of
+the same hash is reused, so an edited source rebuilds and an unchanged one
+does not.  Nothing but the package's own sources goes in.
 
 The target is Hopper, ``sm_90a``.  ``nvcc`` is taken from ``$CUDA_HOME``,
 then ``PATH``, then the toolkit's default install location.
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -64,16 +65,37 @@ def build():
     if path.exists():
         return path, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{path.stem}.{os.getpid()}"
+    tmp = path.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", False
+    for _, proc in jobs:
+        log += proc.communicate()[0]
+        failed |= proc.returncode != 0
+    objs = [obj for obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path, seconds, log

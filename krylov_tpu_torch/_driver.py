@@ -22,7 +22,13 @@ Backends:
   of the reference's compiled driver: the inner loop only steps, the outer
   loop runs once per convergence event and performs the explicit recheck.
 
-Solver-specific state is any object carrying at least ``resnorm``.
+Solver-specific state is any object carrying at least ``resnorm``; solvers
+with a mid-iteration exit (BiCGSTAB) also carry ``early_success``, a device
+bool.  A step that sets it overwrites the last history entry with its
+``resnorm`` instead of appending one, fires no callback, and ends the solve
+with success and no explicit recheck (the step has just computed an
+explicit residual).  The ``while_loop`` backend folds the flag into the
+step's one stop-flag read.
 """
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -76,7 +82,9 @@ def run(
 
 
 def _criterion(resnorm0, tol, atol):
-    return torch.clamp(tol * resnorm0, min=atol)
+    # atol may be per right-hand-side column (GMRES restarts pass one)
+    return torch.maximum(tol * resnorm0, torch.as_tensor(
+        atol, dtype=resnorm0.dtype, device=resnorm0.device))
 
 
 def _fire(method, callback, state):
@@ -106,6 +114,13 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
         if method.on_step is not None:
             method.on_step(state, new_state)
         state = new_state
+
+        early = getattr(state, "early_success", None)
+        if early is not None and bool(early):
+            resnorms[-1] = state.resnorm
+            success = True
+            break
+
         _fire(method, callback, state)
         resnorms.append(state.resnorm)
         k += 1
@@ -118,10 +133,15 @@ def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
     buf = resnorm0.new_zeros((maxiter + 1,) + tuple(resnorm0.shape))
     buf[0] = resnorm0
     criterion = _criterion(resnorm0, tol, atol)
+    has_early = hasattr(state, "early_success")
+    early = False
     k = 0
     while True:
         # outer loop: once per convergence event (start, dip below the
-        # criterion, maxiter)
+        # criterion, early success, maxiter)
+        if early:
+            ok = True
+            break
         ok = bool(torch.all(buf[k] <= criterion))
         if ok and method.explicit_resnorm is not None:
             rn = method.explicit_resnorm(method.xk(state)).to(buf.dtype)
@@ -132,9 +152,17 @@ def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
         # inner loop: steps only, one stop-flag read per step
         while True:
             state = method.step(state, criterion)
+            below = torch.all(state.resnorm <= criterion)
+            if has_early:
+                # one read for both exits; which one, only at the event
+                stop = bool(below | state.early_success)
+                if stop and bool(state.early_success):
+                    buf[k] = state.resnorm
+                    early = True
+                    break
             _fire(method, callback, state)
             k += 1
             buf[k] = state.resnorm
-            if k >= maxiter or bool(torch.all(state.resnorm <= criterion)):
+            if k >= maxiter or (stop if has_early else bool(below)):
                 break
     return state, ok, k, buf[: k + 1].cpu().numpy()

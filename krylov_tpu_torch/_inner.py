@@ -23,6 +23,19 @@ def get_default_inner(b_shape):
     return inner
 
 
+def as_inner(inner, b_shape):
+    """``inner`` with values as tensors on the vectors' device (a
+    numpy-based user inner returns arrays); the default Euclidean inner for
+    ``b_shape`` when ``inner`` is None."""
+    if inner is None:
+        return get_default_inner(b_shape)
+
+    def wrapped(x, y):
+        return torch.as_tensor(inner(x, y), device=x.device)
+
+    return wrapped
+
+
 def ensure_real(x2, what="<x, M x>"):
     """Drop the imaginary part of an inner-product value, after checking it.
 

@@ -4,7 +4,9 @@ Structural typing for anything applied with ``@`` plus a small zoo of
 concrete operators (counterpart of ``krylov_tpu._operators``).  Every
 concrete operator holds its tensors on one explicit device; ``rmatvec``
 (adjoint matvec) is provided functionally instead of via cached transposed
-copies.  Sparse (scipy / PET / BSR) routing is not ported yet.
+copies.  scipy sparse matrices are routed to the sparse operators
+(``BSROperator``, ``PETOperator``, ``CSROperator``) as the reference routes
+them, through a cache keyed on the matrix, its content and the device.
 """
 
 import functools
@@ -67,14 +69,20 @@ class MatrixOperator:
     def shape(self):
         return tuple(self.a.shape)
 
+    def _promoted(self, x):
+        dt = torch.promote_types(self.a.dtype, x.dtype)
+        return self.a.to(dt), x.to(dt)
+
     def __matmul__(self, x):
-        return torch.matmul(self.a, x)
+        a, x = self._promoted(x)
+        return torch.matmul(a, x)
 
     matvec = __matmul__
 
     def rmatvec(self, x):
         """y = A^H @ x."""
-        return torch.matmul(self.a.mH, x)
+        a, x = self._promoted(x)
+        return torch.matmul(a.mH, x)
 
     def diagonal(self):
         return torch.diagonal(self.a)
@@ -153,23 +161,120 @@ class CallableOperatorWrapper:
         return self._obj.diagonal()
 
 
+def _pet_device(device):
+    """Whether ``device`` runs the CSR kernels (a CUDA device)."""
+    return torch.device("cpu" if device is None else device).type == "cuda"
+
+
+def _prefer_pet_for_csr(A, device):
+    """The port's reading of the reference's rule: large real float32
+    matrices go to the CSR kernels on a CUDA device; float64 and complex
+    matrices, small ones and CPU runs keep the portable CSROperator (on the
+    TPU the reference sends f32 to its PET kernel and keeps f64 parity runs
+    on the portable path)."""
+    data = getattr(A, "data", np.zeros(0))
+    return (
+        _pet_device(device)
+        and A.nnz >= (1 << 16)
+        and not np.iscomplexobj(data)
+        and np.dtype(A.dtype) == np.float32
+    )
+
+
+# operators routed from scipy matrices, cached per (matrix, device): the
+# conversions are O(nnz) host passes and as_operator runs on every solve.
+# The content fingerprint makes an in-place edit of the matrix rebuild, and
+# each entry evicts itself when the matrix is garbage collected.
+_ROUTE_CACHE = {}
+
+
+def _sparse_fingerprint(A):
+    """Content fingerprint of a scipy sparse matrix: CRC of the full
+    data and index buffers, nnz and shape, so every in-place edit flips it."""
+    import zlib
+
+    parts = [A.shape, getattr(A, "nnz", None)]
+    for name in ("data", "indices", "indptr", "row", "col", "offsets"):
+        buf = getattr(A, name, None)
+        if buf is None or getattr(buf, "size", 0) == 0:
+            continue
+        arr = np.asarray(buf)
+        if arr.dtype == object:  # lil/dok store ragged object arrays
+            continue
+        arr = np.ascontiguousarray(arr)
+        parts.append((name, arr.dtype.str, zlib.crc32(memoryview(arr).cast("B"))))
+    return hash(tuple(parts))
+
+
+def _route_cached(A, device, build):
+    """``build(A)`` memoized on ``(id(A), device)`` and the fingerprint.
+
+    One scipy matrix routed for the CPU and for the card gives two
+    operators.  Entries hold only a weak reference to the matrix and
+    evict themselves when it is collected, so a loop that builds a fresh
+    matrix per time step does not accumulate device buffers.
+    """
+    import weakref
+
+    fp = _sparse_fingerprint(A)
+    key = (id(A), str(torch.device("cpu" if device is None else device)))
+    hit = _ROUTE_CACHE.get(key)
+    if hit is not None and hit[0]() is A and hit[1] == fp:
+        return hit[2]
+    op = build(A)
+    try:
+        def _evict(ref, _key=key, _cache=_ROUTE_CACHE):
+            # _cache bound as a default: module globals may be gone at
+            # interpreter shutdown, when the matrices are finalized
+            if _cache is not None:
+                ent = _cache.get(_key)
+                if ent is not None and ent[0] is ref:
+                    del _cache[_key]
+
+        _ROUTE_CACHE[key] = (weakref.ref(A, _evict), fp, op)
+    except TypeError:
+        pass
+    return op
+
+
+def _route_scipy_sparse(A, device):
+    """The sparse operator for a scipy matrix (uncached): block-structured
+    matrices to BSR (K12), large real float32 CSR on a CUDA device to the
+    CSR kernels (K10/K11), everything else to the portable CSROperator."""
+    from .ops.bsr import BSROperator, detect_blocksize
+    from .ops.sparse import CSROperator
+
+    bs = detect_blocksize(A)
+    if bs is not None:
+        return BSROperator.from_scipy(A, blocksize=bs, device=device)
+    if _prefer_pet_for_csr(A, device):
+        from .ops.cuda_spmv import PETOperator
+
+        # the adjoint is built at the first rmatvec (cg and gmres never
+        # need it); a symmetric reorder only for square matrices, and only
+        # when the reference's sampled-fill rule says it pays
+        reorder = "auto" if A.shape[0] == A.shape[1] else None
+        return PETOperator.from_scipy(A, with_rmatvec="lazy", reorder=reorder,
+                                      device=device)
+    return CSROperator.from_scipy(A, device=device)
+
+
 def as_operator(A, device=None):
     """Normalize anything with ``@`` into an operator this library can drive.
 
     * tensors and ndarrays -> :class:`MatrixOperator` on ``device`` (the
       tensor's own device when ``None``),
     * objects already exposing ``rmatvec`` are used as-is,
+    * scipy sparse matrices -> ``BSROperator``, ``PETOperator`` or
+      ``CSROperator`` on ``device`` (the CPU when ``None``), cached,
     * any other object with ``__matmul__`` is wrapped.
     """
     if isinstance(A, (torch.Tensor, np.ndarray)):
         return MatrixOperator(torch.as_tensor(A, device=device))
     if hasattr(A, "rmatvec"):
         return A
-    if hasattr(A, "tocsr"):
-        raise NotImplementedError(
-            "scipy sparse operators are not ported yet (ROADMAP Queue 1, "
-            "general sparsity)"
-        )
+    if hasattr(A, "tocsr"):  # scipy sparse, without importing scipy here
+        return _route_cached(A, device, lambda A: _route_scipy_sparse(A, device))
     if not hasattr(A, "__matmul__"):
         raise ValueError(f"Unknown linear operator A = {A}")
     return CallableOperatorWrapper(A)

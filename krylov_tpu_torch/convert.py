@@ -12,6 +12,9 @@ import torch
 
 from ._operators import DiagonalOperator, MatrixOperator
 from .multigrid import MultigridPreconditioner
+from .ops.bsr import BSROperator
+from .ops.cuda_spmv import PETOperator
+from .ops.sparse import CSROperator, DiaOperator
 from .ops.stencil import BandedOperator, ConstStencilOperator, GridStencilOperator
 
 
@@ -30,15 +33,38 @@ def grid_stencil_from_numpy(coeffs2d, offsets, ny, hermitian=False, device=None)
     )
 
 
-def from_reference(op, device=None):
+def from_reference(op, device=None, source=None):
     """The port's twin of a reference ``MultigridPreconditioner``,
     ``ConstStencilOperator``, ``GridStencilOperator``, ``BandedOperator``,
+    ``CSROperator``, ``DiaOperator``, ``BSROperator``, ``PETOperator``,
     ``MatrixOperator`` or ``DiagonalOperator``.
 
     A multigrid cycle comes across level by level as the reference built
     it: each level's operator, its Jacobi weight (a float on const levels,
-    a plane on grid levels) and the coarsest level's dense inverse.
+    a plane on grid levels) and the coarsest level's dense inverse.  The
+    sparse formats come across from their arrays, except ``PETOperator``:
+    its page-ELL arrays are the TPU's layout, so the port's is built from
+    the scipy matrix ``source`` (or the reference's lazy-adjoint handle to
+    it) with the reference's value dtype, adjoint and permutation.
     """
+    if hasattr(op, "_pet") and hasattr(op, "ensure_adjoint"):
+        sp = source if source is not None else (op._sp() if op._sp is not None else None)
+        if sp is None:
+            raise TypeError("a reference PETOperator comes across from its scipy "
+                            "matrix: pass it as source=")
+        perm = None if op._perm is None else np.asarray(op._perm)
+        lazy = op._pet_t is None and op._sp is not None
+        return PETOperator.from_scipy(
+            sp, with_rmatvec="lazy" if lazy else op._pet_t is not None,
+            data_dtype=op._data_dtype, reorder=perm, device=device)
+    if hasattr(op, "indptr") and hasattr(op, "row_ids"):
+        return CSROperator(_tensor(op.data, device), _tensor(op.indices, device),
+                           _tensor(op.indptr, device), op.shape,
+                           row_ids=_tensor(op.row_ids, device))
+    if hasattr(op, "diags") and hasattr(op, "offsets"):
+        return DiaOperator(_tensor(op.diags, device), op.offsets, op.shape)
+    if hasattr(op, "cols") and hasattr(op, "data"):
+        return BSROperator(_tensor(op.data, device), _tensor(op.cols, device), op.shape)
     if hasattr(op, "_vcycle") and hasattr(op, "_nd_shapes"):
         return MultigridPreconditioner.from_parts(
             [from_reference(level, device) for level in op._ops],

@@ -18,9 +18,7 @@
 // Constant-coefficient kernels (K2, K3, K8) carry scalar weights and mask
 // in the kernel (ConstBands below).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "krylov_common.cuh"
 
 #define KRYLOV_MAX_BANDS 32
 #define KRYLOV_MAX_CONSTRAINTS 4  // row constraints per const band (5-D grids)
@@ -50,9 +48,10 @@ static bool make_bands(int ndiag, const int* dr, const int* dc, Bands* b) {
 // valid on global row g iff 0 <= (g / stride) % size + step < size for each
 // of its constraints (the n-D coordinate along each collapsed axis stays in
 // the grid), and at column j iff 0 <= j + dc < ny.  Weights are stored in
-// the accumulation type, rounded from the host's doubles as the reference's
-// weak-typed Python floats round.
-template <typename A>
+// the real type of the accumulation (float for f32, bf16 and complex64
+// vectors, double for f64 and complex128), rounded from the host's doubles
+// as the reference's weak-typed Python floats round.
+template <typename W>
 struct ConstBands {
   int n;
   int hr, hc;    // max |dr|, max |dc|
@@ -61,14 +60,14 @@ struct ConstBands {
   int dc[KRYLOV_MAX_BANDS];
   int ncons[KRYLOV_MAX_BANDS];
   int cons[KRYLOV_MAX_BANDS][KRYLOV_MAX_CONSTRAINTS][3];
-  A w[KRYLOV_MAX_BANDS];
+  W w[KRYLOV_MAX_BANDS];
 };
 
 // cons holds KRYLOV_MAX_CONSTRAINTS (stride, size, step) triples per band.
-template <typename A>
+template <typename W>
 static bool make_const_bands(int ndiag, const int* dr, const int* dc,
                              const double* w, const int* ncons,
-                             const int* cons, ConstBands<A>* b) {
+                             const int* cons, ConstBands<W>* b) {
   if (ndiag < 1 || ndiag > KRYLOV_MAX_BANDS) return false;
   b->n = ndiag;
   b->hr = b->hc = b->any_cons = 0;
@@ -79,7 +78,7 @@ static bool make_const_bands(int ndiag, const int* dr, const int* dc,
     b->any_cons |= ncons[d] > 0;
     b->dr[d] = dr[d];
     b->dc[d] = dc[d];
-    b->w[d] = static_cast<A>(w[d]);
+    b->w[d] = static_cast<W>(w[d]);
     b->ncons[d] = ncons[d];
     for (int k = 0; k < KRYLOV_MAX_CONSTRAINTS; ++k) {
       for (int t = 0; t < 3; ++t) {
@@ -91,41 +90,6 @@ static bool make_const_bands(int ndiag, const int* dr, const int* dc,
     }
   }
   return true;
-}
-
-// Complex value as two reals: the layout of torch.complex64/complex128.
-// Products and sums follow the textbook formulas, as XLA's do.
-template <typename R>
-struct alignas(2 * sizeof(R)) cplx {
-  R re, im;
-  cplx() = default;
-  __host__ __device__ constexpr cplx(R r, R i = R(0)) : re(r), im(i) {}
-};
-
-template <typename R>
-__device__ __forceinline__ cplx<R> operator*(cplx<R> a, cplx<R> b) {
-  return cplx<R>(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
-}
-
-template <typename R>
-__device__ __forceinline__ cplx<R>& operator+=(cplx<R>& a, cplx<R> b) {
-  a.re += b.re;
-  a.im += b.im;
-  return a;
-}
-
-template <typename A, typename T>
-__device__ __forceinline__ A to_acc(T v) { return static_cast<A>(v); }
-template <>
-__device__ __forceinline__ float to_acc<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T, typename A>
-__device__ __forceinline__ T from_acc(A v) { return static_cast<T>(v); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16(v);
 }
 
 // Sum of one value per thread over the block, in a fixed order (shuffle tree
@@ -155,8 +119,8 @@ static dim3 grid_2d(int M, int ny, int batch) {
 
 // Bit d set iff band d's row constraints hold on global row g: evaluated
 // once per row, not once per element.
-template <typename A>
-__device__ __forceinline__ unsigned const_row_mask(const ConstBands<A>& b, int g) {
+template <typename W>
+__device__ __forceinline__ unsigned const_row_mask(const ConstBands<W>& b, int g) {
   unsigned ok = 0u;
   for (int d = 0; d < b.n; ++d) {
     bool v = true;
@@ -173,7 +137,8 @@ __device__ __forceinline__ unsigned const_row_mask(const ConstBands<A>& b, int g
 // The const stencil on the KRYLOV_ROWS rows i0.. of column j:
 // acc[r] = sum over the bands valid at (i0 + r, j) of w[d] * src(neighbour),
 // bands in the order given (the wrappers sort them by (dr, dc)); masked
-// terms are skipped, where the reference selects 0 for them.
+// terms are skipped, where the reference selects 0 for them.  The weights
+// are real (W); the accumulator A is W, or the complex type over it.
 // src.at(q) reads the operand at flat index q inside the grid;
 // src.outside(ii, jj) reads a row ii outside [0, M) (a halo row, or 0).
 // Blocks whose neighbours all lie inside the grid take a fast path: the
@@ -182,8 +147,8 @@ __device__ __forceinline__ unsigned const_row_mask(const ConstBands<A>& b, int g
 // (measured on the H100 at 4096^2, f32, 5 bands: 59 us against 102 us for a
 // band loop per point and 54 us for a hard-coded 5-point kernel).  CONS: the
 // bands carry row constraints, evaluated once per row.
-template <bool CONS, typename A, typename Src>
-__device__ __forceinline__ void const_rows(const ConstBands<A>& b, const Src& src,
+template <bool CONS, typename W, typename A, typename Src>
+__device__ __forceinline__ void const_rows(const ConstBands<W>& b, const Src& src,
                                            int i0, int j, int M, int ny,
                                            int row0, A (&acc)[KRYLOV_ROWS]) {
 #pragma unroll
@@ -195,7 +160,7 @@ __device__ __forceinline__ void const_rows(const ConstBands<A>& b, const Src& sr
     for (int r = 0; r < KRYLOV_ROWS; ++r) ok[r] = CONS ? const_row_mask(b, row0 + i0 + r) : ~0u;
     const long long q0 = (long long)i0 * ny + j;
     for (int d = 0; d < b.n; ++d) {
-      const A w = b.w[d];
+      const W w = b.w[d];
       const long long qd = q0 + (long long)b.dr[d] * ny + b.dc[d];
 #pragma unroll
       for (int r = 0; r < KRYLOV_ROWS; ++r) {
@@ -320,13 +285,14 @@ static void launch_stencil2d(const void* c, const void* x, const void* top,
 // masks computed in the kernel (const_rows): the row constraints once per
 // row, the column bound as a zero read.  row0 is the first global row of
 // this slab (the masks are defined on global rows); halos as K1.  bf16
-// vectors accumulate in float and round once on the store.
+// vectors accumulate in float and round once on the store; complex vectors
+// take the real weights of their real type, as the reference's do.
 // ---------------------------------------------------------------------------
-template <bool CONS, typename TX, typename A>
+template <bool CONS, typename TX, typename A, typename W>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
 const_stencil2d_kernel(const TX* __restrict__ x, const TX* __restrict__ top,
                        const TX* __restrict__ bot, TX* __restrict__ y, int M,
-                       int ny, int h, int row0, ConstBands<A> bands) {
+                       int ny, int h, int row0, ConstBands<W> bands) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= ny) return;
   const size_t plane = (size_t)M * ny;
@@ -344,10 +310,10 @@ const_stencil2d_kernel(const TX* __restrict__ x, const TX* __restrict__ top,
   }
 }
 
-template <typename TX, typename A>
+template <typename TX, typename A, typename W>
 static void launch_const_stencil2d(const void* x, const void* top, const void* bot,
                                    void* y, int batch, int M, int ny, int h,
-                                   int row0, const ConstBands<A>& b,
+                                   int row0, const ConstBands<W>& b,
                                    cudaStream_t s) {
   const dim3 g = grid_2d(M, ny, batch);
   const TX* xt = static_cast<const TX*>(x);
@@ -355,9 +321,9 @@ static void launch_const_stencil2d(const void* x, const void* top, const void* b
   const TX* bt = static_cast<const TX*>(bot);
   TX* yt = static_cast<TX*>(y);
   if (b.any_cons) {
-    const_stencil2d_kernel<true, TX, A><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
+    const_stencil2d_kernel<true, TX, A, W><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
   } else {
-    const_stencil2d_kernel<false, TX, A><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
+    const_stencil2d_kernel<false, TX, A, W><<<g, KRYLOV_THREADS, 0, s>>>(xt, tt, bt, yt, M, ny, h, row0, b);
   }
 }
 
@@ -458,7 +424,8 @@ cg_phase_a_const_kernel(const float* __restrict__ omega,
 }
 
 // ---------------------------------------------------------------------------
-// K8: damped-Jacobi sweep, constant coefficients (f32, f64).
+// K8: damped-Jacobi sweep, constant coefficients (f32, f64, complex64,
+// complex128; the weights and w are real).
 //
 // Replaces krylov_tpu/ops/pallas_stencil.py:jacobi_sweep_const
 // (_jacobi_sweep_kernel).  update != 0: out = z + w * (r - A z); update ==
@@ -468,11 +435,11 @@ cg_phase_a_const_kernel(const float* __restrict__ omega,
 // buffer, a race here since other blocks read z's neighbour rows): the
 // multigrid smoother alternates two buffers per level.
 // ---------------------------------------------------------------------------
-template <bool CONS, typename T>
+template <bool CONS, typename T, typename W>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
-jacobi_const_kernel(T w, const T* __restrict__ z, const T* __restrict__ r,
+jacobi_const_kernel(W w, const T* __restrict__ z, const T* __restrict__ r,
                     T* __restrict__ out, int update, int M, int ny,
-                    ConstBands<T> bands) {
+                    ConstBands<W> bands) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= ny) return;
   const ZeroSrc<T> src{z};
@@ -492,23 +459,24 @@ jacobi_const_kernel(T w, const T* __restrict__ z, const T* __restrict__ r,
   }
 }
 
-template <typename T>
-static void launch_jacobi_const(T w, const void* z, const void* r, void* out,
-                                int update, int M, int ny, const ConstBands<T>& b,
+template <typename T, typename W>
+static void launch_jacobi_const(W w, const void* z, const void* r, void* out,
+                                int update, int M, int ny, const ConstBands<W>& b,
                                 cudaStream_t s) {
   const dim3 g = grid_2d(M, ny, 1);
   const T* zt = static_cast<const T*>(z);
   const T* rt = static_cast<const T*>(r);
   T* ot = static_cast<T*>(out);
   if (b.any_cons) {
-    jacobi_const_kernel<true, T><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
+    jacobi_const_kernel<true, T, W><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
   } else {
-    jacobi_const_kernel<false, T><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
+    jacobi_const_kernel<false, T, W><<<g, KRYLOV_THREADS, 0, s>>>(w, zt, rt, ot, update, M, ny, b);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K9: damped-Jacobi sweep, variable coefficients (f32, f64).
+// K9: damped-Jacobi sweep, variable coefficients (f32, f64, complex64,
+// complex128 vectors; the planes c and w are real or of the vector's type).
 //
 // Replaces krylov_tpu/ops/pallas_stencil.py:jacobi_sweep_var
 // (_jacobi_sweep_var_kernel).  w != null: out = z + w * (r - A z) with a
@@ -519,9 +487,9 @@ static void launch_jacobi_const(T w, const void* z, const void* r, void* out,
 // KRYLOV_MAX_BANDS bands (the Galerkin levels of the multigrid hierarchy
 // have 25, |dr|, |dc| <= 2); out must be neither z nor r, as K8.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename TC, typename T>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
-jacobi_var_kernel(const T* __restrict__ c, const T* __restrict__ w,
+jacobi_var_kernel(const TC* __restrict__ c, const TC* __restrict__ w,
                   const T* __restrict__ z, const T* __restrict__ r,
                   T* __restrict__ out, int M, int ny, Bands bands) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -592,14 +560,15 @@ static int phase_b_blocks(long long n) {
   return b < 1 ? 1 : (int)b;
 }
 
-// dtype codes, shared with cuda_stencil.py
-enum {
-  KRYLOV_F32 = 0,
-  KRYLOV_BF16 = 1,
-  KRYLOV_F64 = 2,
-  KRYLOV_C64 = 3,
-  KRYLOV_C128 = 4
-};
+template <typename TC, typename T>
+static void launch_jacobi_var(const void* c, const void* w, const void* z,
+                              const void* r, void* out, int M, int ny,
+                              const Bands& bands, cudaStream_t s) {
+  jacobi_var_kernel<TC, T><<<grid_2d(M, ny, 1), KRYLOV_THREADS, 0, s>>>(
+      static_cast<const TC*>(c), static_cast<const TC*>(w),
+      static_cast<const T*>(z), static_cast<const T*>(r), static_cast<T*>(out),
+      M, ny, bands);
+}
 
 extern "C" {
 
@@ -630,8 +599,6 @@ int krylov_stencil2d(int tc, int tx, const void* c, const void* x,
   if (!make_bands(ndiag, dr, dc, &bands) || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef cplx<float> c64;
-  typedef cplx<double> c128;
   if (tc == KRYLOV_F32 && tx == KRYLOV_F32) {
     launch_stencil2d<float, float, float, float>(c, x, top, bot, y, batch, M, ny, h, bands, s);
   } else if (tc == KRYLOV_BF16 && tx == KRYLOV_BF16) {
@@ -679,6 +646,14 @@ int krylov_const_stencil2d(int tx, const void* x, const void* top,
     ConstBands<double> b;
     if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
     launch_const_stencil2d<double, double>(x, top, bot, y, batch, M, ny, h, row0, b, s);
+  } else if (tx == KRYLOV_C64) {
+    ConstBands<float> b;
+    if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_const_stencil2d<c64, c64>(x, top, bot, y, batch, M, ny, h, row0, b, s);
+  } else if (tx == KRYLOV_C128) {
+    ConstBands<double> b;
+    if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_const_stencil2d<c128, c128>(x, top, bot, y, batch, M, ny, h, row0, b, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -709,8 +684,8 @@ int krylov_cg_phase_a_const(const float* omega, const float* r, const float* p,
   return (int)cudaGetLastError();
 }
 
-// K8.  tz: dtype code of z, r and out (f32 or f64); w is the Jacobi weight,
-// rounded to that type.
+// K8.  tz: dtype code of z, r and out (f32, f64, c64, c128); w is the
+// Jacobi weight, rounded to the real type.
 int krylov_jacobi_sweep_const(int tz, double w, const void* z, const void* r,
                               void* out, int update, int M, int ny, int ndiag,
                               const int* dr, const int* dc, const double* wts,
@@ -724,31 +699,42 @@ int krylov_jacobi_sweep_const(int tz, double w, const void* z, const void* r,
     ConstBands<double> b;
     if (!make_const_bands(ndiag, dr, dc, wts, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
     launch_jacobi_const<double>(w, z, r, out, update, M, ny, b, s);
+  } else if (tz == KRYLOV_C64) {
+    ConstBands<float> b;
+    if (!make_const_bands(ndiag, dr, dc, wts, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_jacobi_const<c64>((float)w, z, r, out, update, M, ny, b, s);
+  } else if (tz == KRYLOV_C128) {
+    ConstBands<double> b;
+    if (!make_const_bands(ndiag, dr, dc, wts, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    launch_jacobi_const<c128>(w, z, r, out, update, M, ny, b, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// K9.  tz: dtype code of c, w, z, r and out (f32 or f64); w is null in
-// residual mode.
-int krylov_jacobi_sweep_var(int tz, const void* c, const void* w, const void* z,
-                            const void* r, void* out, int M, int ny, int ndiag,
-                            const int* dr, const int* dc, void* stream) {
+// K9.  tc: dtype code of the planes c and w; tz: of z, r and out.  The pairs
+// are K1's: (f32, f32), (f64, f64), (c64, c64), (f32, c64), (c128, c128),
+// (f64, c128).  w is null in residual mode.
+int krylov_jacobi_sweep_var(int tc, int tz, const void* c, const void* w,
+                            const void* z, const void* r, void* out, int M,
+                            int ny, int ndiag, const int* dr, const int* dc,
+                            void* stream) {
   Bands bands;
   if (!make_bands(ndiag, dr, dc, &bands)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 g = grid_2d(M, ny, 1);
-  if (tz == KRYLOV_F32) {
-    jacobi_var_kernel<float><<<g, KRYLOV_THREADS, 0, s>>>(
-        static_cast<const float*>(c), static_cast<const float*>(w),
-        static_cast<const float*>(z), static_cast<const float*>(r),
-        static_cast<float*>(out), M, ny, bands);
-  } else if (tz == KRYLOV_F64) {
-    jacobi_var_kernel<double><<<g, KRYLOV_THREADS, 0, s>>>(
-        static_cast<const double*>(c), static_cast<const double*>(w),
-        static_cast<const double*>(z), static_cast<const double*>(r),
-        static_cast<double*>(out), M, ny, bands);
+  if (tc == KRYLOV_F32 && tz == KRYLOV_F32) {
+    launch_jacobi_var<float, float>(c, w, z, r, out, M, ny, bands, s);
+  } else if (tc == KRYLOV_F64 && tz == KRYLOV_F64) {
+    launch_jacobi_var<double, double>(c, w, z, r, out, M, ny, bands, s);
+  } else if (tc == KRYLOV_C64 && tz == KRYLOV_C64) {
+    launch_jacobi_var<c64, c64>(c, w, z, r, out, M, ny, bands, s);
+  } else if (tc == KRYLOV_F32 && tz == KRYLOV_C64) {
+    launch_jacobi_var<float, c64>(c, w, z, r, out, M, ny, bands, s);
+  } else if (tc == KRYLOV_C128 && tz == KRYLOV_C128) {
+    launch_jacobi_var<c128, c128>(c, w, z, r, out, M, ny, bands, s);
+  } else if (tc == KRYLOV_F64 && tz == KRYLOV_C128) {
+    launch_jacobi_var<double, c128>(c, w, z, r, out, M, ny, bands, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,9 @@
-"""Operator formats and their kernels (stencil subset)."""
+"""Operator formats and their kernels: stencils, CSR (portable and on the
+CSR kernels) and BSR."""
 
+from .bsr import BSROperator
+from .cuda_spmv import PETOperator
+from .sparse import CSROperator, DiaOperator
 from .stencil import (
     BandedOperator,
     ConstStencilOperator,
@@ -13,6 +17,10 @@ from .stencil import (
 )
 
 __all__ = [
+    "BSROperator",
+    "CSROperator",
+    "DiaOperator",
+    "PETOperator",
     "BandedOperator",
     "ConstStencilOperator",
     "GridStencilOperator",

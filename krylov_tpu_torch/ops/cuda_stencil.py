@@ -6,12 +6,17 @@ Counterpart of ``krylov_tpu.ops.pallas_stencil`` (sources in
 
 * K1 :func:`stencil2d_matvec` — ``y[i,j] = sum_d c[d,i,j] * x[i+dr_d, j+dc_d]``,
 * K2 :func:`const_stencil2d_matvec` — the same with scalar weights and
-  in-kernel Dirichlet masks,
+  in-kernel Dirichlet masks (real weights; real or complex vectors),
 * K3 :func:`cg_fused_phase_a` — ``p = r + omega p``, ``Ap`` (const), ``<p, Ap>``,
 * K5 :func:`cg_fused_phase_a_var` — K3 with coefficient planes,
 * K4 :func:`cg_fused_phase_b` — ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``,
 * K8 :func:`jacobi_sweep_const` — ``z + w (r - A z)`` or ``r - A z`` (const),
 * K9 :func:`jacobi_sweep_var` — K8 with coefficient planes and a weight plane.
+
+K1, K2, K8 and K9 take complex64 and complex128 vectors as well as real
+ones, as the reference computes them (its ``supports()`` sends complex
+vectors to the XLA forms): K2 and K8 with their real scalar weights, K1 and
+K9 with planes that are real or of the vector's type.
 
 A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
@@ -66,9 +71,12 @@ _K1_PAIRS = {
     (torch.complex128, torch.complex128),
     (torch.float64, torch.complex128),
 }
-# vector dtypes of K2, and of the Jacobi sweeps K8/K9
-_K2_TYPES = {torch.float32, torch.bfloat16, torch.float64}
-_SWEEP_TYPES = {torch.float32, torch.float64}
+# vector dtypes of K2 and of K8
+_K2_TYPES = {torch.float32, torch.bfloat16, torch.float64, torch.complex64,
+             torch.complex128}
+_SWEEP_TYPES = {torch.float32, torch.float64, torch.complex64, torch.complex128}
+# (plane dtype, vector dtype) pairs K9 is instantiated for: K1's, without bf16
+_K9_PAIRS = {pair for pair in _K1_PAIRS if torch.bfloat16 not in pair}
 
 
 def reset_launches():
@@ -99,7 +107,8 @@ def _lib():
         ("krylov_cg_phase_a_const", [vp] * 7 + [i32, i32] + cb + [vp], i32),
         ("krylov_jacobi_sweep_const", [i32, f64, vp, vp, vp, i32, i32, i32] + cb + [vp],
          i32),
-        ("krylov_jacobi_sweep_var", [i32] + [vp] * 5 + [i32, i32, i32, vp, vp, vp], i32),
+        ("krylov_jacobi_sweep_var", [i32, i32] + [vp] * 5 + [i32, i32, i32, vp, vp, vp],
+         i32),
         ("krylov_cg_phase_a_var", [vp] * 8 + [i32, i32, i32, vp, vp, vp], i32),
         ("krylov_cg_phase_b", [vp] * 7 + [i64, vp], i32),
     ):
@@ -544,8 +553,10 @@ def jacobi_sweep_var_plain(w, z, r, coeffs, row_offsets, col_offsets, update=Tru
 
 def _sweep_checks(z, r, out, *planes):
     _require(z.dtype in _SWEEP_TYPES, f"no Jacobi sweep kernel for {z.dtype}")
-    for t in (r,) + planes:
-        _require(t.dtype == z.dtype, "the sweep's tensors must share one dtype")
+    _require(r.dtype == z.dtype, "z and r must share one dtype")
+    for t in planes:
+        _require((t.dtype, z.dtype) in _K9_PAIRS and t.dtype == planes[0].dtype,
+                 "the planes must share one dtype, real or the vectors' own")
     for t in (z, r) + planes:
         _require(t.is_contiguous() and tuple(t.shape[-2:]) == tuple(z.shape),
                  "z, r and the planes must be contiguous grids of z's shape")
@@ -556,7 +567,7 @@ def _sweep_checks(z, r, out, *planes):
 def jacobi_sweep_const(w, z, r, bands, update=True, out=None):
     """K8: ``z + w * (r - A z)`` (``update=True``) or the residual
     ``r - A z`` for the const ``bands`` on one ``(M, ny)`` grid, in one
-    pass (float32, float64).
+    pass (float32, float64, complex64, complex128).
 
     ``w`` is the damped-Jacobi weight as a Python float (the caller rounds
     it to the operator's dtype; residual mode ignores it).  ``out``
@@ -583,8 +594,9 @@ def jacobi_sweep_var(w, z, r, coeffs, row_offsets, col_offsets, update=True,
     """K9: ``z + w * (r - A z)`` with the ``(M, ny)`` weight plane ``w``
     (``update=True``; ``w = omega / diag``) or the residual ``r - A z``
     (``w`` unread) for the coefficient planes ``coeffs`` ``(ndiag, M, ny)``
-    on one ``(M, ny)`` grid, in one pass (float32, float64).  ``out``
-    (optional) must overlap neither ``z`` nor ``r``.
+    on one ``(M, ny)`` grid, in one pass.  Vectors are float32, float64,
+    complex64 or complex128; the planes real or of the vectors' type.
+    ``out`` (optional) must overlap neither ``z`` nor ``r``.
     """
     w = w if update else None
     if _on_cpu(w, z, r, coeffs, out):
@@ -596,7 +608,7 @@ def jacobi_sweep_var(w, z, r, coeffs, row_offsets, col_offsets, update=True,
     dr, dc = _bands(lib, row_offsets, col_offsets)
     with torch.cuda.device(z.device):
         err = lib.krylov_jacobi_sweep_var(
-            _CODES[z.dtype], _ptr(coeffs), _ptr(w), _ptr(z), _ptr(r), _ptr(out),
+            _CODES[coeffs.dtype], _CODES[z.dtype], _ptr(coeffs), _ptr(w), _ptr(z), _ptr(r), _ptr(out),
             *z.shape, len(row_offsets), dr, dc, _stream(z),
         )
     _check(lib, err, "jacobi_sweep_var")

@@ -1,0 +1,211 @@
+"""Portable sparse operators (counterpart of ``krylov_tpu.ops.sparse``).
+
+* :class:`CSROperator` — general sparsity in plain torch, any dtype: the
+  matvec is a gather and a segment sum per row, the adjoint a gather by
+  ``row_ids`` and a scatter-add into columns.  On a CUDA device large real
+  float32 matrices go to :class:`~krylov_tpu_torch.ops.cuda_spmv.PETOperator`
+  instead (``as_operator``'s routing, as the reference's).
+* :class:`DiaOperator` — diagonal storage: a sum of shifted scaled reads.
+
+Row pointers, columns and ``row_ids`` are int64 tensors (torch's index
+type; the reference keeps int32).
+"""
+
+import numpy as np
+import torch
+
+
+def _segment_sum(prod, indptr):
+    """Sum of ``prod``'s rows per CSR row, in order (complex via its real
+    view, which ``segment_reduce`` takes)."""
+    if prod.is_complex():
+        out = torch.segment_reduce(torch.view_as_real(prod), "sum", offsets=indptr, axis=0)
+        return torch.view_as_complex(out.contiguous())
+    return torch.segment_reduce(prod, "sum", offsets=indptr, axis=0)
+
+
+def _indptr_of_rows(rows, n, device):
+    counts = torch.bincount(rows, minlength=n)
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.cumsum(counts, 0)])
+
+
+class CSROperator:
+    """Compressed-sparse-row operator.
+
+    ``data (nnz,), indices (nnz,), indptr (N+1,)`` plus the CSR-to-COO row
+    map ``row_ids (nnz,)``:
+
+        A  @ x = segment_sum(data * x[indices], indptr)
+        A^H @ x = scatter_add(conj(data) * x[row_ids], indices)
+    """
+
+    def __init__(self, data, indices, indptr, shape, row_ids=None):
+        self.data = data
+        self.indices = indices.long()
+        self.indptr = indptr.long()
+        self.shape = tuple(int(s) for s in shape)
+        if row_ids is None:
+            counts = self.indptr[1:] - self.indptr[:-1]
+            row_ids = torch.repeat_interleave(
+                torch.arange(self.shape[0], device=data.device), counts)
+        self.row_ids = row_ids.long()
+
+    @classmethod
+    def from_scipy(cls, A, device=None):
+        csr = A.tocsr()
+        csr.sort_indices()
+        rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64), np.diff(csr.indptr))
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return cls(t(csr.data), t(csr.indices.astype(np.int64)),
+                   t(csr.indptr.astype(np.int64)), csr.shape, row_ids=t(rows))
+
+    @classmethod
+    def from_dense(cls, A, device=None):
+        A = np.asarray(A)
+        rows, cols = np.nonzero(A)
+        indptr = np.zeros(A.shape[0] + 1, dtype=np.int64)
+        np.add.at(indptr, rows + 1, 1)
+        indptr = np.cumsum(indptr)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return cls(t(A[rows, cols]), t(cols.astype(np.int64)), t(indptr), A.shape,
+                   row_ids=t(rows.astype(np.int64)))
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def nnz(self):
+        return self.data.shape[0]
+
+    def _cast(self, x):
+        dt = torch.promote_types(self.data.dtype, x.dtype)
+        return self.data.to(dt), x.to(dt)
+
+    def __matmul__(self, x):
+        data, x = self._cast(x)
+        prod = data.reshape((-1,) + (1,) * (x.ndim - 1)) * x.index_select(0, self.indices)
+        return _segment_sum(prod, self.indptr)
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        data, x = self._cast(x)
+        prod = data.conj().reshape((-1,) + (1,) * (x.ndim - 1)) * x.index_select(0, self.row_ids)
+        out = torch.zeros((self.shape[1],) + tuple(x.shape[1:]), dtype=prod.dtype,
+                          device=x.device)
+        return out.index_add_(0, self.indices, prod)
+
+    def diagonal(self):
+        on_diag = self.indices == self.row_ids
+        return _segment_sum(torch.where(on_diag, self.data, 0), self.indptr)
+
+    def todense(self):
+        out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        return out.index_put_((self.row_ids, self.indices), self.data, accumulate=True)
+
+    def tril(self, keep_diagonal=True):
+        """Lower-triangular part as a new CSROperator (for GS/SOR sweeps)."""
+        mask = (self.indices <= self.row_ids if keep_diagonal
+                else self.indices < self.row_ids)
+        return self._masked(mask)
+
+    def triu(self, keep_diagonal=True):
+        mask = (self.indices >= self.row_ids if keep_diagonal
+                else self.indices > self.row_ids)
+        return self._masked(mask)
+
+    def _masked(self, mask):
+        rows = self.row_ids[mask]
+        return CSROperator(self.data[mask], self.indices[mask],
+                           _indptr_of_rows(rows, self.shape[0], self.device),
+                           self.shape, row_ids=rows)
+
+    def with_diagonal(self, d):
+        """A copy whose diagonal entries are replaced by ``d`` (SOR)."""
+        on_diag = self.indices == self.row_ids
+        d = torch.as_tensor(d, device=self.device)
+        new_data = torch.where(on_diag, d.index_select(0, self.row_ids), self.data)
+        return CSROperator(new_data, self.indices, self.indptr, self.shape, self.row_ids)
+
+
+class DiaOperator:
+    """Diagonal-storage (banded) operator, scipy ``spdiags`` convention:
+    ``diags (ndiag, N)``, static ``offsets``; row i reads
+    ``diags[d, i + offset] * x[i + offset]``."""
+
+    def __init__(self, diags, offsets, shape):
+        self.diags = diags
+        self.offsets = tuple(int(o) for o in offsets)
+        self.shape = tuple(shape)
+
+    @classmethod
+    def from_scipy(cls, A, device=None):
+        dia = A.todia()
+        return cls(torch.from_numpy(np.ascontiguousarray(dia.data)).to(device),
+                   tuple(int(o) for o in dia.offsets), dia.shape)
+
+    @property
+    def dtype(self):
+        return self.diags.dtype
+
+    @property
+    def device(self):
+        return self.diags.device
+
+    @property
+    def nnz(self):
+        n = self.shape[0]
+        return sum(n - abs(o) for o in self.offsets)
+
+    def __matmul__(self, x):
+        n = self.shape[0]
+        y = torch.zeros(x.shape, dtype=torch.promote_types(self.dtype, x.dtype),
+                        device=x.device)
+        tail = (1,) * (x.ndim - 1)
+        for d, off in enumerate(self.offsets):
+            diag = self.diags[d]
+            if off >= 0:
+                y[: n - off] += diag[off:].reshape((n - off,) + tail) * x[off:]
+            else:
+                y[-off:] += diag[: n + off].reshape((n + off,) + tail) * x[: n + off]
+        return y
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        n = self.shape[0]
+        y = torch.zeros(x.shape, dtype=torch.promote_types(self.dtype, x.dtype),
+                        device=x.device)
+        tail = (1,) * (x.ndim - 1)
+        for d, off in enumerate(self.offsets):
+            diag = self.diags[d].conj()
+            if off >= 0:
+                y[off:] += diag[off:].reshape((n - off,) + tail) * x[: n - off]
+            else:
+                y[: n + off] += diag[: n + off].reshape((n + off,) + tail) * x[-off:]
+        return y
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.diags[self.offsets.index(0)]
+        return torch.zeros(self.shape[0], dtype=self.dtype, device=self.device)
+
+    def tocsr(self):
+        import scipy.sparse
+
+        sp = scipy.sparse.dia_matrix(
+            (self.diags.cpu().numpy(), np.asarray(self.offsets)), shape=self.shape
+        )
+        return CSROperator.from_scipy(sp, device=self.device)

@@ -102,6 +102,11 @@ class BandedOperator:
             shape=(n, n),
         )
 
+    def tocsr(self):
+        from .sparse import CSROperator
+
+        return CSROperator.from_scipy(self.toscipy(), device=self.device)
+
     def todense(self):
         n = self.coeffs.shape[1]
         out = torch.zeros((n, n), dtype=self.dtype, device=self.device)
@@ -457,10 +462,9 @@ class ConstStencilOperator:
         )
 
     def tocsr(self):
-        raise NotImplementedError(
-            "ConstStencilOperator.tocsr needs CSROperator, which comes with "
-            "general sparsity (ROADMAP Queue 1 item 8)"
-        )
+        from .sparse import CSROperator
+
+        return CSROperator.from_scipy(self.toscipy(), device=self.device)
 
 
 def _laplace_offsets(nd):

@@ -1,4 +1,6 @@
+from .bicgstab import bicgstab
 from .cg import cg
 from .cg_stencil import cg_stencil
+from .gmres import gmres
 
-__all__ = ["cg", "cg_stencil"]
+__all__ = ["bicgstab", "cg", "cg_stencil", "gmres"]

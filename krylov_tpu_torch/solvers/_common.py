@@ -8,13 +8,16 @@ right-hand side's device.
 
 import torch
 
-from .._inner import get_default_inner
+from .._inner import as_inner
 from .._operators import Identity, as_operator
 
 
-def setup(A, b, x0=None, inner=None, maxiter=None):
+def setup(A, b, x0=None, inner=None, maxiter=None, needs_rmatvec=False):
     b = torch.as_tensor(b)
     A = as_operator(A, device=b.device)
+    if needs_rmatvec and hasattr(A, "ensure_adjoint"):
+        # two-sided solvers build a lazy adjoint up front, on the host
+        A.ensure_adjoint()
     if len(A.shape) != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got shape {A.shape}")
     N = A.shape[0]
@@ -32,7 +35,7 @@ def setup(A, b, x0=None, inner=None, maxiter=None):
     else:
         if A.shape[1] != b.shape[0]:
             raise ValueError(f"A {A.shape} does not match b {tuple(b.shape)}")
-        inner = get_default_inner(b.shape) if inner is None else inner
+        inner = as_inner(inner, b.shape)
     maxiter = N if maxiter is None else maxiter
     x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
     return A, b, x0, N, inner, maxiter
@@ -58,3 +61,10 @@ def preconditioner(M, device=None):
     if M is None:
         return Identity()
     return as_operator(M, device=device)
+
+
+def inner_tail(inner, v):
+    """Shape of the per-RHS scalars, the shape of ``inner(v, v)``: ``b.shape[1:]``
+    for the default inner, ``()`` for a full-contraction inner on
+    operator-native (grid-shaped) vectors."""
+    return tuple(inner(v, v).shape)

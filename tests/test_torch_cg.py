@@ -290,8 +290,11 @@ def test_operator_normalization():
 
     import scipy.sparse
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kt.cg(scipy.sparse.csr_matrix(A), b)
+    # a scipy matrix routes to the portable CSROperator on the CPU
+    sp = scipy.sparse.csr_matrix(A)
+    assert type(kt.as_operator(sp)).__name__ == "CSROperator"
+    x, info = kt.cg(sp, b)
+    np.testing.assert_allclose(float(x.abs().sum()), GOLDEN_SUM, rtol=1e-11)
 
 
 def test_complex_inner_imaginary_check():

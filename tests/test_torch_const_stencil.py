@@ -73,8 +73,9 @@ def test_const_structure_matches_reference(name):
     assert At.dtype == torch.float64 and isinstance(At.dtype, torch.dtype)
     np.testing.assert_array_equal(At.diagonal().numpy(), np.asarray(Aj.diagonal()))
     assert (At.toscipy() != Aj.toscipy()).nnz == 0
-    with pytest.raises(NotImplementedError, match="general sparsity"):
-        At.tocsr()
+    csr = At.tocsr()  # a CSROperator, as the reference's
+    assert type(csr).__name__ == type(Aj.tocsr()).__name__ == "CSROperator"
+    np.testing.assert_array_equal(csr.todense().numpy(), np.asarray(Aj.tocsr().todense()))
 
 
 def test_row0_and_halos_match_reference():

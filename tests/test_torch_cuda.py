@@ -1,5 +1,6 @@
-"""Kernels K1 (real and complex), K2, K3, K4, K5, K8 and K9 on a CUDA
-device, against their plain versions, and the solves that launch them.
+"""Kernels K1, K2, K8 and K9 (real and complex), K3, K4, K5, and the
+general-sparsity kernels K10, K11 and K12 on a CUDA device, against their
+plain versions, and the solves that launch them.
 
 Needs an NVIDIA Hopper GPU (the kernels are built for sm_90a) and nvcc;
 every test skips without a CUDA device.  Imports no JAX, so it also runs
@@ -236,3 +237,185 @@ def test_const_and_mg_solves_launch_the_kernels_and_repeat_bitwise(dev):
             runs.append(info)
         np.testing.assert_array_equal(runs[0].resnorms, runs[1].resnorms)
         assert torch.equal(runs[0].xk, runs[1].xk)
+
+
+# ---------------------------------------------------------------------------
+# complex K2, K8 and K9
+# ---------------------------------------------------------------------------
+
+
+def _crand(shape, dev, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to(
+        dev, dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5), (torch.complex128, 1e-12)])
+def test_k2_k8_complex_match_plain(dev, dtype, tol):
+    for A in _const_ops():
+        M, ny = A.grid
+        h = cs.halo_rows([b[0] for b in A.bands])
+        x = _crand((M, ny), dev, dtype, 21)
+        halos = dict(row0=3, top_halo=_crand((h, ny), dev, dtype, 22),
+                     bot_halo=_crand((h, ny), dev, dtype, 23))
+        for xx, bands, kw in ((x, A.kernel_bands, {}), (x, A.bands, halos),
+                              (_crand((2, M, ny), dev, dtype, 24), A.kernel_bands, {})):
+            got = cs.const_stencil2d_matvec(xx, bands, **kw)
+            want = cs.const_stencil2d_matvec_plain(xx, bands, **kw)
+            assert got.dtype == dtype
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+        r = _crand((M, ny), dev, dtype, 25)
+        for update in (True, False):
+            got = cs.jacobi_sweep_const(0.2, x, r, A.kernel_bands, update)
+            want = cs.jacobi_sweep_const_plain(0.2, x, r, A.kernel_bands, update)
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("cd,xd", [(torch.complex64, torch.complex64),
+                                   (torch.float32, torch.complex64),
+                                   (torch.complex128, torch.complex128),
+                                   (torch.float64, torch.complex128)])
+def test_k9_complex_matches_plain(dev, cd, xd):
+    tol = 1e-5 if xd == torch.complex64 else 1e-12
+    pairs = [(a, b) for a in range(-2, 3) for b in range(-2, 3)]
+    ro, co = tuple(q[0] for q in pairs), tuple(q[1] for q in pairs)
+    mk = _crand if cd.is_complex else (lambda s, d, t, seed: _rand(s, d, t, seed))
+    c = mk((25, 37, 45), dev, cd, 26)
+    w = mk((37, 45), dev, cd, 27)
+    z, r = _crand((37, 45), dev, xd, 28), _crand((37, 45), dev, xd, 29)
+    for update in (True, False):
+        got = cs.jacobi_sweep_var(w, z, r, c, ro, co, update)
+        want = cs.jacobi_sweep_var_plain(w, z, r, c, ro, co, update)
+        assert got.dtype == xd
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# general sparsity: K10, K11, K12 and the solves through as_operator
+# ---------------------------------------------------------------------------
+
+
+def _irregular(n=20000, seed=7):
+    """The reference bench's irregular matrix at a small size: 5 to 49
+    entries a row, columns within +-512 of the diagonal."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(5, 50, n)
+    rows = np.repeat(np.arange(n), counts)
+    cols = np.clip(rows + rng.integers(-512, 513, rows.size), 0, n - 1)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
+
+
+def test_k10_k11_match_plain(dev):
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+
+    sp = _irregular()
+    indptr = torch.from_numpy(sp.indptr.astype(np.int32)).to(dev)
+    indices = torch.from_numpy(sp.indices.astype(np.int32)).to(dev)
+    for vdt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
+        data = torch.from_numpy(sp.data).to(dev, vdt)
+        x = _rand(sp.shape[1], dev, torch.float32, 31)
+        want = sv.csr_matvec_plain(indptr, indices, data, x)
+        for lanes in (None, 1, 4, 32):
+            got = sv.csr_matvec(indptr, indices, data, x, lanes)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+        for k in (1, 3, 8, 16, 17):
+            X = _rand((sp.shape[1], k), dev, torch.float32, 32 + k)
+            want = sv.csr_matvec_plain(indptr, indices, data, X)
+            got = sv.csr_matmat(indptr, indices, data, X)
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+    with pytest.raises(ValueError, match="float32"):
+        sv.csr_matvec(indptr, indices, data, x.double())
+
+
+def test_pet_operator_adjoint_and_reorder(dev):
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.cuda_spmv import LAUNCHES, PETOperator, reset_launches
+
+    sp = _irregular(n=8000, seed=3)
+    x = np.random.default_rng(4).standard_normal(sp.shape[0]).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    reset_launches()
+    for kw in (dict(with_rmatvec=True), dict(with_rmatvec="lazy"),
+               dict(with_rmatvec=True, reorder="rcm")):
+        op = PETOperator.from_scipy(sp, device=dev, **kw)
+        for got, want in ((op @ xt, sp @ x), (op.rmatvec(xt), sp.T @ x)):
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+    assert LAUNCHES["csr_matvec"] == 6
+    # a scrambled 2-D Poisson: RCM recovers a banded order
+    g = 60
+    lap = scipy.sparse.kronsum(scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (g, g)),
+                               scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (g, g)))
+    perm = np.random.default_rng(5).permutation(g * g)
+    scr = lap.tocsr()[perm][:, perm].astype(np.float32)
+    op = PETOperator.from_scipy(scr, reorder="rcm", device=dev)
+    v = np.random.default_rng(6).standard_normal(g * g).astype(np.float32)
+    np.testing.assert_allclose((op @ torch.from_numpy(v).to(dev)).cpu().numpy(), scr @ v,
+                               rtol=0, atol=1e-5 * np.abs(scr @ v).max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12),
+                                       (torch.complex64, 1e-5), (torch.complex128, 1e-12)])
+def test_k12_matches_plain(dev, dtype, tol):
+    from krylov_tpu_torch.ops import cuda_bsr as cb
+
+    rng = np.random.default_rng(40)
+    for R, C in ((32, 32), (64, 64), (128, 128), (3, 5)):
+        nbrows, max_blocks, nbcols = 6, 3, 5
+        mk = _crand if dtype.is_complex else (lambda s, d, t, seed: _rand(s, d, t, seed))
+        data = mk((nbrows * max_blocks, R, C), dev, dtype, R)
+        cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks)).astype(
+            np.int32)).to(dev)
+        for k in (1, 8, 11):
+            x = mk((nbcols * C, k), dev, dtype, k)
+            got = cb.bsr_spmm(data, cols, x)
+            want = cb.bsr_spmm_plain(data, cols, x)
+            assert got.dtype == dtype
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+
+
+def _shifted_poisson_f32(g, shift=0.5):
+    import scipy.sparse
+
+    n = g * g
+    return scipy.sparse.diags([-1.0, -1.0, 4.0 + shift, -1.0, -1.0], [-g, -1, 0, 1, g],
+                              shape=(n, n), format="csr", dtype=np.float32)
+
+
+def test_sparse_solves_route_to_the_kernels_and_repeat_bitwise(dev):
+    from krylov_tpu_torch.ops import cuda_bsr as cb
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+    from krylov_tpu_torch.ops.cuda_spmv import PETOperator
+
+    sp = _shifted_poisson_f32(128)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(sp.shape[0])).to(
+        dev, torch.float32)
+    assert isinstance(kt.as_operator(sp, dev), PETOperator)
+    dinv = kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+    for solve in (lambda: kt.bicgstab(sp, b, Ml=dinv, tol=1e-4, maxiter=200,
+                                      backend="while_loop"),
+                  lambda: kt.gmres(sp, b, ortho="mgs", tol=1e-4, maxiter=120,
+                                   backend="while_loop")):
+        runs = []
+        for _ in range(2):
+            sv.reset_launches()
+            _, info = solve()
+            assert info.success and sv.LAUNCHES["csr_matvec"] > info.numsteps
+            runs.append(info)
+        np.testing.assert_array_equal(runs[0].resnorms, runs[1].resnorms)
+        assert torch.equal(runs[0].xk, runs[1].xk)
+    # block-structured SPD input goes to BSR, and its blocked solve to K12
+    import scipy.sparse
+
+    blk = scipy.sparse.random(256, 256, density=0.5, random_state=9, dtype=np.float64)
+    dense = blk.toarray()
+    spd = scipy.sparse.csr_matrix(np.kron(np.eye(8), dense @ dense.T + 256 * np.eye(256)))
+    B = torch.ones((spd.shape[0], 4), device=dev, dtype=torch.float64)
+    cb.reset_launches()
+    _, info = kt.cg(spd, B, tol=1e-8, maxiter=100, backend="while_loop")
+    assert info.success and cb.LAUNCHES["bsr_spmm"] > info.numsteps

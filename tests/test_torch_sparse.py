@@ -1,0 +1,562 @@
+"""General sparsity in krylov_tpu_torch, held to krylov_tpu on the CPU.
+
+The portable ``CSROperator``/``DiaOperator``, the plain versions of the CSR
+kernels K10/K11 (``cuda_spmv.csr_matvec``/``csr_matmat``) and of the BSR
+kernel K12 (``cuda_bsr.bsr_spmm``), ``PETOperator``'s ``from_scipy``
+contract (bf16 values, reordering, the three adjoint modes), ``BSROperator``
+with ``detect_blocksize``, ``as_operator``'s scipy routing and its cache,
+``tocsr`` of the stencil operators, ``convert.from_reference`` for the
+sparse formats and ``multi_solve_triangular``.  The reference's Pallas
+kernels run in interpret mode, as its own tests run them on the CPU.
+Inputs are made from numpy seeds.
+"""
+
+import gc
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse
+import torch
+
+import krylov_tpu
+import krylov_tpu_torch as kt
+from krylov_tpu import _operators as j_ops
+from krylov_tpu.ops import bsr as j_bsr
+from krylov_tpu.ops import pallas_bsr as j_pallas_bsr
+from krylov_tpu.ops import pallas_spmv as j_spmv
+from krylov_tpu.ops import sparse as j_sparse
+from krylov_tpu.ops import stencil as j_stencil
+from krylov_tpu.ops import triangular as j_tri
+from krylov_tpu_torch import _operators as t_ops
+from krylov_tpu_torch import convert
+from krylov_tpu_torch.ops import bsr as t_bsr
+from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+from krylov_tpu_torch.ops import sparse as t_sparse
+from krylov_tpu_torch.ops import stencil as t_stencil
+from krylov_tpu_torch.ops.triangular import multi_solve_triangular
+
+torch.set_num_threads(1)
+
+
+def _irregular(n, span, dmax, seed=0, empty_rows=True):
+    """The reference tests' irregular matrix: row degrees 0 (or 5) .. dmax,
+    columns within +-span of the diagonal."""
+    rng = np.random.default_rng(seed)
+    row_nnz = rng.integers(0 if empty_rows else 5, dmax, n)
+    indptr = np.r_[0, np.cumsum(row_nnz)]
+    r = np.repeat(np.arange(n), row_nnz)
+    c = np.clip(r + rng.integers(-span, span, r.size), 0, n - 1).astype(np.int32)
+    return scipy.sparse.csr_matrix((rng.standard_normal(r.size), c, indptr), shape=(n, n))
+
+
+CASES = {
+    "tridiag": scipy.sparse.diags([-1.0, 2.5, -1.0], [-1, 0, 1], shape=(300, 300),
+                                  format="csr"),
+    "rect": scipy.sparse.random(257, 391, density=0.05, random_state=1, format="csr"),
+    "irregular": _irregular(1000, 200, 30),
+    "empty": scipy.sparse.csr_matrix((130, 130)),
+}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _csr_arrays(sp, value_dtype=torch.float64):
+    return (_t(sp.indptr.astype(np.int32)), _t(sp.indices.astype(np.int32)),
+            _t(sp.data).to(value_dtype))
+
+
+# ---------------------------------------------------------------------------
+# K10 / K11 plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_k10_k11_plain_match_scipy_f64(name):
+    sp = CASES[name]
+    indptr, indices, data = _csr_arrays(sp)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(sp.shape[1])
+    got = cuda_spmv.csr_matvec(indptr, indices, data, _t(x))
+    assert got.dtype == torch.float64 and got.shape == (sp.shape[0],)
+    np.testing.assert_allclose(got.numpy(), sp @ x, rtol=0,
+                               atol=1e-12 * (1 + np.abs(sp @ x).max(initial=0)))
+    X = rng.standard_normal((sp.shape[1], 3))
+    got = cuda_spmv.csr_matmat(indptr, indices, data, _t(X))
+    np.testing.assert_allclose(got.numpy(), sp @ X, rtol=0,
+                               atol=1e-12 * (1 + np.abs(sp @ X).max(initial=0)))
+
+
+@pytest.mark.parametrize("name,k", [("irregular", 1), ("irregular", 3), ("rect", 2)])
+def test_k10_k11_plain_match_reference_kernel(name, k):
+    """f32 values and x through the plain versions against the reference's
+    PET kernel (interpret mode): 1e-5 of the output's scale."""
+    sp = CASES[name].astype(np.float32)
+    ref = j_spmv.PETOperator.from_scipy(sp, interpret=True, with_rmatvec=False)
+    indptr, indices, data = _csr_arrays(sp, torch.float32)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((sp.shape[1], k) if k > 1 else sp.shape[1]).astype(np.float32)
+    fn = cuda_spmv.csr_matmat if k > 1 else cuda_spmv.csr_matvec
+    got = fn(indptr, indices, data, _t(x))
+    want = np.asarray(ref @ jnp.asarray(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_lanes_for():
+    # about four or more entries a lane: 5 a row -> 1 lane, 27 -> 4, 100 -> 16
+    assert [cuda_spmv.lanes_for(nnz, 100) for nnz in (0, 500, 799, 800, 2700, 10**4, 10**6)] \
+        == [1, 1, 1, 2, 4, 16, 32]
+
+
+# ---------------------------------------------------------------------------
+# PETOperator
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_rmatvec", [True, "lazy", False])
+def test_pet_operator_matches_reference(with_rmatvec):
+    sp = CASES["irregular"].astype(np.float32)
+    op = cuda_spmv.PETOperator.from_scipy(sp, with_rmatvec=with_rmatvec)
+    ref = j_spmv.PETOperator.from_scipy(sp, with_rmatvec=with_rmatvec, interpret=True)
+    x = np.random.default_rng(3).standard_normal(sp.shape[0]).astype(np.float32)
+    y = op @ _t(x.astype(np.float64))  # x is cast to float32, as the reference's
+    assert y.dtype == torch.float32 and op.dtype == torch.float32
+    assert op.nnz == sp.nnz and op.fill == 1.0 and op.shape == sp.shape
+    want = np.asarray(ref @ jnp.asarray(x))
+    np.testing.assert_allclose(y.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(op.diagonal().numpy(), np.asarray(ref.diagonal()))
+    if with_rmatvec is False:
+        with pytest.raises(ValueError, match="no adjoint") as got_err:
+            op.rmatvec(_t(x))
+        with pytest.raises(ValueError) as want_err:
+            ref.rmatvec(jnp.asarray(x))
+        assert str(got_err.value) == str(want_err.value)
+        return
+    if with_rmatvec == "lazy":
+        assert op._csr_t is None
+    np.testing.assert_allclose(op.rmatvec(_t(x)).numpy(), sp.T @ x, rtol=0,
+                               atol=1e-5 * np.abs(sp.T @ x).max())
+
+
+def test_pet_bf16_values():
+    sp = scipy.sparse.random(500, 800, density=0.02, random_state=1,
+                             format="csr").astype(np.float32)
+    op = cuda_spmv.PETOperator.from_scipy(sp, data_dtype=torch.bfloat16)
+    ref = j_spmv.PETOperator.from_scipy(sp, interpret=True, data_dtype=jnp.bfloat16,
+                                        with_rmatvec=False)
+    assert op.dtype == torch.bfloat16
+    assert cuda_spmv.PETOperator.from_scipy(sp, data_dtype=jnp.bfloat16).dtype == torch.bfloat16
+    # the values rounded to bf16, as the operator stores them
+    sp16 = sp.copy()
+    sp16.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    rng = np.random.default_rng(4)
+    for x in (rng.standard_normal(800), rng.standard_normal((800, 4))):
+        x = x.astype(np.float32)
+        got = (op @ _t(x)).numpy()
+        want = sp16 @ x.astype(np.float64)  # f32 x, f32 sums: 1e-5 of the scale
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+        # the reference's bf16 mode also rounds x in its selection pass:
+        # both within bf16 rounding of the f32 product
+        for y in (got, np.asarray(ref @ jnp.asarray(x))):
+            assert np.max(np.abs(y - sp @ x)) / (1 + np.max(np.abs(sp @ x))) < 2e-2
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_spmv.PETOperator.from_scipy(sp, data_dtype=torch.float16)
+
+
+def _scrambled_poisson(g=40, seed=5):
+    lap = scipy.sparse.kronsum(scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (g, g)),
+                               scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (g, g)))
+    perm = np.random.default_rng(seed).permutation(g * g)
+    return lap.tocsr()[perm][:, perm].tocsr().astype(np.float32)
+
+
+@pytest.mark.parametrize("reorder", ["rcm", "auto", "explicit", None])
+def test_pet_reorder_matches_reference(reorder):
+    """The reference's permutation (its "auto" rule included) and
+    user-order results."""
+    sp = _scrambled_poisson(100)  # 10^4 rows: a sampled fill below 0.15
+    spec = np.random.default_rng(6).permutation(sp.shape[0]) if reorder == "explicit" \
+        else reorder
+    op = cuda_spmv.PETOperator.from_scipy(sp, reorder=spec)
+    want_perm = j_spmv.resolve_reorder(sp, spec, metric="fill")
+    if want_perm is None:
+        assert op._perm is None and reorder is None
+    else:
+        np.testing.assert_array_equal(op._perm.numpy(), want_perm)
+    if reorder == "auto":
+        assert cuda_spmv.estimate_pet_fill(sp) == j_spmv.estimate_pet_fill(sp) < 0.15
+    x = np.random.default_rng(7).standard_normal(sp.shape[0]).astype(np.float32)
+    for got, want in ((op @ _t(x), sp @ x), (op.rmatvec(_t(x)), sp.T @ x)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_reorder_rules_match_reference():
+    ordered = scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(600, 600),
+                                 format="csr")
+    scr = _scrambled_poisson(30, seed=8)
+    for sp in (ordered, scr):
+        got = cuda_spmv.resolve_reorder(sp, "auto")
+        want = j_spmv.resolve_reorder(sp, "auto", metric="fill")
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+    p = cuda_spmv.rcm_permutation(scr)
+    np.testing.assert_array_equal(cuda_spmv.invert_permutation(p)[p], np.arange(len(p)))
+    rect = CASES["rect"].astype(np.float32)
+    for spec in ("rcm", "auto"):
+        with pytest.raises(ValueError, match="square matrix"):
+            cuda_spmv.PETOperator.from_scipy(rect, reorder=spec)
+    with pytest.raises(ValueError, match="unknown reorder"):
+        cuda_spmv.resolve_reorder(scr, "nd")
+
+
+# ---------------------------------------------------------------------------
+# portable operators
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_csr_operator_matches_reference(dtype):
+    rng = np.random.default_rng(9)
+    sp = _irregular(400, 50, 12, seed=9)
+    sp = (sp + 1j * _irregular(400, 50, 12, seed=10)).astype(dtype) if dtype == np.complex128 \
+        else sp.astype(dtype)
+    sp = (sp + scipy.sparse.identity(400)).tocsr()
+    op = t_sparse.CSROperator.from_scipy(sp)
+    ref = j_sparse.CSROperator.from_scipy(sp)
+    assert op.nnz == ref.nnz and op.shape == ref.shape
+    X = rng.standard_normal((400, 2)) + (1j * rng.standard_normal((400, 2))
+                                          if dtype == np.complex128 else 0)
+    for x in (X[:, 0], X):
+        for got, want in ((op @ _t(x), ref @ jnp.asarray(x)),
+                          (op.rmatvec(_t(x)), ref.rmatvec(jnp.asarray(x)))):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(op.diagonal().numpy(), np.asarray(ref.diagonal()), rtol=1e-15)
+    np.testing.assert_array_equal(op.todense().numpy(), np.asarray(ref.todense()))
+    for name, kw in (("tril", {}), ("tril", dict(keep_diagonal=False)), ("triu", {}),
+                     ("triu", dict(keep_diagonal=False))):
+        np.testing.assert_array_equal(getattr(op, name)(**kw).todense().numpy(),
+                                      np.asarray(getattr(ref, name)(**kw).todense()))
+    d = rng.standard_normal(400)
+    np.testing.assert_array_equal(op.with_diagonal(_t(d)).todense().numpy(),
+                                  np.asarray(ref.with_diagonal(jnp.asarray(d)).todense()))
+    dense = rng.standard_normal((30, 20)) * (rng.random((30, 20)) < 0.2)
+    np.testing.assert_array_equal(t_sparse.CSROperator.from_dense(dense).todense().numpy(),
+                                  dense)
+
+
+def test_csr_operator_bf16_and_mixed_types():
+    sp = CASES["irregular"]
+    op = t_sparse.CSROperator.from_scipy(sp.astype(np.float32))
+    op.data = op.data.to(torch.bfloat16)
+    x = np.random.default_rng(11).standard_normal(sp.shape[0]).astype(np.float32)
+    y = op @ _t(x)
+    assert y.dtype == torch.float32
+    assert np.max(np.abs(y.numpy() - sp @ x)) / (1 + np.max(np.abs(sp @ x))) < 2e-2
+    # complex vector, real matrix: promoted, as the reference
+    z = x + 1j * x[::-1]
+    op64 = t_sparse.CSROperator.from_scipy(sp)
+    np.testing.assert_allclose((op64 @ _t(z)).numpy(), sp @ z, rtol=1e-12, atol=1e-12)
+
+
+def test_dia_operator_matches_reference():
+    rng = np.random.default_rng(12)
+    n = 50
+    A = scipy.sparse.diags([rng.standard_normal(n - 3), rng.standard_normal(n),
+                            rng.standard_normal(n - 1)], [-3, 0, 1], format="dia")
+    op, ref = t_sparse.DiaOperator.from_scipy(A), j_sparse.DiaOperator.from_scipy(A)
+    assert op.nnz == ref.nnz and op.offsets == tuple(ref.offsets)
+    X = rng.standard_normal((n, 2))
+    for x in (X[:, 0], X):
+        np.testing.assert_allclose((op @ _t(x)).numpy(), np.asarray(ref @ jnp.asarray(x)),
+                                   rtol=1e-13, atol=1e-14)
+        np.testing.assert_allclose(op.rmatvec(_t(x)).numpy(),
+                                   np.asarray(ref.rmatvec(jnp.asarray(x))),
+                                   rtol=1e-13, atol=1e-14)
+    np.testing.assert_array_equal(op.diagonal().numpy(), np.asarray(ref.diagonal()))
+    np.testing.assert_array_equal(op.tocsr().todense().numpy(),
+                                  np.asarray(ref.tocsr().todense()))
+
+
+# ---------------------------------------------------------------------------
+# BSR (K12 plain version) and detect_blocksize
+# ---------------------------------------------------------------------------
+
+
+def _block_tridiag(n=2048, R=32, seed=3, spd=False):
+    rng = np.random.default_rng(seed)
+    nb = n // R
+    dense = np.zeros((n, n))
+    for i in range(nb):
+        for j in range(max(0, i - 1), min(nb, i + 2)):
+            dense[i * R:(i + 1) * R, j * R:(j + 1) * R] = rng.standard_normal((R, R))
+    if spd:
+        dense = dense @ dense.T + n * np.eye(n)
+    return dense
+
+
+@pytest.mark.parametrize("R,C,k", [(32, 32, 8), (8, 16, 3), (128, 128, 1)])
+def test_k12_plain_matches_reference_kernel(R, C, k):
+    rng = np.random.default_rng(R + k)
+    nbrows, max_blocks, nbcols = 4, 3, 5
+    data = rng.standard_normal((nbrows * max_blocks, R, C)).astype(np.float32)
+    cols = rng.integers(0, nbcols, (nbrows, max_blocks)).astype(np.int32)
+    x = rng.standard_normal((nbcols * C, k)).astype(np.float32)
+    got = cuda_bsr.bsr_spmm(_t(data), _t(cols), _t(x))
+    want = np.asarray(j_pallas_bsr.bsr_spmm(jnp.asarray(data), jnp.asarray(cols),
+                                            jnp.asarray(x), interpret=True))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_bsr_operator_matches_reference(dtype):
+    dense = _block_tridiag(512, 32, seed=13).astype(dtype)
+    if dtype == np.complex128:
+        dense = dense + 1j * _block_tridiag(512, 32, seed=14)
+    sp = scipy.sparse.csr_matrix(dense)
+    op = t_bsr.BSROperator.from_scipy(sp, blocksize=(32, 32))
+    ref = j_bsr.BSROperator.from_scipy(sp, blocksize=(32, 32))
+    np.testing.assert_array_equal(op.data.numpy(), np.asarray(ref.data))
+    np.testing.assert_array_equal(op.cols.numpy(), np.asarray(ref.cols))
+    assert op.nnz == ref.nnz and op.blocksize == tuple(ref.blocksize)
+    rng = np.random.default_rng(15)
+    X = rng.standard_normal((512, 3))
+    for x in (X[:, 0], X):
+        np.testing.assert_allclose((op @ _t(x)).numpy(), dense @ x, rtol=1e-12, atol=1e-11)
+        np.testing.assert_allclose(op.rmatvec(_t(x)).numpy(), dense.conj().T @ x,
+                                   rtol=1e-12, atol=1e-11)
+    np.testing.assert_array_equal(op.diagonal().numpy(), np.asarray(ref.diagonal()))
+    np.testing.assert_array_equal(op.todense().numpy(), dense)
+
+
+def _arrow(n=4096, R=32, seed=7):
+    rng = np.random.default_rng(seed)
+    nb = n // R
+    blocks = [(0, j) for j in range(nb)] + [(i, i) for i in range(1, nb)]
+    rows, cols = [], []
+    for bi, bj in blocks:
+        rr, cc = np.meshgrid(np.arange(R), np.arange(R), indexing="ij")
+        rows.append((bi * R + rr).ravel())
+        cols.append((bj * R + cc).ravel())
+    return scipy.sparse.csr_matrix(
+        (rng.standard_normal(len(blocks) * R * R),
+         (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
+
+
+@pytest.mark.parametrize("case", ["block", "scattered", "arrow", "small", "rect64"])
+def test_detect_blocksize_matches_reference(case):
+    sp = {
+        "block": lambda: scipy.sparse.csr_matrix(_block_tridiag()),
+        "scattered": lambda: scipy.sparse.random(2048, 2048, density=0.02, random_state=0,
+                                                 format="csr"),
+        "arrow": _arrow,
+        "small": lambda: scipy.sparse.csr_matrix(_block_tridiag(256, 32)),
+        "rect64": lambda: scipy.sparse.csr_matrix(_block_tridiag(2048, 64)[:, :1024]),
+    }[case]()
+    assert t_bsr.detect_blocksize(sp) == j_bsr.detect_blocksize(sp)
+    if case == "block":
+        assert t_bsr.detect_blocksize(sp) == (32, 32)
+    if case == "arrow":
+        assert t_bsr.detect_blocksize(sp) is None
+
+
+# ---------------------------------------------------------------------------
+# routing and the route cache
+# ---------------------------------------------------------------------------
+
+
+def _kind(op):
+    return type(op).__name__
+
+
+def test_routing_matches_reference_on_cpu():
+    """Without a CUDA device the port routes as the reference does on its
+    CPU (f64 parity): block-structured to BSR, everything else to CSR."""
+    cases = [scipy.sparse.csr_matrix(_block_tridiag()),
+             scipy.sparse.random(2048, 2048, density=0.02, random_state=0, format="csr"),
+             CASES["tridiag"], CASES["rect"]]
+    rng = np.random.default_rng(16)
+    for sp in cases:
+        op, ref = t_ops.as_operator(sp), j_ops.as_operator(sp)
+        assert _kind(op) == _kind(ref)
+        x = rng.standard_normal(sp.shape[1])
+        np.testing.assert_allclose((op @ _t(x)).numpy(), np.asarray(ref @ jnp.asarray(x)),
+                                   rtol=1e-12, atol=1e-11)
+    assert kt.aslinearoperator is kt.as_operator
+
+
+def test_routing_on_a_cuda_device(monkeypatch):
+    """On a CUDA device (the device check monkeypatched, so the operators
+    are built on the CPU) large real float32 matrices go to PETOperator,
+    with a lazy adjoint and reorder="auto"; float64, complex and small
+    ones keep CSROperator, as the reference's TPU routing (mocked the same
+    way) keeps its portable path for them."""
+    import types
+
+    import jax
+
+    monkeypatch.setattr(t_ops, "_pet_device", lambda device: True)
+    fake_jax = types.SimpleNamespace(Array=jax.Array, default_backend=lambda: "tpu",
+                                     config=types.SimpleNamespace(jax_enable_x64=False))
+    monkeypatch.setattr(j_ops, "jax", fake_jax)
+    big = scipy.sparse.random(2048, 2048, density=0.02, random_state=0, format="csr")
+    f32 = big.astype(np.float32)
+    op = t_ops.as_operator(f32)
+    assert _kind(op) == "PETOperator" == _kind(j_ops._route_scipy_sparse(f32))
+    assert op._csr_t is None and op._sp is not None  # lazy adjoint
+    for sp in (big, (big + 1j * big).tocsr(), CASES["tridiag"].astype(np.float32)):
+        assert _kind(t_ops.as_operator(sp)) == "CSROperator"
+    assert _kind(t_ops.as_operator(scipy.sparse.csr_matrix(_block_tridiag()))) == "BSROperator"
+
+
+def test_route_cache_mutation_eviction_and_device():
+    sp = scipy.sparse.random(256, 256, density=0.05, random_state=5,
+                             format="csr").astype(np.float32)
+    calls = []
+
+    def build(A):
+        calls.append(1)
+        return ("op", len(calls))
+
+    op1 = t_ops._route_cached(sp, None, build)
+    assert t_ops._route_cached(sp, "cpu", build) is op1 and len(calls) == 1
+    # one matrix routed for another device gives a second operator
+    op_meta = t_ops._route_cached(sp, torch.device("meta"), build)
+    assert op_meta is not op1 and len(calls) == 2
+    sp.data[1] *= 100.0  # a single in-place edit rebuilds
+    assert t_ops._route_cached(sp, None, build) is not op1 and len(calls) == 3
+    keys = [k for k in t_ops._ROUTE_CACHE if k[0] == id(sp)]
+    assert len(keys) == 2
+    del sp
+    gc.collect()
+    assert not any(k in t_ops._ROUTE_CACHE for k in keys), "dead entries must evict"
+
+
+def test_route_cache_evicts_lazy_pet_chain():
+    sp = scipy.sparse.random(300, 300, density=0.05, random_state=9,
+                             format="csr").astype(np.float32)
+    op = t_ops._route_cached(
+        sp, None, lambda A: cuda_spmv.PETOperator.from_scipy(A, with_rmatvec="lazy"))
+    key = (id(sp), "cpu")
+    assert key in t_ops._ROUTE_CACHE
+    del sp
+    gc.collect()
+    assert key not in t_ops._ROUTE_CACHE, "the lazy operator kept the matrix alive"
+    with pytest.raises(ValueError, match="garbage collection"):
+        op.rmatvec(torch.ones(300))
+
+
+def test_two_sided_setup_builds_the_lazy_adjoint():
+    from krylov_tpu_torch.solvers._common import setup
+
+    sp = scipy.sparse.random(300, 300, density=0.05, random_state=9,
+                             format="csr").astype(np.float32)
+    op = cuda_spmv.PETOperator.from_scipy(sp, with_rmatvec="lazy")
+    setup(op, torch.ones(300))
+    assert op._csr_t is None
+    setup(op, torch.ones(300), needs_rmatvec=True)
+    assert op._csr_t is not None
+
+
+# ---------------------------------------------------------------------------
+# tocsr, convert, triangular
+# ---------------------------------------------------------------------------
+
+
+def test_stencil_tocsr_matches_reference():
+    a = np.exp(np.random.default_rng(17).standard_normal((9, 11)))
+    pairs = [
+        (t_stencil.poisson_1d(17), j_stencil.poisson_1d(17)),  # BandedOperator
+        (t_stencil.poisson_2d(7, 9), j_stencil.poisson_2d(7, 9)),
+        (t_stencil.diffusion_2d(a), j_stencil.diffusion_2d(a)),
+        (t_stencil.poisson_2d_const(7, 9, dtype=np.float64),
+         j_stencil.poisson_2d_const(7, 9, dtype=np.float64)),
+        (t_stencil.poisson_3d_const(3, 4, 5, dtype=np.float64),
+         j_stencil.poisson_3d_const(3, 4, 5, dtype=np.float64)),
+    ]
+    for op, ref in pairs:
+        got = op.tocsr()
+        assert _kind(got) == "CSROperator"
+        np.testing.assert_array_equal(got.todense().numpy(), np.asarray(ref.tocsr().todense()))
+
+
+def test_convert_sparse_formats_from_reference():
+    rng = np.random.default_rng(18)
+    sp = CASES["irregular"]
+    x = rng.standard_normal(sp.shape[0])
+    csr = convert.from_reference(j_sparse.CSROperator.from_scipy(sp))
+    np.testing.assert_allclose((csr @ _t(x)).numpy(), sp @ x, rtol=1e-12, atol=1e-12)
+    dia = convert.from_reference(j_sparse.DiaOperator.from_scipy(CASES["tridiag"].todia()))
+    y = rng.standard_normal(300)
+    np.testing.assert_allclose((dia @ _t(y)).numpy(), CASES["tridiag"] @ y, rtol=1e-13)
+    dense = _block_tridiag(512, 32, seed=19)
+    bsr = convert.from_reference(j_bsr.BSROperator.from_scipy(scipy.sparse.csr_matrix(dense),
+                                                              blocksize=(32, 32)))
+    z = rng.standard_normal(512)
+    np.testing.assert_allclose((bsr @ _t(z)).numpy(), dense @ z, rtol=1e-12, atol=1e-11)
+    f32 = _scrambled_poisson(30, seed=20)
+    for kw in (dict(with_rmatvec=True, reorder="rcm"), dict(with_rmatvec="lazy")):
+        ref = j_spmv.PETOperator.from_scipy(f32, interpret=True, **kw)
+        pet = convert.from_reference(ref, source=f32)
+        assert _kind(pet) == "PETOperator"
+        assert (pet._perm is None) == (ref._perm is None)
+        v = rng.standard_normal(f32.shape[0]).astype(np.float32)
+        np.testing.assert_allclose(pet.rmatvec(_t(v)).numpy(), f32.T @ v, rtol=0,
+                                   atol=1e-5 * np.abs(f32.T @ v).max())
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_multi_solve_triangular_matches_reference(lower):
+    rng = np.random.default_rng(21)
+    k = 6
+    A = rng.standard_normal((k, k, 3)) + 4 * np.eye(k)[:, :, None]
+    A = np.tril(A.transpose(2, 0, 1)).transpose(1, 2, 0) if lower else \
+        np.triu(A.transpose(2, 0, 1)).transpose(1, 2, 0)
+    B = rng.standard_normal((k, 3))
+    B[:, 1] = 0.0  # a converged column: its singular R must not matter
+    A[:, :, 1] = 0.0
+    got = multi_solve_triangular(_t(A), _t(B), lower=lower)
+    want = np.asarray(j_tri.multi_solve_triangular(jnp.asarray(A), jnp.asarray(B),
+                                                   lower=lower))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-14)
+    assert np.all(got.numpy()[:, 1] == 0.0)
+
+
+def test_sparse_solves_match_reference():
+    """bicgstab and gmres on a scipy CSR matrix, through as_operator."""
+    g = 16
+    n = g * g
+    sp = scipy.sparse.diags([-1.0, -1.0, 4.5, -1.0, -1.0], [-g, -1, 0, 1, g],
+                            shape=(n, n), format="csr")
+    conv = scipy.sparse.diags([-0.4, 0.4], [-1, 1], shape=(n, n), format="csr")
+    b = np.random.default_rng(22).standard_normal(n)
+    dinv = 1.0 / sp.diagonal()
+    _, it = kt.bicgstab(sp, b, Ml=kt.DiagonalOperator(_t(dinv)), tol=1e-8,
+                        backend="while_loop")
+    _, ij = krylov_tpu.bicgstab(sp, b, Ml=krylov_tpu.DiagonalOperator(jnp.asarray(dinv)),
+                                tol=1e-8)
+    assert it.success and it.numsteps == ij.numsteps
+    np.testing.assert_allclose(it.resnorms, np.asarray(ij.resnorms), rtol=1e-9,
+                               atol=1e-13 * it.resnorms[0])
+    A = (sp + conv).tocsr()
+    _, it = kt.gmres(A, b, tol=1e-8, maxiter=80, backend="while_loop")
+    _, ij = krylov_tpu.gmres(A, b, tol=1e-8, maxiter=80, backend="while_loop")
+    assert it.success and it.numsteps == ij.numsteps
+    np.testing.assert_allclose(it.resnorms, np.asarray(ij.resnorms), rtol=1e-9,
+                               atol=1e-13 * it.resnorms[0])
+
+
+def test_operators_refuse_mismatched_vectors():
+    """The kernels gather x by stored column: a short x must raise before
+    any pointer reaches them."""
+    pet = cuda_spmv.PETOperator.from_scipy(CASES["rect"].astype(np.float32))
+    bsr = t_bsr.BSROperator.from_scipy(scipy.sparse.csr_matrix(_block_tridiag(256, 32)),
+                                       blocksize=(32, 32))
+    for op in (pet, bsr):
+        for x in (torch.ones(op.shape[1] - 1), torch.ones((op.shape[1], 2, 2))):
+            with pytest.raises(ValueError, match="does not match"):
+                op @ x
