@@ -39,10 +39,20 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    repeated bitwise, and at 256^2 against a float64 CPU run; (c) CG with
    an ``(N, 8)`` right-hand side on the Poisson CSR (K11) and on a
    block-structured SPD matrix routed to ``BSROperator`` (K12);
+7. fused Jacobi-preconditioned CG and the rest of the solver family: (a)
+   K6 and K7 against their plain versions (4096^2, a ragged grid, 9 and 25
+   bands); (b) ``cg_stencil(M="jacobi", fused=True)`` at 4096^2 on a smooth
+   and on the lognormal field against its unfused twin and generic
+   preconditioned ``cg``, at 1024^2 against float64, and to 1e-6 beside the
+   unpreconditioned solve; (c) ``qmr``, ``bicg``, ``cgs``, ``tfqmr``,
+   ``minres``, ``cg_pipelined``, ``cg_block`` and ``refine`` on the 1M-row
+   shifted Poisson CSR with 6b's checks (the adjoint products counted); (d)
+   the device rule: with no device argument, inputs land on the card;
 5. timings with CUDA events, each printed beside the card's name and power
-   limit: every kernel and its plain version, per-iteration slopes of the
-   stencil solvers, time to solution of cg100, of MG-CG and of phase 6b's
-   solves with the device's idle share (``torch.profiler``), and each
+   limit: every kernel with its plain version, its bound and, where one
+   PyTorch call computes the same function, that call; per-iteration slopes
+   of the stencil solvers; time to solution of cg100, of MG-CG and of the
+   sparse solves with the device's idle share (``torch.profiler``); each
    V-cycle level's share.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
@@ -95,6 +105,24 @@ def check_close(name, got, want, atol, rtol=0.0):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+
+
+def timed(ms, plain_ms, nbytes, flops, library_ms=None):
+    """One kernel's timing record: its time, its plain version's, the least
+    time the card could take for the same work (the larger of the bytes the
+    function must move, each input read once and each output written once,
+    over the memory rate, and its float32 operations over the peak rate),
+    and the time of the one PyTorch call computing the same function, where
+    there is one."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
 
 
 def time_ms(fn, reps):
@@ -193,14 +221,14 @@ def phase_kernels(dev, cs, st):
     return errs, A
 
 
-def check_fused(name, got, want):
-    """Vectors at 1e-5 of their max; the reduced scalar at rtol 1e-4, the
-    f32 summation-order band over 16.7M terms."""
+def check_fused(name, got, want, sum_rtol=1e-4):
+    """Vectors at 1e-5 of their max; the reduced scalar at ``sum_rtol``
+    (1e-4: the f32 summation-order band over 16.7M terms)."""
     err = 0.0
     for k, (g, w) in enumerate(zip(got[:2], want[:2])):
         err = max(err, check_close(f"{name} out{k}", g, w,
                                    atol=1e-5 * float(w.abs().max())))
-    check_close(f"{name} scalar", got[2], want[2], atol=0.0, rtol=1e-4)
+    check_close(f"{name} scalar", got[2], want[2], atol=0.0, rtol=sum_rtol)
     return err
 
 
@@ -457,7 +485,7 @@ def phase_main(dev, kt, cs, st, A_div):
         ("diffusion_2d", lambda dt, d: st.diffusion_2d(
             a.astype(np.float32).astype(dt), device=d), stable),
     ):
-        A_gpu, A_cpu = make(np.float32, dev), make(np.float64, None)
+        A_gpu, A_cpu = make(np.float32, dev), make(np.float64, "cpu")
         b = torch.ones(A_gpu.grid, dtype=torch.float32, device=dev)
         (g_cg, g_fu), _ = solve_pair(A_gpu, b, kt, cs, iters)
         _, ref = kt.cg_stencil(A_cpu, b.double().cpu(), tol=0.0, atol=0.0,
@@ -490,7 +518,8 @@ def phase_const_cg(dev, kt, cs, st):
     assert same_fu and same_cg
 
     log(f"  at {MID}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
-    A_gpu, A_cpu = st.poisson_2d_const(MID, device=dev), st.poisson_2d_const(MID, dtype=np.float64)
+    A_gpu, A_cpu = st.poisson_2d_const(MID, device=dev), st.poisson_2d_const(
+        MID, dtype=np.float64, device="cpu")
     b = torch.ones(A_gpu.grid, dtype=torch.float32, device=dev)
     (g_cg, g_fu), _ = solve_pair(A_gpu, b, kt, cs, iters)
     _, ref = kt.cg_stencil(A_cpu, b.double().cpu(), tol=0.0, atol=0.0, maxiter=iters)
@@ -598,7 +627,7 @@ def phase_mg(dev, kt, cs, st):
         ("diffusion_2d Galerkin", lambda dt, d: st.diffusion_2d(
             smooth_field(small).astype(np.float32).astype(dt), device=d)),
     ):
-        A_gpu, A_cpu = make(np.float32, dev), make(np.float64, None)
+        A_gpu, A_cpu = make(np.float32, dev), make(np.float64, "cpu")
         _, b = manufactured(A_gpu, dev, SEED + 22)
         _, g = mg_cg(kt, A_gpu, b)
         _, ref = mg_cg(kt, A_cpu, b.double().cpu())
@@ -634,34 +663,66 @@ def phase_timing(dev, kt, cs, st, A_div, card):
             f"plain {k1p * 1e3:.1f} us")
         log(f"  [{card}] {label} {BIG}^2 K5 cg_fused_phase_a_var {k5 * 1e3:.1f} us "
             f"({gbs(k5, nd + 4):.0f} GB/s by (ndiag+4)*N*4); plain {k5p * 1e3:.1f} us")
-        times[label] = {"stencil2d_matvec": (k1, k1p), "cg_fused_phase_a_var": (k5, k5p)}
+        # K6: K5 with the dinv plane, on the same operator
+        dinv = 1.0 / A.diagonal().reshape(A.grid)
+        k6 = time_ms(lambda: cs.cg_fused_phase_a_var_jac(om, r, x, c, dinv, ro, co,
+                                                         out=(pn, ap)), 50)
+        k6p = time_ms(lambda: cs.cg_fused_phase_a_var_jac_plain(om, r, x, c, dinv, ro, co), 10)
+        log(f"  [{card}] {label} {BIG}^2 K6 cg_fused_phase_a_var_jac {k6 * 1e3:.1f} us "
+            f"({gbs(k6, nd + 5):.0f} GB/s by (ndiag+5)*N*4); plain {k6p * 1e3:.1f} us")
+        times[label] = {
+            "stencil2d_matvec": timed(k1, k1p, (nd + 2) * N * 4, 2 * nd * N),
+            "cg_fused_phase_a_var": timed(k5, k5p, (nd + 4) * N * 4, (2 * nd + 4) * N),
+            "cg_fused_phase_a_var_jac": timed(k6, k6p, (nd + 5) * N * 4, (2 * nd + 5) * N),
+        }
     yv, rv = x.clone(), r.clone()
     k4 = time_ms(lambda: cs.cg_fused_phase_b(al, yv, rv, x, r), 50)
     k4p = time_ms(lambda: cs.cg_fused_phase_b_plain(al, yv, rv, x, r), 10)
     log(f"  [{card}] {BIG}^2 K4 cg_fused_phase_b {k4 * 1e3:.1f} us "
         f"({6 * N * 4 / (k4 * 1e-3) / 1e9:.0f} GB/s by 6*N*4); plain {k4p * 1e3:.1f} us")
-    times["diffusion_2d"]["cg_fused_phase_b"] = (k4, k4p)
+    times["diffusion_2d"]["cg_fused_phase_b"] = timed(k4, k4p, 6 * N * 4, 6 * N)
+    dinv = 1.0 / A_div.diagonal().reshape(A_div.grid)
+    k7 = time_ms(lambda: cs.cg_fused_phase_b_jac(al, yv, rv, x, r, dinv), 50)
+    k7p = time_ms(lambda: cs.cg_fused_phase_b_jac_plain(al, yv, rv, x, r, dinv), 10)
+    log(f"  [{card}] {BIG}^2 K7 cg_fused_phase_b_jac {k7 * 1e3:.1f} us "
+        f"({7 * N * 4 / (k7 * 1e-3) / 1e9:.0f} GB/s by 7*N*4); plain {k7p * 1e3:.1f} us")
+    times["diffusion_2d"]["cg_fused_phase_b_jac"] = timed(k7, k7p, 7 * N * 4, 7 * N)
 
     # the const kernels on poisson_2d_const(4096), K9 on diffusion_2d's planes
     A_c = st.poisson_2d_const(BIG, device=dev)
     kb = A_c.kernel_bands
     c, ro, co = A_div.coeffs2d, A_div.row_offsets, A_div.col_offsets
     w = 0.8 / A_div.diagonal().reshape(A_div.grid)
-    for name, kernel, plain, words, model in (
+    # the one PyTorch call that computes K2's function: a 3x3 convolution
+    # with zero padding (timed only; cuDNN in full float32)
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    lap3 = torch.tensor([[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]],
+                        device=dev).reshape(1, 1, 3, 3)
+    x4 = x.reshape(1, 1, BIG, BIG)
+    conv_err = max_err(F.conv2d(x4, lap3, padding=1)[0, 0], cs.const_stencil2d_matvec(x, kb))
+    conv_ms = time_ms(lambda: F.conv2d(x4, lap3, padding=1), 20)
+    log(f"  [{card}] {BIG}^2 library F.conv2d 3x3 padding=1 (K2's function): "
+        f"{conv_ms * 1e3:.1f} us; max |conv - K2| {conv_err:.2e}")
+    nb = len(kb)
+    for name, kernel, plain, words, flops, model, lib in (
         ("const_stencil2d_matvec", lambda: cs.const_stencil2d_matvec(x, kb, out=y),
-         lambda: cs.const_stencil2d_matvec_plain(x, kb), 2, "2*N*4"),
+         lambda: cs.const_stencil2d_matvec_plain(x, kb), 2, 2 * nb, "2*N*4", conv_ms),
         ("cg_fused_phase_a", lambda: cs.cg_fused_phase_a(om, r, x, kb, out=(pn, ap)),
-         lambda: cs.cg_fused_phase_a_plain(om, r, x, kb), 4, "4*N*4"),
+         lambda: cs.cg_fused_phase_a_plain(om, r, x, kb), 4, 2 * nb + 4, "4*N*4", None),
         ("jacobi_sweep_const", lambda: cs.jacobi_sweep_const(0.2, x, r, kb, out=y),
-         lambda: cs.jacobi_sweep_const_plain(0.2, x, r, kb), 3, "3*N*4 (update)"),
+         lambda: cs.jacobi_sweep_const_plain(0.2, x, r, kb), 3, 2 * nb + 3,
+         "3*N*4 (update)", None),
         ("jacobi_sweep_var", lambda: cs.jacobi_sweep_var(w, x, r, c, ro, co, out=y),
          lambda: cs.jacobi_sweep_var_plain(w, x, r, c, ro, co), c.shape[0] + 4,
-         "(ndiag+4)*N*4 (update, 5 bands)"),
+         2 * c.shape[0] + 3, "(ndiag+4)*N*4 (update, 5 bands)", None),
     ):
         ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 10)
         log(f"  [{card}] {BIG}^2 {name} {ms * 1e3:.1f} us ({gbs(ms, words):.0f} GB/s by "
             f"{model}); plain {plain_ms * 1e3:.1f} us")
-        times["const"] = dict(times.get("const", {}), **{name: (ms, plain_ms)})
+        times["const"] = dict(times.get("const", {}), **{
+            name: timed(ms, plain_ms, words * N * 4, flops * N, lib)})
 
     # marginal per-iteration cost: slope of whole-solve time over maxiter
     for label, A in (("poisson_2d", A_p), ("diffusion_2d", A_div),
@@ -672,7 +733,12 @@ def phase_timing(dev, kt, cs, st, A_div, card):
                                    maxiter=n, backend="while_loop")),
             ("cg_stencil fused", lambda n: kt.cg_stencil(
                 A, b, tol=0.0, atol=0.0, maxiter=n, fused=True)),
-        ):
+        ) + (() if label != "diffusion_2d" else (
+            ("cg_stencil Jacobi fused", lambda n: kt.cg_stencil(
+                A, b, tol=0.0, atol=0.0, maxiter=n, fused=True, M="jacobi")),
+            ("cg_stencil Jacobi unfused", lambda n: kt.cg_stencil(
+                A, b, tol=0.0, atol=0.0, maxiter=n, fused=False, M="jacobi")),
+        )):
             t = {}
             for n in (20, 120, 20, 120):
                 torch.cuda.synchronize()
@@ -911,7 +977,7 @@ def agree_sparse(what, info, twin, failures, hold=None):
     given); prints where the histories leave the band."""
     n = min(len(info.resnorms), len(twin.resnorms))
     rel = np.abs(info.resnorms[:n] - twin.resnorms[:n]) / twin.resnorms[:n]
-    out = np.flatnonzero(rel > TRAJ_RTOL)
+    out = np.flatnonzero((rel > TRAJ_RTOL).reshape(n, -1).any(axis=1))
     first = "never" if out.size == 0 else f"at step {out[0]}"
     span = n if hold is None else min(n, hold + 1)
     ok = abs(info.numsteps - twin.numsteps) <= 1 and rel[:span].max() <= TRAJ_RTOL
@@ -947,15 +1013,21 @@ def sparse_solves(kt, dev, npg, b_seed, dtype=np.float32):
     return cases, b
 
 
-def phase_sparse_solves(dev, kt, sv):
-    """6b: the reference bench's solves on its 1M-row CSR matrices through
-    as_operator -> PETOperator (K10), against their CSROperator twins on
-    the card, repeated bitwise, and at 256^2 against a float64 CPU run."""
+def run_sparse_cases(dev, kt, sv, make_cases, seeds, per_step, f64_hold=None,
+                     twin_hold=None):
+    """The checks 6b and 7c share, on the cases ``make_cases`` builds: each
+    solve given the scipy matrix (routed by as_operator to PETOperator: K10,
+    K11) against its CSROperator twin on the card over the whole history,
+    (the first ``twin_hold[name]`` steps where given), repeated bitwise,
+    with at least ``per_step(name)`` kernel launches a step; then at
+    SMALL_NPG^2 against a float64 CPU run (over the first
+    ``f64_hold[name]`` steps where given).  Returns the summed launch
+    counts of the first runs and their infos."""
     from krylov_tpu_torch.ops.sparse import CSROperator
 
-    log(f"phase 6b: sparse solves on the {NPG}^2 Poisson CSR ({NPG * NPG} rows)")
-    failures, launches, results = [], 0, {}
-    cases, _ = sparse_solves(kt, dev, NPG, SEED + 30)
+    failures, results = [], {}
+    launches = dict.fromkeys(sv.LAUNCHES, 0)
+    cases, _ = make_cases(kt, dev, NPG, seeds[0])
     for name, (sp, solve) in cases.items():
         op = kt.as_operator(sp, dev)
         assert type(op).__name__ == "PETOperator", type(op)
@@ -964,40 +1036,54 @@ def phase_sparse_solves(dev, kt, sv):
             sv.reset_launches()
             _, info = solve(sp)
             torch.cuda.synchronize()
-            runs.append((info, sv.LAUNCHES["csr_matvec"]))
+            runs.append((info, dict(sv.LAUNCHES)))
         (info, n), (again, _) = runs
-        launches += n
-        per_step = {"bicgstab": 3, "cg": 1, "gmres": 1}[name.split()[0]]
+        for k in launches:
+            launches[k] += n[k]
+        key, least = per_step(name)
         log(f"  {name}: success {info.success} numsteps {info.numsteps} resnorm ratio "
-            f"{info.resnorms[-1] / info.resnorms[0]:.3e}; K10 launches {n}")
+            f"{np.max(info.resnorms[-1] / info.resnorms[0]):.3e}; launches {n}")
         assert bool(torch.isfinite(info.xk).all()) and np.isfinite(info.resnorms).all()
-        assert n >= per_step * info.numsteps, "K10 did not carry every matvec"
-        if not name.startswith("cg"):  # the bench's cg_jacobi stops at 1500 unconverged
+        assert n[key] >= least * info.numsteps, f"{key} did not carry every product"
+        if not name.startswith("cg M=Jacobi"):  # the bench's cg_jacobi stops at 1500 unconverged
             assert info.success, f"{name} did not converge"
         same = np.array_equal(info.resnorms, again.resnorms) and torch.equal(info.xk, again.xk)
         log(f"  {name}: repeat bitwise equal: {same}")
         assert same
         twin = CSROperator.from_scipy(sp, device=dev)
         _, tinfo = solve(twin)
-        agree_sparse(f"{name} PETOperator vs CSROperator", info, tinfo, failures)
+        agree_sparse(f"{name} PETOperator vs CSROperator", info, tinfo, failures,
+                     hold=(twin_hold or {}).get(name))
         results[name] = info
         del twin
 
     log(f"  at {SMALL_NPG}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
-    small, _ = sparse_solves(kt, dev, SMALL_NPG, SEED + 31)
-    ref, _ = sparse_solves(kt, torch.device("cpu"), SMALL_NPG, SEED + 31, np.float64)
+    small, _ = make_cases(kt, dev, SMALL_NPG, seeds[1])
+    ref, _ = make_cases(kt, torch.device("cpu"), SMALL_NPG, seeds[1], np.float64)
     for name, (sp, solve) in small.items():
-        if name.startswith("cg"):
+        if name.startswith("cg M=Jacobi"):
             continue  # 1500 unconverged steps: a float64 run parts from f32 by design
         assert type(kt.as_operator(sp, dev)).__name__ == "PETOperator"
         _, g = solve(sp)
         sp64, rsolve = ref[name]
         _, r = rsolve(sp64)  # float64 CSROperator on the CPU
-        agree_sparse(f"{name} f32 GPU vs f64 CPU at {SMALL_NPG}^2", g, r, failures)
+        agree_sparse(f"{name} f32 GPU vs f64 CPU at {SMALL_NPG}^2", g, r, failures,
+                     hold=(f64_hold or {}).get(name))
         assert g.success and r.success
     if failures:
         raise AssertionError(f"sparse trajectories disagree: {failures}")
     return launches, results
+
+
+def phase_sparse_solves(dev, kt, sv):
+    """6b: the reference bench's solves on its 1M-row CSR matrices through
+    as_operator -> PETOperator (K10), against their CSROperator twins on
+    the card, repeated bitwise, and at 256^2 against a float64 CPU run."""
+    log(f"phase 6b: sparse solves on the {NPG}^2 Poisson CSR ({NPG * NPG} rows)")
+    launches, results = run_sparse_cases(
+        dev, kt, sv, sparse_solves, (SEED + 30, SEED + 31),
+        lambda name: ("csr_matvec", {"bicgstab": 3, "cg": 1, "gmres": 1}[name.split()[0]]))
+    return launches["csr_matvec"], results
 
 
 def phase_sparse_blocked(dev, kt, sv, bs):
@@ -1063,7 +1149,14 @@ def sparse_timing(dev, kt, sv, bs, card):
             f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by (4+{vb})*nnz + 8*n + 4*n); plain "
             f"{plain * 1e3:.1f} us")
         if vdt == torch.float32:
-            times["csr_matvec"] = (ms, plain)
+            # the one PyTorch call computing K10's function (timed only)
+            lib_op = torch.sparse_csr_tensor(ip, ix, d, size=sp.shape)
+            lib_err = max_err(lib_op @ x, sv.csr_matvec(ip, ix, d, x))
+            lib = time_ms(lambda: lib_op @ x, 20)
+            log(f"  [{card}] library torch.sparse_csr_tensor @ x, the same arrays: "
+                f"{lib * 1e3:.1f} us; max |library - K10| {lib_err:.2e}")
+            times["csr_matvec"] = timed(ms, plain, by, 2 * nnz, lib)
+            del lib_op
     lap = poisson_csr(NPG)
     pip, pix, pdata = csr_tensors(lap, dev)
     m = lap.shape[0]
@@ -1081,7 +1174,15 @@ def sparse_timing(dev, kt, sv, bs, card):
             f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by tiles*(8*nnz + 4*n) + 8*n*k); plain "
             f"{plain * 1e3:.1f} us")
         if k == 8:
-            times["csr_matmat"] = (ms, plain)
+            lib_op = torch.sparse_csr_tensor(pip, pix, pdata, size=lap.shape)
+            lib_err = max_err(lib_op @ X, sv.csr_matmat(pip, pix, pdata, X))
+            lib = time_ms(lambda: lib_op @ X, 20)
+            log(f"  [{card}] library torch.sparse_csr_tensor @ X, poisson {NPG}^2 k=8: "
+                f"{lib * 1e3:.1f} us; max |library - K11| {lib_err:.2e}")
+            # bound: the matrix streamed once, X read once, Y written once
+            times["csr_matmat"] = timed(ms, plain, lap.nnz * 8 + 4 * m + 2 * 4 * m * k,
+                                        2 * lap.nnz * k, lib)
+            del lib_op
     nbrows, max_blocks, R = 256, 3, 128
     cols = torch.from_numpy(rng.integers(0, nbrows, (nbrows, max_blocks)).astype(np.int32)).to(dev)
     blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))
@@ -1097,7 +1198,8 @@ def sparse_timing(dev, kt, sv, bs, card):
 
     # K12 at phase 6c's own shape: the block-tridiagonal SPD matrix's
     # operator, NBLK block rows x 3 blocks of 32x32, k = 8
-    bop = kt.as_operator(block_spd_csr(), dev)
+    bsp = block_spd_csr()
+    bop = kt.as_operator(bsp, dev)
     xb = torch.from_numpy(rng.standard_normal((bop.shape[1], 8)).astype(np.float32)).to(dev)
     ms = time_ms(lambda: bs.bsr_spmm(bop.data, bop.cols, xb), 50)
     plain = time_ms(lambda: bs.bsr_spmm_plain(bop.data, bop.cols, xb), 10)
@@ -1106,8 +1208,23 @@ def sparse_timing(dev, kt, sv, bs, card):
         f"{bop.cols.shape[1]} blocks of 32x32 f32, k=8: {ms * 1e3:.1f} us "
         f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by the block bytes + x + y); plain "
         f"{plain * 1e3:.1f} us")
-    times["bsr_spmm"] = (ms, plain)
-    del bop, xb
+    # the one PyTorch call computing K12's function: a BSR tensor of the
+    # same 32x32 blocks (without the kernel's ELL padding) times X
+    bsr = bsp.tobsr(blocksize=(32, 32))
+    bsr.sort_indices()
+    lib_op = torch.sparse_bsr_tensor(
+        torch.from_numpy(bsr.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(bsr.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(bsr.data.astype(np.float32)).to(dev), size=bsr.shape)
+    lib_err = max_err(lib_op @ xb, bs.bsr_spmm(bop.data, bop.cols, xb))
+    lib = time_ms(lambda: lib_op @ xb, 20)
+    log(f"  [{card}] library torch.sparse_bsr_tensor @ X, the same blocks, k=8: "
+        f"{lib * 1e3:.1f} us; max |library - K12| {lib_err:.2e}")
+    true_blocks = bsr.data.shape[0]
+    times["bsr_spmm"] = timed(
+        ms, plain, true_blocks * 32 * 32 * 4 + bop.cols.numel() * 4 + 2 * bop.shape[0] * 8 * 4,
+        2 * true_blocks * 32 * 32 * 8, lib)
+    del bop, xb, lib_op
 
     # a solve given the scipy matrix pays as_operator's route-cache lookup
     # (a CRC of the whole matrix, as the reference's) on every call: timed
@@ -1121,6 +1238,8 @@ def sparse_timing(dev, kt, sv, bs, card):
     log(f"  [{card}] as_operator cache hit on the poisson {NPG}^2 CSR ({lap.nnz} nnz): "
         f"{best * 1e3:.2f} ms (best of 3)")
     cases, _ = sparse_solves(kt, dev, NPG, SEED + 30)
+    # the reference bench's qmr cell beside them
+    cases["qmr Ml=Jacobi"] = family_solves(kt, dev, NPG, SEED + 52)[0]["qmr Ml=Jacobi"]
     for name, (sp, solve) in cases.items():
         for route, A in (("PETOperator", kt.as_operator(sp, dev)),
                          ("CSROperator", CSROperator.from_scipy(sp, device=dev))):
@@ -1140,6 +1259,245 @@ def sparse_timing(dev, kt, sv, bs, card):
                     f"{key[:32]} x{count:.0f} {us / 1e3:.2f} ms"
                     for key, us, count in sorted(rows, key=lambda q: -q[1])[:4]))
     return times
+
+
+# ---------------------------------------------------------------------------
+# phase 7: fused Jacobi CG (K6, K7), the rest of the solver family on the
+# 1M-row matrices, and the device rule
+
+
+def phase_jacobi_kernels(dev, cs, st, A_div):
+    """7a: K6 and K7 against their plain versions on the card: 4096^2 with
+    five bands, a ragged 1000 x 1500 grid, and 9- and 25-band offset sets;
+    ``dinv`` positive and seeded.  Vectors at 1e-5 of their max, the two
+    sums at rtol 1e-5."""
+    log("phase 7a: K6, K7 against their plain versions")
+    rng = np.random.default_rng(SEED + 50)
+
+    def rand(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    a_ragged = np.exp(rng.standard_normal((1000, 1500))).astype(np.float32)
+    A_rag = st.diffusion_2d(a_ragged, device=dev)
+    c25, ro25, co25, _ = random_bands(rng, 257, 515, torch.float32, dev)
+    nine = [k for k in range(25) if abs(ro25[k]) <= 1 and abs(co25[k]) <= 1]
+    cases = [
+        (f"diffusion_2d({BIG}) 5 bands", A_div.coeffs2d, A_div.row_offsets, A_div.col_offsets),
+        ("diffusion_2d(1000,1500) 5 bands", A_rag.coeffs2d, A_rag.row_offsets,
+         A_rag.col_offsets),
+        ("random 9 bands (257,515)", c25[nine].contiguous(),
+         tuple(ro25[k] for k in nine), tuple(co25[k] for k in nine)),
+        ("random 25 bands (257,515)", c25, ro25, co25),
+    ]
+    errs = {"cg_fused_phase_a_var_jac": 0.0, "cg_fused_phase_b_jac": 0.0}
+    om, al = torch.tensor(0.7, device=dev), torch.tensor(0.3, device=dev)
+    for label, c, ro, co in cases:
+        shape = tuple(c.shape[1:])
+        r, p, y, ap = rand(shape), rand(shape), rand(shape), rand(shape)
+        dinv = torch.from_numpy((0.1 + rng.random(shape)).astype(np.float32)).to(dev)
+        got = cs.cg_fused_phase_a_var_jac(om, r, p, c, dinv, ro, co)
+        torch.cuda.synchronize()
+        errs["cg_fused_phase_a_var_jac"] = max(errs["cg_fused_phase_a_var_jac"], check_fused(
+            f"K6 {label}", got,
+            cs.cg_fused_phase_a_var_jac_plain(om, r, p, c, dinv, ro, co), sum_rtol=1e-5))
+        got = cs.cg_fused_phase_b_jac(al, y.clone(), r.clone(), p, ap, dinv)
+        torch.cuda.synchronize()
+        errs["cg_fused_phase_b_jac"] = max(errs["cg_fused_phase_b_jac"], check_fused(
+            f"K7 {label}", got,
+            cs.cg_fused_phase_b_jac_plain(al, y.clone(), r.clone(), p, ap, dinv),
+            sum_rtol=1e-5))
+    return errs
+
+
+def jacobi_solves(A, b, kt, cs, iters, **stop):
+    """Fused Jacobi cg_stencil, its unfused twin and generic cg with
+    M = DiagonalOperator(1 / diag): infos, and the fused run's launches."""
+    cs.reset_launches()
+    _, fused = kt.cg_stencil(A, b, maxiter=iters, fused=True, M="jacobi", **stop)
+    torch.cuda.synchronize()
+    counts = dict(cs.LAUNCHES)
+    _, unfused = kt.cg_stencil(A, b, maxiter=iters, fused=False, M="jacobi", **stop)
+    dinv = 1.0 / A.diagonal().reshape(A.grid)
+    _, generic = kt.cg(A, b, M=kt.DiagonalOperator(dinv), inner=inner, maxiter=iters,
+                       backend="while_loop", **stop)
+    return fused, unfused, generic, counts
+
+
+def phase_jacobi_cg(dev, kt, cs, st, A_div):
+    """7b: Jacobi-preconditioned fused CG (K6 + K7) at 4096^2 on a smooth
+    and on the lognormal coefficient field, 100 iterations: against its
+    unfused twin and generic preconditioned cg, launch counts, a bitwise
+    repeat; at 1024^2 against a float64 CPU run; and a solve to 1e-6 beside
+    unpreconditioned fused CG."""
+    log(f"phase 7b: fused Jacobi CG at {BIG}^2, 100 iterations")
+    iters, stable = 100, 5  # the lognormal field is held over 5 steps, as in phase 4
+    stop = dict(tol=0.0, atol=0.0)
+    totals = dict.fromkeys(cs.LAUNCHES, 0)
+    A_smooth = st.diffusion_2d(smooth_field(BIG).astype(np.float32), device=dev)
+    for label, A, steps in (("smooth a = 1 + 0.9 sin cos", A_smooth, iters),
+                            ("lognormal a", A_div, stable)):
+        b = torch.ones(A.grid, dtype=torch.float32, device=dev)
+        fused, unfused, generic, n = jacobi_solves(A, b, kt, cs, iters, **stop)
+        for k in totals:
+            totals[k] += n[k]
+        log(f"  {label}: launches {n}; resnorm ratio after {iters} "
+            f"{fused.resnorms[-1] / fused.resnorms[0]:.4e}")
+        assert fused.numsteps == iters
+        assert n["cg_fused_phase_a_var_jac"] == n["cg_fused_phase_b_jac"] == iters
+        assert n["cg_fused_phase_a_var"] == n["cg_fused_phase_b"] == 0
+        assert bool(torch.isfinite(fused.xk).all()) and np.isfinite(fused.resnorms).all()
+        agree(f"{label} fused Jacobi vs unfused", fused, unfused, steps)
+        agree(f"{label} fused Jacobi vs generic cg(M=diag)", fused, generic, steps)
+        _, again = kt.cg_stencil(A, b, maxiter=iters, fused=True, M="jacobi", **stop)
+        same = np.array_equal(again.resnorms, fused.resnorms) and torch.equal(
+            again.xk, fused.xk)
+        log(f"  {label}: repeat bitwise equal: {same}")
+        assert same
+    del A_smooth
+
+    log(f"  at {MID}^2: GPU f32 kernels against a CPU f64 run of the plain versions")
+    a = np.exp(np.random.default_rng(SEED + 3).standard_normal((MID, MID)))
+    for label, field, steps in (("smooth", smooth_field(MID), iters), ("lognormal", a, stable)):
+        field = field.astype(np.float32)
+        A_gpu = st.diffusion_2d(field, device=dev)
+        A_cpu = st.diffusion_2d(field.astype(np.float64), device="cpu")
+        b = torch.ones(A_gpu.grid, dtype=torch.float32, device=dev)
+        _, g = kt.cg_stencil(A_gpu, b, maxiter=iters, fused=True, M="jacobi", **stop)
+        _, ref = kt.cg_stencil(A_cpu, b.double().cpu(), maxiter=iters, M="jacobi", **stop)
+        agree(f"{label} fused Jacobi f32 GPU vs f64 CPU", g, ref, steps)
+
+    # to a tolerance, beside unpreconditioned fused CG: a manufactured
+    # solution keeps the attainable f32 residual below the criterion
+    _, b = manufactured(A_div, dev, SEED + 51)
+    out = {}
+    for name, M in (("Jacobi", "jacobi"), ("unpreconditioned", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = kt.cg_stencil(A_div, b, tol=1e-6, maxiter=4000, fused=True, M=M)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.norm(b - A_div @ info.xk) / torch.linalg.norm(b))
+        out[name] = info
+        log(f"  lognormal {BIG}^2 to 1e-6, fused {name}: success {info.success} numsteps "
+            f"{info.numsteps} in {time.perf_counter() - t0:.2f} s; explicit |b-Ax|/|b| {rel:.3e}")
+    assert out["Jacobi"].success
+    assert out["Jacobi"].numsteps <= out["unpreconditioned"].numsteps
+    return totals
+
+
+class Bf16Twin:
+    """The CSROperator twin of a PETOperator with a bf16 value stream: the
+    same bf16-rounded values kept in float32, float32 sums, ``dtype``
+    bfloat16 (refine rounds the inner right-hand side to it)."""
+
+    dtype = torch.bfloat16
+
+    def __init__(self, sp, dev):
+        from krylov_tpu_torch.ops.sparse import CSROperator
+
+        rounded = sp.astype(np.float32).copy()
+        rounded.data = torch.from_numpy(rounded.data).bfloat16().float().numpy()
+        self.op = CSROperator.from_scipy(rounded, device=dev)
+        self.shape, self.device = self.op.shape, self.op.device
+
+    def __matmul__(self, x):
+        return self.op @ x.float()
+
+    def rmatvec(self, x):
+        return self.op.rmatvec(x.float())
+
+
+def family_solves(kt, dev, npg, b_seed, dtype=np.float32):
+    """7c's solves on the reference bench's shifted Poisson CSR at side
+    ``npg`` (its ``qmr`` call: Ml = Jacobi, tol 1e-4, maxiter 400,
+    ``while_loop``), as {name: (matrix, solve)} like :func:`sparse_solves`."""
+    from krylov_tpu_torch.ops.cuda_spmv import PETOperator
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    lap = poisson_csr(npg).astype(dtype)
+    rng = np.random.default_rng(b_seed)
+    b = torch.from_numpy(rng.standard_normal(npg * npg).astype(dtype)).to(dev)
+    B = torch.from_numpy(rng.standard_normal((npg * npg, 8)).astype(dtype)).to(dev)
+    jac = kt.DiagonalOperator(torch.from_numpy(1.0 / lap.diagonal()).to(dev))
+    kw = dict(tol=1e-4, maxiter=400, backend="while_loop")
+    low = {}
+
+    def refine(A):
+        # the inner operator streams bf16 values: K10's bf16 mode for the
+        # routed matrix, the same rounded values for the CSROperator twin
+        twin = isinstance(A, CSROperator)
+        if twin not in low:
+            low[twin] = (Bf16Twin(lap, dev) if twin else PETOperator.from_scipy(
+                lap, data_dtype=torch.bfloat16, with_rmatvec=False, device=dev))
+        return kt.refine(A, b, A_low=low[twin], inner_tol=1e-2, inner_maxiter=100,
+                         tol=1e-5, maxiter=20, backend="while_loop")
+
+    cases = {
+        "qmr Ml=Jacobi": (lap, lambda A: kt.qmr(A, b, Ml=jac, **kw)),
+        "bicg M=Jacobi": (lap, lambda A: kt.bicg(A, b, M=jac, **kw)),
+        "cgs M=Jacobi": (lap, lambda A: kt.cgs(A, b, M=jac, **kw)),
+        "tfqmr M=Jacobi": (lap, lambda A: kt.tfqmr(A, b, M=jac, **kw)),
+        "minres M=Jacobi": (lap, lambda A: kt.minres(A, b, M=jac, **kw)),
+        "cg_pipelined M=Jacobi": (lap, lambda A: kt.cg_pipelined(A, b, M=jac, **kw)),
+        "cg_block (N, 8)": (lap, lambda A: kt.cg_block(A, B, **kw)),
+        "refine bf16 A_low": (lap, refine),
+    }
+    return cases, b
+
+
+def phase_family(dev, kt, sv):
+    """7c: the two-sided and the other new solvers on the bench's 1M-row
+    shifted Poisson CSR through as_operator (K10 forward and adjoint, K11
+    for cg_block, K10's bf16 mode for refine), with 6b's checks.  refine's
+    last outer residual (a ratio near 5e-7) sits at the float32 residual's
+    rounding floor: its twin is held over the outer steps before it, and
+    its float64 CPU run, which keeps the bf16 inner operator (its plain
+    version), over the first.  cg_pipelined recurs its residual norm as
+    rr - 2 alpha rs + alpha^2 ss, which cancels as the solve converges:
+    float32 is held to float64 over the first 10 steps."""
+    log(f"phase 7c: the solver family on the {NPG}^2 shifted Poisson CSR")
+    per_step = {"qmr": ("csr_matvec", 2), "bicg": ("csr_matvec", 2), "cgs": ("csr_matvec", 2),
+                "tfqmr": ("csr_matvec", 1), "minres": ("csr_matvec", 1),
+                "cg_pipelined": ("csr_matvec", 1), "cg_block": ("csr_matmat", 1),
+                "refine": ("csr_matvec", 1)}
+    launches, results = run_sparse_cases(
+        dev, kt, sv, family_solves, (SEED + 52, SEED + 53),
+        lambda name: per_step[name.split()[0]],
+        f64_hold={"refine bf16 A_low": 1, "cg_pipelined M=Jacobi": 10},
+        twin_hold={"refine bf16 A_low": 2})
+    return launches, results
+
+
+def phase_device_rule(kt, cs, sv, st):
+    """7d: with no device argument anywhere, factories, right-hand sides and
+    scipy matrices land on the card and the kernels run."""
+    log("phase 7d: the device rule, no device argument anywhere")
+    assert kt.default_device().type == "cuda"
+    A = st.poisson_2d(64, dtype=np.float32)
+    assert A.coeffs2d.is_cuda
+    cs.reset_launches()
+    x, info = kt.cg_stencil(A, np.ones(A.grid, np.float32), fused=True)
+    torch.cuda.synchronize()
+    log(f"  cg_stencil(poisson_2d(64), numpy b): success {info.success} numsteps "
+        f"{info.numsteps} on {info.xk.device}; launches K5 "
+        f"{cs.LAUNCHES['cg_fused_phase_a_var']} K4 {cs.LAUNCHES['cg_fused_phase_b']}")
+    assert info.xk.is_cuda
+    n5, n4 = cs.LAUNCHES["cg_fused_phase_a_var"], cs.LAUNCHES["cg_fused_phase_b"]
+    assert n5 == n4 == info.numsteps > 0
+    sp = poisson_csr(NPG)
+    b = np.random.default_rng(SEED + 54).standard_normal(sp.shape[0]).astype(np.float32)
+    sv.reset_launches()
+    x, info = kt.bicgstab(sp, b, tol=1e-4, maxiter=400, backend="while_loop")
+    torch.cuda.synchronize()
+    log(f"  bicgstab(scipy CSR, numpy b): success {info.success} numsteps {info.numsteps} on "
+        f"{info.xk.device}; K10 launches {sv.LAUNCHES['csr_matvec']}")
+    assert info.success and info.xk.is_cuda and sv.LAUNCHES["csr_matvec"] > 0
+    # an operator on the card and a CPU tensor are not brought together silently
+    try:
+        kt.cg_stencil(A, torch.ones(A.grid))
+    except (RuntimeError, ValueError) as e:
+        log(f"  a CPU tensor b with an operator on the card raises: {type(e).__name__}")
+    else:
+        raise AssertionError("a CPU b was moved to the card silently")
 
 
 def main():
@@ -1178,6 +1536,13 @@ def main():
     launches.update(csr_matvec=n_spmv, **n_blocked)
     for name, err in blocked_errs.items():
         errs[name] = max(errs[name], err)
+    errs.update(phase_jacobi_kernels(dev, cs, st, A_div))
+    for k, n in phase_jacobi_cg(dev, kt, cs, st, A_div).items():
+        launches[k] += n
+    n_family, _ = phase_family(dev, kt, sv)
+    for k in ("csr_matvec", "csr_matmat"):
+        launches[k] += n_family[k]
+    phase_device_rule(kt, cs, sv, st)
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 
@@ -1189,6 +1554,8 @@ def main():
         "cg_fused_phase_a": (stencil, "krylov_tpu/ops/pallas_stencil.py:909"),
         "cg_fused_phase_b": (stencil, "krylov_tpu/ops/pallas_stencil.py:959"),
         "cg_fused_phase_a_var": (stencil, "krylov_tpu/ops/pallas_stencil.py:685"),
+        "cg_fused_phase_a_var_jac": (stencil, "krylov_tpu/ops/pallas_stencil.py:787"),
+        "cg_fused_phase_b_jac": (stencil, "krylov_tpu/ops/pallas_stencil.py:865"),
         "jacobi_sweep_const": (stencil, "krylov_tpu/ops/pallas_stencil.py:438"),
         "jacobi_sweep_var": (stencil, "krylov_tpu/ops/pallas_stencil.py:524"),
         "csr_matvec": (spmv, "krylov_tpu/ops/pallas_spmv.py:861"),
@@ -1199,11 +1566,9 @@ def main():
     assert not unlaunched, f"kernels no main path launched: {unlaunched}"
     kernels = []
     for name, (src, where) in replaces.items():
-        ms, plain_ms = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": where,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[name], "max_abs_err": errs[name], **times[name],
         })
     log(card)
     log(json.dumps({"kernels": kernels}))

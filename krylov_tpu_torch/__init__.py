@@ -4,20 +4,33 @@ Same solver contract as ``krylov_tpu`` (the reference package, which this
 package never imports): every solver is a functional recurrence driven by
 one loop in two backends, ``eager`` (host loop, the float64 parity mode on
 CPU) and ``while_loop`` (state and residual history resident on the
-device, one stop-flag read per step).  Operators hold their tensors on an
-explicit device.  The grid-stencil kernels are hand-written CUDA for Hopper
-(``krylov_tpu_torch/csrc``), built with ``nvcc`` at first use; on CPU
-tensors the same entry points run the kernels' plain PyTorch versions.
+device, one stop-flag read per step).  The kernels are hand-written CUDA
+for Hopper (``krylov_tpu_torch/csrc``), built with ``nvcc`` at first use; on
+CPU tensors the same entry points run the kernels' plain PyTorch versions.
+
+Every entry point runs on the CUDA device unless the caller asks for the
+CPU: a tensor argument keeps its own device, and inputs that carry none
+(numpy arrays, lists, scipy matrices) go to the operator's device or to the
+default device, the current CUDA device.  ``set_default_device("cpu")`` asks
+for the CPU; without a CUDA device and without that call the first such
+input raises.
 
 Ported so far: compiled CG on grid stencils (:func:`cg`, :func:`cg_stencil`,
 the banded and grid-stencil operators, the L0 operator and driver layer),
-the constant-coefficient stencil operator with its fused CG, the geometric
-multigrid preconditioner (:class:`MultigridPreconditioner`), and general
+the constant-coefficient stencil operator, fused CG on both stencil
+operators (unpreconditioned and Jacobi-preconditioned), the geometric
+multigrid preconditioner (:class:`MultigridPreconditioner`), general
 sparsity: scipy matrices through :func:`as_operator` (CSR, BSR and the CSR
-kernels), :func:`bicgstab`, :func:`gmres` and the Arnoldi processes.
+kernels) and the Arnoldi processes, and the Krylov solver family:
+:func:`bicgstab`, :func:`gmres`, :func:`fgmres`, the two-sided :func:`qmr`
+and :func:`bicg`, :func:`cgs`, :func:`tfqmr`, :func:`minres`,
+:func:`symmlq`, :func:`cgr`, :func:`gcr`, :func:`chebyshev`, the
+normal-equation solvers :func:`cgne`, :func:`cgnr` and :func:`lsqr`,
+:func:`cg_pipelined`, :func:`cg_block` and mixed-precision :func:`refine`.
 """
 
 from . import convert, ops
+from ._device import default_device, set_default_device
 from ._info import Info
 from ._operators import (
     DiagonalOperator,
@@ -39,7 +52,28 @@ from .givens import givens
 from .householder import Householder
 from .multigrid import MultigridPreconditioner
 from .ops.stencil import poisson_2d_const, poisson_3d_const
-from .solvers import bicgstab, cg, cg_stencil, gmres
+from .solvers import (
+    bicg,
+    bicgstab,
+    cg,
+    cg_block,
+    cg_pipelined,
+    cg_stencil,
+    cgne,
+    cgnr,
+    cgr,
+    cgs,
+    chebyshev,
+    fgmres,
+    gcr,
+    gmres,
+    lsqr,
+    minres,
+    qmr,
+    refine,
+    symmlq,
+    tfqmr,
+)
 
 aslinearoperator = as_operator  # the reference's alias
 
@@ -59,14 +93,32 @@ __all__ = [
     "arnoldi_res",
     "as_operator",
     "aslinearoperator",
+    "bicg",
     "bicgstab",
     "cg",
+    "cg_block",
+    "cg_pipelined",
     "cg_stencil",
+    "cgne",
+    "cgnr",
+    "cgr",
+    "cgs",
+    "chebyshev",
     "convert",
+    "default_device",
+    "fgmres",
+    "gcr",
     "givens",
     "gmres",
     "jacobi_preconditioner",
+    "lsqr",
+    "minres",
     "ops",
     "poisson_2d_const",
     "poisson_3d_const",
+    "qmr",
+    "refine",
+    "set_default_device",
+    "symmlq",
+    "tfqmr",
 ]

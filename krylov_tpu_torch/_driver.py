@@ -87,6 +87,14 @@ def _criterion(resnorm0, tol, atol):
         atol, dtype=resnorm0.dtype, device=resnorm0.device))
 
 
+def _history(resnorms):
+    """The history as a host ndarray (bfloat16, which numpy lacks, as
+    float32)."""
+    if resnorms.dtype == torch.bfloat16:
+        resnorms = resnorms.float()
+    return resnorms.cpu().numpy()
+
+
 def _fire(method, callback, state):
     if callback is not None and method.callback_args is not None:
         callback(*method.callback_args(state))
@@ -125,7 +133,7 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
         resnorms.append(state.resnorm)
         k += 1
 
-    return state, success, k, torch.stack(resnorms).cpu().numpy()
+    return state, success, k, _history(torch.stack(resnorms))
 
 
 def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
@@ -165,4 +173,4 @@ def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
             buf[k] = state.resnorm
             if k >= maxiter or (stop if has_early else bool(below)):
                 break
-    return state, ok, k, buf[: k + 1].cpu().numpy()
+    return state, ok, k, _history(buf[: k + 1])

@@ -2,7 +2,8 @@
 
 Structural typing for anything applied with ``@`` plus a small zoo of
 concrete operators (counterpart of ``krylov_tpu._operators``).  Every
-concrete operator holds its tensors on one explicit device; ``rmatvec``
+concrete operator holds its tensors on one device (an input that carries
+none goes to the package's default device, :mod:`._device`); ``rmatvec``
 (adjoint matvec) is provided functionally instead of via cached transposed
 copies.  scipy sparse matrices are routed to the sparse operators
 (``BSROperator``, ``PETOperator``, ``CSROperator``) as the reference routes
@@ -13,6 +14,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import _device
 
 
 class Identity:
@@ -66,6 +69,10 @@ class MatrixOperator:
         return self.a.dtype
 
     @property
+    def device(self):
+        return self.a.device
+
+    @property
     def shape(self):
         return tuple(self.a.shape)
 
@@ -101,6 +108,10 @@ class DiagonalOperator:
     @property
     def dtype(self):
         return self.d.dtype
+
+    @property
+    def device(self):
+        return self.d.device
 
     @property
     def shape(self):
@@ -162,8 +173,9 @@ class CallableOperatorWrapper:
 
 
 def _pet_device(device):
-    """Whether ``device`` runs the CSR kernels (a CUDA device)."""
-    return torch.device("cpu" if device is None else device).type == "cuda"
+    """Whether ``device`` (the default device when None) runs the CSR
+    kernels: a CUDA device."""
+    return _device.resolve(device).type == "cuda"
 
 
 def _prefer_pet_for_csr(A, device):
@@ -217,7 +229,7 @@ def _route_cached(A, device, build):
     import weakref
 
     fp = _sparse_fingerprint(A)
-    key = (id(A), str(torch.device("cpu" if device is None else device)))
+    key = (id(A), str(_device.resolve(device)))
     hit = _ROUTE_CACHE.get(key)
     if hit is not None and hit[0]() is A and hit[1] == fp:
         return hit[2]
@@ -262,15 +274,19 @@ def _route_scipy_sparse(A, device):
 def as_operator(A, device=None):
     """Normalize anything with ``@`` into an operator this library can drive.
 
-    * tensors and ndarrays -> :class:`MatrixOperator` on ``device`` (the
-      tensor's own device when ``None``),
+    * tensors -> :class:`MatrixOperator` on the tensor's own device,
+    * ndarrays -> :class:`MatrixOperator` on ``device``,
     * objects already exposing ``rmatvec`` are used as-is,
     * scipy sparse matrices -> ``BSROperator``, ``PETOperator`` or
-      ``CSROperator`` on ``device`` (the CPU when ``None``), cached,
+      ``CSROperator`` on ``device``, cached,
     * any other object with ``__matmul__`` is wrapped.
+
+    ``device=None`` is the package's default device: the CUDA device unless
+    ``set_default_device`` named another.  Nothing that already lies on a
+    device is moved.
     """
     if isinstance(A, (torch.Tensor, np.ndarray)):
-        return MatrixOperator(torch.as_tensor(A, device=device))
+        return MatrixOperator(_device.as_tensor(A, device))
     if hasattr(A, "rmatvec"):
         return A
     if hasattr(A, "tocsr"):  # scipy sparse, without importing scipy here

@@ -23,6 +23,7 @@ iterating past an invariant subspace raises :class:`ArgumentError`.
 import numpy as np
 import torch
 
+from . import _device
 from ._inner import as_inner, get_default_inner
 from ._operators import Identity, as_operator
 from .errors import ArgumentError
@@ -125,7 +126,7 @@ def padded_reflector_at(w, pivot):
     Returns ``(u, beta, alpha, xnorm)`` with ``H w = alpha * xnorm * e_pivot``
     on the suffix.
     """
-    w = torch.as_tensor(w)
+    w = _device.as_tensor(w)
     n = w.shape[0]
     idx = torch.arange(n, device=w.device).reshape((n,) + (1,) * (w.ndim - 1))
     on_pivot = idx == pivot
@@ -196,7 +197,7 @@ class _GramSchmidt(_Process):
 
     def __init__(self, A, v, passes, M, Mv, Mv_norm, inner, sweep):
         super().__init__()
-        v = torch.as_tensor(v)
+        v = _device.as_tensor(v, _device.device_of(A))
         self.A = _operator(A, v.device)
         self.M = Identity() if M is None else as_operator(M, device=v.device)
         self.inner = as_inner(inner, v.shape)
@@ -253,7 +254,7 @@ class ArnoldiLanczos(_Process):
 
     def __init__(self, A, v, M=None, Mv=None, Mv_norm=None, inner=None):
         super().__init__()
-        v = torch.as_tensor(v)
+        v = _device.as_tensor(v, _device.device_of(A))
         self.A = _operator(A, v.device)
         self.M = Identity() if M is None else as_operator(M, device=v.device)
         self.inner = as_inner(inner, v.shape)
@@ -294,7 +295,7 @@ class ArnoldiHouseholder(_Process):
 
     def __init__(self, A, v):
         super().__init__()
-        self.v = torch.as_tensor(v)
+        self.v = _device.as_tensor(v, _device.device_of(A))
         self.A = _operator(A, self.v.device)
         self.inner = get_default_inner(self.v.shape)
         self.dtype = _result_dtype(self.A, self.v)
@@ -344,11 +345,11 @@ class ArnoldiHouseholder(_Process):
 
 def arnoldi_res(A, V, H, inner=None):
     """Arnoldi residual ``|| A V_n - V_{n+1} H_n ||`` (diagnostic)."""
-    V = torch.as_tensor(V)
-    H = torch.as_tensor(H, device=V.device).to(V.dtype)
+    V = _device.as_tensor(V, _device.device_of(A))
+    H = _device.as_tensor(H, V.device).to(V.dtype)
     invariant = H.shape[0] == H.shape[1]
     V1 = V if invariant else V[:, :-1]
-    AV = torch.as_tensor(A, device=V.device) @ V1 if isinstance(A, np.ndarray) else A @ V1
+    AV = _device.as_tensor(A, V.device) @ V1 if isinstance(A, np.ndarray) else A @ V1
     res = AV - V @ H
     if inner is None:
         inner = get_default_inner(res.shape)

@@ -10,6 +10,7 @@ it becomes a tensor.
 import numpy as np
 import torch
 
+from . import _device
 from ._operators import DiagonalOperator, MatrixOperator
 from .multigrid import MultigridPreconditioner
 from .ops.bsr import BSROperator
@@ -19,6 +20,7 @@ from .ops.stencil import BandedOperator, ConstStencilOperator, GridStencilOperat
 
 
 def _tensor(arr, device):
+    device = _device.resolve(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native twin
         return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)

@@ -340,11 +340,27 @@ static void launch_const_stencil2d(const void* x, const void* top, const void* b
 // read through a device pointer, so the host never waits for it.  The
 // partials are summed by finalize_sum in a fixed order: no float atomics,
 // so a solve repeats bit for bit.
+//
+// K6: fused Jacobi-preconditioned CG phase A, variable coefficients (f32).
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:cg_fused_phase_a_var_jac
+// (_cg_a_var_jac_kernel).  K5 with the direction update p_new = dinv * r +
+// omega * p, dinv = 1 / diag(A) as one more plane.  Bound on this card:
+// memory traffic, (ndiag + 5) * N words (planes, dinv, r, p read; p_new, Ap
+// written).  Design: the same kernel template as K5 (JAC = true); the
+// update is recomputed at every neighbour read as dinv[q] * r[q] + omega *
+// p[q], and is 0 outside the grid (the TPU kernel gets that from zero dinv
+// halo rows), so no halo input is needed.  Measured at 4096^2, five bands,
+// on an H100 80GB HBM3 (700 W): 316 us, 63 % of that bound, where K5
+// reaches 79 %: a point makes 23 loads (three per neighbour read) against
+// K5's 17, and the time grew with the loads, not with the bytes.
 // ---------------------------------------------------------------------------
+template <bool JAC>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
 cg_phase_a_var_kernel(const float* __restrict__ omega,
                       const float* __restrict__ c, const float* __restrict__ r,
-                      const float* __restrict__ p, float* __restrict__ pn,
+                      const float* __restrict__ p,
+                      const float* __restrict__ dinv, float* __restrict__ pn,
                       float* __restrict__ ap, float* __restrict__ partials,
                       int M, int ny, Bands bands) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -363,12 +379,12 @@ cg_phase_a_var_kernel(const float* __restrict__ omega,
           float v = 0.0f;
           if (ii >= 0 && ii < M && jj >= 0 && jj < ny) {
             const size_t q = (size_t)ii * ny + jj;
-            v = r[q] + om * p[q];
+            v = (JAC ? dinv[q] * r[q] : r[q]) + om * p[q];
           }
           acc += c[(size_t)d * plane + (size_t)i * ny + j] * v;
         }
         const size_t q = (size_t)i * ny + j;
-        const float pc = r[q] + om * p[q];
+        const float pc = (JAC ? dinv[q] * r[q] : r[q]) + om * p[q];
         pn[q] = pc;
         ap[q] = acc;
         part += pc * acc;
@@ -524,12 +540,22 @@ jacobi_var_kernel(const TC* __restrict__ c, const TC* __restrict__ w,
 // number of blocks strides over the vectors, so the partials (and the
 // fixed-order finalize_sum over them) are deterministic; alpha is read
 // through a device pointer.
+//
+// K7: fused Jacobi-preconditioned CG phase B (f32).
+//
+// Replaces krylov_tpu/ops/pallas_stencil.py:cg_fused_phase_b_jac
+// (_cg_b_jac_kernel).  K4 with rho = <r_new, dinv * r_new>, summed as
+// r_new * (dinv * r_new), the reference's association.  Bound on this card:
+// memory traffic, 7 N words (K4's and the dinv plane).  Design: the same
+// kernel template as K4 (JAC = true), the same fixed block count and
+// fixed-order second pass.
 // ---------------------------------------------------------------------------
+template <bool JAC>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
 cg_phase_b_kernel(const float* __restrict__ alpha, float* __restrict__ y,
                   float* __restrict__ r, const float* __restrict__ p,
-                  const float* __restrict__ ap, float* __restrict__ partials,
-                  long long n) {
+                  const float* __restrict__ ap, const float* __restrict__ dinv,
+                  float* __restrict__ partials, long long n) {
   const float al = *alpha;
   float part = 0.0f;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -538,14 +564,14 @@ cg_phase_b_kernel(const float* __restrict__ alpha, float* __restrict__ y,
     const float rn = r[q] - al * ap[q];
     y[q] = y[q] + al * p[q];
     r[q] = rn;
-    part += rn * rn;
+    part += JAC ? rn * (dinv[q] * rn) : rn * rn;
   }
   part = block_sum(part);
   if (threadIdx.x == 0) partials[blockIdx.x] = part;
 }
 
-// Second pass of K3, K5 and K4: one block sums the per-block partials in a
-// fixed order, in double, and stores the f32 result.
+// Second pass of K3, K5, K6, K4 and K7: one block sums the per-block partials
+// in a fixed order, in double, and stores the f32 result.
 __global__ void __launch_bounds__(1024)
 finalize_sum(const float* __restrict__ partials, int n, float* __restrict__ out) {
   double s = 0.0;
@@ -741,38 +767,83 @@ int krylov_jacobi_sweep_var(int tc, int tz, const void* c, const void* w,
   return (int)cudaGetLastError();
 }
 
-// K5.  `partials` holds krylov_phase_a_partials(M, ny) floats; *pap gets
+// K5 (dinv == null) and K6 (dinv: the (M, ny) plane 1 / diag(A)).
+// `partials` holds krylov_phase_a_partials(M, ny) floats; *pap gets
 // <p_new, Ap>.
-int krylov_cg_phase_a_var(const float* omega, const float* c, const float* r,
-                          const float* p, float* pn, float* ap,
-                          float* partials, float* pap, int M, int ny,
-                          int ndiag, const int* dr, const int* dc,
+static int cg_phase_a_var(const float* omega, const float* c, const float* r,
+                          const float* p, const float* dinv, float* pn,
+                          float* ap, float* partials, float* pap, int M,
+                          int ny, int ndiag, const int* dr, const int* dc,
                           void* stream) {
   Bands bands;
   if (!make_bands(ndiag, dr, dc, &bands)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g = grid_2d(M, ny, 1);
-  cg_phase_a_var_kernel<<<g, KRYLOV_THREADS, 0, s>>>(omega, c, r, p, pn, ap,
-                                                     partials, M, ny, bands);
+  if (dinv != nullptr) {
+    cg_phase_a_var_kernel<true><<<g, KRYLOV_THREADS, 0, s>>>(
+        omega, c, r, p, dinv, pn, ap, partials, M, ny, bands);
+  } else {
+    cg_phase_a_var_kernel<false><<<g, KRYLOV_THREADS, 0, s>>>(
+        omega, c, r, p, dinv, pn, ap, partials, M, ny, bands);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   finalize_sum<<<1, 1024, 0, s>>>(partials, (int)(g.x * g.y), pap);
   return (int)cudaGetLastError();
 }
 
-// K4.  `partials` holds krylov_phase_b_partials(n) floats; *rho gets
-// <r_new, r_new>.
-int krylov_cg_phase_b(const float* alpha, float* y, float* r, const float* p,
-                      const float* ap, float* partials, float* rho,
-                      long long n, void* stream) {
+// K4 (dinv == null) and K7.  `partials` holds krylov_phase_b_partials(n)
+// floats; *rho gets <r_new, r_new> or <r_new, dinv * r_new>.
+static int cg_phase_b(const float* alpha, float* y, float* r, const float* p,
+                      const float* ap, const float* dinv, float* partials,
+                      float* rho, long long n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = phase_b_blocks(n);
-  cg_phase_b_kernel<<<blocks, KRYLOV_THREADS, 0, s>>>(alpha, y, r, p, ap,
-                                                      partials, n);
+  if (dinv != nullptr) {
+    cg_phase_b_kernel<true><<<blocks, KRYLOV_THREADS, 0, s>>>(
+        alpha, y, r, p, ap, dinv, partials, n);
+  } else {
+    cg_phase_b_kernel<false><<<blocks, KRYLOV_THREADS, 0, s>>>(
+        alpha, y, r, p, ap, dinv, partials, n);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   finalize_sum<<<1, 1024, 0, s>>>(partials, blocks, rho);
   return (int)cudaGetLastError();
+}
+
+int krylov_cg_phase_a_var(const float* omega, const float* c, const float* r,
+                          const float* p, float* pn, float* ap,
+                          float* partials, float* pap, int M, int ny,
+                          int ndiag, const int* dr, const int* dc,
+                          void* stream) {
+  return cg_phase_a_var(omega, c, r, p, nullptr, pn, ap, partials, pap, M, ny,
+                        ndiag, dr, dc, stream);
+}
+
+int krylov_cg_phase_a_var_jac(const float* omega, const float* c,
+                              const float* r, const float* p,
+                              const float* dinv, float* pn, float* ap,
+                              float* partials, float* pap, int M, int ny,
+                              int ndiag, const int* dr, const int* dc,
+                              void* stream) {
+  if (dinv == nullptr) return (int)cudaErrorInvalidValue;
+  return cg_phase_a_var(omega, c, r, p, dinv, pn, ap, partials, pap, M, ny,
+                        ndiag, dr, dc, stream);
+}
+
+int krylov_cg_phase_b(const float* alpha, float* y, float* r, const float* p,
+                      const float* ap, float* partials, float* rho,
+                      long long n, void* stream) {
+  return cg_phase_b(alpha, y, r, p, ap, nullptr, partials, rho, n, stream);
+}
+
+int krylov_cg_phase_b_jac(const float* alpha, float* y, float* r,
+                          const float* p, const float* ap, const float* dinv,
+                          float* partials, float* rho, long long n,
+                          void* stream) {
+  if (dinv == nullptr) return (int)cudaErrorInvalidValue;
+  return cg_phase_b(alpha, y, r, p, ap, dinv, partials, rho, n, stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,8 @@ the vectors' device:
 
 import torch
 
+from . import _device
+
 
 def lartg(f, g):
     """Elementwise robust Givens generation.
@@ -20,8 +22,8 @@ def lartg(f, g):
         [  c        s ]   [ f ]   [ r ]
         [ -conj(s)  c ] @ [ g ] = [ 0 ]
     """
-    f = torch.as_tensor(f)
-    g = torch.as_tensor(g, device=f.device)
+    f = _device.as_tensor(f)
+    g = _device.as_tensor(g, f.device)
     dtype = torch.promote_types(f.dtype, g.dtype)
     f, g = f.to(dtype), g.to(dtype)
 
@@ -65,7 +67,7 @@ def givens(X):
     ``X`` has shape ``(2, ...)``; returns ``(G, R)`` with ``G`` of shape
     ``(2, 2, ...)`` and ``G[:, :, idx] @ X[:, idx] = [R[idx], 0]``.
     """
-    X = torch.as_tensor(X)
+    X = _device.as_tensor(X)
     if X.shape[0] != 2:
         raise ValueError(f"givens takes a (2, ...) stack, got {tuple(X.shape)}")
     c, s, r = lartg(X[0], X[1])

@@ -9,12 +9,13 @@ to the host.
 
 import torch
 
+from . import _device
 from ._inner import get_default_inner
 
 
 class Householder:
     def __init__(self, x):
-        x = torch.as_tensor(x)
+        x = _device.as_tensor(x)
         if not (x.ndim == 1 or (x.ndim == 2 and x.shape[1] == 1)):
             raise ValueError(
                 "Householder only works for quasi-1D vectors. "

@@ -10,6 +10,7 @@ exact zeros.  The multi-RHS matvec is kernel K12
 import numpy as np
 import torch
 
+from .. import _device
 from . import cuda_bsr
 
 
@@ -25,6 +26,7 @@ class BSROperator:
     @classmethod
     def from_scipy(cls, A, blocksize=None, device=None):
         """Convert a scipy sparse matrix (any format) to ELL-padded BSR."""
+        device = _device.resolve(device)
         bsr = A.tobsr(blocksize=blocksize) if blocksize is not None else A.tobsr()
         bsr.sort_indices()
         R, C = bsr.blocksize

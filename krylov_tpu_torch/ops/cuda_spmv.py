@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import _device
 from .cuda_stencil import _check, _on_cpu, _ptr, _require, _stream
 from .sparse import _segment_sum
 
@@ -320,6 +321,7 @@ class PETOperator:
         """
         import scipy.sparse
 
+        device = _device.resolve(device)
         value_dtype = _value_dtype(data_dtype)
         perm_np = resolve_reorder(sp, reorder)
         sp_build = sp

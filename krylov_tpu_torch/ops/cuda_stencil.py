@@ -9,7 +9,9 @@ Counterpart of ``krylov_tpu.ops.pallas_stencil`` (sources in
   in-kernel Dirichlet masks (real weights; real or complex vectors),
 * K3 :func:`cg_fused_phase_a` — ``p = r + omega p``, ``Ap`` (const), ``<p, Ap>``,
 * K5 :func:`cg_fused_phase_a_var` — K3 with coefficient planes,
+* K6 :func:`cg_fused_phase_a_var_jac` — K5 with ``p = dinv r + omega p``,
 * K4 :func:`cg_fused_phase_b` — ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``,
+* K7 :func:`cg_fused_phase_b_jac` — K4 with ``<r, dinv r>``,
 * K8 :func:`jacobi_sweep_const` — ``z + w (r - A z)`` or ``r - A z`` (const),
 * K9 :func:`jacobi_sweep_var` — K8 with coefficient planes and a weight plane.
 
@@ -51,7 +53,9 @@ LAUNCHES = {
     "const_stencil2d_matvec": 0,
     "cg_fused_phase_a": 0,
     "cg_fused_phase_a_var": 0,
+    "cg_fused_phase_a_var_jac": 0,
     "cg_fused_phase_b": 0,
+    "cg_fused_phase_b_jac": 0,
     "jacobi_sweep_const": 0,
     "jacobi_sweep_var": 0,
 }
@@ -110,7 +114,9 @@ def _lib():
         ("krylov_jacobi_sweep_var", [i32, i32] + [vp] * 5 + [i32, i32, i32, vp, vp, vp],
          i32),
         ("krylov_cg_phase_a_var", [vp] * 8 + [i32, i32, i32, vp, vp, vp], i32),
+        ("krylov_cg_phase_a_var_jac", [vp] * 9 + [i32, i32, i32, vp, vp, vp], i32),
         ("krylov_cg_phase_b", [vp] * 7 + [i64, vp], i32),
+        ("krylov_cg_phase_b_jac", [vp] * 8 + [i64, vp], i32),
     ):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
@@ -384,7 +390,7 @@ def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
 
 
 # ---------------------------------------------------------------------------
-# K3 / K5: fused CG phase A (const / variable coefficients)
+# K3 / K5 / K6: fused CG phase A (const / variable coefficients / Jacobi)
 # ---------------------------------------------------------------------------
 
 
@@ -404,6 +410,15 @@ def cg_fused_phase_a_var_plain(omega, r, p, coeffs, row_offsets, col_offsets):
     return pn, ap, torch.sum(pn * ap)
 
 
+def cg_fused_phase_a_var_jac_plain(omega, r, p, coeffs, dinv, row_offsets,
+                                   col_offsets):
+    """Plain version of K6: ``p_new = dinv * r + omega p``, ``Ap = A p_new``
+    (by the K1 plain version), ``<p_new, Ap>``."""
+    pn = dinv * r + omega * p
+    ap = stencil2d_matvec_plain(coeffs, pn, row_offsets, col_offsets)
+    return pn, ap, torch.sum(pn * ap)
+
+
 def _phase_a_outputs(r, p, out):
     for t in (r, p):
         _require(t.dtype == torch.float32, "the fused CG phases are float32-only")
@@ -416,7 +431,7 @@ def _phase_a_outputs(r, p, out):
 
 
 def _phase_a(name, launch, omega, r, p, out):
-    """Allocate K3/K5's outputs and scratch, launch, count."""
+    """Allocate K3/K5/K6's outputs and scratch, launch, count."""
     pn_out, ap_out = _phase_a_outputs(r, p, out)
     _require(omega.dtype == torch.float32, "omega must be float32")
     lib = _lib()
@@ -486,8 +501,47 @@ def cg_fused_phase_a_var(omega, r, p, coeffs, row_offsets, col_offsets, out=None
     return _phase_a("cg_fused_phase_a_var", launch, omega, r, p, out)
 
 
+def cg_fused_phase_a_var_jac(omega, r, p, coeffs, dinv, row_offsets, col_offsets,
+                             out=None):
+    """K6: returns ``(p_new, Ap, pAp)`` of Jacobi-preconditioned CG in one
+    pass (float32): ``p_new = dinv * r + omega * p`` with the ``(M, ny)``
+    plane ``dinv = 1 / diag(A)``.
+
+    ``omega`` is a 0-d tensor on the vectors' device.  ``out=(p_new, Ap)``
+    (optional) are written in place and must overlap neither ``r`` nor
+    ``p``: the caller ping-pongs two ``p`` buffers.
+    """
+    omega = torch.as_tensor(omega, dtype=r.dtype, device=r.device)
+    if _on_cpu(omega, r, p, coeffs, dinv, *(out or ())):
+        pn, ap, pap = cg_fused_phase_a_var_jac_plain(
+            omega, r, p, coeffs, dinv, row_offsets, col_offsets
+        )
+        if out is not None:
+            pn, ap = out[0].copy_(pn), out[1].copy_(ap)
+        return pn, ap, pap
+
+    _require(coeffs.dtype == torch.float32 and coeffs.is_contiguous()
+             and tuple(coeffs.shape[1:]) == tuple(r.shape),
+             "coeffs must be a contiguous float32 (ndiag, M, ny) stack")
+    _require(dinv.dtype == torch.float32 and dinv.is_contiguous()
+             and dinv.shape == r.shape,
+             "dinv must be a contiguous float32 grid of r's shape")
+    for t in out or ():
+        _require(t is None or _disjoint(t, dinv), "out must not overlap an input")
+
+    def launch(lib, pn, ap, partials, pap):
+        dr, dc = _bands(lib, row_offsets, col_offsets)
+        return lib.krylov_cg_phase_a_var_jac(
+            _ptr(omega), _ptr(coeffs), _ptr(r), _ptr(p), _ptr(dinv), _ptr(pn),
+            _ptr(ap), _ptr(partials), _ptr(pap), *r.shape, len(row_offsets), dr,
+            dc, _stream(r),
+        )
+
+    return _phase_a("cg_fused_phase_a_var_jac", launch, omega, r, p, out)
+
+
 # ---------------------------------------------------------------------------
-# K4: fused CG phase B
+# K4 / K7: fused CG phase B (plain / Jacobi)
 # ---------------------------------------------------------------------------
 
 
@@ -499,37 +553,62 @@ def cg_fused_phase_b_plain(alpha, y, r, p, ap):
     return y, r, torch.sum(r * r)
 
 
-def cg_fused_phase_b(alpha, y, r, p, ap):
-    """K4: updates ``y`` and ``r`` in place and returns ``(y, r, rho)`` with
-    ``rho = <r_new, r_new>`` (float32; ``alpha`` a 0-d device tensor)."""
-    alpha = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
-    if _on_cpu(alpha, y, r, p, ap):
-        return cg_fused_phase_b_plain(alpha, y, r, p, ap)
+def cg_fused_phase_b_jac_plain(alpha, y, r, p, ap, dinv):
+    """Plain version of K7: ``y += alpha p``, ``r -= alpha Ap`` in place,
+    returns ``(y, r, <r, dinv r>)``, summed as ``r * (dinv * r)``."""
+    y += alpha * p
+    r -= alpha * ap
+    return y, r, torch.sum(r * (dinv * r))
 
-    for t in (alpha, y, r, p, ap):
-        _require(t.dtype == torch.float32, "cg_fused_phase_b is float32-only")
-    for t in (y, p, ap):
+
+def _phase_b(name, alpha, y, r, p, ap, dinv=None):
+    """Check K4/K7's operands, allocate the scratch, launch, count."""
+    reads = (p, ap) if dinv is None else (p, ap, dinv)
+    for t in (alpha, y, r) + reads:
+        _require(t.dtype == torch.float32, f"{name} is float32-only")
+    for t in (y,) + reads:
         _require(t.shape == r.shape and t.is_contiguous(),
-                 "y, r, p and Ap must be contiguous and of one shape")
+                 "y, r, p, Ap and dinv must be contiguous and of one shape")
     _require(r.is_contiguous(), "r must be contiguous")
     _require(_disjoint(y, r), "y and r must not overlap")
-    for t in (p, ap):
+    for t in reads:
         _require(_disjoint(t, y) and _disjoint(t, r),
-                 "p and Ap must not overlap the updated y and r")
+                 "p, Ap and dinv must not overlap the updated y and r")
 
     lib = _lib()
     n = r.numel()
     partials = torch.empty(lib.krylov_phase_b_partials(n), dtype=torch.float32,
                            device=r.device)
     rho = torch.empty((), dtype=torch.float32, device=r.device)
+    head = (_ptr(alpha), _ptr(y), _ptr(r), _ptr(p), _ptr(ap))
+    tail = (_ptr(partials), _ptr(rho), n, _stream(r))
     with torch.cuda.device(r.device):
-        err = lib.krylov_cg_phase_b(
-            _ptr(alpha), _ptr(y), _ptr(r), _ptr(p), _ptr(ap), _ptr(partials),
-            _ptr(rho), n, _stream(r),
-        )
-    _check(lib, err, "cg_fused_phase_b")
-    LAUNCHES["cg_fused_phase_b"] += 1
+        if dinv is None:
+            err = lib.krylov_cg_phase_b(*head, *tail)
+        else:
+            err = lib.krylov_cg_phase_b_jac(*head, _ptr(dinv), *tail)
+    _check(lib, err, name)
+    LAUNCHES[name] += 1
     return y, r, rho
+
+
+def cg_fused_phase_b(alpha, y, r, p, ap):
+    """K4: updates ``y`` and ``r`` in place and returns ``(y, r, rho)`` with
+    ``rho = <r_new, r_new>`` (float32; ``alpha`` a 0-d device tensor)."""
+    alpha = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
+    if _on_cpu(alpha, y, r, p, ap):
+        return cg_fused_phase_b_plain(alpha, y, r, p, ap)
+    return _phase_b("cg_fused_phase_b", alpha, y, r, p, ap)
+
+
+def cg_fused_phase_b_jac(alpha, y, r, p, ap, dinv):
+    """K7: updates ``y`` and ``r`` in place and returns ``(y, r, rho)`` with
+    ``rho = <r_new, dinv * r_new>`` (float32; ``alpha`` a 0-d device tensor,
+    ``dinv`` the ``(M, ny)`` plane ``1 / diag(A)``)."""
+    alpha = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
+    if _on_cpu(alpha, y, r, p, ap, dinv):
+        return cg_fused_phase_b_jac_plain(alpha, y, r, p, ap, dinv)
+    return _phase_b("cg_fused_phase_b_jac", alpha, y, r, p, ap, dinv)
 
 
 # ---------------------------------------------------------------------------

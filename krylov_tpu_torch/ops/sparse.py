@@ -14,6 +14,8 @@ type; the reference keeps int32).
 import numpy as np
 import torch
 
+from .. import _device
+
 
 def _segment_sum(prod, indptr):
     """Sum of ``prod``'s rows per CSR row, in order (complex via its real
@@ -53,6 +55,7 @@ class CSROperator:
 
     @classmethod
     def from_scipy(cls, A, device=None):
+        device = _device.resolve(device)
         csr = A.tocsr()
         csr.sort_indices()
         rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64), np.diff(csr.indptr))
@@ -65,6 +68,7 @@ class CSROperator:
 
     @classmethod
     def from_dense(cls, A, device=None):
+        device = _device.resolve(device)
         A = np.asarray(A)
         rows, cols = np.nonzero(A)
         indptr = np.zeros(A.shape[0] + 1, dtype=np.int64)
@@ -152,6 +156,7 @@ class DiaOperator:
 
     @classmethod
     def from_scipy(cls, A, device=None):
+        device = _device.resolve(device)
         dia = A.todia()
         return cls(torch.from_numpy(np.ascontiguousarray(dia.data)).to(device),
                    tuple(int(o) for o in dia.offsets), dia.shape)

@@ -8,12 +8,13 @@ hand-written CUDA stencil kernel on a CUDA device and through the kernel's
 plain PyTorch version on the CPU (:mod:`krylov_tpu_torch.ops.cuda_stencil`).
 
 The constructors build their coefficients with numpy exactly as the
-reference package does, then place them on ``device``.
+reference package does, then place them on ``device`` (the package's default device when None).
 """
 
 import numpy as np
 import torch
 
+from .. import _device
 from . import cuda_stencil
 
 
@@ -215,7 +216,8 @@ class GridStencilOperator(BandedOperator):
 
 
 def _as_device_tensor(arr, device):
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    """``arr`` on ``device``, the default device when None."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(_device.resolve(device))
 
 
 def _laplacian_coeffs(shape_nd, dtype):
@@ -322,8 +324,10 @@ class ConstStencilOperator:
     may be flat ``(N,)``, grid-shaped ``(M, ny)``, multi-RHS ``(N, k)`` or
     grid-shaped multi-RHS ``(M, ny, k)``.  ``dtype`` is a ``torch.dtype``
     (numpy dtypes are converted).  The operator holds no tensors and
-    computes on the vector's device; ``device`` is where tensors derived
-    from it (``diagonal()``, a multigrid hierarchy's coarse inverse) go.
+    computes on the vector's device; ``device`` (the default device when
+    None) is where tensors derived from it (``diagonal()``, a multigrid
+    hierarchy's coarse inverse) and right-hand sides that carry no device
+    go.
     """
 
     def __init__(self, shape_nd, offsets_nd, weights, dtype=np.float64, device=None):
@@ -333,7 +337,7 @@ class ConstStencilOperator:
         self.offsets_nd = tuple(tuple(int(o) for o in off) for off in offsets_nd)
         self.weights = tuple(float(w) for w in weights)
         self.dtype = _torch_dtype(dtype)
-        self.device = None if device is None else torch.device(device)
+        self.device = _device.resolve(device)
         self.ny = self.shape_nd[-1]
         row_axes = self.shape_nd[:-1]
         self._M = int(np.prod(row_axes))

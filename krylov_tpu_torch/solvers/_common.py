@@ -3,17 +3,20 @@
 Uniform argument handling for every method: RHS coercion, square-shape
 checks, operator normalization, default inner product, default zero initial
 guess, ``maxiter=None -> N``.  Every tensor the solve makes lives on the
-right-hand side's device.
+right-hand side's device.  A right-hand side that carries no device (a
+numpy array, a list) goes to the operator's device where the operator holds
+tensors, else to the package's default device (:mod:`.._device`).
 """
 
 import torch
 
+from .. import _device
 from .._inner import as_inner
 from .._operators import Identity, as_operator
 
 
 def setup(A, b, x0=None, inner=None, maxiter=None, needs_rmatvec=False):
-    b = torch.as_tensor(b)
+    b = _device.as_tensor(b, _device.device_of(A))
     A = as_operator(A, device=b.device)
     if needs_rmatvec and hasattr(A, "ensure_adjoint"):
         # two-sided solvers build a lazy adjoint up front, on the host
@@ -37,7 +40,7 @@ def setup(A, b, x0=None, inner=None, maxiter=None, needs_rmatvec=False):
             raise ValueError(f"A {A.shape} does not match b {tuple(b.shape)}")
         inner = as_inner(inner, b.shape)
     maxiter = N if maxiter is None else maxiter
-    x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
+    x0 = torch.zeros_like(b) if x0 is None else _device.as_tensor(x0, b.device)
     return A, b, x0, N, inner, maxiter
 
 
@@ -58,6 +61,8 @@ def initial_residual(A, b, x0, x0_is_default):
 
 
 def preconditioner(M, device=None):
+    """``M`` as an operator (``device`` for a matrix that carries none; the
+    default device when None), the identity for None."""
     if M is None:
         return Identity()
     return as_operator(M, device=device)
@@ -68,3 +73,9 @@ def inner_tail(inner, v):
     for the default inner, ``()`` for a full-contraction inner on
     operator-native (grid-shaped) vectors."""
     return tuple(inner(v, v).shape)
+
+
+def nonzero(t):
+    """Breakdown-safe denominator: ``t`` with its zeros replaced by one, on
+    the device (the library's where-guard convention)."""
+    return torch.where(t != 0, t, 1.0)

@@ -17,7 +17,7 @@ import torch
 from .._driver import EAGER, Method, run
 from .._info import Info
 from .._inner import ensure_real
-from ._common import initial_residual, inner_tail, preconditioner, setup
+from ._common import initial_residual, inner_tail, nonzero, preconditioner, setup
 
 
 class BicgstabState(NamedTuple):
@@ -30,10 +30,6 @@ class BicgstabState(NamedTuple):
     omega: torch.Tensor
     resnorm: torch.Tensor
     early_success: torch.Tensor
-
-
-def _nonzero(t):
-    return torch.where(t != 0.0, t, 1.0)
 
 
 def bicgstab(
@@ -84,13 +80,13 @@ def bicgstab(
 
     def step(s: BicgstabState, criterion) -> BicgstabState:
         rho = inner(r0_shadow, s.r)
-        beta = rho * s.alpha / _nonzero(s.rho * s.omega)
+        beta = rho * s.alpha / nonzero(s.rho * s.omega)
 
         p = s.r + beta * (s.p - s.omega * s.v)
         y = Mr @ (Ml @ p)
         v = A @ y
 
-        alpha = rho / _nonzero(inner(r0_shadow, v))
+        alpha = rho / nonzero(inner(r0_shadow, v))
         s_vec = s.r - alpha * v
         h = s.x + alpha * y
 
@@ -103,7 +99,7 @@ def bicgstab(
         z = Mr @ Ml_s
         t = A @ z
         Ml_t = Ml @ t
-        omega = inner(Ml_t, Ml_s) / _nonzero(inner(Ml_t, Ml_t))
+        omega = inner(Ml_t, Ml_s) / nonzero(inner(Ml_t, Ml_t))
 
         x_new = h + omega * z
         r_new = s_vec - omega * t

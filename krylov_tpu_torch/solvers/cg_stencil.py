@@ -12,10 +12,16 @@ iteration runs as two fused kernels
   phase B (K4): ``y += alpha p``, ``r -= alpha Ap``, ``<r, r>``
 
 cutting the per-iteration memory traffic from about 15N to 10N words on
-the const operator, 19N to 15N at five coefficient planes.  Phase A writes
-the new direction into the second of two ``p`` buffers (the kernel reads
-neighbour rows of the old one); phase B updates ``y`` and ``r`` in place.
-Unpreconditioned (both operators) or Jacobi-preconditioned
+the const operator, 19N to 15N at five coefficient planes.  With
+``M="jacobi"`` the two phases are the Jacobi kernels, which stream the
+``dinv = 1 / diag(A)`` plane as one more input each:
+
+  phase A (K6): ``p = dinv r + omega p``, ``Ap = A p``, ``<p, Ap>``
+  phase B (K7): ``y += alpha p``, ``r -= alpha Ap``, ``<r, dinv r>``
+
+Phase A writes the new direction into the second of two ``p`` buffers (the
+kernel reads neighbour rows of the old one); phase B updates ``y`` and
+``r`` in place.  Unpreconditioned (both operators) or Jacobi-preconditioned
 (:class:`GridStencilOperator`) CG on a single grid-shaped right-hand side.
 """
 
@@ -23,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import _device
 from .._driver import WHILE_LOOP, Method, run
 from .._info import Info
 from ..ops import cuda_stencil
@@ -57,20 +64,18 @@ def cg_stencil(
     reference).  ``M="jacobi"`` (GridStencilOperator only) runs diagonally
     preconditioned CG with the recurrence and resnorm convention
     (``sqrt(<r, M r>)``) of :func:`cg` with ``M=DiagonalOperator(1/diag)``;
-    its fused kernels are not ported yet, so ``fused=True`` with it raises
-    for float32.  The const operator holds no tensors: its solve runs on
-    ``b``'s device.
+    with ``fused=True`` its float32 iterations run the two Jacobi kernels.
+    A ``b`` that carries no device (a numpy array) goes to ``A.device``.
     """
     if isinstance(A, ConstStencilOperator):
         const = True
-        b = torch.as_tensor(b)
     elif isinstance(A, GridStencilOperator):
         const = False
-        b = torch.as_tensor(b, device=A.device)
     else:
         raise TypeError(
             "cg_stencil requires a ConstStencilOperator or GridStencilOperator"
         )
+    b = _device.as_tensor(b, A.device)
     Mg, ny = A.grid
     flat_in = b.ndim == 1
     b2 = b.reshape(Mg, ny) if flat_in else b
@@ -89,11 +94,6 @@ def cg_stencil(
                 "M='jacobi' requires a GridStencilOperator (a constant-"
                 "coefficient Jacobi preconditioner is a scalar scaling)"
             )
-        if use_fused:
-            raise NotImplementedError(
-                "fused Jacobi CG needs kernels K6/K7, not ported yet (ROADMAP "
-                "Queue 2); use fused=False"
-            )
         d = A.diagonal().reshape(Mg, ny).to(b2.dtype)
         dinv2 = torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1.0), 1.0)
     else:
@@ -104,7 +104,7 @@ def cg_stencil(
         return torch.sum(r * r) if dinv2 is None else torch.sum(r * (dinv2 * r))
 
     x02 = (torch.zeros_like(b2) if x0 is None
-           else torch.as_tensor(x0, device=b2.device).reshape(Mg, ny))
+           else _device.as_tensor(x0, b2.device).reshape(Mg, ny))
     # x0 = 0 short-circuit: r0 = b - A@0 == b bitwise; the copy keeps the
     # in-place phase B off the caller's b
     r0 = initial_residual(A, b2, x02, x0 is None).clone()
@@ -130,6 +130,12 @@ def cg_stencil(
                 omega, s.r, s.p, A.kernel_bands, out=(p_spare, ap_buf),
             )
             p_spare = s.p
+        elif use_fused and dinv2 is not None:
+            p, Ap, pAp = cuda_stencil.cg_fused_phase_a_var_jac(
+                omega, s.r, s.p, A.coeffs2d, dinv2, A.row_offsets, A.col_offsets,
+                out=(p_spare, ap_buf),
+            )
+            p_spare = s.p
         elif use_fused:
             p, Ap, pAp = cuda_stencil.cg_fused_phase_a_var(
                 omega, s.r, s.p, A.coeffs2d, A.row_offsets, A.col_offsets,
@@ -142,7 +148,10 @@ def cg_stencil(
             Ap = A @ p
             pAp = torch.sum(p * Ap)
         alpha = s.rho / torch.where(pAp != 0, pAp, 1.0)
-        if use_fused:
+        if use_fused and dinv2 is not None:
+            y, r, rho_new = cuda_stencil.cg_fused_phase_b_jac(
+                alpha, s.y, s.r, p, Ap, dinv2)
+        elif use_fused:
             y, r, rho_new = cuda_stencil.cg_fused_phase_b(alpha, s.y, s.r, p, Ap)
         else:
             y = s.y + alpha * p

@@ -1,0 +1,94 @@
+"""Chebyshev iteration: matvec-only, needs eigenvalue estimates
+(counterpart of ``krylov_tpu.solvers.chebyshev``).
+
+``eigenvalue_estimates=(lmin, lmax)``, optional ``M``, arbitrary inner.
+The k == 0 / k == 1 coefficient special cases test the step counter, a host
+integer in the state (``p`` starts at zero, so ``p = z + beta * 0`` is
+exact at k == 0).
+"""
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from .._driver import EAGER, Method, run
+from .._info import Info
+from .._inner import ensure_real
+from ._common import inner_tail, nonzero, preconditioner, setup
+
+
+class ChebyshevState(NamedTuple):
+    k: int  # completed steps (host integer)
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    alpha: torch.Tensor
+    resnorm: torch.Tensor
+
+
+def chebyshev(
+    A,
+    b,
+    eigenvalue_estimates: Tuple[float, float],
+    M=None,
+    x0=None,
+    inner: Optional[Callable] = None,
+    tol: float = 1e-5,
+    atol: float = 1.0e-15,
+    maxiter: Optional[int] = None,
+    callback: Optional[Callable] = None,
+    backend: str = EAGER,
+):
+    x0_default = x0 is None
+    A, b, x0, N, inner, maxiter = setup(A, b, x0=x0, inner=inner, maxiter=maxiter)
+    M = preconditioner(M, b.device)
+
+    if len(eigenvalue_estimates) != 2 or not (
+            eigenvalue_estimates[0] <= eigenvalue_estimates[1]):
+        raise ValueError("eigenvalue_estimates must be (lmin, lmax), lmin <= lmax")
+    lmin, lmax = eigenvalue_estimates
+    d = (lmax + lmin) / 2
+    c = (lmax - lmin) / 2
+
+    def _norm(x):
+        return torch.sqrt(ensure_real(inner(x, M @ x), "<x, M x>"))
+
+    r0 = b if x0_default else b - A @ x0
+
+    if callback is not None:
+        callback(x0, r0)
+
+    state0 = ChebyshevState(
+        k=0,
+        x=x0.to(r0.dtype),
+        r=r0,
+        p=torch.zeros_like(M @ r0),
+        alpha=torch.zeros(inner_tail(inner, b), dtype=r0.real.dtype, device=b.device),
+        resnorm=_norm(r0),
+    )
+
+    def step(s: ChebyshevState, criterion) -> ChebyshevState:
+        z = M @ s.r
+        if s.k == 0:
+            beta = torch.zeros_like(s.alpha)
+        else:
+            beta = (0.25 if s.k > 1 else 0.5) * (c * s.alpha) ** 2
+        alpha = 1.0 / (d - beta / nonzero(s.alpha))
+        p = z + beta * s.p  # exact for k == 0 since p0 == 0 and beta == 0
+        x = s.x + alpha * p
+        r = s.r - alpha * (A @ p)
+        return ChebyshevState(
+            k=s.k + 1, x=x, r=r, p=p, alpha=alpha.to(s.alpha.dtype), resnorm=_norm(r),
+        )
+
+    method = Method(
+        step=step,
+        xk=lambda s: s.x,
+        explicit_resnorm=lambda xk: _norm(b - A @ xk),
+        callback_args=lambda s: (s.x, s.r),
+    )
+    state, success, k, resnorms = run(
+        state0, method, tol=tol, atol=atol, maxiter=maxiter,
+        callback=callback, backend=backend,
+    )
+    return (state.x if success else None), Info(success, state.x, k, resnorms)

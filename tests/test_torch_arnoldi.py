@@ -32,6 +32,7 @@ from .helpers import (
 from .test_arnoldi import _B, assert_arnoldi
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 _FACTORS = [0.0, 1.0, 1.0j, 1.0 + 1.0j, 1e8, 1.0e-8]
 _BT = torch.from_numpy(_B)

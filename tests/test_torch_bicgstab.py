@@ -25,6 +25,7 @@ from .test_golden import GOLDEN
 from .test_torch_gmres import assert_same, replay_golden
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 BICGSTAB_KEYS = sorted(k for k in GOLDEN if k.startswith("bicgstab"))
 

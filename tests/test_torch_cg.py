@@ -21,6 +21,7 @@ from krylov_tpu_torch.ops import stencil as ts
 from .linear_problems import spd_dense, spd_rhs_0
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 GOLDEN_SUM = 1004.1873775173957
 

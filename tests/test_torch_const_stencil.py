@@ -26,6 +26,7 @@ from krylov_tpu_torch.ops import cuda_stencil as cs
 from krylov_tpu_torch.ops import stencil as ts
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 NONHERM = ([(0, 0), (1, 0), (0, -1), (1, 2), (-2, 1)], [4.0, -1.5, -0.5, 0.25, -0.75])
 

@@ -1,6 +1,6 @@
-"""Kernels K1, K2, K8 and K9 (real and complex), K3, K4, K5, and the
+"""Kernels K1, K2, K8 and K9 (real and complex), K3 to K7, and the
 general-sparsity kernels K10, K11 and K12 on a CUDA device, against their
-plain versions, and the solves that launch them.
+plain versions, the solves that launch them, and the device rule.
 
 Needs an NVIDIA Hopper GPU (the kernels are built for sm_90a) and nvcc;
 every test skips without a CUDA device.  Imports no JAX, so it also runs
@@ -419,3 +419,103 @@ def test_sparse_solves_route_to_the_kernels_and_repeat_bitwise(dev):
     cb.reset_launches()
     _, info = kt.cg(spd, B, tol=1e-8, maxiter=100, backend="while_loop")
     assert info.success and cb.LAUNCHES["bsr_spmm"] > info.numsteps
+
+
+# --- K6 / K7, fused Jacobi CG, the solver family and the device rule ---------
+
+
+def _jacobi_cases(dev):
+    """(label, planes, row offsets, col offsets) at the shapes chip_smoke's
+    phase 7a checks, smaller: five bands on a ragged grid, 9 and 25 bands."""
+    rng = np.random.default_rng(20)
+    A = st.diffusion_2d(np.exp(rng.standard_normal((250, 375))).astype(np.float32),
+                        device=dev)
+    pairs = [(a, b) for a in range(-2, 3) for b in range(-2, 3)]
+    c25 = _rand((25, 67, 131), dev, torch.float32, 21)
+    nine = [k for k, (a, b) in enumerate(pairs) if abs(a) <= 1 and abs(b) <= 1]
+    ro, co = tuple(p[0] for p in pairs), tuple(p[1] for p in pairs)
+    return [("5 bands (250, 375)", A.coeffs2d, A.row_offsets, A.col_offsets),
+            ("9 bands", c25[nine].contiguous(), tuple(ro[k] for k in nine),
+             tuple(co[k] for k in nine)),
+            ("25 bands", c25, ro, co)]
+
+
+def test_k6_k7_match_plain_and_check_operands(dev):
+    om, al = torch.tensor(0.7, device=dev), torch.tensor(0.3, device=dev)
+    for label, c, ro, co in _jacobi_cases(dev):
+        shape = tuple(c.shape[1:])
+        r, p, y, ap = (_rand(shape, dev, torch.float32, s) for s in (22, 23, 24, 25))
+        dinv = 0.1 + torch.rand(shape, device=dev, generator=torch.Generator(dev).manual_seed(1))
+        got = cs.cg_fused_phase_a_var_jac(om, r, p, c, dinv, ro, co)
+        want = cs.cg_fused_phase_a_var_jac_plain(om, r, p, c, dinv, ro, co)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()),
+                                       msg=lambda m: f"K6 {label}: {m}")
+        got = cs.cg_fused_phase_b_jac(al, y.clone(), r.clone(), p, ap, dinv)
+        want = cs.cg_fused_phase_b_jac_plain(al, y.clone(), r.clone(), p, ap, dinv)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()),
+                                       msg=lambda m: f"K7 {label}: {m}")
+    # out must be neither r nor p (other blocks still read them), nor dinv
+    for bad in (r, p, dinv):
+        with pytest.raises(ValueError, match="overlap"):
+            cs.cg_fused_phase_a_var_jac(om, r, p, c, dinv, ro, co,
+                                        out=(bad, torch.empty_like(r)))
+    with pytest.raises(ValueError, match="overlap"):
+        cs.cg_fused_phase_b_jac(al, y, r, p, ap, r)
+    with pytest.raises(ValueError, match="float32"):
+        cs.cg_fused_phase_b_jac(al, y.double(), r.double(), p.double(), ap.double(),
+                                dinv.double())
+    with pytest.raises(ValueError, match="dinv"):
+        cs.cg_fused_phase_a_var_jac(om, r, p, c, dinv[:-1], ro, co)
+
+
+def test_fused_jacobi_solve_launches_k6_k7_and_repeats_bitwise(dev):
+    A = st.diffusion_2d(np.exp(np.random.default_rng(9).standard_normal((64, 96)))
+                        .astype(np.float32), device=dev)
+    b = torch.ones(A.grid, device=dev)
+    runs = []
+    for _ in range(2):
+        cs.reset_launches()
+        _, info = kt.cg_stencil(A, b, tol=0.0, atol=0.0, maxiter=20, fused=True, M="jacobi")
+        assert cs.LAUNCHES["cg_fused_phase_a_var_jac"] == 20
+        assert cs.LAUNCHES["cg_fused_phase_b_jac"] == 20
+        assert cs.LAUNCHES["cg_fused_phase_a_var"] == cs.LAUNCHES["cg_fused_phase_b"] == 0
+        runs.append(info)
+    np.testing.assert_array_equal(runs[0].resnorms, runs[1].resnorms)
+    assert torch.equal(runs[0].xk, runs[1].xk)
+    _, unfused = kt.cg_stencil(A, b, tol=0.0, atol=0.0, maxiter=20, fused=False, M="jacobi")
+    np.testing.assert_allclose(runs[0].resnorms, unfused.resnorms, rtol=2e-3)
+
+
+def test_twosided_solves_count_the_adjoint_launches(dev):
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.cuda_spmv import LAUNCHES, reset_launches
+
+    n = 128
+    sp = scipy.sparse.diags([-1.0, -1.0, 4.5, -1.0, -1.0], [-n, -1, 0, 1, n],
+                            shape=(n * n, n * n), format="csr", dtype=np.float32)
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(n * n)
+                         .astype(np.float32)).to(dev)
+    for solver in (kt.qmr, kt.bicg):
+        reset_launches()
+        x, info = solver(sp, b, tol=1e-4, maxiter=200, backend="while_loop")
+        assert info.success and x.is_cuda
+        assert LAUNCHES["csr_matvec"] >= 2 * info.numsteps  # forward and adjoint
+        r = b.double().cpu().numpy() - sp.astype(np.float64) @ x.double().cpu().numpy()
+        assert np.linalg.norm(r) <= 2e-4 * float(torch.linalg.norm(b))
+
+
+def test_inputs_without_a_device_land_on_the_card(dev):
+    """Nothing names a device: the factory, the numpy right-hand side and
+    the solve all land on the CUDA device."""
+    kt.set_default_device(None)
+    A = st.poisson_2d(32, dtype=np.float32)
+    assert A.coeffs2d.is_cuda
+    cs.reset_launches()
+    x, info = kt.cg_stencil(A, np.ones(A.grid, np.float32), tol=0.0, atol=0.0, maxiter=5,
+                            fused=True)
+    assert info.xk.is_cuda and cs.LAUNCHES["cg_fused_phase_a_var"] == 5
+    with pytest.raises((RuntimeError, ValueError)):
+        kt.cg_stencil(A, torch.ones(A.grid))  # a CPU tensor is not moved to the card

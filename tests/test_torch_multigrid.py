@@ -29,6 +29,7 @@ from krylov_tpu_torch.ops import cuda_stencil as cs
 from krylov_tpu_torch.ops import stencil as ts
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 
 def _smooth_field(nx, ny):

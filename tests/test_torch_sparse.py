@@ -37,6 +37,7 @@ from krylov_tpu_torch.ops import stencil as t_stencil
 from krylov_tpu_torch.ops.triangular import multi_solve_triangular
 
 torch.set_num_threads(1)
+kt.set_default_device("cpu")  # these tests run on the CPU
 
 
 def _irregular(n, span, dmax, seed=0, empty_rows=True):

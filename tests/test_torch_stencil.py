@@ -19,11 +19,13 @@ from jax.experimental import pallas as pl
 
 from krylov_tpu.ops import pallas_stencil as ps
 from krylov_tpu.ops import stencil as js
+import krylov_tpu_torch
 from krylov_tpu_torch import DiagonalOperator, MatrixOperator, convert
 from krylov_tpu_torch.ops import cuda_stencil as cs
 from krylov_tpu_torch.ops import stencil as ts
 
 torch.set_num_threads(1)
+krylov_tpu_torch.set_default_device("cpu")  # these tests run on the CPU
 
 # (name, JAX constructor, port constructor): f64, small grids
 OPS = {

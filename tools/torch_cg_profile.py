@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one CG iteration goes on the GPU (krylov_tpu_torch).
 
-Runs ``cg`` (while_loop backend) and ``cg_stencil(fused=True)`` on
+Runs ``cg`` (while_loop backend), ``cg_stencil(fused=True)`` and its
+Jacobi-preconditioned variant (``M="jacobi"``: kernels K6 and K7) on
 ``poisson_2d(n)`` float32 and prints, per solver, the wall time per
 iteration of an unprofiled solve, the device time per iteration by kernel
 from ``torch.profiler`` (CUDA kernel events only), and the device's idle
@@ -47,6 +48,8 @@ def main():
                             atol=0.0, maxiter=args.iters, backend="while_loop"),
         "cg_stencil fused": lambda: kt.cg_stencil(
             A, b, tol=0.0, atol=0.0, maxiter=args.iters, fused=True),
+        "cg_stencil Jacobi fused": lambda: kt.cg_stencil(
+            A, b, tol=0.0, atol=0.0, maxiter=args.iters, fused=True, M="jacobi"),
     }
     for name, solve in solvers.items():
         solve()  # warm up: kernel build, allocator
