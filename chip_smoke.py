@@ -12,8 +12,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
 0. device line (``nvidia-smi`` name and power limit), versions, kernel build;
 1. every stencil kernel against its plain PyTorch version on the card, at
    small odd shapes and at the main paths' 4096^2 shape: K1 stencil matvec,
-   K2 const stencil matvec, K3 / K5 / K4 fused CG phases, K8 / K9
-   damped-Jacobi sweeps; 1b: K1, K2, K8 and K9 also on complex vectors;
+   K2 const stencil matvec on both of its kernels (the tiled one: float32,
+   row length a multiple of 4, 16-byte boundaries; the general one: every
+   other type, odd row lengths, offset views), with a count of which each
+   case took, K3 / K5 / K4 fused CG phases, K8 / K9 damped-Jacobi sweeps;
+   1b: K1, K2, K8 and K9 also on complex vectors;
 2. golden CG in float64 on ``diag([1e-3, 2..100])``;
 3. the twin of ``__graft_entry__.entry()`` (compiled CG on ``poisson_2d(128)``)
    and a converging solve of the same operator;
@@ -30,8 +33,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    configuration, K8) and a Galerkin hierarchy on a smooth ``diffusion_2d``
    at 1024^2 (K9), each held at 256^2 to a float64 CPU run;
 6. general sparsity, the reference bench's sparse section: (a) K10 CSR
-   SpMV (f32 and bf16 values, the adjoint, an RCM-reordered scrambled
-   Poisson), K11 CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM
+   SpMV (f32 and bf16 values, the adjoint, the 1024^2 Poisson CSR forward
+   and adjoint, an RCM-reordered scrambled Poisson, and small matrices with
+   empty rows, a row longer than a run, one row, rectangles and ragged
+   sizes, on and off 16-byte boundaries, each repeated bit for bit), K11
+   CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM
    (blocksizes 32, 64, 128, four dtypes) against their plain versions;
    (b) BiCGSTAB + Jacobi, GMRES (mgs, householder, cgs) and Jacobi CG on
    the bench's 1M-row scipy CSR matrices through ``as_operator`` ->
@@ -50,7 +56,9 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    the device rule: with no device argument, inputs land on the card;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
-   PyTorch call computes the same function, that call; per-iteration slopes
+   PyTorch call computes the same function, that call (K10 on the irregular
+   matrix, its adjoint and the Poisson CSR, and K2 at 5, 9 and 25 bands, by
+   device time inside a CUDA graph as well); per-iteration slopes
    of the stencil solvers; time to solution of cg100, of MG-CG and of the
    sparse solves with the device's idle share (``torch.profiler``); each
    V-cycle level's share.
@@ -136,6 +144,25 @@ def time_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, launches=20, replays=10):
+    """Device time of one ``fn()`` inside a replayed CUDA graph of
+    ``launches``: no host in the loop, so a kernel shorter than the host's
+    own time per call (K10 on a 5-point matrix, K2) is timed and not the
+    Python around it."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, replays) / launches
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +271,20 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5,
        torch.complex64: 1e-5, torch.complex128: 1e-12}
 
 
+def offset_copy(t):
+    """``t``'s values one element off their allocation's start: for float32
+    and int32 a contiguous view that lies on no 16-byte boundary (the case
+    of K2's general kernel and of K10's 4-byte loads)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def square_stencil(st, rng, shape, h):
+    """A const operator with every offset in [-h, h]^2 (9 bands for h = 1,
+    25 for h = 2, a Galerkin coarse level's shape) and seeded weights."""
+    offs = [(a, b) for a in range(-h, h + 1) for b in range(-h, h + 1)]
+    return st.ConstStencilOperator(shape, offs, list(rng.standard_normal(len(offs))))
+
+
 def random_bands(rng, M, ny, dtype, dev):
     """A seeded 25-band plane stack with every offset in [-2, 2]^2 (the
     shape of a Galerkin coarse level) and a weight plane."""
@@ -279,9 +320,21 @@ def phase_kernels_const(dev, cs, st, A_div):
     nonherm = st.ConstStencilOperator(
         (37, 45), [(0, 0), (1, 0), (0, -1), (1, 2), (-2, 1)],
         [4.0, -1.5, -0.5, 0.25, -0.75])
+
+    # K2 has two kernels: float32 grids whose row length is a multiple of 4
+    # take the tiled one when x, out and the halos lie on 16-byte boundaries
+    # (cs.k2_tiled); everything else the general one.  The first three grids
+    # have row lengths that are no multiple of 4 (general for every type),
+    # the rest are tiled in float32: a ragged grid, row constraints (3-D), 9
+    # and 25 bands.
     const_ops = [("poisson_2d_const(37,45)", st.poisson_2d_const(37, 45)),
                  ("poisson_3d_const(6,7,50)", st.poisson_3d_const(6, 7, 50)),
-                 ("non-hermitian (37,45)", nonherm)]
+                 ("non-hermitian (37,45)", nonherm),
+                 ("poisson_2d_const(1000,1500)", st.poisson_2d_const(1000, 1500)),
+                 ("poisson_3d_const(6,7,48)", st.poisson_3d_const(6, 7, 48)),
+                 ("9 bands (67,132)", square_stencil(st, rng, (67, 132), 1)),
+                 ("25 bands (67,132)", square_stencil(st, rng, (67, 132), 2))]
+    paths = {"tiled": 0, "general": 0}
     for label, Ac in const_ops:
         M, ny = Ac.grid
         h = cs.halo_rows([b[0] for b in Ac.bands])
@@ -296,16 +349,28 @@ def phase_kernels_const(dev, cs, st, A_div):
         for dtype in (torch.float64, torch.float32, torch.bfloat16, torch.complex64,
                       torch.complex128):
             x = as_(x64, dtype)
+            off = offset_copy(x)
             for tag, args, kw in (
                 ("", (x, Ac.kernel_bands), {}),
                 (" batch3", (as_(xb64, dtype), Ac.kernel_bands), {}),
                 (" row0+halos", (x, Ac.bands),
                  dict(row0=5, top_halo=as_(top, dtype), bot_halo=as_(bot, dtype))),
+                (" offset view", (off, Ac.kernel_bands), {}),
             ):
+                cs.reset_launches()
                 got = cs.const_stencil2d_matvec(*args, **kw)
+                took = "tiled" if cs.K2_PATHS["tiled"] else "general"
+                assert cs.K2_PATHS[took] == 1 and sum(cs.K2_PATHS.values()) == 1
+                want = ("tiled" if dtype == torch.float32 and ny % 4 == 0
+                        and tag != " offset view" else "general")
+                assert took == want, f"K2 {label} {dtype}{tag} took the {took} kernel"
+                paths[took] += 1
                 assert got.dtype == dtype
-                rel_close(f"K2 {label} {dtype}{tag}", got,
+                rel_close(f"K2 {label} {dtype}{tag} [{took}]", got,
                           cs.const_stencil2d_matvec_plain(*args, **kw), TOL[dtype])
+                if took == "tiled" and not kw:  # the two kernels agree bit for bit
+                    assert torch.equal(got, cs.const_stencil2d_matvec(
+                        offset_copy(args[0]), Ac.kernel_bands))
         r64 = rand((M, ny), torch.float64)
         cx[id(r64)] = r64 + 1j * rand((M, ny), torch.float64)
         for dtype in (torch.float64, torch.float32, torch.complex64, torch.complex128):
@@ -348,13 +413,24 @@ def phase_kernels_const(dev, cs, st, A_div):
                           TOL[xd])
 
     # the main paths' shapes: poisson_2d_const(4096) and diffusion_2d(4096)
+    log(f"  K2 cases by kernel: {paths}")
+    assert paths["tiled"] >= 12 and paths["general"] >= 100
     errs = {}
     Ac = st.poisson_2d_const(BIG)
     kb = Ac.kernel_bands
     x, r = rand((BIG, BIG)), rand((BIG, BIG))
+    cs.reset_launches()
     errs["const_stencil2d_matvec"] = rel_close(
         f"K2 poisson_2d_const({BIG}) f32", cs.const_stencil2d_matvec(x, kb),
         cs.const_stencil2d_matvec_plain(x, kb), TOL[torch.float32])
+    assert cs.K2_PATHS == {"tiled": 1, "general": 0}, "the main path's shape must be tiled"
+    off = offset_copy(x)
+    errs["const_stencil2d_matvec"] = max(errs["const_stencil2d_matvec"], rel_close(
+        f"K2 poisson_2d_const({BIG}) f32, offset view [general]",
+        cs.const_stencil2d_matvec(off, kb), cs.const_stencil2d_matvec_plain(x, kb),
+        TOL[torch.float32]))
+    assert cs.K2_PATHS == {"tiled": 1, "general": 1}
+    del off
     om = torch.tensor(0.7, device=dev)
     errs["cg_fused_phase_a"] = check_fused(
         f"K3 poisson_2d_const({BIG})", cs.cg_fused_phase_a(om, r, x, kb),
@@ -425,7 +501,7 @@ def solve_pair(A, b, kt, cs, iters):
         cs.reset_launches()
         _, info = run()
         torch.cuda.synchronize()
-        counts.append(dict(cs.LAUNCHES))
+        counts.append(dict(cs.LAUNCHES, **{f"K2 {k}": n for k, n in cs.K2_PATHS.items()}))
         infos.append(info)
     return infos, counts
 
@@ -506,6 +582,7 @@ def phase_const_cg(dev, kt, cs, st):
     log(f"  launches cg {n_cg} fused {n_fu}")
     assert i_cg.numsteps == i_fu.numsteps == iters
     assert n_cg["const_stencil2d_matvec"] >= iters
+    assert n_cg["K2 tiled"] == n_cg["const_stencil2d_matvec"], "K2's main path must be tiled"
     assert n_fu["cg_fused_phase_a"] == n_fu["cg_fused_phase_b"] == iters
     for info in (i_cg, i_fu):
         assert bool(torch.isfinite(info.xk).all()) and np.isfinite(info.resnorms).all()
@@ -719,10 +796,32 @@ def phase_timing(dev, kt, cs, st, A_div, card):
          2 * c.shape[0] + 3, "(ndiag+4)*N*4 (update, 5 bands)", None),
     ):
         ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 10)
-        log(f"  [{card}] {BIG}^2 {name} {ms * 1e3:.1f} us ({gbs(ms, words):.0f} GB/s by "
+        clock = ""
+        if name == "const_stencil2d_matvec":
+            # K2 is shorter than the host's own time per call when the host is
+            # busy: the figure kept is the device time inside a CUDA graph
+            clock = f" in a CUDA graph, {ms * 1e3:.1f} us in a Python loop"
+            ms = graph_ms(kernel)
+        log(f"  [{card}] {BIG}^2 {name} {ms * 1e3:.1f} us{clock} ({gbs(ms, words):.0f} GB/s by "
             f"{model}); plain {plain_ms * 1e3:.1f} us")
         times["const"] = dict(times.get("const", {}), **{
             name: timed(ms, plain_ms, words * N * 4, flops * N, lib)})
+    # K2 with more bands (every offset in [-1, 1]^2 and [-2, 2]^2, seeded
+    # weights), on the tiled kernel and, through an offset view, the general
+    for h in (1, 2):
+        kbh = square_stencil(st, rng, (BIG, BIG), h).kernel_bands
+        xo = offset_copy(x)
+        tiled = graph_ms(lambda: cs.const_stencil2d_matvec(x, kbh, out=y))
+        general = graph_ms(lambda: cs.const_stencil2d_matvec(xo, kbh, out=y))
+        log(f"  [{card}] {BIG}^2 const_stencil2d_matvec, {len(kbh)} bands: {tiled * 1e3:.1f} us "
+            f"tiled, {general * 1e3:.1f} us general (offset view), in a CUDA graph; bound "
+            f"{2 * N * 4 / HBM_BYTES_PER_S * 1e6:.1f} us by 2*N*4")
+        del xo
+    xo = offset_copy(x)
+    general = graph_ms(lambda: cs.const_stencil2d_matvec(xo, kb, out=y))
+    log(f"  [{card}] {BIG}^2 const_stencil2d_matvec, 5 bands, general kernel (offset view): "
+        f"{general * 1e3:.1f} us in a CUDA graph")
+    del xo
 
     # marginal per-iteration cost: slope of whole-solve time over maxiter
     for label, A in (("poisson_2d", A_p), ("diffusion_2d", A_div),
@@ -904,8 +1003,47 @@ def csr_tensors(sp, dev, value_dtype=torch.float32):
             torch.from_numpy(sp.data).to(dev, value_dtype))
 
 
+def k10_edge_cases():
+    """Small scipy CSR matrices (f32) on which K10's runs can go wrong:
+    empty rows, a row longer than a run among short ones, one row, wide and
+    tall rectangles, and row and entry counts that are multiples neither of
+    a run nor of 4."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(SEED + 45)
+    n = 12001
+
+    def band(n, lo, hi):
+        counts = rng.integers(lo, hi, n)
+        rows = np.repeat(np.arange(n), counts)
+        cols = np.clip(rows + rng.integers(-300, 301, rows.size), 0, n - 1)
+        return scipy.sparse.csr_matrix(
+            (rng.standard_normal(rows.size).astype(np.float32), (rows, cols)), shape=(n, n))
+
+    holes = band(n, 0, 4)  # a quarter of the rows empty, the first and the last forced
+    holes = scipy.sparse.diags(np.r_[0.0, np.ones(n - 2), 0.0]).astype(np.float32) @ holes
+    holes.eliminate_zeros()
+    long_row = band(n, 5, 50).tolil()
+    long_row[n // 2] = rng.standard_normal(n)  # 12001 entries: longer than any run
+    long_row[3, ::2] = 1.0  # 6001 entries
+    rect = scipy.sparse.random(3001, 777, density=0.02, random_state=5, format="csr",
+                               dtype=np.float32)
+    return [("empty rows", holes.tocsr()), ("a row of 12001 entries", long_row.tocsr()),
+            ("n = 1", scipy.sparse.csr_matrix(rng.standard_normal((1, 7)).astype(np.float32))),
+            ("rectangular 3001 x 777", rect), ("rectangular 777 x 3001", rect.T.tocsr()),
+            ("ragged 12001 rows", band(n, 5, 50))]
+
+
 def phase_sparse_kernels(dev, sv, bs):
-    """6a: K10, K11 and K12 against their plain versions on the card."""
+    """6a: K10, K11 and K12 against their plain versions on the card.
+
+    K10's tolerance is 1e-5 of the largest entry of the product everywhere:
+    both sides multiply in float32 and sum each row in float32, in different
+    orders (the kernel by lanes and a shuffle tree, the plain version by a
+    segment sum), over at most 49 terms on the bench matrices and 12001 on
+    the long row; bf16 values widen to float32 exactly, so they get the same
+    bound.  Every K10 product is also repeated and must come out bit for
+    bit."""
     log("phase 6a: K10, K11, K12 against their plain versions")
     errs = {"csr_matvec": 0.0, "csr_matmat": 0.0, "bsr_spmm": 0.0}
     rng = np.random.default_rng(SEED + 42)
@@ -913,9 +1051,43 @@ def phase_sparse_kernels(dev, sv, bs):
     def vec(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
+    def k10(label, arrays, x, got_fn):
+        got = got_fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, got_fn()), f"K10 {label} does not repeat bit for bit"
+        errs["csr_matvec"] = max(errs["csr_matvec"], rel_close(
+            f"K10 {label}", got, sv.csr_matvec_plain(*arrays, x), 1e-5))
+
+    for label, sp in k10_edge_cases():
+        arrays = csr_tensors(sp, dev)
+        x = vec(sp.shape[1])
+        runs = torch.from_numpy(sv.csr_runs(sp.indptr)).to(dev)
+        log(f"  {label}: {sp.shape[0]} x {sp.shape[1]}, {sp.nnz} entries, "
+            f"{runs.numel() - 1} runs, longest row {np.diff(sp.indptr).max()}")
+        for vdt in (torch.float32, torch.bfloat16):
+            a = arrays[:2] + (arrays[2].to(vdt),)
+            k10(f"{label}, {vdt}, runs prepared", a, x, lambda: sv.csr_matvec(*a, x, runs))
+            # columns and values off the 16-byte boundary: the 4-byte loads
+            b = (a[0], offset_copy(a[1]), offset_copy(a[2]))
+            k10(f"{label}, {vdt}, offset views, runs made on the spot", b, x,
+                lambda: sv.csr_matvec(*b, x))
+    lap = poisson_csr(NPG)
+    op = sv.PETOperator.from_scipy(lap, with_rmatvec=True, device=dev)
+    x = vec(lap.shape[1])
+    k10(f"poisson {NPG}^2 forward (PETOperator)", csr_tensors(lap, dev), x, lambda: op @ x)
+    k10(f"poisson {NPG}^2 adjoint (PETOperator.rmatvec)", csr_tensors(lap.T.tocsr(), dev), x,
+        lambda: op.rmatvec(x))
+    conv = convected_csr(NPG)  # nonsymmetric: the adjoint's CSR differs from the forward's
+    op = sv.PETOperator.from_scipy(conv, with_rmatvec=True, device=dev)
+    k10(f"convected poisson {NPG}^2 adjoint", csr_tensors(conv.T.tocsr(), dev), x,
+        lambda: op.rmatvec(x))
+    del op
+
     sp = irregular_csr()
     log(f"  irregular matrix: {sp.shape[0]} rows, {sp.nnz} entries, "
-        f"{sp.nnz / sp.shape[0]:.1f} a row, lanes {sv.lanes_for(sp.nnz, sp.shape[0])}")
+        f"{sp.nnz / sp.shape[0]:.1f} a row, {len(sv.csr_runs(sp.indptr)) - 1} runs of at most "
+        f"{sv.RUN_CAPACITY - 3} entries (K10), {sv.lanes_for(sp.nnz, sp.shape[0])} lanes a "
+        f"row (K11)")
     ip, ix, data = csr_tensors(sp, dev)
     x = vec(sp.shape[1])
     for vdt in (torch.float32, torch.bfloat16):
@@ -1136,34 +1308,56 @@ def sparse_timing(dev, kt, sv, bs, card):
     times = {}
     rng = np.random.default_rng(SEED + 44)
     sp = irregular_csr()
-    ip, ix, data = csr_tensors(sp, dev)
     n, nnz = sp.shape[0], sp.nnz
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-    for vdt, vb in ((torch.float32, 4), (torch.bfloat16, 2)):
-        d = data.to(vdt)
-        ms = time_ms(lambda: sv.csr_matvec(ip, ix, d, x), 50)
-        plain = time_ms(lambda: sv.csr_matvec_plain(ip, ix, d, x), 10)
-        by = nnz * (4 + vb) + 8 * n + 4 * n
-        log(f"  [{card}] K10 csr_matvec irregular {n} rows {nnz} nnz, {vdt}, "
-            f"{sv.lanes_for(nnz, n)} lanes a row: {ms * 1e3:.1f} us "
-            f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by (4+{vb})*nnz + 8*n + 4*n); plain "
-            f"{plain * 1e3:.1f} us")
-        if vdt == torch.float32:
-            # the one PyTorch call computing K10's function (timed only)
-            lib_op = torch.sparse_csr_tensor(ip, ix, d, size=sp.shape)
-            lib_err = max_err(lib_op @ x, sv.csr_matvec(ip, ix, d, x))
-            lib = time_ms(lambda: lib_op @ x, 20)
-            log(f"  [{card}] library torch.sparse_csr_tensor @ x, the same arrays: "
-                f"{lib * 1e3:.1f} us; max |library - K10| {lib_err:.2e}")
-            times["csr_matvec"] = timed(ms, plain, by, 2 * nnz, lib)
-            del lib_op
     lap = poisson_csr(NPG)
-    pip, pix, pdata = csr_tensors(lap, dev)
     m = lap.shape[0]
-    ms = time_ms(lambda: sv.csr_matvec(pip, pix, pdata, x[:m]), 50)
-    log(f"  [{card}] K10 csr_matvec poisson {NPG}^2 ({lap.nnz} nnz, "
-        f"{sv.lanes_for(lap.nnz, m)} lanes a row): {ms * 1e3:.1f} us "
-        f"({(lap.nnz * 8 + 12 * m) / (ms * 1e-3) / 1e9:.0f} GB/s by 8*nnz + 12*n)")
+    xp = x[:m].clone()
+
+    def library_ms(arrays, xv, runs):
+        """The one PyTorch call computing K10's function (timed only), on
+        the same arrays, by the same two clocks as K10."""
+        lib_op = torch.sparse_csr_tensor(*arrays, size=(arrays[0].numel() - 1, xv.numel()))
+        err = max_err(lib_op @ xv, sv.csr_matvec(*arrays, xv, runs))
+        loop = time_ms(lambda: lib_op @ xv, 20)
+        try:
+            return graph_ms(lambda: lib_op @ xv), loop, err
+        except RuntimeError:  # the library call does not capture into a graph here
+            torch.cuda.synchronize()
+            return loop, loop, err
+
+    # K10 as PETOperator runs it: the runs cut once, outside the timed call.
+    # Two clocks: a replayed CUDA graph (device time, the figure kept) and a
+    # Python loop of launches (as earlier figures were taken; on the Poisson
+    # matrix it measures the host).
+    fwd, adj, pois = csr_tensors(sp, dev), csr_tensors(sp.T.tocsr(), dev), csr_tensors(lap, dev)
+    for label, arrays, xv in (
+        (f"irregular {n} rows {nnz} nnz, f32", fwd, x),
+        ("irregular adjoint (CSR of A^T), f32", adj, x),
+        ("irregular, bf16 values", fwd[:2] + (fwd[2].bfloat16(),), x),
+        (f"poisson {NPG}^2 ({lap.nnz} nnz, 5 a row), f32", pois, xp),
+    ):
+        rows, entries, vb = arrays[0].numel() - 1, arrays[1].numel(), arrays[2].element_size()
+        runs = torch.from_numpy(sv.csr_runs(arrays[0].cpu().numpy())).to(dev)
+        ms = graph_ms(lambda: sv.csr_matvec(*arrays, xv, runs))
+        loop = time_ms(lambda: sv.csr_matvec(*arrays, xv, runs), 50)
+        plain = time_ms(lambda: sv.csr_matvec_plain(*arrays, xv), 10)
+        by = entries * (4 + vb) + 8 * rows + 4 * rows
+        record = timed(ms, plain, by, 2 * entries)
+        log(f"  [{card}] K10 csr_matvec {label}, {runs.numel() - 1} runs: {ms * 1e3:.1f} us "
+            f"in a CUDA graph ({by / (ms * 1e-3) / 1e9:.0f} GB/s by (4+{vb})*nnz + 8*n + 4*n; "
+            f"bound {record['bound_ms'] * 1e3:.1f} us), {loop * 1e3:.1f} us in a Python loop; "
+            f"plain {plain * 1e3:.1f} us")
+        if vb == 4:
+            lib, lib_loop, lib_err = library_ms(arrays, xv, runs)
+            record["library_ms"] = lib
+            log(f"  [{card}] library torch.sparse_csr_tensor @ x, the same arrays: "
+                f"{lib * 1e3:.1f} us in a CUDA graph, {lib_loop * 1e3:.1f} us in a Python loop; "
+                f"max |library - K10| {lib_err:.2e}")
+        if arrays is fwd:
+            times["csr_matvec"] = record
+    del fwd, adj
+    pip, pix, pdata = pois
     for k in (8, 16):
         X = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
         ms = time_ms(lambda: sv.csr_matmat(pip, pix, pdata, X), 50)

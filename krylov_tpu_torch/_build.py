@@ -45,22 +45,24 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path():
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines=()):
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libkrylov_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build():
+def build(defines=()):
     """Compile the kernels unless they are built already.
 
-    Returns ``(path, seconds, log)``: the library, the compile time (0.0
-    when reused) and nvcc's output, which lists each kernel's registers,
-    shared memory and spills.
+    ``defines``: ``NAME=value`` macros that override the sources' tuning
+    constants (a sweep builds one library per variant; the package itself
+    builds with none).  Returns ``(path, seconds, log)``: the library, the
+    compile time (0.0 when reused) and nvcc's output, which lists each
+    kernel's registers, shared memory and spills.
     """
-    path = library_path()
+    path = library_path(defines)
     log_path = path.with_suffix(".log")
     if path.exists():
         return path, 0.0, log_path.read_text() if log_path.exists() else ""
@@ -74,7 +76,7 @@ def build():
         if src.suffix != ".cu":
             continue
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", "-o", str(obj), str(src)]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     log, failed = "", False

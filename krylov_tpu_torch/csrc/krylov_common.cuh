@@ -72,3 +72,21 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16, float>(float v) {
   return __float2bfloat16(v);
 }
+
+// Sum of one value per thread over the block, in a fixed order (shuffle tree
+// inside each warp, then warp 0 over the warp sums): deterministic.
+template <typename A>
+__device__ A block_sum(A v) {
+  __shared__ A warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = (threadIdx.x < nwarps) ? warp_sums[lane] : A(0);
+  if (warp == 0) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;  // valid in thread 0
+}

@@ -92,24 +92,6 @@ static bool make_const_bands(int ndiag, const int* dr, const int* dc,
   return true;
 }
 
-// Sum of one value per thread over the block, in a fixed order (shuffle tree
-// inside each warp, then warp 0 over the warp sums): deterministic.
-template <typename A>
-__device__ A block_sum(A v) {
-  __shared__ A warp_sums[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = (threadIdx.x < nwarps) ? warp_sums[lane] : A(0);
-  if (warp == 0) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;  // valid in thread 0
-}
-
 static dim3 grid_2d(int M, int ny, int batch) {
   const int gx = (ny + KRYLOV_THREADS - 1) / KRYLOV_THREADS;
   int gy = (M + KRYLOV_ROWS - 1) / KRYLOV_ROWS;
@@ -279,15 +261,258 @@ static void launch_stencil2d(const void* c, const void* x, const void* top,
 //
 // Replaces krylov_tpu/ops/pallas_stencil.py:const_stencil2d_matvec
 // (_const_kernel).  Bound on this card: memory traffic, 2 N words (x read,
-// y written; no coefficient planes).  Design: K1's layout (one thread per
-// column, KRYLOV_ROWS rows per block, neighbour rows read from x through
-// L1/L2), with scalar weights in the by-value ConstBands and the Dirichlet
-// masks computed in the kernel (const_rows): the row constraints once per
-// row, the column bound as a zero read.  row0 is the first global row of
-// this slab (the masks are defined on global rows); halos as K1.  bf16
-// vectors accumulate in float and round once on the store; complex vectors
-// take the real weights of their real type, as the reference's do.
+// y written; no coefficient planes).  Two kernels; krylov_const_stencil2d
+// sends a call to the tiled one when `tiled` is set, which the wrapper does
+// from the type, the shape and the alignment alone (k2_tiled there): float
+// vectors, ny a multiple of 4, x, y and the halo rows on 16-byte boundaries,
+// and |dr|, |dc| up to KRYLOV_K2_MAX_HALO.  Everything else (bf16, f64 and
+// complex vectors, an odd ny, an unaligned view, |dr| in the dozens as on a
+// collapsed 3-D grid with a long second axis) takes the general kernel.  Both sum the bands in the order given with one
+// multiply-add a term, so they agree bit for bit with each other and, on a
+// Laplacian, with K1.
+//
+// The tiled kernel.  What bounded the general one was not bytes but the
+// loads a point makes: ndiag 4-byte global loads and a 4-byte store, most
+// of them re-reads served by L1.  Here each x element enters the SM once.  A
+// block owns a strip of 4 * NT columns (NT threads) and marches down
+// KRYLOV_K2_RUN rows, KRYLOV_K2_STEP rows a step.  It keeps a ring of 2 hr +
+// KRYLOV_K2_STEP * (KRYLOV_K2_STAGES + 1) rows of the strip, widened by hc
+// rounded up to 4 columns on each side, in shared memory, and fills it
+// KRYLOV_K2_STAGES steps ahead with 16-byte cp.async copies, which bypass L1
+// and the registers; one barrier a step.  Rows outside [0, M) enter the ring
+// from the caller's halo rows or as zeros and columns outside [0, ny) as
+// zeros (the copy's zero fill), so the Dirichlet column mask is a zero read;
+// the row constraints are evaluated once a row (const_row_mask).  A thread
+// sums four outputs a row from the ring: the columns t, t + NT, t + 2 NT,
+// t + 3 NT of the strip, so that a warp's shared-memory reads and its global
+// stores fall on 32 neighbouring words whatever dc is (four neighbouring
+// outputs a thread would put every shifted read on a 4-way bank conflict).
+// The band loop is outside and the step's rows and the four columns inside,
+// so a band's set-up is paid once for 4 * KRYLOV_K2_STEP points.  Global
+// loads a point: 0.25 of 16 bytes, plus 2 hr / KRYLOV_K2_RUN for the run's
+// first and last rows.  Measured on an H100 80GB HBM3 (700 W) at 4096^2,
+// device time inside a CUDA graph (tools/torch_kernel_sweep.py): 54.6 us at
+// 5 bands, 56.3 at 9, 91.8 at 25, where the general kernel takes 64.4, 79.0
+// and 162; stages 1..8, steps 1..8, runs of 32..128 rows and strips of 256
+// and 1024 columns all stay within 54.6..58 us at 5 bands.  A copy of the
+// same 2 N words takes 46.1 us there (the card's rate for one write per
+// read) and this kernel with a single band 50.5, so the ring itself costs
+// about 4 us and five bands 4.5 more; from 9 bands on shared-memory
+// bandwidth (4 bytes a lane and term) takes over.
+//
+// The ring is filled through a source object (stage: four values of one row
+// into shared memory, zeros outside the grid) and read by ring_step, so the
+// fused phase A (K3: r + omega p, computed once a point) and the const
+// Jacobi sweep (K8) can take the same loader with their own sources.
+//
+// The general kernel: K1's layout (one thread per column, KRYLOV_ROWS rows
+// per block, neighbour rows read from x through L1/L2), with scalar weights
+// in the by-value ConstBands and the Dirichlet masks computed in the kernel
+// (const_rows).  row0 is the first global row of this slab (the masks are
+// defined on global rows); halos as K1.  bf16 vectors accumulate in float
+// and round once on the store; complex vectors take the real weights of
+// their real type, as the reference's do.
 // ---------------------------------------------------------------------------
+#ifndef KRYLOV_K2_THREADS
+#define KRYLOV_K2_THREADS 128  // threads of a tiled block: a strip of 4 x as many columns
+#endif
+#ifndef KRYLOV_K2_RUN
+#define KRYLOV_K2_RUN 64  // rows a tiled block marches down
+#endif
+#ifndef KRYLOV_K2_STEP
+#define KRYLOV_K2_STEP 2  // rows summed between two barriers
+#endif
+#ifndef KRYLOV_K2_STAGES
+#define KRYLOV_K2_STAGES 2  // steps whose rows are in flight ahead of the one being summed
+#endif
+#define KRYLOV_K2_MAX_HALO 8  // the tiled kernel takes bands with |dr|, |dc| up to this
+#define KRYLOV_K2_SMEM (96 * 1024)  // the most shared memory a ring may take
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int bytes = valid ? 16 : 0;  // 0: nothing is read and 16 zero bytes are written
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ring source of K2: x, with the caller's halo rows (or zeros) outside the
+// grid's rows and zeros outside its columns.  stage puts the four values of
+// row g, columns gc .. gc + 3 (gc a multiple of 4, as ny is) at dst,
+// asynchronously; cp_async_wait and a barrier make them visible.
+struct HaloRingSrc {
+  const float* __restrict__ x;
+  const float* __restrict__ top;
+  const float* __restrict__ bot;
+  int M, ny, h;
+  __device__ __forceinline__ void stage(float* dst, int g, int gc) const {
+    const float* row = nullptr;
+    if (g >= 0 && g < M) {
+      row = x + (size_t)g * ny;
+    } else if (g < 0 && top != nullptr) {
+      row = top + (size_t)(h + g) * ny;
+    } else if (g >= M && bot != nullptr) {
+      row = bot + (size_t)(g - M) * ny;
+    }
+    const bool ok = row != nullptr && gc >= 0 && gc < ny;
+    cp_async16(dst, ok ? row + gc : x, ok);
+  }
+};
+
+// A block's ring: `depth` rows of `wp` floats; ring column 0 is grid column
+// c0 - pad, and ring row s of a run is kept in slot s % depth.
+struct Ring {
+  float* rows;
+  int depth, wp, pad, c0;
+  __device__ __forceinline__ int wrap(int slot) const {
+    return slot >= depth ? slot - depth : slot;
+  }
+};
+
+// Stage grid rows g .. g + n - 1 into the slots from `slot` on, a 16-byte
+// piece a thread and turn; rows from g_end on are left alone.
+template <typename Src>
+__device__ __forceinline__ void ring_fill(const Ring& ring, const Src& src, int slot, int g,
+                                          int n, int g_end) {
+  for (int r = 0; r < n && g + r < g_end; ++r) {
+    float* dst = ring.rows + (size_t)ring.wrap(slot + r) * ring.wp;
+    for (int k = threadIdx.x; 4 * k < ring.wp; k += blockDim.x) {
+      src.stage(dst + 4 * k, g + r, ring.c0 - ring.pad + 4 * k);
+    }
+  }
+}
+
+// acc[r][k] = sum over the bands valid on row r of this step (bit d of
+// ok[r]) of w[d] * the ring's value at (row + dr[d], column t + k * NT +
+// dc[d]), bands in the order given, one multiply-add a term; slot0 is the
+// ring slot of the step's first row less hr.  The band loop is outside and
+// the step's rows and the thread's four columns are unrolled inside, so a
+// band's set-up is paid once for 4 * KRYLOV_K2_STEP points.
+template <bool CONS, int NT>
+__device__ __forceinline__ void ring_step(const Ring& ring, const ConstBands<float>& b,
+                                          int slot0, const unsigned (&ok)[KRYLOV_K2_STEP],
+                                          float (&acc)[KRYLOV_K2_STEP][4]) {
+#pragma unroll
+  for (int r = 0; r < KRYLOV_K2_STEP; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[r][k] = 0.0f;
+  }
+  for (int d = 0; d < b.n; ++d) {
+    const float w = b.w[d];
+    const int slot = slot0 + b.hr + b.dr[d];
+    const int col = ring.pad + b.dc[d] + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < KRYLOV_K2_STEP; ++r) {
+      if (CONS && !((ok[r] >> d) & 1u)) continue;
+      const float* p = ring.rows + (size_t)ring.wrap(slot + r) * ring.wp + col;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[r][k] += w * p[k * NT];
+    }
+  }
+}
+
+static constexpr int k2_ring_bytes(int threads, int hr, int hc) {
+  return (2 * hr + KRYLOV_K2_STEP * (KRYLOV_K2_STAGES + 1)) *
+         (4 * threads + 2 * ((hc + 3) & ~3)) * (int)sizeof(float);
+}
+static_assert(k2_ring_bytes(KRYLOV_K2_THREADS, KRYLOV_K2_MAX_HALO, KRYLOV_K2_MAX_HALO) <=
+                  KRYLOV_K2_SMEM,
+              "the widest ring must fit the shared memory asked for");
+static_assert(KRYLOV_K2_RUN % KRYLOV_K2_STEP == 0, "a run is a whole number of steps");
+
+template <bool CONS, int NT>
+__global__ void __launch_bounds__(NT)
+const_stencil2d_tiled_kernel(const float* __restrict__ x, const float* __restrict__ top,
+                             const float* __restrict__ bot, float* __restrict__ y,
+                             int M, int ny, int h, int row0, ConstBands<float> b) {
+  extern __shared__ __align__(16) float ring_rows[];
+  const int pad = (b.hc + 3) & ~3;
+  const Ring ring{ring_rows, 2 * b.hr + KRYLOV_K2_STEP * (KRYLOV_K2_STAGES + 1),
+                  4 * NT + 2 * pad, pad, (int)blockIdx.x * 4 * NT};
+  const size_t plane = (size_t)M * ny;
+  const HaloRingSrc src{x + blockIdx.z * plane, top, bot, M, ny, h};
+  float* yb = y + blockIdx.z * plane;
+  const int nruns = (M + KRYLOV_K2_RUN - 1) / KRYLOV_K2_RUN;
+  for (int run = blockIdx.y; run < nruns; run += gridDim.y) {
+    const int i0 = run * KRYLOV_K2_RUN;
+    const int rows = min(KRYLOV_K2_RUN, M - i0);
+    // Ring row s holds grid row i0 - hr + s; the step of output rows i0 + j ..
+    // i0 + j + STEP - 1 reads s = j .. j + STEP - 1 + 2 hr.  One copy group is
+    // committed a step (its STEP newest rows; the first also brings the 2 hr
+    // rows above), empty once past the run's last row, so "all but the newest
+    // STAGES - 1 groups have landed" always means this step's rows.
+    const int g_end = i0 + rows + b.hr;  // one past the last grid row the run reads
+    int g_next = i0 - b.hr, slot_next = 0;
+    for (int q = 0; q < KRYLOV_K2_STAGES; ++q) {
+      const int n = KRYLOV_K2_STEP + (q == 0 ? 2 * b.hr : 0);
+      ring_fill(ring, src, slot_next, g_next, n, g_end);
+      cp_async_commit();
+      g_next += n;
+      slot_next = (slot_next + n) % ring.depth;
+    }
+    int slot0 = 0;
+    for (int j = 0; j < rows; j += KRYLOV_K2_STEP) {
+      cp_async_wait<KRYLOV_K2_STAGES - 1>();
+      __syncthreads();  // this step's rows are visible; the last step's oldest are free
+      ring_fill(ring, src, slot_next, g_next, KRYLOV_K2_STEP, g_end);
+      cp_async_commit();
+      g_next += KRYLOV_K2_STEP;
+      slot_next = ring.wrap(slot_next + KRYLOV_K2_STEP);
+      unsigned ok[KRYLOV_K2_STEP];
+#pragma unroll
+      for (int r = 0; r < KRYLOV_K2_STEP; ++r) {
+        ok[r] = CONS ? const_row_mask(b, row0 + i0 + j + r) : ~0u;
+      }
+      float acc[KRYLOV_K2_STEP][4];
+      ring_step<CONS, NT>(ring, b, slot0, ok, acc);
+#pragma unroll
+      for (int r = 0; r < KRYLOV_K2_STEP; ++r) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = ring.c0 + threadIdx.x + k * NT;
+          if (j + r < rows && col < ny) yb[(size_t)(i0 + j + r) * ny + col] = acc[r][k];
+        }
+      }
+      slot0 = ring.wrap(slot0 + KRYLOV_K2_STEP);
+    }
+    __syncthreads();  // the next run's first copies overwrite rows still being read
+  }
+}
+
+// Whether the tiled kernel takes this call: decided by the wrapper from the
+// same facts (k2_tiled), checked here because a misaligned 16-byte copy
+// faults.
+static bool k2_tiled_ok(const void* x, const void* top, const void* bot, const void* y,
+                        int ny, const ConstBands<float>& b) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(top) | reinterpret_cast<uintptr_t>(bot);
+  return ny % 4 == 0 && bits % 16 == 0 && b.hr <= KRYLOV_K2_MAX_HALO &&
+         b.hc <= KRYLOV_K2_MAX_HALO;
+}
+
+template <int NT>
+static int launch_const_stencil2d_tiled(const float* x, const float* top, const float* bot,
+                                        float* y, int batch, int M, int ny, int h, int row0,
+                                        const ConstBands<float>& b, cudaStream_t s) {
+  int gy = (M + KRYLOV_K2_RUN - 1) / KRYLOV_K2_RUN;
+  if (gy > KRYLOV_MAX_GRID_Y) gy = KRYLOV_MAX_GRID_Y;
+  const dim3 g((ny + 4 * NT - 1) / (4 * NT), gy, batch);
+  const auto kernel = b.any_cons ? const_stencil2d_tiled_kernel<true, NT>
+                                 : const_stencil2d_tiled_kernel<false, NT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KRYLOV_K2_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<g, NT, k2_ring_bytes(NT, b.hr, b.hc), s>>>(x, top, bot, y, M, ny, h, row0, b);
+  return (int)cudaGetLastError();
+}
+
 template <bool CONS, typename TX, typename A, typename W>
 __global__ void __launch_bounds__(KRYLOV_THREADS)
 const_stencil2d_kernel(const TX* __restrict__ x, const TX* __restrict__ top,
@@ -650,10 +875,14 @@ int krylov_stencil2d(int tc, int tx, const void* c, const void* x,
   return (int)cudaGetLastError();
 }
 
+int krylov_k2_max_halo() { return KRYLOV_K2_MAX_HALO; }
+
 // K2.  tx: dtype code of x (and y).  The const bands come as ndiag entries
 // of dr, dc, w and ncons, and KRYLOV_MAX_CONSTRAINTS (stride, size, step)
-// triples per band in cons.
-int krylov_const_stencil2d(int tx, const void* x, const void* top,
+// triples per band in cons.  tiled: take the tiled kernel (float vectors,
+// ny % 4 == 0, every pointer on a 16-byte boundary, |dr| and |dc| up to
+// krylov_k2_max_halo(); anything else is refused), else the general one.
+int krylov_const_stencil2d(int tx, int tiled, const void* x, const void* top,
                            const void* bot, void* y, int batch, int M, int ny,
                            int h, int row0, int ndiag, const int* dr,
                            const int* dc, const double* w, const int* ncons,
@@ -663,11 +892,27 @@ int krylov_const_stencil2d(int tx, const void* x, const void* top,
   if (tx == KRYLOV_F32 || tx == KRYLOV_BF16) {
     ConstBands<float> b;
     if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;
+    if (tiled) {
+      if (tx != KRYLOV_F32 || !k2_tiled_ok(x, top, bot, y, ny, b)) {
+        return (int)cudaErrorInvalidValue;
+      }
+      const float* xf = static_cast<const float*>(x);
+      const float* tf = static_cast<const float*>(top);
+      const float* bf = static_cast<const float*>(bot);
+      float* yf = static_cast<float*>(y);
+      if (ny <= 4 * 32) {  // a strip no wider than a narrow grid
+        return launch_const_stencil2d_tiled<32>(xf, tf, bf, yf, batch, M, ny, h, row0, b, s);
+      }
+      return launch_const_stencil2d_tiled<KRYLOV_K2_THREADS>(xf, tf, bf, yf, batch, M, ny, h,
+                                                             row0, b, s);
+    }
     if (tx == KRYLOV_F32) {
       launch_const_stencil2d<float, float>(x, top, bot, y, batch, M, ny, h, row0, b, s);
     } else {
       launch_const_stencil2d<__nv_bfloat16, float>(x, top, bot, y, batch, M, ny, h, row0, b, s);
     }
+  } else if (tiled) {
+    return (int)cudaErrorInvalidValue;
   } else if (tx == KRYLOV_F64) {
     ConstBands<double> b;
     if (!make_const_bands(ndiag, dr, dc, w, ncons, cons, &b)) return (int)cudaErrorInvalidValue;

@@ -45,25 +45,54 @@ def _lib():
 
     lib = _build.load()
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.krylov_csr_spmv.argtypes = [i32, i32] + [vp] * 5 + [i32, i32, vp]
+    lib.krylov_csr_spmv.argtypes = [i32, i32, i32] + [vp] * 6 + [i32, vp]
     lib.krylov_csr_spmv.restype = i32
+    lib.krylov_csr_spmm.argtypes = [i32, i32] + [vp] * 5 + [i32, i32, vp]
+    lib.krylov_csr_spmm.restype = i32
     lib.krylov_error_string.argtypes = [i32]
     lib.krylov_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def lanes_for(nnz, nrows):
-    """Lanes per row of the CSR kernels: the largest power of two, at most
-    32, that leaves each lane about four or more of a row's entries, so
-    each lane keeps several independent loads in flight.  Measured on the
-    H100 (80GB HBM3, 700 W) against the mean row length as the rule: 107
-    against 249 us on the bench's irregular matrix (27 a row: 4 lanes, not
-    32), 24 against 54 us on the 1024^2 Poisson (5 a row: 1 lane, not 8)."""
+    """Lanes per row of K11: the largest power of two, at most 32, that
+    leaves each lane about four or more of a row's entries, so each lane
+    keeps several independent loads in flight (the mean row length as the
+    rule left K11's lanes idle on short rows).  K10 no longer takes it: it
+    streams entries by runs (:func:`csr_runs`) and applies the same rule to
+    each run's mean row length inside the kernel, for the row sums alone."""
     mean = nnz / max(1, nrows)
     lanes = 1
     while lanes < 32 and 2 * lanes * 4 <= mean:
         lanes *= 2
     return lanes
+
+
+# products a block of K10 keeps in shared memory (csrc/spmv.cu builds 1024,
+# 2048, 4096 and 8192)
+RUN_CAPACITY = 2048
+
+
+def csr_runs(indptr, capacity=RUN_CAPACITY):
+    """K10's row partition, made once per matrix on the host: the first row
+    of each run and, last, the number of rows, as an int32 array.  A run is
+    a stretch of whole rows that a block streams at once: it takes rows
+    while they hold at most ``capacity - 3`` stored entries together (the
+    kernel rounds a run's first entry down to a 16-byte boundary) and
+    number at most ``capacity``; a row longer than that is a run of its
+    own.  ``indptr``: the ``n + 1`` row pointers, a numpy array or a CPU
+    tensor."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = len(indptr) - 1
+    limit = capacity - 3
+    starts = [0]
+    row = 0
+    while row < n:
+        # the last row boundary within the limit, at least one row on
+        nxt = int(np.searchsorted(indptr, indptr[row] + limit, side="right")) - 1
+        row = min(max(nxt, row + 1), row + capacity, n)
+        starts.append(row)
+    return np.asarray(starts, dtype=np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -94,43 +123,55 @@ def _csr_checks(indptr, indices, data, x, ndim):
     _require(indices.numel() == data.numel(), "indices and data differ in length")
 
 
-def _launch(name, indptr, indices, data, x, y, k, lanes):
-    n = indptr.numel() - 1
-    if n == 0:
-        return y
-    lib = _lib()
-    lanes = lanes_for(data.numel(), n) if lanes is None else int(lanes)
-    with torch.cuda.device(x.device):
-        err = lib.krylov_csr_spmv(
-            _VALUE_CODES[data.dtype], lanes, _ptr(indptr), _ptr(indices),
-            _ptr(data), _ptr(x), _ptr(y), n, k, _stream(x),
-        )
-    _check(lib, err, name)
-    LAUNCHES[name] += 1
-    return y
-
-
-def csr_matvec(indptr, indices, data, x, lanes=None):
+def csr_matvec(indptr, indices, data, x, runs=None):
     """K10: ``y = A x`` for CSR ``(indptr, indices, data)``; ``x`` float32
     of length ``m``, ``y`` float32 of length ``n = len(indptr) - 1``.
-    ``lanes`` (a power of two up to 32) overrides :func:`lanes_for`."""
+    ``runs``: the row partition :func:`csr_runs` makes of ``indptr`` at
+    :data:`RUN_CAPACITY`, as an int32 tensor on ``x``'s device; an operator
+    makes it once.  Without it this call makes it on the spot, which copies
+    ``indptr`` to the host and waits for the device."""
     if _on_cpu(indptr, indices, data, x):
         return csr_matvec_plain(indptr, indices, data, x)
     _csr_checks(indptr, indices, data, x, 1)
-    y = torch.empty(indptr.numel() - 1, dtype=torch.float32, device=x.device)
-    return _launch("csr_matvec", indptr, indices, data, x, y, 0, lanes)
+    n = indptr.numel() - 1
+    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y
+    if runs is None:
+        runs = torch.from_numpy(csr_runs(indptr.cpu().numpy())).to(x.device)
+    _require(runs.dtype == torch.int32 and runs.ndim == 1 and runs.is_contiguous()
+             and runs.device == x.device and runs.numel() >= 2,
+             "runs must be csr_runs(indptr) as a contiguous int32 tensor on x's device")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.krylov_csr_spmv(
+            _VALUE_CODES[data.dtype], RUN_CAPACITY, runs.numel() - 1, _ptr(runs), _ptr(indptr),
+            _ptr(indices), _ptr(data), _ptr(x), _ptr(y), data.numel(), _stream(x))
+    _check(lib, err, "csr_matvec")
+    LAUNCHES["csr_matvec"] += 1
+    return y
 
 
 def csr_matmat(indptr, indices, data, X, lanes=None):
     """K11: ``Y = A X`` for ``X`` float32 of shape ``(m, k)``, any ``k``
-    (row-major); ``Y`` float32 ``(n, k)``."""
+    (row-major); ``Y`` float32 ``(n, k)``.  ``lanes`` (a power of two up to
+    32) overrides :func:`lanes_for`."""
     if _on_cpu(indptr, indices, data, X):
         return csr_matvec_plain(indptr, indices, data, X)
     _csr_checks(indptr, indices, data, X, 2)
-    Y = torch.empty((indptr.numel() - 1, X.shape[1]), dtype=torch.float32, device=X.device)
-    if X.shape[1] == 0:
+    n, k = indptr.numel() - 1, X.shape[1]
+    Y = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    if n == 0 or k == 0:
         return Y
-    return _launch("csr_matmat", indptr, indices, data, X, Y, X.shape[1], lanes)
+    lanes = lanes_for(data.numel(), n) if lanes is None else int(lanes)
+    lib = _lib()
+    with torch.cuda.device(X.device):
+        err = lib.krylov_csr_spmm(
+            _VALUE_CODES[data.dtype], lanes, _ptr(indptr), _ptr(indices), _ptr(data), _ptr(X),
+            _ptr(Y), n, k, _stream(X))
+    _check(lib, err, "csr_matmat")
+    LAUNCHES["csr_matmat"] += 1
+    return Y
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +296,7 @@ def _value_dtype(data_dtype):
 
 class _CSR:
     """One CSR matrix on a device: int32 row pointers and columns, values of
-    the operator's value dtype."""
+    the operator's value dtype, K11's lanes a row and K10's row partition."""
 
     def __init__(self, sp, value_dtype, device):
         import scipy.sparse
@@ -268,18 +309,19 @@ class _CSR:
         else:
             csr = scipy.sparse.csr_matrix(sp).astype(np.float32)
             csr.sum_duplicates()  # canonical: sorted columns, no duplicates
-        if csr.nnz >= 2**31:
-            raise ValueError("the CSR kernels take fewer than 2**31 entries")
+        if csr.nnz >= 2**31 - 2**14:  # K10 indexes up to a run past the end in int32
+            raise ValueError("the CSR kernels take fewer than 2**31 - 2**14 entries")
         self.shape = csr.shape
         self.nnz = int(csr.nnz)
         self.indptr = torch.from_numpy(csr.indptr.astype(np.int32)).to(device)
         self.indices = torch.from_numpy(csr.indices.astype(np.int32)).to(device)
         self.data = torch.from_numpy(np.ascontiguousarray(csr.data)).to(device, value_dtype)
-        self.lanes = lanes_for(self.nnz, self.shape[0])
+        self.lanes = lanes_for(self.nnz, self.shape[0])  # K11
+        self.runs = torch.from_numpy(csr_runs(csr.indptr)).to(device)  # K10
 
     def apply(self, x):
         if x.ndim == 1:
-            return csr_matvec(self.indptr, self.indices, self.data, x, self.lanes)
+            return csr_matvec(self.indptr, self.indices, self.data, x, self.runs)
         return csr_matmat(self.indptr, self.indices, self.data, x, self.lanes)
 
 

@@ -84,8 +84,9 @@ _K9_PAIRS = {pair for pair in _K1_PAIRS if torch.bfloat16 not in pair}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, K2_PATHS):
+        for name in counts:
+            counts[name] = 0
 
 
 def halo_rows(row_offsets):
@@ -107,7 +108,8 @@ def _lib():
         ("krylov_phase_a_partials", [i32, i32], i64),
         ("krylov_phase_b_partials", [i64], i64),
         ("krylov_stencil2d", [i32, i32] + [vp] * 5 + [i32] * 4 + [vp, vp, i32, vp], i32),
-        ("krylov_const_stencil2d", [i32] + [vp] * 4 + [i32] * 5 + cb + [vp], i32),
+        ("krylov_k2_max_halo", [], i32),
+        ("krylov_const_stencil2d", [i32, i32] + [vp] * 4 + [i32] * 5 + cb + [vp], i32),
         ("krylov_cg_phase_a_const", [vp] * 7 + [i32, i32] + cb + [vp], i32),
         ("krylov_jacobi_sweep_const", [i32, f64, vp, vp, vp, i32, i32, i32] + cb + [vp],
          i32),
@@ -120,6 +122,8 @@ def _lib():
     ):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
+    if lib.krylov_k2_max_halo() != K2_MAX_HALO:
+        raise RuntimeError("K2_MAX_HALO differs from csrc/stencil.cu's KRYLOV_K2_MAX_HALO")
     return lib
 
 
@@ -356,13 +360,35 @@ def const_stencil2d_matvec_plain(x, bands, row0=None, top_halo=None,
     return y.to(x.dtype)
 
 
+# the largest |dr| and |dc| K2's tiled kernel sizes its ring for
+# (KRYLOV_K2_MAX_HALO in csrc/stencil.cu)
+K2_MAX_HALO = 8
+# K2 launches by kernel: "tiled" (the ring of rows in shared memory) and
+# "general" (a thread a column)
+K2_PATHS = {"tiled": 0, "general": 0}
+
+
+def k2_tiled(dtype, ny, bands, addresses):
+    """Which of K2's two kernels a call takes, from its type, shape and
+    alignment alone: the tiled one for float32 vectors whose row length
+    ``ny`` is a multiple of 4, whose band offsets stay within
+    :data:`K2_MAX_HALO` rows and columns, and whose buffers (``addresses``:
+    ``data_ptr()`` of ``x``, ``out`` and any halo rows) all lie on 16-byte
+    boundaries, as its 16-byte copies need; the general one for everything
+    else (other types, an odd ``ny``, an unaligned view, far bands)."""
+    return (dtype == torch.float32 and ny % 4 == 0
+            and all(abs(b[0]) <= K2_MAX_HALO and abs(b[1]) <= K2_MAX_HALO for b in bands)
+            and all(a % 16 == 0 for a in addresses))
+
+
 def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
                            out=None):
     """K2: the constant-coefficient stencil ``bands`` applied to ``x``
     (``(M, ny)`` or a ``(B, M, ny)`` batch), masked on global rows
     ``row0 + i``.  Rows outside the grid read as zero, except rows taken
     from ``top_halo``/``bot_halo`` (``(h, ny)``, 2-D ``x`` only).  Returns
-    ``x.dtype``; ``out`` (optional) must not overlap ``x``.
+    ``x.dtype``; ``out`` (optional) must not overlap ``x``.  :func:`k2_tiled`
+    says which of the two kernels a call takes; ``K2_PATHS`` counts them.
     """
     if _on_cpu(x, top_halo, bot_halo, out):
         y = const_stencil2d_matvec_plain(x, bands, row0, top_halo, bot_halo)
@@ -377,15 +403,18 @@ def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
     halos = _halos(top_halo, bot_halo, h, ny, x.dtype, batched)
     out = _grid_out(out, x, x.dtype, x)
 
+    tiled = k2_tiled(x.dtype, ny, bands,
+                     [t.data_ptr() for t in (x, out, *halos) if t is not None])
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.krylov_const_stencil2d(
-            _CODES[x.dtype], _ptr(x), _ptr(halos[0]), _ptr(halos[1]), _ptr(out),
+            _CODES[x.dtype], int(tiled), _ptr(x), _ptr(halos[0]), _ptr(halos[1]), _ptr(out),
             x.shape[0] if batched else 1, M, ny, h,
             0 if row0 is None else int(row0), *_const_bands(lib, bands), _stream(x),
         )
     _check(lib, err, "const_stencil2d_matvec")
     LAUNCHES["const_stencil2d_matvec"] += 1
+    K2_PATHS["tiled" if tiled else "general"] += 1
     return out
 
 

@@ -283,6 +283,63 @@ def test_const_laplacians_sum_in_grid_order():
     np.testing.assert_allclose(i32.resnorms, i64.resnorms, rtol=1e-5)
 
 
+def _bands_within(h, v):
+    """A const band set reaching ``h`` rows and ``v`` columns."""
+    return ((0, 0, 4.0, ()), (-h, 0, -1.0, ()), (h, 0, -1.0, ()), (0, -v, -1.0, ()),
+            (0, v, -1.0, ()))
+
+
+K2_PATH_CASES = [
+    # label, dtype, ny, bands, addresses of x / out / halos, tiled?
+    ("the main path: f32 4096^2, aligned", torch.float32, 4096, _bands_within(1, 1),
+     (1 << 20, 5 << 20), True),
+    ("ragged 1000 x 1500", torch.float32, 1500, _bands_within(1, 1), (256, 512), True),
+    ("ny = 4", torch.float32, 4, _bands_within(1, 1), (0, 64), True),
+    ("odd ny", torch.float32, 37, _bands_within(1, 1), (256, 512), False),
+    ("ny % 4 == 2", torch.float32, 42, _bands_within(1, 1), (256, 512), False),
+    ("x a view 4 bytes off", torch.float32, 4096, _bands_within(1, 1), (260, 512), False),
+    ("out a view 8 bytes off", torch.float32, 4096, _bands_within(1, 1), (256, 520), False),
+    ("halo rows aligned", torch.float32, 64, _bands_within(2, 1), (256, 512, 1024, 2048), True),
+    ("a halo 4 bytes off", torch.float32, 64, _bands_within(2, 1), (256, 512, 1028, 2048),
+     False),
+    ("25 bands", torch.float32, 132,
+     tuple((a, b, 1.0, ()) for a in range(-2, 3) for b in range(-2, 3)), (256, 512), True),
+    ("3-D, row constraints", torch.float32, 40, ts.poisson_3d_const(5, 6, 40).kernel_bands,
+     (256, 512), True),
+    ("reach at the ring's limit", torch.float32, 64,
+     _bands_within(cs.K2_MAX_HALO, cs.K2_MAX_HALO), (256, 512), True),
+    ("rows beyond the ring", torch.float32, 64, _bands_within(cs.K2_MAX_HALO + 1, 1),
+     (256, 512), False),
+    ("columns beyond the ring", torch.float32, 64, _bands_within(1, cs.K2_MAX_HALO + 1),
+     (256, 512), False),
+    ("bfloat16", torch.bfloat16, 4096, _bands_within(1, 1), (256, 512), False),
+    ("float64", torch.float64, 4096, _bands_within(1, 1), (256, 512), False),
+    ("complex64", torch.complex64, 4096, _bands_within(1, 1), (256, 512), False),
+    ("complex128", torch.complex128, 4096, _bands_within(1, 1), (256, 512), False),
+]
+
+
+@pytest.mark.parametrize("label,dtype,ny,bands,addresses,tiled", K2_PATH_CASES,
+                         ids=[c[0] for c in K2_PATH_CASES])
+def test_k2_path_predicate(label, dtype, ny, bands, addresses, tiled):
+    """Which of K2's two kernels a call takes follows from its type, its row
+    length, its bands' reach and its buffers' alignment alone."""
+    assert cs.k2_tiled(dtype, ny, bands, addresses) is tiled
+
+
+def test_k2_paths_count_nothing_on_the_cpu():
+    """On CPU tensors the wrapper runs the plain version whatever the
+    predicate says, and counts no launch on either path."""
+    A = ts.poisson_2d_const(8, 16, dtype=np.float32)
+    x = torch.ones(A.grid)
+    assert cs.k2_tiled(x.dtype, 16, A.kernel_bands, [0])
+    cs.reset_launches()
+    y = cs.const_stencil2d_matvec(x, A.kernel_bands)
+    assert cs.K2_PATHS == {"tiled": 0, "general": 0}
+    assert cs.LAUNCHES["const_stencil2d_matvec"] == 0
+    assert torch.equal(y, cs.const_stencil2d_matvec_plain(x, A.kernel_bands))
+
+
 def test_const_jacobi_rejected():
     _, At = _pair("poisson_2d_const")
     with pytest.raises(ValueError, match="GridStencilOperator"):

@@ -141,23 +141,67 @@ def _const_ops():
     return [st.poisson_2d_const(19, 37), st.poisson_3d_const(5, 6, 40), nonherm]
 
 
+def _square_bands(h, seed):
+    """A seeded const stencil with every offset in [-h, h]^2: 9 bands for
+    h = 1, 25 for h = 2 (a Galerkin coarse level's shape)."""
+    offs = [(a, b) for a in range(-h, h + 1) for b in range(-h, h + 1)]
+    weights = np.random.default_rng(seed).standard_normal(len(offs))
+    return offs, list(weights)
+
+
+def _k2_path_cases():
+    """(operator, path its float32 product takes) over the shapes K2's two
+    kernels split: row lengths that are and are not multiples of 4, a ragged
+    1000 x 1500 grid, 9 and 25 bands, row constraints (3-D), and bands
+    farther than the tiled kernel's ring reaches."""
+    far = st.ConstStencilOperator((40, 64), [(0, 0), (cs.K2_MAX_HALO + 1, 0), (0, -3)],
+                                  [2.0, -1.0, 0.5])
+    return [(st.poisson_2d_const(19, 37), "general"),
+            (st.poisson_2d_const(70, 300), "tiled"),
+            (st.poisson_2d_const(1000, 1500), "tiled"),
+            (st.poisson_2d_const(130, 4), "tiled"),
+            (st.poisson_3d_const(5, 6, 40), "tiled"),
+            (st.poisson_3d_const(5, 6, 42), "general"),
+            (st.ConstStencilOperator((33, 50), [(0, 0), (1, 0), (0, -1), (1, 2)],
+                                     [4.0, -1.5, -0.5, 0.25]), "general"),
+            (st.ConstStencilOperator((67, 132), *_square_bands(1, 11)), "tiled"),
+            (st.ConstStencilOperator((67, 132), *_square_bands(2, 12)), "tiled"),
+            (st.ConstStencilOperator((67, 131), *_square_bands(2, 12)), "general"),
+            (far, "general")]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-5)])
 def test_k2_matches_plain(dev, dtype, tol):
+    """Both of K2's kernels against the plain version: float32 at 1e-5 of
+    the largest entry (float32 sums of up to 25 terms; the two sides round
+    alike), bfloat16 also one bf16 rounding apart.  Only float32 takes the
+    tiled kernel, and then only on 16-byte boundaries."""
     rtol = 1e-2 if dtype == torch.bfloat16 else 0.0
-    for A in _const_ops():
+    for A, path in _k2_path_cases():
         M, ny = A.grid
         h = cs.halo_rows([b[0] for b in A.bands])
         x = _rand((M, ny), dev, dtype)
         halos = dict(row0=3, top_halo=_rand((h, ny), dev, dtype, 2),
                      bot_halo=_rand((h, ny), dev, dtype, 3))
-        for xx, bands, kw in ((x, A.kernel_bands, {}), (x, A.bands, halos),
-                              (_rand((3, M, ny), dev, dtype, 4), A.kernel_bands, {})):
+        # the same grid one element off its allocation's start: never 16-byte aligned
+        off = torch.empty(M * ny + 1, dtype=dtype, device=dev)[1:].view(M, ny).copy_(x)
+        for xx, bands, kw, aligned in (
+                (x, A.kernel_bands, {}, True), (x, A.bands, halos, True),
+                (_rand((3, M, ny), dev, dtype, 4), A.kernel_bands, {}, True),
+                (off, A.kernel_bands, {}, False)):
+            cs.reset_launches()
             got = cs.const_stencil2d_matvec(xx, bands, **kw)
             want = cs.const_stencil2d_matvec_plain(xx, bands, **kw)
             assert got.dtype == dtype
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=tol * float(want.float().abs().max()))
+            took = path if dtype == torch.float32 and aligned else "general"
+            assert cs.K2_PATHS == {"tiled": int(took == "tiled"),
+                                   "general": int(took == "general")}
+            if dtype == torch.float32:  # the two kernels agree bit for bit
+                assert torch.equal(got, cs.const_stencil2d_matvec(
+                    off if xx is x else xx, bands, **kw))
         y = A @ x  # the operator routes through K2 on the card
         assert y.device == x.device and y.dtype == dtype
 
@@ -308,27 +352,79 @@ def _irregular(n=20000, seed=7):
     return scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
 
 
+def _k10_cases():
+    """(label, scipy CSR) for the shapes K10's runs must get right: short
+    and long rows, the 5-point pattern and its adjoint, empty rows, a row
+    longer than a run, one row, a rectangular matrix, and sizes that are no
+    multiple of the run or of 4."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(61)
+    g = 90
+    lap = scipy.sparse.diags([-1.0, -1.0, 4.5, -1.0, -1.0], [-g, -1, 0, 1, g],
+                             shape=(g * g, g * g), format="csr", dtype=np.float32)
+    conv = (lap + scipy.sparse.diags([-0.4, 0.4], [-1, 1], shape=lap.shape,
+                                     dtype=np.float32)).tocsr()
+    holes = _irregular(n=5001, seed=8).tolil()
+    for r in (0, 1, 2, 700, 701, 5000):
+        holes[r] = 0
+    holes = holes.tocsr()
+    holes.eliminate_zeros()
+    dense_row = _irregular(n=12001, seed=9).tolil()
+    dense_row[6000, ::1] = rng.standard_normal(12001)  # 12001 entries: longer than any run
+    dense_row[3, ::2] = 1.0  # 6001 entries, among short rows
+    one = scipy.sparse.csr_matrix(rng.standard_normal((1, 7)).astype(np.float32))
+    rect = scipy.sparse.random(3001, 777, density=0.02, random_state=5, format="csr",
+                               dtype=np.float32)
+    return [("irregular", _irregular()), ("5-point", lap), ("5-point adjoint", conv.T.tocsr()),
+            ("empty rows", holes), ("dense rows", dense_row.tocsr().astype(np.float32)),
+            ("one row", one), ("rectangular", rect), ("tall", rect.T.tocsr()),
+            ("all rows empty", scipy.sparse.csr_matrix((50, 9), dtype=np.float32))]
+
+
 def test_k10_k11_match_plain(dev):
+    """K10 at 1e-5 of the largest entry (float32 sums of up to 12001
+    products in another order than the plain version's segment sum; bf16
+    values are widened exactly, so the same bound holds), repeated bit for
+    bit; with the runs prepared and made on the spot, on 16-byte boundaries
+    and off them."""
     from krylov_tpu_torch.ops import cuda_spmv as sv
 
+    for label, sp in _k10_cases():
+        indptr = torch.from_numpy(sp.indptr.astype(np.int32)).to(dev)
+        runs = torch.from_numpy(sv.csr_runs(sp.indptr)).to(dev)
+        x = _rand(sp.shape[1], dev, torch.float32, 31)
+        for vdt in (torch.float32, torch.bfloat16):
+            # the columns and values on a 16-byte boundary, and one element off it
+            for shift in (0, 1):
+                indices = torch.zeros(sp.nnz + shift, dtype=torch.int32, device=dev)[shift:]
+                indices.copy_(torch.from_numpy(sp.indices.astype(np.int32)))
+                data = torch.zeros(sp.nnz + shift, dtype=vdt, device=dev)[shift:]
+                data.copy_(torch.from_numpy(sp.data.astype(np.float32)))
+                want = sv.csr_matvec_plain(indptr, indices, data, x)
+                scale = max(float(want.abs().max()), 1e-30)
+                for r in (runs, None):
+                    got = sv.csr_matvec(indptr, indices, data, x, r)
+                    assert got.dtype == torch.float32 and got.shape == (sp.shape[0],), label
+                    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale, msg=label)
+                    assert torch.equal(got, sv.csr_matvec(indptr, indices, data, x, r)), label
     sp = _irregular()
     indptr = torch.from_numpy(sp.indptr.astype(np.int32)).to(dev)
     indices = torch.from_numpy(sp.indices.astype(np.int32)).to(dev)
     for vdt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
         data = torch.from_numpy(sp.data).to(dev, vdt)
         x = _rand(sp.shape[1], dev, torch.float32, 31)
-        want = sv.csr_matvec_plain(indptr, indices, data, x)
-        for lanes in (None, 1, 4, 32):
-            got = sv.csr_matvec(indptr, indices, data, x, lanes)
-            assert got.dtype == torch.float32
-            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
         for k in (1, 3, 8, 16, 17):
             X = _rand((sp.shape[1], k), dev, torch.float32, 32 + k)
             want = sv.csr_matvec_plain(indptr, indices, data, X)
-            got = sv.csr_matmat(indptr, indices, data, X)
-            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+            for lanes in (None, 1, 4, 32) if k == 3 else (None,):
+                got = sv.csr_matmat(indptr, indices, data, X, lanes)
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=tol * float(want.abs().max()))
     with pytest.raises(ValueError, match="float32"):
         sv.csr_matvec(indptr, indices, data, x.double())
+    with pytest.raises(ValueError, match="runs"):
+        sv.csr_matvec(indptr, indices, data, x, torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 def test_pet_operator_adjoint_and_reorder(dev):

@@ -113,6 +113,136 @@ def test_lanes_for():
 
 
 # ---------------------------------------------------------------------------
+# K10's row partition (host side) and a product that follows it
+# ---------------------------------------------------------------------------
+
+
+def _dense_row(n=700, long=5000, seed=4):
+    """Short rows around one row of ``long`` entries: longer than a run."""
+    rng = np.random.default_rng(seed)
+    sp = _irregular(n, 50, 9, seed=seed, empty_rows=False).tolil()
+    wide = scipy.sparse.lil_matrix((n, long))
+    wide[:, :n] = sp
+    wide[n // 2] = rng.standard_normal(long)
+    return wide.tocsr()
+
+
+RUN_CASES = {
+    **CASES,
+    "one row": scipy.sparse.csr_matrix(np.arange(1.0, 8.0)[None, :]),
+    "dense row": _dense_row(),
+    "empty rows": _irregular(3000, 100, 4, seed=5),  # degrees 0..3, a third of the rows empty
+    # the two bench-like patterns at small size: 5 to 49 entries a row within
+    # +-512 columns, and the 5-point shifted Poisson
+    "bench irregular": _irregular(4000, 512, 50, seed=7, empty_rows=False),
+    "bench poisson": scipy.sparse.diags([-1.0, -1.0, 4.5, -1.0, -1.0], [-48, -1, 0, 1, 48],
+                                        shape=(48 * 48, 48 * 48), format="csr"),
+}
+
+
+@pytest.mark.parametrize("capacity", [1024, 2048])
+@pytest.mark.parametrize("name", list(RUN_CASES))
+def test_csr_runs_partition_the_rows(name, capacity):
+    """The runs cover every row once, in order; a run holds at most
+    ``capacity - 3`` entries and ``capacity`` rows unless it is one long
+    row; and no two neighbouring runs could have been one (greedy)."""
+    indptr = RUN_CASES[name].indptr
+    n = len(indptr) - 1
+    runs = cuda_spmv.csr_runs(indptr, capacity)
+    assert runs.dtype == np.int32 and runs[0] == 0 and runs[-1] == n
+    rows, entries = np.diff(runs), np.diff(indptr[runs].astype(np.int64))
+    assert (rows > 0).all() or n == 0
+    assert (rows <= capacity).all()
+    assert ((entries <= capacity - 3) | (rows == 1)).all()
+    merged_rows, merged_entries = rows[:-1] + rows[1:], entries[:-1] + entries[1:]
+    assert ((merged_entries > capacity - 3) | (merged_rows > capacity)
+            | (rows[:-1] == 1) & (entries[:-1] > capacity - 3)).all()
+    if name == "dense row":
+        assert (entries > capacity - 3).sum() == 1
+    assert np.array_equal(runs, cuda_spmv.csr_runs(_t(indptr), capacity))  # a CPU tensor too
+
+
+def _matvec_by_runs(sp, x, capacity, lane_entries=4):
+    """K10 as csrc/spmv.cu computes it, on the host in float32: per run the
+    products entry by entry, then each row summed by ``G`` lanes taking its
+    entries in turn and meeting in a shuffle tree (``G`` from the run's mean
+    row length, 1 for short rows); a run of one row summed by 256 threads
+    and a block-wide tree."""
+    indptr, indices = sp.indptr.astype(np.int64), sp.indices
+    data, x = sp.data.astype(np.float32), x.astype(np.float32)
+    y = np.full(sp.shape[0], np.nan, np.float32)
+    runs = cuda_spmv.csr_runs(indptr, capacity)
+
+    def tree(parts):  # shuffle-down tree over a power-of-two number of lanes
+        parts = list(parts)
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [np.float32(parts[k] + parts[k + half]) for k in range(half)]
+        return parts[0]
+
+    def lanes_sum(p, G):
+        parts = []
+        for lane in range(G):
+            acc = np.float32(0)
+            for v in p[lane::G]:
+                acc = np.float32(acc + v)
+            parts.append(acc)
+        return tree(parts)
+
+    for r0, r1 in zip(runs[:-1], runs[1:]):
+        e0, e1 = indptr[r0], indptr[r1]
+        prod = data[e0:e1] * x[indices[e0:e1]]
+        if r1 - r0 == 1:
+            per_warp = [tree(lanes_sum(prod[w * 32 + t::256], 1) for t in range(32))
+                        for w in range(8)]
+            y[r0] = tree(per_warp + [np.float32(0)] * 24)
+            continue
+        mean = (e1 - e0) // (r1 - r0)
+        G = 1
+        while G < 32 and 2 * G * lane_entries <= mean:
+            G *= 2
+        for r in range(r0, r1):
+            y[r] = lanes_sum(prod[indptr[r] - e0:indptr[r + 1] - e0], G)
+    return y
+
+
+@pytest.mark.parametrize("name", list(RUN_CASES))
+def test_matvec_by_runs_matches_scipy_and_reference_kernel(name):
+    """A float32 product that follows the partition, run by run and in the
+    kernel's order of sums, against scipy's float64 product and the
+    reference's PET kernel (interpret mode), each at 1e-5 of the output's
+    scale: float32 sums of at most 5000 products in differing orders."""
+    sp = RUN_CASES[name].astype(np.float32)
+    sp.sort_indices()
+    x = np.random.default_rng(6).standard_normal(sp.shape[1]).astype(np.float32)
+    got = _matvec_by_runs(sp, x, 1024)
+    assert not np.isnan(got).any()  # every row written once
+    want = sp.astype(np.float64) @ x.astype(np.float64)
+    scale = max(np.abs(want).max(initial=0), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    if sp.nnz:
+        ref = j_spmv.PETOperator.from_scipy(sp, interpret=True, with_rmatvec=False)
+        np.testing.assert_allclose(got, np.asarray(ref @ jnp.asarray(x)), rtol=0,
+                                   atol=1e-5 * scale)
+    # the wrapper's CPU path (the plain version) agrees too, with the runs passed
+    indptr, indices, data = _csr_arrays(sp, torch.float32)
+    plain = cuda_spmv.csr_matvec(indptr, indices, data, _t(x),
+                                 _t(cuda_spmv.csr_runs(sp.indptr)))
+    np.testing.assert_allclose(plain.numpy(), got, rtol=0, atol=1e-5 * scale)
+
+
+def test_pet_operator_prepares_the_runs_once():
+    """``_CSR`` cuts the runs when the operator is built, for the forward
+    and the adjoint CSR, at the wrapper's capacity."""
+    sp = RUN_CASES["bench irregular"].astype(np.float32)
+    op = cuda_spmv.PETOperator.from_scipy(sp, with_rmatvec=True)
+    for csr, mat in ((op._csr, sp), (op._csr_t, sp.T.tocsr())):
+        assert csr.runs.dtype == torch.int32
+        assert np.array_equal(csr.runs.numpy(), cuda_spmv.csr_runs(mat.indptr))
+        assert len(csr.runs) - 1 >= mat.nnz // cuda_spmv.RUN_CAPACITY
+
+
+# ---------------------------------------------------------------------------
 # PETOperator
 # ---------------------------------------------------------------------------
 
