@@ -37,8 +37,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    and adjoint, an RCM-reordered scrambled Poisson, and small matrices with
    empty rows, a row longer than a run, one row, rectangles and ragged
    sizes, on and off 16-byte boundaries, each repeated bit for bit), K11
-   CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM
-   (blocksizes 32, 64, 128, four dtypes) against their plain versions;
+   CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM on both of its kernels
+   (square blocks of 32, 64, 128, rectangles, a block row that is no whole
+   number of 16-byte pieces, k = 1, 3, 8, 16, 17, 1, 3 and 7 blocks a block
+   row, four dtypes, each repeated bit for bit, with a count of which kernel
+   each case took) against their plain versions;
    (b) BiCGSTAB + Jacobi, GMRES (mgs, householder, cgs) and Jacobi CG on
    the bench's 1M-row scipy CSR matrices through ``as_operator`` ->
    ``PETOperator`` (K10), against their ``CSROperator`` twins on the card,
@@ -54,11 +57,21 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    ``minres``, ``cg_pipelined``, ``cg_block`` and ``refine`` on the 1M-row
    shifted Poisson CSR with 6b's checks (the adjoint products counted); (d)
    the device rule: with no device argument, inputs land on the card;
+8. the stationary path: ``richardson`` and ``jacobi`` at 4096^2 (K1 every
+   step) against a float64 host iteration; ``gauss_seidel``, ``sor`` and
+   ``ssor`` on ``poisson_2d(1024)`` through the grid sweeps and
+   ``gauss_seidel`` on a 1M-row unstructured matrix through the
+   level-scheduled sweeps (K10 every step), against scipy's sequential
+   triangular solves in float64; ``cg`` on ``poisson_2d_const`` with
+   ``ChebyshevPreconditioner`` over ``estimate_spectrum``'s interval at
+   4096^2 (K2 eight times an application) and with ``SSORSmoother`` at
+   256^2, to 1e-6 beside plain ``cg``; what a grid sweep costs;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
-   matrix, its adjoint and the Poisson CSR, and K2 at 5, 9 and 25 bands, by
-   device time inside a CUDA graph as well); per-iteration slopes
+   matrix, its adjoint and the Poisson CSR, K2 at 5, 9 and 25 bands and K12
+   at two shapes, by device time inside a CUDA graph as well); per-iteration
+   slopes
    of the stencil solvers; time to solution of cg100, of MG-CG and of the
    sparse solves with the device's idle share (``torch.profiler``); each
    V-cycle level's share.
@@ -1003,6 +1016,12 @@ def csr_tensors(sp, dev, value_dtype=torch.float32):
             torch.from_numpy(sp.data).to(dev, value_dtype))
 
 
+# K12's block shapes in 6a: the three sizes detect_blocksize knows, two
+# rectangles, and a block row (30 values) that is no whole number of 16-byte
+# pieces in the real types
+K12_BLOCKS = ((32, 32), (64, 64), (128, 128), (48, 32), (16, 48), (32, 30))
+
+
 def k10_edge_cases():
     """Small scipy CSR matrices (f32) on which K10's runs can go wrong:
     empty rows, a row longer than a run among short ones, one row, wide and
@@ -1121,25 +1140,44 @@ def phase_sparse_kernels(dev, sv, bs):
         f"K10 scrambled poisson({NPG}) reorder=rcm", got,
         sv.csr_matvec_plain(sip, six, sdata, x), 1e-5))
 
-    for R in (32, 64, 128):
-        nbrows, max_blocks, nbcols = 64, 3, 64
-        cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks))
-                                .astype(np.int32)).to(dev)
-        for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
-            blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))).to(dev)
-            if dtype.is_complex:
-                blocks = blocks + 1j * torch.from_numpy(
-                    rng.standard_normal(blocks.shape)).to(dev)
-            blocks = blocks.to(dtype)
-            for k in (1, 8):
-                xb = torch.from_numpy(rng.standard_normal((nbcols * R, k))).to(dev)
-                xb = (xb + 1j * xb.flip(0) if dtype.is_complex else xb).to(dtype)
-                got = bs.bsr_spmm(blocks, cols, xb)
-                torch.cuda.synchronize()
-                assert got.dtype == dtype
-                errs["bsr_spmm"] = max(errs["bsr_spmm"], rel_close(
-                    f"K12 R=C={R} {dtype} k={k}", got, bs.bsr_spmm_plain(blocks, cols, xb),
-                    TOL[dtype]))
+    # K12 on both kernels: the streamed one takes rows of whole 16-byte
+    # pieces and k * itemsize <= 128 bytes, the general one the rest
+    bs.reset_launches()
+    for R, C in K12_BLOCKS:
+        for max_blocks in (1, 3, 7):
+            nbrows, nbcols = 64, 64
+            cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks))
+                                    .astype(np.int32)).to(dev)
+            for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+                blocks = torch.from_numpy(
+                    rng.standard_normal((nbrows * max_blocks, R, C))).to(dev)
+                if dtype.is_complex:
+                    blocks = blocks + 1j * torch.from_numpy(
+                        rng.standard_normal(blocks.shape)).to(dev)
+                blocks = blocks.to(dtype)
+                worst = 0.0
+                for k in (1, 3, 8, 16, 17):
+                    xb = torch.from_numpy(rng.standard_normal((nbcols * C, k))).to(dev)
+                    xb = (xb + 1j * xb.flip(0) if dtype.is_complex else xb).to(dtype)
+                    got = bs.bsr_spmm(blocks, cols, xb)
+                    torch.cuda.synchronize()
+                    assert got.dtype == dtype
+                    assert torch.equal(got, bs.bsr_spmm(blocks, cols, xb)), \
+                        f"K12 {R}x{C} {dtype} k={k} does not repeat bit for bit"
+                    want = bs.bsr_spmm_plain(blocks, cols, xb)
+                    err = max_err(got, want)
+                    bound = TOL[dtype] * float(wide(want).abs().max())
+                    if not err <= bound:
+                        raise AssertionError(
+                            f"K12 {R}x{C} blocks={max_blocks} {dtype} k={k}: max_abs_err "
+                            f"{err:.3e} above {bound:.3e}")
+                    worst = max(worst, err / bound)
+                    errs["bsr_spmm"] = max(errs["bsr_spmm"], err)
+                log(f"  K12 {R}x{C} blocks, {max_blocks} a block row, {dtype}, k = 1, 3, 8, 16, "
+                    f"17: worst error {worst:.2f} of the bound ({TOL[dtype]:g} of the largest "
+                    f"entry), repeats bit for bit")
+    log(f"  K12 launches by kernel: {bs.K12_PATHS}")
+    assert min(bs.K12_PATHS.values()) > 0, "6a must reach both of K12's kernels"
     return errs
 
 
@@ -1377,52 +1415,69 @@ def sparse_timing(dev, kt, sv, bs, card):
             times["csr_matmat"] = timed(ms, plain, lap.nnz * 8 + 4 * m + 2 * 4 * m * k,
                                         2 * lap.nnz * k, lib)
             del lib_op
+    def k12_timed(label, data, cols, xb, by, flops, lib_op=None):
+        """K12 by both clocks beside its plain version and, where given,
+        the library call on the same blocks, all in this run."""
+        ms = graph_ms(lambda: bs.bsr_spmm(data, cols, xb))
+        loop = time_ms(lambda: bs.bsr_spmm(data, cols, xb), 50)
+        plain = time_ms(lambda: bs.bsr_spmm_plain(data, cols, xb), 10)
+        record = timed(ms, plain, by, flops)
+        log(f"  [{card}] K12 bsr_spmm {label}: {ms * 1e3:.1f} us in a CUDA graph "
+            f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by the blocks' bytes + cols + x + y; bound "
+            f"{record['bound_ms'] * 1e3:.1f} us), {loop * 1e3:.1f} us in a Python loop; plain "
+            f"{plain * 1e3:.1f} us")
+        if lib_op is not None:
+            lib_err = max_err(lib_op @ xb, bs.bsr_spmm(data, cols, xb))
+            lib_loop = time_ms(lambda: lib_op @ xb, 20)
+            try:
+                lib = graph_ms(lambda: lib_op @ xb)
+            except RuntimeError:  # the library call does not capture into a graph here
+                torch.cuda.synchronize()
+                lib = lib_loop
+            record["library_ms"] = lib
+            log(f"  [{card}] library torch.sparse_bsr_tensor @ X, the same blocks: "
+                f"{lib * 1e3:.1f} us in a CUDA graph, {lib_loop * 1e3:.1f} us in a Python loop; "
+                f"max |library - K12| {lib_err:.2e}")
+        return record
+
+    bs.reset_launches()
     nbrows, max_blocks, R = 256, 3, 128
     cols = torch.from_numpy(rng.integers(0, nbrows, (nbrows, max_blocks)).astype(np.int32)).to(dev)
     blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))
                               .astype(np.float32)).to(dev)
     for k in (1, 8):
         xb = torch.from_numpy(rng.standard_normal((nbrows * R, k)).astype(np.float32)).to(dev)
-        ms = time_ms(lambda: bs.bsr_spmm(blocks, cols, xb), 50)
-        plain = time_ms(lambda: bs.bsr_spmm_plain(blocks, cols, xb), 10)
-        by = blocks.numel() * 4 + 2 * nbrows * R * k * 4
-        log(f"  [{card}] K12 bsr_spmm {nbrows} block rows x {max_blocks} blocks of {R}x{R} f32, "
-            f"k={k}: {ms * 1e3:.1f} us ({by / (ms * 1e-3) / 1e9:.0f} GB/s by the block bytes + "
-            f"x + y); plain {plain * 1e3:.1f} us")
+        k12_timed(f"{nbrows} block rows x {max_blocks} blocks of {R}x{R} f32, k={k}", blocks,
+                  cols, xb, blocks.numel() * 4 + cols.numel() * 4 + 2 * nbrows * R * k * 4,
+                  2 * blocks.numel() * k)
+    del blocks
 
     # K12 at phase 6c's own shape: the block-tridiagonal SPD matrix's
-    # operator, NBLK block rows x 3 blocks of 32x32, k = 8
+    # operator, NBLK block rows x 3 blocks of 32x32, k = 8, beside the one
+    # PyTorch call computing K12's function: a BSR tensor of the same 32x32
+    # blocks (without the kernel's ELL padding) times X
     bsp = block_spd_csr()
     bop = kt.as_operator(bsp, dev)
     xb = torch.from_numpy(rng.standard_normal((bop.shape[1], 8)).astype(np.float32)).to(dev)
-    ms = time_ms(lambda: bs.bsr_spmm(bop.data, bop.cols, xb), 50)
-    plain = time_ms(lambda: bs.bsr_spmm_plain(bop.data, bop.cols, xb), 10)
-    by = bop.data.numel() * 4 + 2 * bop.shape[0] * 8 * 4
-    log(f"  [{card}] K12 bsr_spmm 6c's operator, {bop.cols.shape[0]} block rows x "
-        f"{bop.cols.shape[1]} blocks of 32x32 f32, k=8: {ms * 1e3:.1f} us "
-        f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by the block bytes + x + y); plain "
-        f"{plain * 1e3:.1f} us")
-    # the one PyTorch call computing K12's function: a BSR tensor of the
-    # same 32x32 blocks (without the kernel's ELL padding) times X
     bsr = bsp.tobsr(blocksize=(32, 32))
     bsr.sort_indices()
     lib_op = torch.sparse_bsr_tensor(
         torch.from_numpy(bsr.indptr.astype(np.int64)).to(dev),
         torch.from_numpy(bsr.indices.astype(np.int64)).to(dev),
         torch.from_numpy(bsr.data.astype(np.float32)).to(dev), size=bsr.shape)
-    lib_err = max_err(lib_op @ xb, bs.bsr_spmm(bop.data, bop.cols, xb))
-    lib = time_ms(lambda: lib_op @ xb, 20)
-    log(f"  [{card}] library torch.sparse_bsr_tensor @ X, the same blocks, k=8: "
-        f"{lib * 1e3:.1f} us; max |library - K12| {lib_err:.2e}")
     true_blocks = bsr.data.shape[0]
-    times["bsr_spmm"] = timed(
-        ms, plain, true_blocks * 32 * 32 * 4 + bop.cols.numel() * 4 + 2 * bop.shape[0] * 8 * 4,
-        2 * true_blocks * 32 * 32 * 8, lib)
+    times["bsr_spmm"] = k12_timed(
+        f"6c's operator, {bop.cols.shape[0]} block rows x {bop.cols.shape[1]} blocks of 32x32 "
+        f"f32 ({true_blocks} stored), k=8", bop.data, bop.cols, xb,
+        true_blocks * 32 * 32 * 4 + bop.cols.numel() * 4 + 2 * bop.shape[0] * 8 * 4,
+        2 * true_blocks * 32 * 32 * 8, lib_op)
+    log(f"  K12 launches by kernel while timed: {bs.K12_PATHS}")
+    assert bs.K12_PATHS["general"] == 0, "the timed shapes must take the streamed kernel"
     del bop, xb, lib_op
 
     # a solve given the scipy matrix pays as_operator's route-cache lookup
-    # (a CRC of the whole matrix, as the reference's) on every call: timed
-    # apart, and the solves below take the routed operator
+    # (a checksum of the whole of each buffer, two numpy passes) on every
+    # call: timed apart, and the solves below take the routed operator
     kt.as_operator(lap, dev)
     best = 1e9
     for _ in range(3):
@@ -1694,6 +1749,220 @@ def phase_device_rule(kt, cs, sv, st):
         raise AssertionError("a CPU b was moved to the card silently")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the stationary path (richardson, jacobi, the triangular sweeps,
+# SSORSmoother, estimate_spectrum and ChebyshevPreconditioner)
+
+STAT_STEPS = 20  # steps of richardson and jacobi at BIG^2
+SWEEP_STEPS = 3  # steps of the sweep solvers at MID^2
+NLEVEL = 1 << 20  # rows of the unstructured matrix of the level-scheduled route
+SSOR_N = 256  # grid side of SSOR-preconditioned cg: a sweep is ~25 launches a grid row
+
+
+def poisson_dia(n):
+    """The 5-point Laplacian of ``poisson_2d(n)`` as a float64 scipy DIA
+    matrix (no CSR of 84M entries at 4096^2)."""
+    import scipy.sparse
+
+    N = n * n
+    side = -np.ones(N - 1)
+    side[n - 1::n] = 0.0  # no coupling across grid rows
+    far = -np.ones(N - n)
+    return scipy.sparse.diags([far, side, 4.0 * np.ones(N), side, far], [-n, -1, 0, 1, n],
+                              format="dia")
+
+
+def unstructured_spd(n, k=4, seed=SEED + 60):
+    """The reference tests' unstructured matrix, scaled up: ``k`` strictly
+    lower neighbours a row drawn from all earlier rows (dependency depth
+    O(log n)), symmetrized, diagonal in [4, 5]; float32 CSR."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(1, n), k)
+    cols = (rng.random(rows.shape[0]) * rows).astype(np.int64)
+    vals = 0.2 * rng.standard_normal(rows.shape[0])
+    A = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(n, n))
+    A = (A + A.T).tocsr()
+    A.setdiag(4.0 + rng.random(n))
+    A.sum_duplicates()
+    return A.astype(np.float32)
+
+
+def host_stationary(A, b, update, steps):
+    """``steps`` of ``x += update(r); r = b - A x`` on the host in float64:
+    the residual norms."""
+    x, r = np.zeros_like(b), b.copy()
+    out = [np.linalg.norm(r)]
+    for _ in range(steps):
+        x += update(r)
+        r = b - A @ x
+        out.append(np.linalg.norm(r))
+    return np.asarray(out)
+
+
+def held(what, info, ref, rtol=TRAJ_RTOL):
+    """The port's float32 residual history on the card against the float64
+    host iteration of the same method, entry by entry at ``rtol`` (the
+    file's trajectory band: float32 rounding in sums of up to 16.7M terms
+    and in the sweeps' recurrences)."""
+    got = np.asarray(info.resnorms, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    rel = np.abs(got - ref) / ref
+    log(f"  {what}: {info.numsteps} steps, resnorm ratio {got[-1] / got[0]:.4e}, max rel to "
+        f"the float64 host iteration {rel.max():.3e} (rtol {rtol})")
+    assert np.isfinite(got).all() and rel.max() <= rtol, what
+
+
+def phase_stationary(dev, kt, cs, sv, st, card):
+    """Phase 8.  Returns the launches of K1, K2 and K10 on these paths."""
+    import scipy.sparse
+    import scipy.sparse.linalg as spla
+
+    from krylov_tpu_torch.ops.cuda_spmv import PETOperator
+    from krylov_tpu_torch.ops.triangular import GridLowerSweep
+
+    log(f"phase 8: the stationary path; richardson and jacobi on poisson_2d({BIG}) f32")
+    totals = {"stencil2d_matvec": 0, "const_stencil2d_matvec": 0, "csr_matvec": 0}
+    rng = np.random.default_rng(SEED + 61)
+    kw = dict(tol=1e-30, backend="while_loop")
+
+    A = st.poisson_2d(BIG, dtype=np.float32, device=dev)
+    b64 = rng.standard_normal(BIG * BIG)
+    b = torch.from_numpy(b64.astype(np.float32)).to(dev)
+    b64 = b.double().cpu().numpy()
+    A64 = poisson_dia(BIG)
+    for name, okw, update in (
+        ("richardson", dict(omega=0.2), lambda r: 0.2 * r),
+        ("jacobi", dict(omega=0.9), lambda r: 0.9 * r / 4.0),
+    ):
+        solve = lambda: getattr(kt, name)(A, b, maxiter=STAT_STEPS, **okw, **kw)  # noqa: E731
+        cs.reset_launches()
+        sol, info = solve()
+        torch.cuda.synchronize()
+        n1 = cs.LAUNCHES["stencil2d_matvec"]
+        assert sol is None and info.numsteps == STAT_STEPS and n1 == STAT_STEPS, (name, n1)
+        assert info.xk.device == dev and bool(torch.isfinite(info.xk).all())
+        totals["stencil2d_matvec"] += n1
+        held(f"{name} {okw}, K1 launches {n1}", info, host_stationary(A64, b64, update,
+                                                                        STAT_STEPS))
+        wall, busy, rows = profiled(solve)
+        log(f"  [{card}] {name} at {BIG}^2: {wall / STAT_STEPS * 1e6:.1f} us a step, device busy "
+            f"{busy / STAT_STEPS * 1e6:.1f} us a step, idle share {1 - busy / wall:.3f}; "
+            f"largest: " + "; ".join(
+                f"{key[:32]} x{count:.0f} {us / 1e3:.2f} ms"
+                for key, us, count in sorted(rows, key=lambda q: -q[1])[:3]))
+    del A, A64, b, b64
+
+    log(f"  the grid sweeps on poisson_2d({MID}) f32: gauss_seidel, sor, ssor, {SWEEP_STEPS} "
+        f"steps each, against scipy's spsolve_triangular in float64")
+    A = st.poisson_2d(MID, dtype=np.float32, device=dev)
+    sp = poisson_dia(MID).tocsr()
+    b = torch.from_numpy(rng.standard_normal(MID * MID).astype(np.float32)).to(dev)
+    b64 = b.double().cpu().numpy()
+    diag = sp.diagonal()
+
+    def tri(lower, omega=1.0):
+        t = (scipy.sparse.tril if lower else scipy.sparse.triu)(sp).tocsr()
+        t.setdiag(diag / omega)
+        return t
+
+    def ssor_update(omega):
+        lo, up = tri(True, omega), tri(False, omega)
+        return lambda r: (2 - omega) / omega * spla.spsolve_triangular(
+            up, diag * spla.spsolve_triangular(lo, r, lower=True), lower=False)
+
+    low, upp, low13 = tri(True), tri(False), tri(True, 1.3)
+    for name, okw, update in (
+        ("gauss_seidel", {}, lambda r: spla.spsolve_triangular(low, r, lower=True)),
+        ("gauss_seidel", dict(lower=False),
+         lambda r: spla.spsolve_triangular(upp, r, lower=False)),
+        ("sor", dict(omega=1.3), lambda r: spla.spsolve_triangular(low13, r, lower=True)),
+        ("ssor", dict(omega=1.3), ssor_update(1.3)),
+    ):
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        sol, info = getattr(kt, name)(A, b, maxiter=SWEEP_STEPS, **okw, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n1 = cs.LAUNCHES["stencil2d_matvec"]
+        assert info.numsteps == n1 == SWEEP_STEPS and info.xk.device == dev, (name, n1)
+        totals["stencil2d_matvec"] += n1
+        held(f"{name} {okw} ({wall / SWEEP_STEPS:.2f} s a step)", info,
+             host_stationary(sp, b64, update, SWEEP_STEPS))
+    sweep = GridLowerSweep(A.coeffs2d, A.row_offsets, A.col_offsets)
+    r2 = b.reshape(MID, MID)
+    wall, busy, rows = profiled(lambda: sweep(r2))
+    nlaunch = sum(q[2] for q in rows)
+    log(f"  [{card}] one grid sweep at {MID}^2 (a Python loop over {MID} grid rows, "
+        f"{len(sweep.a_steps)} doubling steps a row): {wall * 1e3:.1f} ms, {nlaunch:.0f} kernel "
+        f"launches ({wall / nlaunch * 1e6:.1f} us of wall each), device busy {busy * 1e3:.1f} ms, "
+        f"idle share {1 - busy / wall:.3f}")
+    del A, sp, sweep
+
+    log(f"  the level-scheduled sweeps: gauss_seidel on an unstructured {NLEVEL}-row CSR")
+    sp = unstructured_spd(NLEVEL)
+    b = torch.from_numpy(rng.standard_normal(NLEVEL).astype(np.float32)).to(dev)
+    assert isinstance(kt.as_operator(sp, dev), PETOperator)
+    sv.reset_launches()
+    t0 = time.perf_counter()
+    sol, info = kt.gauss_seidel(sp, b, tol=1e-4, maxiter=12, backend="while_loop")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n10 = sv.LAUNCHES["csr_matvec"]
+    assert info.success and sol.device == dev and n10 == info.numsteps, (info.numsteps, n10)
+    totals["csr_matvec"] += n10
+    low = scipy.sparse.tril(sp.astype(np.float64)).tocsr()
+    held(f"gauss_seidel, {sp.nnz} nnz, K10 launches {n10}, {wall:.2f} s with the level pass",
+         info, host_stationary(sp.astype(np.float64), b.double().cpu().numpy(),
+                               lambda r: spla.spsolve_triangular(low, r, lower=True),
+                               info.numsteps))
+    del sp, low
+
+    log(f"  preconditioned cg on poisson_2d_const to 1e-6, b = A x*: Chebyshev (degree 8) "
+        f"at {BIG}^2, SSOR at {SSOR_N}^2")
+    for n, with_ssor in ((BIG, False), (SSOR_N, True)):
+        A = st.poisson_2d_const(n, device=dev)
+        xs, b = manufactured(A, dev, SEED + 62)
+        cs.reset_launches()
+        interval = kt.utils.estimate_spectrum(A)
+        n_est = cs.LAUNCHES["const_stencil2d_matvec"]
+        assert n_est == 30 and 0 < interval[0] < interval[1] < 8.5, (n_est, interval)
+        totals["const_stencil2d_matvec"] += n_est
+        log(f"  estimate_spectrum(poisson_2d_const({n})): ({interval[0]:.4e}, "
+            f"{interval[1]:.4f}) from 30 Lanczos steps, K2 launches {n_est}")
+        cases = [("plain", None, 0),
+                 ("ChebyshevPreconditioner degree 8",
+                  kt.ChebyshevPreconditioner(A, interval, degree=8), 8)]
+        if with_ssor:
+            cases.append(("SSORSmoother omega 1.8", kt.SSORSmoother(
+                st.poisson_2d(n, dtype=np.float32, device=dev), omega=1.8), 0))
+        for label, M, per_apply in cases:
+            cs.reset_launches()
+            t0 = time.perf_counter()
+            x, info = kt.cg(A, b, M=M, inner=inner, tol=1e-6, maxiter=20000,
+                            backend="while_loop")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n2 = cs.LAUNCHES["const_stencil2d_matvec"]
+            totals["const_stencil2d_matvec"] += n2
+            fwd = float(torch.linalg.norm(info.xk - xs) / torch.linalg.norm(xs))
+            log(f"  [{card}] cg {label} at {n}^2: success {info.success}, {info.numsteps} "
+                f"iterations, {wall * 1e3:.1f} ms, forward error {fwd:.3e}, K2 launches {n2} "
+                f"(all tiled: {cs.K2_PATHS['tiled'] == n2})")
+            # the explicit residual passed 1e-6 (success); the forward error is
+            # bounded by the condition number times that, 7e6 at 4096^2
+            assert info.success and fwd <= 0.1, label
+            # an application before the loop and one a step, the step's own
+            # product, and the explicit residual of the last check
+            assert n2 >= (info.numsteps + 1) * per_apply + info.numsteps, (label, n2)
+            if M is None:
+                plain_steps = info.numsteps
+            else:
+                assert info.numsteps < plain_steps, label
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -1737,6 +2006,8 @@ def main():
     for k in ("csr_matvec", "csr_matmat"):
         launches[k] += n_family[k]
     phase_device_rule(kt, cs, sv, st)
+    for k, n in phase_stationary(dev, kt, cs, sv, st, card).items():
+        launches[k] += n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 

@@ -26,13 +26,19 @@ kernels) and the Arnoldi processes, and the Krylov solver family:
 and :func:`bicg`, :func:`cgs`, :func:`tfqmr`, :func:`minres`,
 :func:`symmlq`, :func:`cgr`, :func:`gcr`, :func:`chebyshev`, the
 normal-equation solvers :func:`cgne`, :func:`cgnr` and :func:`lsqr`,
-:func:`cg_pipelined`, :func:`cg_block` and mixed-precision :func:`refine`.
+:func:`cg_pipelined`, :func:`cg_block` and mixed-precision :func:`refine`,
+the stationary methods :func:`richardson`, :func:`jacobi`,
+:func:`gauss_seidel`, :func:`sor` and :func:`ssor` with
+:class:`SSORSmoother` (grid, level-scheduled and dense triangular sweeps),
+the analysis utilities (:mod:`krylov_tpu_torch.utils`) and
+:class:`ChebyshevPreconditioner`.
 """
 
-from . import convert, ops
+from . import convert, ops, utils
 from ._device import default_device, set_default_device
 from ._info import Info
 from ._operators import (
+    ChebyshevPreconditioner,
     DiagonalOperator,
     Identity,
     MatrixOperator,
@@ -53,6 +59,7 @@ from .householder import Householder
 from .multigrid import MultigridPreconditioner
 from .ops.stencil import poisson_2d_const, poisson_3d_const
 from .solvers import (
+    SSORSmoother,
     bicg,
     bicgstab,
     cg,
@@ -65,12 +72,17 @@ from .solvers import (
     cgs,
     chebyshev,
     fgmres,
+    gauss_seidel,
     gcr,
     gmres,
+    jacobi,
     lsqr,
     minres,
     qmr,
     refine,
+    richardson,
+    sor,
+    ssor,
     symmlq,
     tfqmr,
 )
@@ -83,6 +95,7 @@ __all__ = [
     "ArnoldiHouseholder",
     "ArnoldiLanczos",
     "ArnoldiMGS",
+    "ChebyshevPreconditioner",
     "DiagonalOperator",
     "Householder",
     "Identity",
@@ -90,6 +103,7 @@ __all__ = [
     "MatrixOperator",
     "MultigridPreconditioner",
     "Product",
+    "SSORSmoother",
     "arnoldi_res",
     "as_operator",
     "aslinearoperator",
@@ -107,9 +121,11 @@ __all__ = [
     "convert",
     "default_device",
     "fgmres",
+    "gauss_seidel",
     "gcr",
     "givens",
     "gmres",
+    "jacobi",
     "jacobi_preconditioner",
     "lsqr",
     "minres",
@@ -118,7 +134,11 @@ __all__ = [
     "poisson_3d_const",
     "qmr",
     "refine",
+    "richardson",
+    "sor",
+    "ssor",
     "set_default_device",
     "symmlq",
     "tfqmr",
+    "utils",
 ]

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from . import _device
-from ._operators import DiagonalOperator, MatrixOperator
+from ._operators import ChebyshevPreconditioner, DiagonalOperator, MatrixOperator
 from .multigrid import MultigridPreconditioner
 from .ops.bsr import BSROperator
 from .ops.cuda_spmv import PETOperator
@@ -39,7 +39,10 @@ def from_reference(op, device=None, source=None):
     """The port's twin of a reference ``MultigridPreconditioner``,
     ``ConstStencilOperator``, ``GridStencilOperator``, ``BandedOperator``,
     ``CSROperator``, ``DiaOperator``, ``BSROperator``, ``PETOperator``,
-    ``MatrixOperator`` or ``DiagonalOperator``.
+    ``MatrixOperator``, ``DiagonalOperator`` or ``ChebyshevPreconditioner``
+    (its operator converted, the same interval and degree).  An
+    ``SSORSmoother`` holds closures, not arrays: rebuild it from the
+    converted operator.
 
     A multigrid cycle comes across level by level as the reference built
     it: each level's operator, its Jacobi weight (a float on const levels,
@@ -49,6 +52,9 @@ def from_reference(op, device=None, source=None):
     the scipy matrix ``source`` (or the reference's lazy-adjoint handle to
     it) with the reference's value dtype, adjoint and permutation.
     """
+    if hasattr(op, "lmin") and hasattr(op, "degree") and hasattr(op, "A"):
+        return ChebyshevPreconditioner(from_reference(op.A, device, source),
+                                       (op.lmin, op.lmax), op.degree)
     if hasattr(op, "_pet") and hasattr(op, "ensure_adjoint"):
         sp = source if source is not None else (op._sp() if op._sp is not None else None)
         if sp is None:

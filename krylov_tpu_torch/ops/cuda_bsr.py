@@ -10,8 +10,11 @@ any ``R``, ``C`` and ``k``.  The reference's ``supports()`` gate and
 ``_pick_batch`` are TPU tiling rules and have no counterpart here.
 
 On CPU tensors the wrapper runs its plain version; on a CUDA device it
-launches the kernel or raises.  Each launch adds one to
-``LAUNCHES["bsr_spmm"]``.
+launches one of K12's two kernels or raises: the streamed one (a warp
+streams 32 rows of a block row through a ring in shared memory) where
+:func:`k12_streamed` says so, from type, shape and alignment alone, and the
+general one otherwise.  Each launch adds one to ``LAUNCHES["bsr_spmm"]`` and
+to the kernel's entry of ``K12_PATHS``.
 """
 
 import ctypes
@@ -26,8 +29,33 @@ LAUNCHES = {"bsr_spmm": 0}
 _TYPES = {torch.float32, torch.float64, torch.complex64, torch.complex128}
 
 
+# the most bytes ``k`` columns of one row of X may take in the streamed
+# kernel (KRYLOV_BSR_ROW_BYTES in csrc/bsr.cu): 32 float32 columns
+K12_ROW_BYTES = 128
+# K12 launches by kernel: "streamed" (a warp per 32 rows of a block row, the
+# block data through a ring in shared memory) and "general" (a warp per
+# output row and column tile)
+K12_PATHS = {"streamed": 0, "general": 0}
+
+
 def reset_launches():
-    LAUNCHES["bsr_spmm"] = 0
+    for counts in (LAUNCHES, K12_PATHS):
+        for name in counts:
+            counts[name] = 0
+
+
+def k12_streamed(dtype, C, k, addresses):
+    """Which of K12's two kernels a call takes, from its type, shape and
+    alignment alone: the streamed one when a block's row is a whole number
+    of 16-byte pieces (``C * itemsize % 16 == 0``: ``C % 4 == 0`` in
+    float32), the ``k`` columns of a row of ``x`` fit
+    :data:`K12_ROW_BYTES` (32 float32 columns, 8 complex128 ones) and the
+    buffers (``addresses``: ``data_ptr()`` of ``data``, ``x`` and the
+    output) lie on 16-byte boundaries, as its 16-byte copies need; the
+    general one for everything else."""
+    item = dtype.itemsize
+    return ((C * item) % 16 == 0 and k * item <= K12_ROW_BYTES
+            and all(a % 16 == 0 for a in addresses))
 
 
 @functools.cache
@@ -36,10 +64,14 @@ def _lib():
 
     lib = _build.load()
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.krylov_bsr_spmm.argtypes = [i32, vp, vp, vp, vp] + [i32] * 5 + [vp]
+    lib.krylov_bsr_spmm.argtypes = [i32, i32, vp, vp, vp, vp] + [i32] * 5 + [vp]
     lib.krylov_bsr_spmm.restype = i32
+    lib.krylov_bsr_row_bytes.argtypes = []
+    lib.krylov_bsr_row_bytes.restype = i32
     lib.krylov_error_string.argtypes = [i32]
     lib.krylov_error_string.restype = ctypes.c_char_p
+    if lib.krylov_bsr_row_bytes() != K12_ROW_BYTES:
+        raise RuntimeError("K12_ROW_BYTES differs from csrc/bsr.cu's KRYLOV_BSR_ROW_BYTES")
     return lib
 
 
@@ -58,7 +90,8 @@ def bsr_spmm_plain(data, cols, x):
 
 def bsr_spmm(data, cols, x):
     """K12: ``Y = A X``, ``x`` of shape ``(nbcols * C, k)``, ``Y`` of shape
-    ``(nbrows * R, k)`` in ``promote_types(data, x)``."""
+    ``(nbrows * R, k)`` in ``promote_types(data, x)``.  :func:`k12_streamed`
+    says which of the two kernels a call takes; ``K12_PATHS`` counts them."""
     if _on_cpu(data, cols, x):
         return bsr_spmm_plain(data, cols, x)
     dt = torch.promote_types(data.dtype, x.dtype)
@@ -74,10 +107,12 @@ def bsr_spmm(data, cols, x):
     y = torch.empty((nbrows * R, k), dtype=dt, device=x.device)
     if k == 0 or nbrows == 0:
         return y
+    streamed = k12_streamed(dt, C, k, [t.data_ptr() for t in (data, x, y)])
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.krylov_bsr_spmm(_CODES[dt], _ptr(data), _ptr(cols), _ptr(x), _ptr(y),
-                                  nbrows, max_blocks, R, C, k, _stream(x))
+        err = lib.krylov_bsr_spmm(_CODES[dt], int(streamed), _ptr(data), _ptr(cols), _ptr(x),
+                                  _ptr(y), nbrows, max_blocks, R, C, k, _stream(x))
     _check(lib, err, "bsr_spmm")
     LAUNCHES["bsr_spmm"] += 1
+    K12_PATHS["streamed" if streamed else "general"] += 1
     return y

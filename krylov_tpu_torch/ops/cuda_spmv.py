@@ -21,6 +21,7 @@ a CUDA device it launches the kernel or raises.  Each launch adds one to
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -95,6 +96,32 @@ def csr_runs(indptr, capacity=RUN_CAPACITY):
     return np.asarray(starts, dtype=np.int32)
 
 
+# runs made for bare csr_matvec calls, per indptr tensor: keyed on its
+# storage pointer, device, length and version counter (an in-place edit
+# bumps it), each entry evicted when its tensor is collected
+_RUNS_CACHE = {}
+
+
+def cached_runs(indptr):
+    """:func:`csr_runs` of ``indptr`` at :data:`RUN_CAPACITY` as an int32
+    tensor on ``indptr``'s device, made once per ``indptr`` tensor: the
+    first call copies the row pointers to the host and cuts the runs, a
+    later call with the same unedited tensor copies nothing."""
+    key = (indptr.data_ptr(), str(indptr.device), indptr.numel(), indptr._version)
+    hit = _RUNS_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    runs = torch.from_numpy(csr_runs(indptr.cpu().numpy())).to(indptr.device)
+
+    def _evict(ref, _key=key, _cache=_RUNS_CACHE):
+        ent = _cache.get(_key)
+        if ent is not None and ent[0] is ref:
+            del _cache[_key]
+
+    _RUNS_CACHE[key] = (weakref.ref(indptr, _evict), runs)
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # K10 / K11 and their plain versions
 # ---------------------------------------------------------------------------
@@ -128,8 +155,9 @@ def csr_matvec(indptr, indices, data, x, runs=None):
     of length ``m``, ``y`` float32 of length ``n = len(indptr) - 1``.
     ``runs``: the row partition :func:`csr_runs` makes of ``indptr`` at
     :data:`RUN_CAPACITY`, as an int32 tensor on ``x``'s device; an operator
-    makes it once.  Without it this call makes it on the spot, which copies
-    ``indptr`` to the host and waits for the device."""
+    makes it once.  Without it the runs come from :func:`cached_runs`: the
+    first call with an ``indptr`` tensor copies it to the host and waits for
+    the device, later calls with the same tensor copy nothing."""
     if _on_cpu(indptr, indices, data, x):
         return csr_matvec_plain(indptr, indices, data, x)
     _csr_checks(indptr, indices, data, x, 1)
@@ -138,7 +166,7 @@ def csr_matvec(indptr, indices, data, x, runs=None):
     if n == 0:
         return y
     if runs is None:
-        runs = torch.from_numpy(csr_runs(indptr.cpu().numpy())).to(x.device)
+        runs = cached_runs(indptr)
     _require(runs.dtype == torch.int32 and runs.ndim == 1 and runs.is_contiguous()
              and runs.device == x.device and runs.numel() >= 2,
              "runs must be csr_runs(indptr) as a contiguous int32 tensor on x's device")

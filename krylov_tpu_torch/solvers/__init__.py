@@ -16,10 +16,12 @@ from .minres import minres
 from .pipelined import cg_pipelined
 from .qmr import qmr
 from .refine import refine
+from .stationary import SSORSmoother, gauss_seidel, jacobi, richardson, sor, ssor
 from .symmlq import symmlq
 from .tfqmr import tfqmr
 
 __all__ = [
+    "SSORSmoother", "gauss_seidel", "jacobi", "richardson", "sor", "ssor",
     "bicg", "bicgstab", "cg", "cg_block", "cg_pipelined", "cg_stencil", "cgne",
     "cgnr", "cgr", "cgs", "chebyshev", "fgmres", "gcr", "gmres", "lsqr", "minres",
     "qmr", "refine", "symmlq", "tfqmr",

@@ -455,24 +455,109 @@ def test_pet_operator_adjoint_and_reorder(dev):
                                rtol=0, atol=1e-5 * np.abs(scr @ v).max())
 
 
+# K12's shapes: square blocks of the three detected sizes, rectangles, a row
+# that is no whole number of 16-byte pieces in any real type, and tiny blocks
+K12_BLOCKS = ((32, 32), (64, 64), (128, 128), (48, 32), (16, 48), (32, 30), (3, 5))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12),
                                        (torch.complex64, 1e-5), (torch.complex128, 1e-12)])
 def test_k12_matches_plain(dev, dtype, tol):
+    """Both of K12's kernels against the plain einsum, at ``tol`` of the
+    largest entry (sums of up to 7 * 128 products in the data's own type, in
+    another order than the plain version's), each product repeated bit for
+    bit, and each call on the kernel the chooser names."""
     from krylov_tpu_torch.ops import cuda_bsr as cb
 
     rng = np.random.default_rng(40)
-    for R, C in ((32, 32), (64, 64), (128, 128), (3, 5)):
-        nbrows, max_blocks, nbcols = 6, 3, 5
-        mk = _crand if dtype.is_complex else (lambda s, d, t, seed: _rand(s, d, t, seed))
-        data = mk((nbrows * max_blocks, R, C), dev, dtype, R)
-        cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks)).astype(
-            np.int32)).to(dev)
-        for k in (1, 8, 11):
-            x = mk((nbcols * C, k), dev, dtype, k)
-            got = cb.bsr_spmm(data, cols, x)
-            want = cb.bsr_spmm_plain(data, cols, x)
-            assert got.dtype == dtype
-            torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+    mk = _crand if dtype.is_complex else (lambda s, d, t, seed: _rand(s, d, t, seed))
+    cb.reset_launches()
+    expected = {"streamed": 0, "general": 0}
+    for R, C in K12_BLOCKS:
+        for max_blocks in (1, 3, 7):
+            nbrows, nbcols = 6, 5
+            data = mk((nbrows * max_blocks, R, C), dev, dtype, R + max_blocks)
+            cols = torch.from_numpy(rng.integers(0, nbcols, (nbrows, max_blocks)).astype(
+                np.int32)).to(dev)
+            for k in (1, 3, 8, 16, 17):
+                x = mk((nbcols * C, k), dev, dtype, k)
+                got = cb.bsr_spmm(data, cols, x)
+                want = cb.bsr_spmm_plain(data, cols, x)
+                assert got.dtype == dtype and tuple(got.shape) == (nbrows * R, k)
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=tol * float(want.abs().max()),
+                                           msg=f"{R}x{C} blocks={max_blocks} k={k}")
+                assert torch.equal(got, cb.bsr_spmm(data, cols, x))
+                streamed = cb.k12_streamed(dtype, C, k, [data.data_ptr(), x.data_ptr(), 0])
+                expected["streamed" if streamed else "general"] += 2
+    assert cb.K12_PATHS == expected and min(expected.values()) > 0
+    assert cb.LAUNCHES["bsr_spmm"] == sum(expected.values())
+
+
+def test_k12_unaligned_views_take_the_general_kernel(dev):
+    from krylov_tpu_torch.ops import cuda_bsr as cb
+
+    rng = np.random.default_rng(41)
+    data = _rand((12, 32, 32), dev, torch.float32, 5)
+    cols = torch.from_numpy(rng.integers(0, 4, (4, 3)).astype(np.int32)).to(dev)
+    store = torch.zeros(4 * 32 * 8 + 1, device=dev)
+    x = store[1:].view(4 * 32, 8).copy_(_rand((128, 8), dev, torch.float32, 6))
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    cb.reset_launches()
+    got = cb.bsr_spmm(data, cols, x)
+    assert cb.K12_PATHS == {"streamed": 0, "general": 1}
+    aligned = cb.bsr_spmm(data, cols, x.clone())
+    assert cb.K12_PATHS == {"streamed": 1, "general": 1}
+    want = cb.bsr_spmm_plain(data, cols, x)
+    for y in (got, aligned):
+        torch.testing.assert_close(y, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_bare_csr_matvec_copies_to_the_host_once(dev):
+    """The first bare ``csr_matvec`` with an ``indptr`` tensor cuts the runs
+    on the host; the second finds them cached and makes no device-to-host
+    copy (PyTorch's sync debug mode raises on any synchronizing call)."""
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+
+    sp = _shifted_poisson_f32(64)
+    indptr, indices, data = (torch.from_numpy(a).to(dev) for a in (
+        sp.indptr.astype(np.int32), sp.indices.astype(np.int32), sp.data))
+    x = _rand(sp.shape[1], dev, torch.float32, 7)
+    first = sv.csr_matvec(indptr, indices, data, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = sv.csr_matvec(indptr, indices, data, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, second)
+    want = sv.csr_matvec_plain(indptr, indices, data, x)
+    torch.testing.assert_close(first, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_stationary_path_on_the_card(dev):
+    """The stationary solvers keep everything on the card: ``jacobi`` on a
+    grid stencil launches K1 once a step, the grid sweeps and the
+    level-scheduled sweeps agree with float64 CPU runs of the same code."""
+    A = st.poisson_2d(64, 48, dtype=np.float32, device=dev)
+    b = _rand(64 * 48, dev, torch.float32, 9)
+    cs.reset_launches()
+    _, info = kt.jacobi(A, b, omega=0.8, maxiter=10, tol=1e-30, backend="while_loop")
+    assert info.numsteps == 10 and cs.LAUNCHES["stencil2d_matvec"] == 10
+    A64 = st.poisson_2d(64, 48, device="cpu")
+    for name, kw in (("jacobi", dict(omega=0.8)), ("gauss_seidel", {}),
+                     ("sor", dict(omega=1.3)), ("ssor", dict(omega=1.3))):
+        _, info = getattr(kt, name)(A, b, maxiter=5, tol=1e-30, **kw)
+        _, ref = getattr(kt, name)(A64, b.double().cpu(), maxiter=5, tol=1e-30, **kw)
+        assert info.xk.device == dev
+        np.testing.assert_allclose(info.resnorms, ref.resnorms, rtol=1e-4)
+    M = kt.SSORSmoother(A, omega=1.2)
+    assert M.device == dev and (M @ b).device == dev
+    lo, hi = kt.utils.estimate_spectrum(A)
+    assert 0 < lo < hi < 8.5
+    Mc = kt.ChebyshevPreconditioner(A, (lo, hi), degree=4)
+    cs.reset_launches()
+    assert (Mc @ b).device == dev and cs.LAUNCHES["stencil2d_matvec"] == 4
 
 
 def _shifted_poisson_f32(g, shift=0.5):

@@ -691,3 +691,129 @@ def test_operators_refuse_mismatched_vectors():
         for x in (torch.ones(op.shape[1] - 1), torch.ones((op.shape[1], 2, 2))):
             with pytest.raises(ValueError, match="does not match"):
                 op @ x
+
+
+# ---------------------------------------------------------------------------
+# the route cache's content checksum, K10's cached runs, K12's chooser
+# ---------------------------------------------------------------------------
+
+
+def _routed(sp, calls):
+    def build(A):
+        calls.append(1)
+        return ("op", len(calls))
+
+    return t_ops._route_cached(sp, None, build)
+
+
+def _swap(arr, i, j):
+    arr[i], arr[j] = arr[j].copy(), arr[i].copy()
+
+
+@pytest.mark.parametrize("n", [300, 4000])
+@pytest.mark.parametrize("edit", ["none", "one entry", "swap data", "swap indices",
+                                  "swap far data", "indptr", "last entry"])
+def test_route_cache_sees_every_in_place_edit(edit, n):
+    """Any in-place edit of a buffer misses the cache: a changed value, two
+    swapped values (next to each other and 100k bytes apart), two swapped
+    column indices within a row, a moved row pointer; an unedited matrix
+    hits it.  ``n = 4000`` gives buffers of several checksum rows (8 KB
+    each), ``n = 300`` buffers shorter than one."""
+    sp = scipy.sparse.random(n, n, density=20 / n, random_state=5, format="csr")
+    sp.sort_indices()
+    calls = []
+    op = _routed(sp, calls)
+    row = int(np.flatnonzero(np.diff(sp.indptr) >= 2)[0])
+    lo = sp.indptr[row]
+    if edit == "one entry":
+        sp.data[lo] += 1.0
+    elif edit == "swap data":
+        assert sp.data[lo] != sp.data[lo + 1]
+        _swap(sp.data, lo, lo + 1)
+    elif edit == "swap far data":
+        assert sp.data[3] != sp.data[-5]
+        _swap(sp.data, 3, sp.nnz - 5)
+    elif edit == "swap indices":
+        assert sp.indices[lo] != sp.indices[lo + 1]
+        _swap(sp.indices, lo, lo + 1)
+    elif edit == "indptr":
+        sp.indptr[row + 1] -= 1
+    elif edit == "last entry":
+        sp.data[-1] *= 2.0
+    again = _routed(sp, calls)
+    assert (again is op) == (edit == "none")
+    assert len(calls) == (1 if edit == "none" else 2)
+    assert _routed(sp, calls) is again  # and the edited matrix hits from then on
+    key = (id(sp), "cpu")
+    del sp
+    gc.collect()
+    assert key not in t_ops._ROUTE_CACHE, "the weak reference must evict"
+
+
+def test_buffer_checksum_reads_whole_buffers_of_any_type():
+    rng = np.random.default_rng(3)
+    for arr in (rng.standard_normal(5000).astype(np.float32), rng.integers(0, 99, 3001),
+                rng.standard_normal(1500) + 1j, np.arange(7, dtype=np.int16),
+                rng.standard_normal((70, 70))[::2]):  # non-contiguous
+        base = t_ops._buffer_checksum(arr)
+        assert base == t_ops._buffer_checksum(arr.copy())
+        for pos in (0, arr.size // 2, arr.size - 1):
+            edited = arr.copy()
+            edited.reshape(-1)[pos] += 1
+            assert t_ops._buffer_checksum(edited) != base, (arr.dtype, pos)
+    # the same numbers in another order, within a checksum row and across rows
+    arr = rng.standard_normal(4096)
+    for i, j in ((10, 11), (10, 900), (10, 3000)):
+        edited = arr.copy()
+        _swap(edited, i, j)
+        assert t_ops._buffer_checksum(edited) != t_ops._buffer_checksum(arr)
+    coo = scipy.sparse.random(50, 50, density=0.1, random_state=1, format="coo")
+    fp = t_ops._sparse_fingerprint(coo)
+    _swap(coo.row, 0, 1)
+    assert coo.row[0] != coo.row[1] and t_ops._sparse_fingerprint(coo) != fp
+
+
+def test_cached_runs_are_made_once_per_indptr_tensor():
+    indptr = _t(np.array([0, 2, 3, 7, 7, 9], np.int32))
+    runs = cuda_spmv.cached_runs(indptr)
+    assert runs.dtype == torch.int32
+    assert np.array_equal(runs.numpy(), cuda_spmv.csr_runs(indptr.numpy()))
+    assert cuda_spmv.cached_runs(indptr) is runs  # the second call copies nothing
+    assert cuda_spmv.cached_runs(indptr[:]) is runs  # a view of the same storage
+    other = indptr.clone()
+    assert cuda_spmv.cached_runs(other) is not runs
+    indptr[1] = 1  # an in-place edit bumps the tensor's version: a miss
+    assert cuda_spmv.cached_runs(indptr) is not runs
+    n = len(cuda_spmv._RUNS_CACHE)
+    del indptr, other
+    gc.collect()
+    assert len(cuda_spmv._RUNS_CACHE) <= n - 2, "a freed tensor evicts its entries"
+
+
+@pytest.mark.parametrize("dtype,C,k,off,want", [
+    (torch.float32, 32, 8, 0, True),
+    (torch.float32, 128, 32, 0, True),
+    (torch.float32, 48, 17, 0, True),      # rows of 12 pieces, any k up to 32
+    (torch.float32, 30, 8, 0, False),      # C % 4 != 0
+    (torch.float32, 32, 33, 0, False),     # k * 4 bytes > 128
+    (torch.float32, 32, 8, 4, False),      # a buffer off the 16-byte boundary
+    (torch.float64, 32, 16, 0, True),
+    (torch.float64, 31, 4, 0, False),
+    (torch.float64, 32, 17, 0, False),
+    (torch.complex64, 6, 16, 0, True),
+    (torch.complex64, 5, 1, 0, False),
+    (torch.complex128, 3, 8, 0, True),     # every row is whole 16-byte pieces
+    (torch.complex128, 3, 9, 0, False),
+    (torch.complex128, 3, 8, 8, False),
+])
+def test_k12_chooser_reads_type_shape_and_alignment_alone(dtype, C, k, off, want):
+    addresses = [1 << 20, (1 << 21) + off, 1 << 22]
+    assert cuda_bsr.k12_streamed(dtype, C, k, addresses) is want
+
+
+def test_k12_cpu_tensors_take_the_plain_version_and_count_nothing():
+    cuda_bsr.reset_launches()
+    data, cols, x = torch.ones(2, 4, 4), torch.zeros((2, 1), dtype=torch.int32), torch.ones(4, 3)
+    assert torch.equal(cuda_bsr.bsr_spmm(data, cols, x), torch.full((8, 3), 4.0))
+    assert cuda_bsr.LAUNCHES == {"bsr_spmm": 0}
+    assert cuda_bsr.K12_PATHS == {"streamed": 0, "general": 0}

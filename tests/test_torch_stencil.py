@@ -253,7 +253,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, krylov_tpu_torch, krylov_tpu_torch.convert, "
         "krylov_tpu_torch.ops.cuda_stencil, krylov_tpu_torch._build, "
-        "krylov_tpu_torch.multigrid; "
+        "krylov_tpu_torch.multigrid, krylov_tpu_torch.utils, "
+        "krylov_tpu_torch.solvers.stationary, krylov_tpu_torch.ops.triangular; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'krylov_tpu', 'triton', 'scipy')]; "
         "print(bad); sys.exit(1 if bad else 0)"

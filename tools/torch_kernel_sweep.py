@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the tuning constants of K10 (CSR SpMV) and K2 (const stencil
-matvec) on one NVIDIA GPU, and time a second checkout beside this one.
+"""Sweep the tuning constants of K10 (CSR SpMV), K2 (const stencil matvec)
+and K12 (BSR SpMM) on one NVIDIA GPU, and time a second checkout beside
+this one.
 
 Run from the root of the repository on a machine with one CUDA device
 (Hopper) and ``nvcc``:
@@ -8,7 +9,9 @@ Run from the root of the repository on a machine with one CUDA device
     python3 tools/torch_kernel_sweep.py                  # the default build
     python3 tools/torch_kernel_sweep.py --k2 KRYLOV_K2_STAGES=2,4,8 KRYLOV_K2_RUN=32,128
     python3 tools/torch_kernel_sweep.py --k10 KRYLOV_SPMV_LANE_ENTRIES=2,8 --capacity 1024,2048,4096,8192
+    python3 tools/torch_kernel_sweep.py --k12 KRYLOV_BSR_STAGES=2,4 KRYLOV_BSR_WARPS=2,8
     python3 tools/torch_kernel_sweep.py --other DIR      # and the checkout at DIR, in turns
+    python3 tools/torch_kernel_sweep.py --only k12 --other DIR   # one kernel's shapes only
 
 Each ``NAME=v1,v2`` builds one library per value (the other constants at
 their defaults) with ``krylov_tpu_torch._build.build(defines=...)``, all
@@ -181,29 +184,90 @@ def measure_k2(cs, st, dev):
     return out
 
 
-def use_library(path, cs, sv, build):
+def k12_cases(dev):
+    """(label, data, cols, X, the scipy BSR matrix or None) for K12: the
+    block-tridiagonal SPD matrix of ``chip_smoke.py``'s phase 6c (4096 block
+    rows x 3 blocks of 32^2) at k = 1, 8 and 16, and 256 block rows x 3
+    random blocks of 128^2 at k = 1 and 8."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from krylov_tpu_torch import as_operator
+
+    rng = np.random.default_rng(45)
+    bsp = chip_smoke.block_spd_csr()
+    bop = as_operator(bsp, dev)
+    bsr = bsp.tobsr(blocksize=(32, 32))
+    bsr.sort_indices()
+    cases = []
+    for k in (1, 8, 16):
+        X = torch.from_numpy(rng.standard_normal((bop.shape[1], k)).astype(np.float32)).to(dev)
+        cases.append((f"{bop.cols.shape[0]} x {bop.cols.shape[1]} blocks of 32^2 k={k}",
+                      bop.data, bop.cols, X, bsr if k == 8 else None))
+    nbrows, max_blocks, R = 256, 3, 128
+    cols = torch.from_numpy(rng.integers(0, nbrows, (nbrows, max_blocks)).astype(np.int32)).to(dev)
+    blocks = torch.from_numpy(rng.standard_normal((nbrows * max_blocks, R, R))
+                              .astype(np.float32)).to(dev)
+    for k in (1, 8):
+        X = torch.from_numpy(rng.standard_normal((nbrows * R, k)).astype(np.float32)).to(dev)
+        cases.append((f"{nbrows} x {max_blocks} blocks of {R}^2 k={k}", blocks, cols, X, None))
+    return cases
+
+
+def measure_k12(bs, dev, library=False):
+    out = {}
+    for label, data, cols, X, bsr in k12_cases(dev):
+        err = check(f"K12 {label}", bs.bsr_spmm(data, cols, X), bs.bsr_spmm_plain(data, cols, X))
+        out[label] = dict(both_us(lambda: bs.bsr_spmm(data, cols, X)), err=err)
+        if library and bsr is not None:
+            # the one PyTorch call computing K12's function (timed only): the
+            # same blocks without the ELL padding
+            lib = torch.sparse_bsr_tensor(
+                torch.from_numpy(bsr.indptr.astype(np.int64)).to(dev),
+                torch.from_numpy(bsr.indices.astype(np.int64)).to(dev),
+                torch.from_numpy(bsr.data.astype(np.float32)).to(dev), size=bsr.shape)
+            try:
+                out[f"library {label}"] = both_us(lambda: lib @ X)
+            except RuntimeError:  # the library call does not capture into a graph
+                torch.cuda.synchronize()
+                out[f"library {label}"] = both_us(lambda: lib @ X, graph=False)
+            out[f"plain {label}"] = both_us(lambda: bs.bsr_spmm_plain(data, cols, X))
+    paths = getattr(bs, "K12_PATHS", None)
+    if paths is not None:
+        out["launches by kernel"] = dict(paths)
+    return out
+
+
+def use_library(path, build, *wrappers):
     """Point the wrappers at the library at ``path``."""
     build.load = lambda: ctypes.CDLL(str(path))
-    cs._lib.cache_clear()
-    sv._lib.cache_clear()
+    for w in wrappers:
+        w._lib.cache_clear()
 
 
 def shapes_only(args):
     """Time the default build of the package in the current directory."""
     sys.path.insert(0, ".")
     from krylov_tpu_torch import _build
+    from krylov_tpu_torch.ops import cuda_bsr as bs
     from krylov_tpu_torch.ops import cuda_spmv as sv
     from krylov_tpu_torch.ops import cuda_stencil as cs
     from krylov_tpu_torch.ops import stencil as st
 
     dev = torch.device("cuda", 0)
     _build.build()
-    res = {"k10": measure_k10(sv, dev, [None]), "k2": measure_k2(cs, st, dev)}
+    res = {}
+    if "k10" in args.only:
+        res["k10"] = measure_k10(sv, dev, [None])
+    if "k2" in args.only:
+        res["k2"] = measure_k2(cs, st, dev)
+    if "k12" in args.only:
+        res["k12"] = measure_k12(bs, dev)
     print(json.dumps(res), flush=True)
 
 
-def run_other(where, card):
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--shapes-only"],
+def run_other(where, card, only):
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--shapes-only",
+                          "--only", ",".join(only)],
                          cwd=where, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"--other {where} failed:\n{out.stdout}\n{out.stderr}")
@@ -234,6 +298,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2", nargs="*", default=None, metavar="NAME=v1,v2")
     ap.add_argument("--k10", nargs="*", default=None, metavar="NAME=v1,v2")
+    ap.add_argument("--k12", nargs="*", default=None, metavar="NAME=v1,v2")
+    ap.add_argument("--only", default="k10,k2,k12",
+                    help="kernels whose default build is timed, here and with --other")
     ap.add_argument("--grid", action="store_true",
                     help="build every combination of the values, not one constant at a time")
     ap.add_argument("--capacity", default=None,
@@ -241,6 +308,7 @@ def main():
     ap.add_argument("--other", default=None, help="a second checkout to time beside this one")
     ap.add_argument("--shapes-only", action="store_true")
     args = ap.parse_args()
+    args.only = args.only.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_sweep: no CUDA device")
     if args.shapes_only:
@@ -248,18 +316,23 @@ def main():
 
     sys.path.insert(0, str(ROOT))
     from krylov_tpu_torch import _build
+    from krylov_tpu_torch.ops import cuda_bsr as bs
     from krylov_tpu_torch.ops import cuda_spmv as sv
     from krylov_tpu_torch.ops import cuda_stencil as cs
     from krylov_tpu_torch.ops import stencil as st
 
     card = card_line()
     dev = torch.device("cuda", 0)
-    if args.k2 is None and args.k10 is None:
-        args.k2, args.k10 = [], []
+    if args.k2 is None and args.k10 is None and args.k12 is None:
+        # no sweep asked for: the default build of the kernels of --only
+        args.k10 = [] if "k10" in args.only else None
+        args.k2 = [] if "k2" in args.only else None
+        args.k12 = [] if "k12" in args.only else None
     expand = full_grid if args.grid else variants_of
     k2_variants = expand(args.k2) if args.k2 is not None else []
     k10_variants = expand(args.k10) if args.k10 is not None else []
-    wanted = sorted(set(k2_variants) | set(k10_variants) | {()})
+    k12_variants = expand(args.k12) if args.k12 is not None else []
+    wanted = sorted(set(k2_variants) | set(k10_variants) | set(k12_variants) | {()})
     built = {}
 
     def build_one(defines):
@@ -278,29 +351,35 @@ def main():
         print(f"build of {defines} failed: {why}", flush=True)
     k2_variants = [d for d in k2_variants if d in built]
     k10_variants = [d for d in k10_variants if d in built]
+    k12_variants = [d for d in k12_variants if d in built]
     for defines in sorted(built):
         path, seconds, log = built[defines]
         print(f"built {defines or 'default'} in {seconds:.1f} s", flush=True)
         lines = log.splitlines()
-        for k, line in enumerate(lines):  # registers, shared memory and spills of the two kernels
-            if "Compiling entry function" in line and ("csr_stream" in line or "tiled" in line):
+        for k, line in enumerate(lines):  # registers, shared memory and spills of the kernels swept
+            if "Compiling entry function" in line and any(
+                    name in line for name in ("csr_stream", "tiled", "bsr_spmm_streamed")):
                 print("   ", line.split("'")[1][:60], "|", " ".join(
                     q.split(":", 1)[1].strip() for q in lines[k + 1:k + 4] if "Used" in q),
                     flush=True)
 
     if args.other:
-        run_other(args.other, card)
+        run_other(args.other, card, args.only)
     caps = [int(c) for c in args.capacity.split(",")] if args.capacity else [None]
     for defines in k10_variants:
-        use_library(built[defines][0], cs, sv, _build)
+        use_library(built[defines][0], _build, cs, sv, bs)
         for key, row in measure_k10(sv, dev, caps, library=not defines).items():
             print(f"[{card}] K10 {defines or 'default'} {key}: {row}", flush=True)
     for defines in k2_variants:
-        use_library(built[defines][0], cs, sv, _build)
+        use_library(built[defines][0], _build, cs, sv, bs)
         for key, row in measure_k2(cs, st, dev).items():
             print(f"[{card}] K2 {defines or 'default'} {key}: {row}", flush=True)
+    for defines in k12_variants:
+        use_library(built[defines][0], _build, cs, sv, bs)
+        for key, row in measure_k12(bs, dev, library=not defines).items():
+            print(f"[{card}] K12 {defines or 'default'} {key}: {row}", flush=True)
     if args.other:
-        run_other(args.other, card)
+        run_other(args.other, card, args.only)
 
 
 if __name__ == "__main__":
