@@ -66,6 +66,18 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    ``ChebyshevPreconditioner`` over ``estimate_spectrum``'s interval at
    4096^2 (K2 eight times an application) and with ``SSORSmoother`` at
    256^2, to 1e-6 beside plain ``cg``; what a grid sweep costs;
+9. the sparse preconditioners: (a-c) the reference bench's ``cg_amg`` cell,
+   ``cg`` + ``AMGPreconditioner`` on the unshifted 1M-row Poisson CSR with
+   the solve's ``PETOperator`` as the fine level (set-up cold and warm, the
+   native set-up route asserted, K10 and K11 on every level and prolongator
+   against their plain versions, one V-cycle against the same hierarchy on
+   plain CSR levels, Jacobi and Chebyshev smoothing, an ``(N, 8)``
+   right-hand side through K11); (e) ``BlockJacobiPreconditioner`` (block 64)
+   beside point Jacobi on that matrix, and line against point Jacobi on an
+   anisotropic Poisson at 256^2; (d) ``ILUPreconditioner`` (ILU(0)) as ``Ml``
+   of ``bicgstab`` and ``gmres`` and as ``M`` of ``cg`` at 256^2, and its
+   set-up at 1024^2 with the native and the numpy level pass; every solve
+   held to its float64 residual on the host;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -1963,6 +1975,353 @@ def phase_stationary(dev, kt, cs, sv, st, card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sparse preconditioners (AMG on K10/K11 levels, ILU, block
+# Jacobi) and their native host set-up
+
+# the reference's cg_amg hierarchy on this matrix (BENCH_r04.json amg_levels)
+REF_AMG_LEVELS = (1048576, 243204, 47345, 9573, 1702, 338)
+PREC_NPG = 256  # grid side of the ILU solves and of line Jacobi
+HOST_RTOL = 5e-4  # float64 host residual of a float32 solve to 1e-4
+BJ_TOL = 1e-3  # block or point Jacobi cg on the unshifted poisson: float32 stalls short of 1e-4
+
+
+def grid_csr(g, shift=0.0, conv=0.0):
+    """The bench's 5-point (convected, shifted) Poisson on a true g x g grid,
+    float32: no coupling across grid rows, so a triangular factor's levels
+    are the wavefront, 2g - 1 (the bench's diags matrix couples each grid
+    row's end to the next row's start: its triangles chain all n rows)."""
+    import scipy.sparse
+
+    n = g * g
+    side = np.ones(n - 1)
+    side[g - 1::g] = 0.0
+    return scipy.sparse.diags([-np.ones(n - g), -(1.0 + conv) * side, (4.0 + shift) * np.ones(n),
+                               -(1.0 - conv) * side, -np.ones(n - g)], [-g, -1, 0, 1, g],
+                              format="csr", dtype=np.float32)
+
+
+def aniso_csr(g, eps=100.0):
+    """``tests/test_blockjacobi.py``'s anisotropic Poisson at side g: eps
+    along the fast index, the direction a block of g rows spans; float32."""
+    import scipy.sparse
+
+    I = scipy.sparse.identity(g)
+    T = scipy.sparse.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    return (scipy.sparse.kron(I, eps * T) + scipy.sparse.kron(T, I)).tocsr().astype(np.float32)
+
+
+def host_residual(sp, b, x):
+    """max over columns of ||b - A x|| / ||b||, in float64 on the host."""
+    b64, x64 = b.double().cpu().numpy(), x.double().cpu().numpy()
+    r = b64 - sp.astype(np.float64) @ x64
+    return float(np.max(np.linalg.norm(r, axis=0) / np.linalg.norm(b64, axis=0)))
+
+
+def pet_plain(sv, op, csr, v):
+    """A PETOperator product by K10's plain version: the operator's own CSR
+    (``op._csr`` or its adjoint's) between its permutation gathers."""
+    v = v.float()
+    if op._perm is not None:
+        v = v.index_select(0, op._perm)
+    y = sv.csr_matvec_plain(csr.indptr, csr.indices, csr.data, v)
+    return y if op._inv_perm is None else y.index_select(0, op._inv_perm)
+
+
+def cycle_launches(M, sv):
+    """K10 launches one V(s, s) cycle of ``M`` makes: on a PETOperator level
+    the smoothing (Jacobi: s - 1 products from zero and s after; Chebyshev:
+    s and s + 1), the residual and two in the transfers; on a PETOperator
+    prolongator two (forward and adjoint)."""
+    per_level = 2 * M.smooth + (2 if M.smoother == "jacobi" else 4)
+    return sum(per_level * isinstance(op, sv.PETOperator) + 2 * isinstance(p, sv.PETOperator)
+               for op, p in zip(M._ops, M._phats))
+
+
+def best_wall(fn, reps=3):
+    """(best synchronized wall seconds of ``reps`` calls, the last result)."""
+    best, out = 1e9, None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def idle_line(card, what, fn):
+    """Profile one call of ``fn`` and print its device busy time, idle share
+    and kernel launches."""
+    wall, busy, rows = profiled(fn)
+    log(f"  [{card}] {what}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, idle "
+        f"share {1 - busy / wall:.3f}, {sum(q[2] for q in rows):.0f} kernel launches; largest: "
+        + "; ".join(f"{key[:32]} x{count:.0f} {us / 1e3:.2f} ms"
+                    for key, us, count in sorted(rows, key=lambda q: -q[1])[:3]))
+
+
+def phase_amg(dev, kt, sv, card, launches, errs):
+    """9a-9c: the reference bench's cg_amg cell on the card."""
+    from unittest import mock
+
+    from krylov_tpu_torch import _operators
+    from krylov_tpu_torch.ops import _native
+
+    log(f"phase 9a: cg + AMG on the bench's unshifted poisson {NPG}^2 (bench.py's cg_amg)")
+    rng = np.random.default_rng(SEED + 90)
+    lap0 = poisson_csr(NPG, 4.0)
+    n = lap0.shape[0]
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    Ap0 = sv.PETOperator.from_scipy(lap0, with_rmatvec=False, device=dev)
+    torch.cuda.synchronize()
+    fine_s = time.perf_counter() - t0
+    _native.reset_native_paths()
+    setups = []
+    for _ in range(2):  # cold, then warm: what a user pays a matrix of a sequence
+        t0 = time.perf_counter()
+        M = kt.AMGPreconditioner.from_scipy(lap0, dtype=np.float32, fine_operator=Ap0,
+                                            device=dev)
+        torch.cuda.synchronize()
+        setups.append(time.perf_counter() - t0)
+    paths = {k: dict(v) for k, v in _native.NATIVE_PATHS.items()}
+    log(f"  [{card}] amg_fine_op_build_s {fine_s:.3f}, amg_setup_cold_s {setups[0]:.3f}, "
+        f"amg_setup_s {setups[1]:.3f}; phases of the warm set-up (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in M.setup_seconds.items()))
+    log(f"  native set-up routes (two set-ups): {paths}")
+    for helper in ("amg_pairwise_labels", "amg_rap"):
+        assert paths[helper]["native"] > 0 and paths[helper]["numpy"] == 0, \
+            f"{helper} fell back to numpy: the native build failed"
+    assert M._ops[0] is Ap0
+    log(f"  amg_levels {list(M.level_sizes)} (the reference on the TPU: {list(REF_AMG_LEVELS)}); "
+        "level operators: " + ", ".join(
+            f"{type(op).__name__}"
+            + (f" ({op.nnz} nnz{', RCM' if getattr(op, '_perm', None) is not None else ''})"
+               if hasattr(op, "nnz") else "") for op in M._ops)
+        + "; prolongators: " + ", ".join(type(p).__name__ for p in M._phats))
+    assert isinstance(M._ops[1], sv.PETOperator), "the first coarse level must take K10/K11"
+
+    # K10 and K11 on every level and prolongator the cycle routes to them
+    for label, op in ([(f"level {i}", o) for i, o in enumerate(M._ops)]
+                      + [(f"P_hat {i}", p) for i, p in enumerate(M._phats)]):
+        if not isinstance(op, sv.PETOperator):
+            continue
+        sides = [(False, op._csr)] + ([(True, op._csr_t)] if op._csr_t is not None else [])
+        for adjoint, csr in sides:
+            m = csr.shape[1]
+            for v, key in ((torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev),
+                            "csr_matvec"),
+                           (torch.from_numpy(rng.standard_normal((m, 8)).astype(np.float32))
+                            .to(dev), "csr_matmat")):
+                got = op.rmatvec(v) if adjoint else op @ v
+                torch.cuda.synchronize()
+                errs[key] = max(errs[key], rel_close(
+                    f"{'K10' if v.ndim == 1 else 'K11 k=8'} AMG {label}"
+                    f"{' adjoint' if adjoint else ''} {csr.shape}", got,
+                    pet_plain(sv, op, csr, v), 1e-5))
+
+    # the same hierarchy on plain CSR levels: one cycle of each at the f32 band
+    with mock.patch.object(_operators, "_pet_device", lambda device: False):
+        plain = kt.AMGPreconditioner.from_scipy(lap0, dtype=np.float32, device=dev)
+    assert plain.level_sizes == M.level_sizes
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    R = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(dev)
+    rel_close("V-cycle on K10 levels vs plain CSR levels", M @ r, plain @ r, 1e-4)
+    rel_close("V-cycle on K11 levels vs plain CSR levels, k=8", M @ R, plain @ R, 1e-4)
+    del plain
+
+    per_cycle = cycle_launches(M, sv)
+    sv.reset_launches()
+    M @ r
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["csr_matvec"] == per_cycle, (dict(sv.LAUNCHES), per_cycle)
+
+    def solve(B, Mx=M):
+        return kt.cg(Ap0, B, M=Mx, tol=1e-4, maxiter=60, backend="while_loop")
+
+    for smoother in ("jacobi", "chebyshev"):
+        Mx = M if smoother == "jacobi" else kt.AMGPreconditioner.from_scipy(
+            lap0, dtype=np.float32, fine_operator=Ap0, smoother="chebyshev", device=dev)
+        per = cycle_launches(Mx, sv)
+        sv.reset_launches()
+        _, info = solve(b, Mx)
+        torch.cuda.synchronize()
+        n10 = sv.LAUNCHES["csr_matvec"]
+        res = host_residual(lap0, b, info.xk)
+        log(f"  cg + AMG ({smoother}): success {info.success}, {info.numsteps} iterations, "
+            f"K10 launches {n10} ({per} a V-cycle), float64 host residual {res:.3e} "
+            f"(bound {HOST_RTOL:g})")
+        assert info.success and res <= HOST_RTOL, smoother
+        assert n10 >= (info.numsteps + 1) * per + info.numsteps, (n10, per)
+        launches["csr_matvec"] += n10
+        wall, (_, again) = best_wall(lambda: solve(b, Mx))
+        log(f"  [{card}] cg_amg_ms {wall * 1e3:.2f} ({smoother}; best of 3), cg_amg_iters "
+            f"{again.numsteps}, cg_amg_converged {again.success}")
+        idle_line(card, f"cg + AMG ({smoother})", lambda: solve(b, Mx))
+        if smoother == "jacobi":
+            idle_line(card, "one V-cycle", lambda: M @ r)
+    del Mx
+
+    log(f"  blocked right-hand side ({n}, 8): K11 on every level")
+    B = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(dev)
+    sv.reset_launches()
+    _, info = solve(B)
+    torch.cuda.synchronize()
+    n11 = sv.LAUNCHES["csr_matmat"]
+    res = host_residual(lap0, B, info.xk)
+    log(f"  cg + AMG, k=8: success {info.success}, {info.numsteps} iterations, K11 launches "
+        f"{n11}, K10 launches {sv.LAUNCHES['csr_matvec']}, float64 host residual (worst "
+        f"column) {res:.3e}")
+    assert info.success and res <= HOST_RTOL and n11 >= (info.numsteps + 1) * per_cycle
+    launches["csr_matmat"] += n11
+    wall, _ = best_wall(lambda: solve(B))
+    log(f"  [{card}] cg + AMG k=8: {wall * 1e3:.2f} ms (best of 3)")
+    return lap0, Ap0, b
+
+
+def phase_ilu(dev, kt, sv, card, launches):
+    """9d: ILU(0) solves at PREC_NPG^2 and the set-up at NPG^2 with both
+    level passes."""
+    from unittest import mock
+
+    from krylov_tpu_torch.ops import _native
+    from krylov_tpu_torch.ops import triangular as tri
+
+    g = PREC_NPG
+    log(f"phase 9d: ILU(0) at {g}^2 (true grids: convected shifted poisson, unshifted poisson)")
+    rng = np.random.default_rng(SEED + 91)
+    conv, spd = grid_csr(g, 0.5, 0.4), grid_csr(g)
+    b = torch.from_numpy(rng.standard_normal(g * g).astype(np.float32)).to(dev)
+    _native.reset_native_paths()
+    t0 = time.perf_counter()
+    Mconv = kt.ILUPreconditioner.from_scipy(conv, device=dev)
+    Mspd = kt.ILUPreconditioner.from_scipy(spd, device=dev)
+    torch.cuda.synchronize()
+    log(f"  [{card}] two ILU(0) set-ups at {g}^2: {time.perf_counter() - t0:.3f} s; levels "
+        f"{Mconv.nlevels}, {Mspd.nlevels}; native routes {_native.NATIVE_PATHS}")
+    for helper in ("ilu0_factor", "tri_levels"):
+        assert _native.NATIVE_PATHS[helper]["numpy"] == 0, f"{helper} fell back to numpy"
+    want = kt.ILUPreconditioner.from_scipy(conv, device="cpu") @ b.cpu()
+    rel_close("ILU(0) application on the card vs the CPU", Mconv @ b, want.to(dev), 1e-4)
+    idle_line(card, f"one ILU(0) application ({sum(Mconv.nlevels)} levels)", lambda: Mconv @ b)
+    for label, sp, solver, key, M, maxiter in (
+        ("bicgstab Ml=ILU(0)", conv, kt.bicgstab, "Ml", Mconv, 200),
+        ("gmres Ml=ILU(0)", conv, kt.gmres, "Ml", Mconv, 120),
+        ("cg M=ILU(0)", spd, kt.cg, "M", Mspd, 400),
+    ):
+        assert isinstance(kt.as_operator(sp, dev), sv.PETOperator)
+        op = kt.as_operator(sp, dev)
+        sv.reset_launches()
+        t0 = time.perf_counter()
+        _, info = solver(op, b, tol=1e-4, maxiter=maxiter, backend="while_loop", **{key: M})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = host_residual(sp, b, info.xk)
+        n10 = sv.LAUNCHES["csr_matvec"]
+        log(f"  [{card}] {label}: success {info.success}, {info.numsteps} iterations, "
+            f"{wall * 1e3:.1f} ms, K10 launches {n10}, float64 host residual {res:.3e}")
+        assert info.success and res <= HOST_RTOL and n10 >= info.numsteps, label
+        launches["csr_matvec"] += n10
+    del Mconv, Mspd
+
+    big = grid_csr(NPG)
+    times = {}
+    for route in ("native", "numpy"):
+        with mock.patch.object(tri._native, "tri_levels_native",
+                               tri._native.tri_levels_native if route == "native"
+                               else (lambda sp, lower: None)):
+            t0 = time.perf_counter()
+            Mb = kt.ILUPreconditioner.from_scipy(big, device=dev)
+            torch.cuda.synchronize()
+            times[route] = (time.perf_counter() - t0, Mb)
+    (tn, Mn), (tp, Mp) = times["native"], times["numpy"]
+    assert Mn.nlevels == Mp.nlevels == (2 * NPG - 1, 2 * NPG - 1)
+    assert torch.equal(Mn._l.rows, Mp._l.rows) and torch.equal(Mn._u.lrow, Mp._u.lrow)
+    log(f"  [{card}] ILU(0) set-up at {NPG}^2 ({big.shape[0]} rows, {Mn.nlevels} levels): "
+        f"{tn:.3f} s with the native level pass, {tp:.3f} s with the numpy frontier pass")
+
+
+def phase_block_jacobi(dev, kt, sv, card, launches, lap0, Ap0, b):
+    """9e: block Jacobi (block=64) against point Jacobi on the bench's
+    unshifted poisson, and line against point Jacobi on an anisotropic
+    poisson.  On the unshifted poisson a float32 cg stalls short of 1e-4 of
+    |b| (the bench's 1500-step Jacobi cell never gets there), so these
+    solves go to BJ_TOL."""
+    log(f"phase 9e: block Jacobi (block=64) and point Jacobi as M of cg on the unshifted "
+        f"poisson {NPG}^2, to {BJ_TOL:g}")
+    t0 = time.perf_counter()
+    Mb = kt.BlockJacobiPreconditioner.from_scipy(lap0, block=64, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 92)
+    r = torch.from_numpy(rng.standard_normal(lap0.shape[0]).astype(np.float32)).to(dev)
+    want = kt.BlockJacobiPreconditioner.from_scipy(lap0, block=64, device="cpu") @ r.cpu()
+    rel_close("block Jacobi application on the card vs the CPU", Mb @ r, want.to(dev), 1e-5)
+    log(f"  [{card}] block Jacobi set-up {setup:.3f} s ({Mb._inv.shape[0]} inverses of 64^2, "
+        f"{Mb._inv.numel() * 4 / 1e6:.0f} MB)")
+    # one batched product: CUDA events around a loop and a replayed graph
+    # (the profiler records no kernel of it on this card's stack)
+    loop, graph = time_ms(lambda: Mb @ r, 20), graph_ms(lambda: Mb @ r)
+    log(f"  [{card}] one block-Jacobi application: {graph * 1e3:.1f} us in a CUDA graph, "
+        f"{loop * 1e3:.1f} us in a Python loop (bound "
+        f"{(Mb._inv.numel() + 2 * r.numel()) * 4 / HBM_BYTES_PER_S * 1e6:.1f} us: the "
+        f"inverses and two vectors once)")
+    point = kt.DiagonalOperator(torch.from_numpy(1.0 / lap0.diagonal()).to(dev))
+    for label, M in (("block", Mb), ("point", point)):
+        sv.reset_launches()
+        t0 = time.perf_counter()
+        _, info = kt.cg(Ap0, b, M=M, tol=BJ_TOL, maxiter=3000, backend="while_loop")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n10 = sv.LAUNCHES["csr_matvec"]
+        res = host_residual(lap0, b, info.xk)
+        log(f"  [{card}] cg + {label} Jacobi: success {info.success}, {info.numsteps} "
+            f"iterations, {wall * 1e3:.1f} ms ({wall / info.numsteps * 1e6:.1f} us a step), K10 "
+            f"launches {n10}, float64 host residual {res:.3e}")
+        assert n10 >= info.numsteps, label
+        if label == "block":  # point Jacobi is printed beside it, not held
+            assert info.success and res <= 5 * BJ_TOL, label
+        launches["csr_matvec"] += n10
+    del Mb
+
+    g = PREC_NPG
+    log(f"  line Jacobi (block = {g}) against point Jacobi on the anisotropic poisson {g}^2, "
+        f"eps 100 along the lines, to 1e-4")
+    an = aniso_csr(g)
+    op = kt.as_operator(an, dev)
+    assert isinstance(op, sv.PETOperator)
+    b2 = torch.from_numpy(rng.standard_normal(g * g).astype(np.float32)).to(dev)
+    steps = {}
+    for label, M in (("line", kt.BlockJacobiPreconditioner.from_scipy(an, block=g, device=dev)),
+                     ("point", kt.DiagonalOperator(
+                         torch.from_numpy(1.0 / an.diagonal()).to(dev)))):
+        sv.reset_launches()
+        t0 = time.perf_counter()
+        _, info = kt.cg(op, b2, M=M, tol=1e-4, maxiter=20000, backend="while_loop")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = host_residual(an, b2, info.xk)
+        steps[label] = info.numsteps
+        log(f"  [{card}] cg + {label} Jacobi: success {info.success}, {info.numsteps} "
+            f"iterations, {wall * 1e3:.1f} ms, float64 host residual {res:.3e}")
+        launches["csr_matvec"] += sv.LAUNCHES["csr_matvec"]
+        if label == "line":  # point Jacobi may stall short of 1e-4 in float32
+            assert info.success and res <= HOST_RTOL, label
+    assert steps["line"] * 4 < steps["point"], steps
+
+
+def phase_preconditioners(dev, kt, sv, card):
+    """Phase 9.  Returns the launches of K10 and K11 on its paths and the
+    worst errors of its kernel checks."""
+    launches = {"csr_matvec": 0, "csr_matmat": 0}
+    errs = {"csr_matvec": 0.0, "csr_matmat": 0.0}
+    lap0, Ap0, b = phase_amg(dev, kt, sv, card, launches, errs)
+    phase_block_jacobi(dev, kt, sv, card, launches, lap0, Ap0, b)
+    del Ap0
+    phase_ilu(dev, kt, sv, card, launches)
+    return launches, errs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -2008,6 +2367,10 @@ def main():
     phase_device_rule(kt, cs, sv, st)
     for k, n in phase_stationary(dev, kt, cs, sv, st, card).items():
         launches[k] += n
+    n_prec, prec_errs = phase_preconditioners(dev, kt, sv, card)
+    for k, n in n_prec.items():
+        launches[k] += n
+        errs[k] = max(errs[k], prec_errs[k])
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 

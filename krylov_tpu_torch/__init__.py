@@ -30,8 +30,11 @@ normal-equation solvers :func:`cgne`, :func:`cgnr` and :func:`lsqr`,
 the stationary methods :func:`richardson`, :func:`jacobi`,
 :func:`gauss_seidel`, :func:`sor` and :func:`ssor` with
 :class:`SSORSmoother` (grid, level-scheduled and dense triangular sweeps),
-the analysis utilities (:mod:`krylov_tpu_torch.utils`) and
-:class:`ChebyshevPreconditioner`.
+the analysis utilities (:mod:`krylov_tpu_torch.utils`) and the
+preconditioners on general sparsity: :class:`ChebyshevPreconditioner`,
+:class:`BlockJacobiPreconditioner`, :class:`ILUPreconditioner` and the
+smoothed-aggregation :class:`AMGPreconditioner` (their host set-up in numpy
+and in the native helpers of :mod:`krylov_tpu_torch.ops._native`).
 """
 
 from . import convert, ops, utils
@@ -46,6 +49,7 @@ from ._operators import (
     as_operator,
     jacobi_preconditioner,
 )
+from .amg import AMGPreconditioner
 from .arnoldi import (
     ArnoldiCGS,
     ArnoldiHouseholder,
@@ -53,9 +57,11 @@ from .arnoldi import (
     ArnoldiMGS,
     arnoldi_res,
 )
+from .blockjacobi import BlockJacobiPreconditioner
 from .errors import ArgumentError
 from .givens import givens
 from .householder import Householder
+from .ilu import ILUPreconditioner
 from .multigrid import MultigridPreconditioner
 from .ops.stencil import poisson_2d_const, poisson_3d_const
 from .solvers import (
@@ -90,14 +96,17 @@ from .solvers import (
 aslinearoperator = as_operator  # the reference's alias
 
 __all__ = [
+    "AMGPreconditioner",
     "ArgumentError",
     "ArnoldiCGS",
     "ArnoldiHouseholder",
     "ArnoldiLanczos",
     "ArnoldiMGS",
+    "BlockJacobiPreconditioner",
     "ChebyshevPreconditioner",
     "DiagonalOperator",
     "Householder",
+    "ILUPreconditioner",
     "Identity",
     "Info",
     "MatrixOperator",

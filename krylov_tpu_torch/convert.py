@@ -12,11 +12,15 @@ import torch
 
 from . import _device
 from ._operators import ChebyshevPreconditioner, DiagonalOperator, MatrixOperator
+from .amg import AMGPreconditioner
+from .blockjacobi import BlockJacobiPreconditioner
+from .ilu import ILUPreconditioner
 from .multigrid import MultigridPreconditioner
 from .ops.bsr import BSROperator
 from .ops.cuda_spmv import PETOperator
 from .ops.sparse import CSROperator, DiaOperator
 from .ops.stencil import BandedOperator, ConstStencilOperator, GridStencilOperator
+from .ops.triangular import StackedTriangularSweep
 
 
 def _tensor(arr, device):
@@ -35,14 +39,34 @@ def grid_stencil_from_numpy(coeffs2d, offsets, ny, hermitian=False, device=None)
     )
 
 
+def _optional(arr, device):
+    return None if arr is None else _tensor(arr, device)
+
+
+def _perm(arr, device):
+    return None if arr is None else _tensor(arr, device).long()
+
+
+def _sweep_from_reference(sw, device):
+    return StackedTriangularSweep(*(_tensor(a, device) for a in (
+        sw.rows, sw.diag, sw.dat, sw.col, sw.lrow)), sw.n_local)
+
+
 def from_reference(op, device=None, source=None):
     """The port's twin of a reference ``MultigridPreconditioner``,
-    ``ConstStencilOperator``, ``GridStencilOperator``, ``BandedOperator``,
-    ``CSROperator``, ``DiaOperator``, ``BSROperator``, ``PETOperator``,
-    ``MatrixOperator``, ``DiagonalOperator`` or ``ChebyshevPreconditioner``
-    (its operator converted, the same interval and degree).  An
-    ``SSORSmoother`` holds closures, not arrays: rebuild it from the
-    converted operator.
+    ``AMGPreconditioner``, ``ILUPreconditioner``,
+    ``BlockJacobiPreconditioner``, ``ConstStencilOperator``,
+    ``GridStencilOperator``, ``BandedOperator``, ``CSROperator``,
+    ``DiaOperator``, ``BSROperator``, ``PETOperator``, ``MatrixOperator``,
+    ``DiagonalOperator`` or ``ChebyshevPreconditioner`` (its operator
+    converted, the same interval and degree).  An ``SSORSmoother`` holds
+    closures, not arrays: rebuild it from the converted operator.
+
+    An AMG hierarchy comes across level by level (each level operator and
+    tentative prolongator through these same branches, the Jacobi vectors,
+    the coarse inverse or the coarse fallback, the ``lmax`` estimates, the
+    prolongator weights and the smoother); ILU as its two level-scheduled
+    sweeps, permutations and adjoint; block Jacobi as its inverses.
 
     A multigrid cycle comes across level by level as the reference built
     it: each level's operator, its Jacobi weight (a float on const levels,
@@ -52,6 +76,23 @@ def from_reference(op, device=None, source=None):
     the scipy matrix ``source`` (or the reference's lazy-adjoint handle to
     it) with the reference's value dtype, adjoint and permutation.
     """
+    if hasattr(op, "_phats") and hasattr(op, "_dinvs"):
+        return AMGPreconditioner(
+            [from_reference(level, device) for level in op._ops],
+            [from_reference(p, device) for p in op._phats],
+            [_tensor(d, device) for d in op._dinvs], _optional(op._coarse_inv, device),
+            op.smooth, op.omega, smoother=op.smoother, lmaxs=op._lmaxs,
+            coarse_op=None if op._coarse_op is None else from_reference(op._coarse_op, device),
+            coarse_dinv=_optional(op._coarse_dinv, device), p_w=op._p_w)
+    if hasattr(op, "_l") and hasattr(op, "_u") and hasattr(op, "_adj"):
+        adj = None if op._adj is None else (
+            _sweep_from_reference(op._adj[0], device), _sweep_from_reference(op._adj[1], device),
+            _perm(op._adj[2], device), _perm(op._adj[3], device))
+        return ILUPreconditioner(_sweep_from_reference(op._l, device),
+                                 _sweep_from_reference(op._u, device),
+                                 _perm(op._ipr, device), _perm(op._pc, device), adj=adj)
+    if hasattr(op, "_inv") and hasattr(op, "block"):
+        return BlockJacobiPreconditioner(_tensor(op._inv, device), op.shape[0])
     if hasattr(op, "lmin") and hasattr(op, "degree") and hasattr(op, "A"):
         return ChebyshevPreconditioner(from_reference(op.A, device, source),
                                        (op.lmin, op.lmax), op.degree)

@@ -440,9 +440,10 @@ class PETOperator:
         return 1.0
 
     def _apply(self, csr, x):
-        if x.ndim not in (1, 2) or x.shape[0] != self.shape[1]:
-            raise ValueError(f"x of shape {tuple(x.shape)} does not match the operator's "
-                             f"{self.shape}")
+        # csr is the matrix's or its adjoint's: x has as many rows as it has columns
+        if x.ndim not in (1, 2) or x.shape[0] != csr.shape[1]:
+            raise ValueError(f"x of shape {tuple(x.shape)} does not match the "
+                             f"{'operator' if csr is self._csr else 'adjoint'}'s {csr.shape}")
         x = x.to(torch.float32)
         if self._perm is not None:
             x = x.index_select(0, self._perm)

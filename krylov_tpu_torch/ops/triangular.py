@@ -4,13 +4,16 @@ sweeps of a stencil's triangle, and level-scheduled sparse ones.
 
 The reference has no TPU kernel here and the port no CUDA one: every step
 is plain PyTorch on the tensors' own device.  scipy is imported inside the
-functions that decompose a factor on the host.
+functions that decompose a factor on the host; the dependency levels come
+from the native set-up helper (:mod:`._native`) where it is built, else
+from a numpy pass.
 """
 
 import numpy as np
 import torch
 
 from .. import _device
+from . import _native
 from .sparse import _segment_sum
 
 
@@ -221,7 +224,11 @@ def level_arrays(sp_tri, lower=True, max_levels=1024):
     n = sp.shape[0]
     indptr, indices, data = sp.indptr, sp.indices, sp.data
 
-    level, nlev = _dependency_levels(indptr, indices, n, lower, max_levels)
+    level = _native.tri_levels_native(sp, lower)  # one O(nnz) pass in C++
+    if level is not None:
+        nlev = int(level.max()) + 1 if n else 1
+    else:  # the numpy frontier pass: fallback and ground truth
+        level, nlev = _dependency_levels(indptr, indices, n, lower, max_levels)
     if nlev > max_levels:
         raise NotImplementedError(
             f"triangular factor has more than {max_levels} dependency levels; "

@@ -700,3 +700,89 @@ def test_inputs_without_a_device_land_on_the_card(dev):
     assert info.xk.is_cuda and cs.LAUNCHES["cg_fused_phase_a_var"] == 5
     with pytest.raises((RuntimeError, ValueError)):
         kt.cg_stencil(A, torch.ones(A.grid))  # a CPU tensor is not moved to the card
+
+
+# --- the sparse preconditioners: AMG on K10/K11 levels, ILU, block Jacobi ----
+
+
+def _level_launches(M):
+    """K10 launches of one V(s, s) cycle with a smoothed prolongator: on a
+    PETOperator level, the smoothing (Jacobi: s - 1 products from zero and s
+    after; Chebyshev: s and s + 1), the residual and two in the transfers;
+    on a PETOperator prolongator two (forward and adjoint)."""
+    from krylov_tpu_torch.ops.cuda_spmv import PETOperator
+
+    per_level = 2 * M.smooth + (2 if M.smoother == "jacobi" else 4)
+    return sum(per_level * isinstance(op, PETOperator) + 2 * isinstance(p, PETOperator)
+               for op, p in zip(M._ops, M._phats))
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_amg_cycle_on_the_kernels_matches_plain_levels(dev, smoother):
+    """The same float32 hierarchy twice: its large levels on K10/K11
+    (``PETOperator``) and on plain CSR levels; one V-cycle of each agrees at
+    the float32 band, and the kernel launches are counted."""
+    from unittest import mock
+
+    from krylov_tpu_torch import _operators
+    from krylov_tpu_torch.ops import _native
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    sp = _shifted_poisson_f32(256, shift=0.0)
+    _native.reset_native_paths()
+    M = kt.AMGPreconditioner.from_scipy(sp, dtype=np.float32, smoother=smoother, device=dev)
+    assert _native.NATIVE_PATHS["amg_pairwise_labels"]["numpy"] == 0
+    with mock.patch.object(_operators, "_pet_device", lambda device: False):
+        plain = kt.AMGPreconditioner.from_scipy(sp, dtype=np.float32, smoother=smoother,
+                                                device=dev)
+    assert all(isinstance(op, CSROperator) for op in plain._ops + plain._phats)
+    assert M.level_sizes == plain.level_sizes and M.device == dev
+    expected = _level_launches(M)
+    assert expected >= 8  # at least the fine level and its prolongator
+    r = _rand(sp.shape[0], dev, torch.float32, 30)
+    sv.reset_launches()
+    z = M @ r
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["csr_matvec"] == expected and sv.LAUNCHES["csr_matmat"] == 0
+    want = plain @ r
+    torch.testing.assert_close(z, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    R = _rand((sp.shape[0], 4), dev, torch.float32, 31)
+    sv.reset_launches()
+    Z = M @ R
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["csr_matmat"] == expected and sv.LAUNCHES["csr_matvec"] == 0
+    want = plain @ R
+    torch.testing.assert_close(Z, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    b = r.double().cpu().numpy()
+    x, info = kt.cg(sp, r, M=M, tol=1e-5, maxiter=60, backend="while_loop")
+    assert info.success and x.device == dev and info.numsteps <= 15
+    res = b - sp.astype(np.float64) @ x.double().cpu().numpy()
+    assert np.linalg.norm(res) <= 1e-4 * np.linalg.norm(b)
+
+
+def test_ilu_and_block_jacobi_on_the_card_match_the_cpu(dev):
+    """One application of ILU(0) (both sweeps), of its adjoint and of block
+    Jacobi on the card against the same preconditioner on the CPU."""
+    import scipy.sparse
+
+    g = 256
+    n = g * g
+    # the convected shifted Poisson on a true grid: no coupling across grid
+    # rows, so ILU(0)'s levels are the wavefront (2 g - 1), not a chain of n
+    side = np.ones(n - 1)
+    side[g - 1::g] = 0.0
+    A = scipy.sparse.diags([-np.ones(n - g), -1.4 * side, 4.5 * np.ones(n), -0.6 * side,
+                            -np.ones(n - g)], [-g, -1, 0, 1, g], format="csr", dtype=np.float32)
+    r = _rand(g * g, dev, torch.float32, 32)
+    R = _rand((g * g, 3), dev, torch.float32, 33)
+    for build in (lambda d: kt.ILUPreconditioner.from_scipy(A, with_rmatvec=True, device=d),
+                  lambda d: kt.BlockJacobiPreconditioner.from_scipy(A, block=64, device=d),
+                  lambda d: kt.BlockJacobiPreconditioner.from_scipy(A, block=g, device=d)):
+        M, Mc = build(dev), build("cpu")
+        assert M.device == dev and M.dtype == torch.float32
+        for v in (r, R):
+            for got, want in ((M @ v, Mc @ v.cpu()), (M.rmatvec(v), Mc.rmatvec(v.cpu()))):
+                assert got.device == dev and got.shape == v.shape
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                           atol=1e-5 * float(want.abs().max()))

@@ -254,9 +254,27 @@ def test_port_imports_neither_jax_nor_reference():
         "import sys, krylov_tpu_torch, krylov_tpu_torch.convert, "
         "krylov_tpu_torch.ops.cuda_stencil, krylov_tpu_torch._build, "
         "krylov_tpu_torch.multigrid, krylov_tpu_torch.utils, "
-        "krylov_tpu_torch.solvers.stationary, krylov_tpu_torch.ops.triangular; "
+        "krylov_tpu_torch.solvers.stationary, krylov_tpu_torch.ops.triangular, "
+        "krylov_tpu_torch.amg, krylov_tpu_torch.ilu, krylov_tpu_torch.blockjacobi, "
+        "krylov_tpu_torch.ops._native; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'krylov_tpu', 'triton', 'scipy')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    # building and applying the sparse preconditioners (host set-up in scipy
+    # and the port's own native helpers) loads neither either
+    code = (
+        "import sys, numpy as np, scipy.sparse, torch, krylov_tpu_torch as kt; "
+        "kt.set_default_device('cpu'); "
+        "A = scipy.sparse.diags([-1., -1., 4., -1., -1.], [-30, -1, 0, 1, 30], "
+        "shape=(900, 900), format='csr'); r = torch.ones(900, dtype=torch.float64); "
+        "[M @ r for M in (kt.AMGPreconditioner.from_scipy(A, coarse_size=50), "
+        "kt.ILUPreconditioner.from_scipy(A), kt.BlockJacobiPreconditioner.from_scipy(A))]; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'krylov_tpu', 'triton')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
