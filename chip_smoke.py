@@ -78,6 +78,19 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    of ``bicgstab`` and ``gmres`` and as ``M`` of ``cg`` at 256^2, and its
    set-up at 1024^2 with the native and the numpy level pass; every solve
    held to its float64 residual on the host;
+10. differentiable solves and profiling: (a) ``diffable.solve`` (``cg``,
+   Jacobi ``M``) on the lognormal ``diffusion_2d(4096)`` f32 with ``b = A
+   x*`` to 1e-6, its forward and backward wall times and the parameter
+   VJP's share, ``b``'s gradient held to its adjoint residual in float64
+   on the host, the coefficient gradient's directional derivative to a
+   central difference (5e-2, the reference's on-chip band), ``<grad, c> =
+   -L``; the same at 1024^2 in float64 on the card (1e-5); (b) K1's
+   gradient at 4096^2 against autograd through its plain version; (c)
+   ``gmres`` through the bench's 1M-row convected CSR (``PETOperator``, K10
+   forward and adjoint); (d) the default leaves of 6c's ``BSROperator``
+   (K12 and its data gradient against the plain one); (e)
+   ``profiling.roofline_report`` for K1 with the card's published
+   bandwidth, and ``profiling.trace`` around a solve, which must name K1;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -2322,6 +2335,248 @@ def phase_preconditioners(dev, kt, sv, card):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: differentiable solves (diffable) and profiling
+
+DIFF_TOL = 1e-6  # the forward and adjoint solves' tolerance at BIG^2, float32
+FD_BAND = 5e-2  # the reference's own on-chip band for a directional derivative
+ADJ_RES = 1e-4  # float64 host residual of the float32 adjoint solution
+DIFF_F64_TOL = 1e-11  # the float64 solves at MID^2
+FD_BAND_F64 = 1e-5
+
+
+def lognormal_field(n, seed):
+    return np.exp(np.random.default_rng(seed).standard_normal((n, n)))
+
+
+def f64_loss(w, x):
+    """``<w, x>`` summed in float64 on the device."""
+    return (w.double() * x.double()).sum()
+
+
+def stencil_gradient_case(dev, kt, cs, st, field, dtype, tol, maxiter, eps, seed, card):
+    """diffable.solve (cg, Jacobi M) on ``diffusion_2d(field)`` in ``dtype``
+    with ``b = A x*`` and the loss ``<w, x>``, ``w = A w*``: the wall times of the forward
+    and the backward pass, the share of the backward that is the parameter
+    VJP, the adjoint residual of ``b``'s gradient in float64 on the host,
+    and the coefficient gradient's directional derivative along a
+    symmetric direction (``diffusion_2d(field * z)``: the coefficients are
+    linear in the field) against a central difference of step ``eps``.
+    Returns K1's launches in the forward and backward passes, the relative
+    difference and the VJP's share."""
+    n = field.shape[0]
+    A0 = st.diffusion_2d(field.astype(dtype), device=dev)
+    M = kt.jacobi_preconditioner(A0)
+    rng = np.random.default_rng(seed)
+    xs, ws = (torch.from_numpy(rng.standard_normal(n * n).astype(dtype)).to(dev)
+              for _ in range(2))
+    # w = A ws: the adjoint solution is ws, as rough as x*, so the float32
+    # adjoint solve reaches 1e-6 as the forward one does (for a white-noise
+    # w, A^-1 w is smooth and large, and float32 stalls near 5e-5)
+    b, w = (A0 @ v for v in (xs, ws))
+    b.requires_grad_()
+    c = A0.coeffs2d.detach().clone().requires_grad_()
+    A = st.GridStencilOperator(c, None, A0.ny, hermitian=True,
+                               row_col_offsets=(A0.row_offsets, A0.col_offsets))
+    kw = dict(M=M, tol=tol, maxiter=maxiter)
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = kt.diffable.solve(A, b, **kw)
+    loss = f64_loss(w, x)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    n_fwd = cs.LAUNCHES["stencil2d_matvec"]
+    # the backward's adjoint solve alone, on this thread
+    t0 = time.perf_counter()
+    _, adj_info = kt.cg(A0, w, backend="while_loop", **kw)
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    n_bwd = cs.LAUNCHES["stencil2d_matvec"]
+    lam = b.grad
+    # the parameter VJP alone, as the backward pass runs it
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        leaf = c.detach().requires_grad_()
+        y = st.GridStencilOperator(leaf, None, A0.ny, hermitian=True,
+                                   row_col_offsets=(A0.row_offsets, A0.col_offsets)) @ x.detach()
+        vjp = torch.autograd.grad((y * -lam).sum(), leaf)[0]
+    torch.cuda.synchronize()
+    t_vjp = time.perf_counter() - t0
+    assert torch.equal(vjp, c.grad)
+    x_err = float(torch.linalg.norm(x.detach().double() - xs.double()) / torch.linalg.norm(xs.double()))
+
+    # b's gradient: the adjoint residual ||A^H lam - w|| / ||w|| in float64 on the host
+    Ah = st.GridStencilOperator(c.detach().double().cpu(), None, A0.ny, hermitian=True,
+                                row_col_offsets=(A0.row_offsets, A0.col_offsets))
+    w64 = w.double().cpu()
+    adj = float(torch.linalg.norm(Ah @ lam.double().cpu() - w64) / torch.linalg.norm(w64))
+    del Ah
+
+    z = np.random.default_rng(seed + 1).standard_normal(field.shape)
+    direction = st.diffusion_2d((field * z).astype(dtype), device=dev).coeffs2d
+    got = float((c.grad.double() * direction.double()).sum())
+    scale = float((c.grad.double() * c.detach().double()).sum())  # d/ds L(s c) = -L
+
+    def loss_at(cc):
+        with torch.no_grad():
+            A_ = st.GridStencilOperator(cc, None, A0.ny, hermitian=True,
+                                        row_col_offsets=(A0.row_offsets, A0.col_offsets))
+            return float(f64_loss(w, kt.diffable.solve(A_, b.detach(), **kw)))
+
+    cd = c.detach()
+    fd = (loss_at(cd + eps * direction) - loss_at(cd - eps * direction)) / (2 * eps)
+    rel = abs(got - fd) / abs(fd)
+    loss = float(loss.detach())
+    rel_scale = abs(scale + loss) / abs(loss)
+    share = t_vjp / t_bwd
+    log(f"  [{card}] diffusion_2d({n}) {np.dtype(dtype).name}, cg + Jacobi to {tol:g}: "
+        f"forward {t_fwd * 1e3:.1f} ms ({n_fwd} K1 launches), backward {t_bwd * 1e3:.1f} ms "
+        f"({n_bwd} K1 launches), parameter VJP {t_vjp * 1e3:.2f} ms = {share:.4f} of the "
+        f"backward; the adjoint solve alone {t_adj * 1e3:.1f} ms ({adj_info.numsteps} steps); "
+        f"|x - x*|/|x*| {x_err:.3e}")
+    log(f"  float64 host adjoint residual |A^H lam - w|/|w| {adj:.3e}; directional "
+        f"derivative {got:.8e} vs central difference (eps {eps:g}) {fd:.8e}: rel {rel:.3e}; "
+        f"<grad, c> {scale:.8e} vs -L {-loss:.8e}: rel {rel_scale:.3e}")
+    assert n_bwd > 0 and n_fwd > 0
+    return n_fwd + n_bwd, rel, rel_scale, adj, share
+
+
+def phase_diffable(dev, kt, cs, sv, bs, st, A_div, card):
+    """Phase 10.  Returns the launches of K1, K10 and K12 on its paths."""
+    import glob
+    import json
+    import os
+    import tempfile
+
+    launches = dict.fromkeys(("stencil2d_matvec", "csr_matvec", "bsr_spmm"), 0)
+    log(f"phase 10a: diffable.solve on the lognormal diffusion_2d({BIG}) (K1 forward, "
+        "adjoint and gradient)")
+    field = lognormal_field(BIG, SEED + 1)  # A_div's field
+    n, rel, rel_scale, adj, _ = stencil_gradient_case(
+        dev, kt, cs, st, field, np.float32, DIFF_TOL, 5000, 1e-2, SEED + 70, card)
+    launches["stencil2d_matvec"] += n
+    assert rel <= FD_BAND and rel_scale <= FD_BAND and adj <= ADJ_RES, (rel, rel_scale, adj)
+    del field
+    log(f"  at {MID}^2 in float64 on the card")
+    n, rel, rel_scale, adj, _ = stencil_gradient_case(
+        dev, kt, cs, st, lognormal_field(MID, SEED + 71), np.float64, DIFF_F64_TOL, 20000,
+        1e-4, SEED + 72, card)
+    launches["stencil2d_matvec"] += n
+    assert rel <= FD_BAND_F64 and rel_scale <= FD_BAND_F64 and adj <= 1e-8, (rel, rel_scale, adj)
+
+    log(f"phase 10b: K1's gradient at {BIG}^2 against autograd through its plain version")
+    rng = np.random.default_rng(SEED + 73)
+    ro, co = A_div.row_offsets, A_div.col_offsets
+    x = torch.from_numpy(rng.standard_normal((BIG, BIG)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((BIG, BIG)).astype(np.float32)).to(dev)
+    grads, secs = [], []
+    for fn in (cs.stencil2d_matvec, cs.stencil2d_matvec_plain):
+        cl, xl = A_div.coeffs2d.clone().requires_grad_(), x.clone().requires_grad_()
+        y = fn(cl, xl, ro, co)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (y * w).sum().backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        grads.append((cl.grad, xl.grad))
+    for name, got, want in zip(("coefficients", "x"), *grads):
+        check_close(f"K1 gradient to {name}, {BIG}^2 f32", got, want,
+                    atol=1e-5 * float(want.abs().max()))
+    log(f"  [{card}] backward wall: Function (K1 adjoint + torch) {secs[0] * 1e3:.2f} ms, "
+        f"autograd through the plain version {secs[1] * 1e3:.2f} ms")
+    del grads, x, w
+
+    log(f"phase 10c: gmres through the {NPG}^2 convected CSR (PETOperator: K10 forward and "
+        "adjoint)")
+    sp = convected_csr(NPG)
+    A = kt.as_operator(sp, dev)
+    assert type(A).__name__ == "PETOperator"
+    rng = np.random.default_rng(SEED + 74)
+    b = torch.from_numpy(rng.standard_normal(sp.shape[0]).astype(np.float32)).to(dev)
+    b.requires_grad_()
+    w = torch.from_numpy(rng.standard_normal(sp.shape[0]).astype(np.float32)).to(dev)
+    sv.reset_launches()
+    x = kt.diffable.solve(A, b, solver=kt.gmres, tol=1e-5, maxiter=200)
+    loss = f64_loss(w, x)
+    torch.cuda.synchronize()
+    n_fwd = sv.LAUNCHES["csr_matvec"]
+    loss.backward()
+    torch.cuda.synchronize()
+    n_bwd = sv.LAUNCHES["csr_matvec"] - n_fwd
+    launches["csr_matvec"] += n_fwd + n_bwd
+    sp64 = sp.astype(np.float64)
+    b64, x64, w64 = (t.detach().double().cpu().numpy() for t in (b, x, w))
+    lam = b.grad.double().cpu().numpy()
+    fwd = np.linalg.norm(b64 - sp64 @ x64) / np.linalg.norm(b64)
+    adj = np.linalg.norm(sp64.T @ lam - w64) / np.linalg.norm(w64)
+    log(f"  K10 launches: forward {n_fwd}, backward {n_bwd} (the adjoint's CSR); float64 "
+        f"host residuals: forward {fwd:.3e}, adjoint |A^T lam - w|/|w| {adj:.3e}")
+    assert n_fwd > 0 and n_bwd > 0 and fwd <= 1e-4 and adj <= 1e-4
+    del A, x, b
+
+    log(f"phase 10d: default leaves of the 6c BSROperator ({NBLK} blocks of 32x32; K12 and "
+        "its data gradient)")
+    from krylov_tpu_torch.ops.bsr import BSROperator
+
+    sp = block_spd_csr()
+    routed = kt.as_operator(sp, dev)
+    assert type(routed).__name__ == "BSROperator"
+    data = routed.data.detach().clone().requires_grad_()
+    A = BSROperator(data, routed.cols, routed.shape)
+    b = torch.from_numpy(rng.standard_normal(sp.shape[0]).astype(np.float32)).to(dev)
+    b.requires_grad_()
+    w = torch.from_numpy(rng.standard_normal(sp.shape[0]).astype(np.float32)).to(dev)
+    bs.reset_launches()
+    x = kt.diffable.solve(A, b, tol=1e-5, maxiter=300)
+    loss = f64_loss(w, x)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches["bsr_spmm"] += bs.LAUNCHES["bsr_spmm"]
+    with torch.enable_grad():
+        leaf = data.detach().requires_grad_()
+        y = bs.bsr_spmm_plain(leaf, A.cols, x.detach()[:, None])
+        want = torch.autograd.grad((y * -b.grad[:, None]).sum(), leaf)[0]
+    check_close("K12 data gradient on the solve's x and lambda", data.grad, want,
+                atol=1e-5 * float(want.abs().max()))
+    scale = float((data.grad.double() * data.detach().double()).sum())
+    loss = float(loss.detach())
+    rel_scale = abs(scale + loss) / abs(loss)
+    log(f"  K12 launches {bs.LAUNCHES['bsr_spmm']}; <grad, data> {scale:.8e} vs -L "
+        f"{-loss:.8e}: rel {rel_scale:.3e}")
+    assert bs.LAUNCHES["bsr_spmm"] > 0 and rel_scale <= FD_BAND
+    del A, data, x, b
+
+    log("phase 10e: profiling on the card")
+    peak = kt.profiling.peak_gbps()
+    xg = torch.from_numpy(np.random.default_rng(SEED + 75).standard_normal((BIG, BIG))
+                          .astype(np.float32)).to(dev)
+    ms = time_ms(lambda: A_div @ xg, 20)
+    rep = kt.profiling.roofline_report(A_div, ms * 1e-3)
+    log(f"  [{card}] K1 at {BIG}^2: {ms * 1e3:.1f} us; roofline_report {rep}")
+    assert np.isfinite(peak) and 0.0 < rep["fraction_of_roofline"] <= 1.0, rep
+    with tempfile.TemporaryDirectory() as logdir:
+        bg = torch.ones(A_div.grid, dtype=torch.float32, device=dev)
+        with kt.profiling.trace(logdir):
+            kt.cg(A_div, bg, inner=inner, tol=0.0, atol=0.0, maxiter=10, backend="while_loop")
+            torch.cuda.synchronize()
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        size = os.path.getsize(path)
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+    k1 = [nm for nm in names if "stencil2d_kernel" in nm]
+    log(f"  profiling.trace around cg (10 iterations): {size} bytes, {len(names)} kernel "
+        f"events, {len(k1)} of K1 ({k1[0][:60] if k1 else 'none'})")
+    assert len(k1) >= 10
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -2371,6 +2626,8 @@ def main():
     for k, n in n_prec.items():
         launches[k] += n
         errs[k] = max(errs[k], prec_errs[k])
+    for k, n in phase_diffable(dev, kt, cs, sv, bs, st, A_div, card).items():
+        launches[k] += n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 

@@ -34,10 +34,14 @@ the analysis utilities (:mod:`krylov_tpu_torch.utils`) and the
 preconditioners on general sparsity: :class:`ChebyshevPreconditioner`,
 :class:`BlockJacobiPreconditioner`, :class:`ILUPreconditioner` and the
 smoothed-aggregation :class:`AMGPreconditioner` (their host set-up in numpy
-and in the native helpers of :mod:`krylov_tpu_torch.ops._native`).
+and in the native helpers of :mod:`krylov_tpu_torch.ops._native`),
+differentiable solves (:mod:`krylov_tpu_torch.diffable`, gradients by the
+implicit function theorem through one adjoint solve) and
+:mod:`krylov_tpu_torch.profiling` (traces, timed solves, byte models and
+roofline shares).
 """
 
-from . import convert, ops, utils
+from . import convert, diffable, ops, profiling, utils
 from ._device import default_device, set_default_device
 from ._info import Info
 from ._operators import (
@@ -129,6 +133,7 @@ __all__ = [
     "chebyshev",
     "convert",
     "default_device",
+    "diffable",
     "fgmres",
     "gauss_seidel",
     "gcr",
@@ -141,6 +146,7 @@ __all__ = [
     "ops",
     "poisson_2d_const",
     "poisson_3d_const",
+    "profiling",
     "qmr",
     "refine",
     "richardson",

@@ -8,6 +8,12 @@ none goes to the package's default device, :mod:`._device`); ``rmatvec``
 copies.  scipy sparse matrices are routed to the sparse operators
 (``BSROperator``, ``PETOperator``, ``CSROperator``) as the reference routes
 them, through a cache keyed on the matrix, its content and the device.
+
+Every concrete operator also has the reference's pytree children
+(``tree_flatten()`` / ``tree_unflatten(aux, children)``), in the
+reference's order; :func:`tree_flatten` and :func:`tree_unflatten` walk
+nested operators with them, as :mod:`.diffable` does for an operator's
+default parameters.
 """
 
 import functools
@@ -16,6 +22,46 @@ import numpy as np
 import torch
 
 from . import _device
+
+_LEAF = object()  # the tree definition of a leaf
+
+
+def tree_flatten(op):
+    """``(leaves, treedef)`` of an operator, the counterpart of
+    ``jax.tree_util.tree_flatten`` over the reference's registered
+    operators: an object with a ``tree_flatten()`` method contributes its
+    children's leaves in order, ``None`` none, anything else (a tensor) is
+    one leaf."""
+    if op is None:
+        return [], None
+    if not hasattr(op, "tree_flatten"):
+        return [op], _LEAF
+    children, aux = op.tree_flatten()
+    leaves, defs = [], []
+    for child in children:
+        sub, d = tree_flatten(child)
+        leaves.extend(sub)
+        defs.append(d)
+    return leaves, (type(op), aux, tuple(defs))
+
+
+def tree_unflatten(treedef, leaves):
+    """The operator of ``treedef`` (from :func:`tree_flatten`) rebuilt on
+    ``leaves``."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d is _LEAF:
+            return next(it)
+        cls, aux, defs = d
+        return cls.tree_unflatten(aux, [build(c) for c in defs])
+
+    op = build(treedef)
+    if next(it, _LEAF) is not _LEAF:
+        raise ValueError("more leaves than the tree definition holds")
+    return op
 
 
 class Identity:
@@ -34,11 +80,21 @@ class Identity:
     def rmatvec(self, x):
         return x
 
+    def tree_flatten(self):
+        return (), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls()
+
 
 class Product:
     """Lazy operator composition, applied right-to-left.
 
-    ``Product(Ml, A, Mr) @ x == Ml @ (A @ (Mr @ x))``.
+    ``Product(Ml, A, Mr) @ x == Ml @ (A @ (Mr @ x))``.  Its shape runs from
+    the first shaped factor's rows to the last one's columns (``Identity``
+    has none), and ``rmatvec`` applies the factors' adjoints left to right,
+    so a product can be solved and differentiated (:mod:`.diffable`).
     """
 
     def __init__(self, *operators):
@@ -47,11 +103,41 @@ class Product:
             torch.promote_types, (op.dtype for op in operators)
         )
 
+    @property
+    def shape(self):
+        shapes = [op.shape for op in self.operators if hasattr(op, "shape")]
+        if not shapes:
+            raise AttributeError("a product of unshaped operators has no shape")
+        return (shapes[0][0], shapes[-1][-1])
+
+    @property
+    def device(self):
+        for op in self.operators:
+            dev = _device.device_of(op)
+            if dev is not None:
+                return dev
+        return None
+
     def __matmul__(self, x):
         out = x
         for op in self.operators[::-1]:
             out = op @ out
         return out
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        out = x
+        for op in self.operators:
+            out = op.rmatvec(out)
+        return out
+
+    def tree_flatten(self):
+        return self.operators, None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
 
 
 class MatrixOperator:
@@ -94,6 +180,13 @@ class MatrixOperator:
     def diagonal(self):
         return torch.diagonal(self.a)
 
+    def tree_flatten(self):
+        return (self.a,), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
+
 
 class DiagonalOperator:
     """Diagonal operator ``diag(d)`` — the Jacobi preconditioner shape.
@@ -132,6 +225,13 @@ class DiagonalOperator:
 
     def diagonal(self):
         return self.d.reshape(-1)
+
+    def tree_flatten(self):
+        return (self.d,), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
 
 
 def jacobi_preconditioner(A):
@@ -354,6 +454,14 @@ class ChebyshevPreconditioner:
     def rmatvec(self, r):
         # polynomial in a Hermitian A is Hermitian
         return self @ r
+
+    def tree_flatten(self):
+        return (self.A,), (self.lmin, self.lmax, self.degree)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        lmin, lmax, degree = aux
+        return cls(children[0], (lmin, lmax), degree)
 
 
 def as_operator(A, device=None):

@@ -11,7 +11,13 @@ import numpy as np
 import torch
 
 from . import _device
-from ._operators import ChebyshevPreconditioner, DiagonalOperator, MatrixOperator
+from ._operators import (
+    ChebyshevPreconditioner,
+    DiagonalOperator,
+    Identity,
+    MatrixOperator,
+    Product,
+)
 from .amg import AMGPreconditioner
 from .blockjacobi import BlockJacobiPreconditioner
 from .ilu import ILUPreconditioner
@@ -58,8 +64,9 @@ def from_reference(op, device=None, source=None):
     ``BlockJacobiPreconditioner``, ``ConstStencilOperator``,
     ``GridStencilOperator``, ``BandedOperator``, ``CSROperator``,
     ``DiaOperator``, ``BSROperator``, ``PETOperator``, ``MatrixOperator``,
-    ``DiagonalOperator`` or ``ChebyshevPreconditioner`` (its operator
-    converted, the same interval and degree).  An ``SSORSmoother`` holds
+    ``DiagonalOperator``, ``ChebyshevPreconditioner`` (its operator
+    converted, the same interval and degree), ``Product`` (each factor
+    converted) or ``Identity``.  An ``SSORSmoother`` holds
     closures, not arrays: rebuild it from the converted operator.
 
     An AMG hierarchy comes across level by level (each level operator and
@@ -76,6 +83,10 @@ def from_reference(op, device=None, source=None):
     the scipy matrix ``source`` (or the reference's lazy-adjoint handle to
     it) with the reference's value dtype, adjoint and permutation.
     """
+    if type(op).__name__ == "Identity":
+        return Identity()
+    if hasattr(op, "operators"):
+        return Product(*(from_reference(o, device, source) for o in op.operators))
     if hasattr(op, "_phats") and hasattr(op, "_dinvs"):
         return AMGPreconditioner(
             [from_reference(level, device) for level in op._ops],

@@ -77,17 +77,9 @@ class BSROperator:
     def rmatvec(self, x):
         """``A^H x``: the conjugate-transposed block products scattered into
         block columns (plain torch, as the reference's XLA form)."""
-        R, C = self.blocksize
-        nbrows, max_blocks = self.cols.shape
         x2 = x[:, None] if x.ndim == 1 else x
-        k = x2.shape[1]
-        dt = torch.promote_types(self.dtype, x2.dtype)
-        xb = x2.to(dt).reshape(nbrows, R, k).repeat_interleave(max_blocks, dim=0)
-        prod = torch.einsum("brc,brk->bck", self.data.to(dt).conj(), xb)
-        nbcols = self.shape[1] // C
-        out = torch.zeros((nbcols, C, k), dtype=dt, device=x.device)
-        out.index_add_(0, self.cols.reshape(-1).long(), prod)
-        out = out.reshape(nbcols * C, k)
+        out = cuda_bsr.bsr_spmm_adjoint_plain(self.data, self.cols, x2,
+                                              self.shape[1] // self.blocksize[1])
         return out[:, 0] if x.ndim == 1 else out
 
     def diagonal(self):
@@ -109,6 +101,13 @@ class BSROperator:
         brow = torch.arange(nbrows, device=self.device).repeat_interleave(max_blocks)
         out.index_put_((brow, self.cols.reshape(-1).long()), self.data, accumulate=True)
         return out.permute(0, 2, 1, 3).reshape(self.shape)
+
+    def tree_flatten(self):
+        return (self.data, self.cols), self.shape
+
+    @classmethod
+    def tree_unflatten(cls, shape, children):
+        return cls(*children, shape)
 
 
 def detect_blocksize(

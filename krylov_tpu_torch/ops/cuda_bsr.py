@@ -15,14 +15,21 @@ streams 32 rows of a block row through a ring in shared memory) where
 :func:`k12_streamed` says so, from type, shape and alignment alone, and the
 general one otherwise.  Each launch adds one to ``LAUNCHES["bsr_spmm"]`` and
 to the kernel's entry of ``K12_PATHS``.
+
+Gradients (:class:`_BsrSpmm`, on both devices): the data gradient is plain
+torch, block by block, as the reference's XLA autodiff; the ``X``
+gradient is the plain transposed product on the CPU, and on the card it
+is refused (a solve differentiates through ``b`` with
+:func:`krylov_tpu_torch.diffable.solve`, which needs none).
 """
 
 import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from .cuda_stencil import _CODES, _check, _on_cpu, _ptr, _require, _stream
+from .cuda_stencil import _CODES, _as_grad, _check, _on_cpu, _ptr, _require, _stream, _wants_grad
 
 LAUNCHES = {"bsr_spmm": 0}
 
@@ -88,10 +95,71 @@ def bsr_spmm_plain(data, cols, x):
     return prod.reshape(nbrows, max_blocks, R, k).sum(dim=1).reshape(nbrows * R, k)
 
 
+def bsr_spmm_data_grad(g, cols, x, R, C):
+    """K12's data gradient, plain torch: ``dd[r * max_blocks + s] =
+    G[block row r] @ X[block cols[r, s]]^H`` (``(R, C)`` a block), in
+    ``g``'s type."""
+    nbrows, max_blocks = cols.shape
+    k = x.shape[1]
+    gb = g.reshape(nbrows, 1, R, k).expand(nbrows, max_blocks, R, k).reshape(-1, R, k)
+    xg = x.to(g.dtype).reshape(-1, C, k).index_select(0, cols.reshape(-1).long())
+    return torch.einsum("brk,bck->brc", gb, xg.conj())
+
+
+def bsr_spmm_adjoint_plain(data, cols, g, nbcols):
+    """``A^H G`` for the ELL-padded BSR ``(data, cols)`` with ``nbcols``
+    block columns: the conjugate-transposed block products scattered into
+    block columns (``BSROperator.rmatvec``'s contraction)."""
+    nbrows, max_blocks = cols.shape
+    _, R, C = data.shape
+    k = g.shape[1]
+    dt = torch.promote_types(data.dtype, g.dtype)
+    gb = g.to(dt).reshape(nbrows, R, k).repeat_interleave(max_blocks, dim=0)
+    prod = torch.einsum("brc,brk->bck", data.to(dt).conj(), gb)
+    out = torch.zeros((nbcols, C, k), dtype=dt, device=g.device)
+    out.index_add_(0, cols.reshape(-1).long(), prod)
+    return out.reshape(nbcols * C, k)
+
+
+class _BsrSpmm(torch.autograd.Function):
+    """K12 with its gradient: the forward is the wrapper's launch (the
+    plain version on the CPU), the backward plain torch."""
+
+    @staticmethod
+    def forward(ctx, data, cols, x):
+        ctx.save_for_backward(data, cols, x)
+        return _bsr_spmm(data, cols, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        data, cols, x = ctx.saved_tensors
+        _, R, C = data.shape
+        d_data = d_x = None
+        if ctx.needs_input_grad[0]:
+            d_data = _as_grad(bsr_spmm_data_grad(g, cols, x, R, C), data)
+        if ctx.needs_input_grad[2]:
+            d_x = _as_grad(bsr_spmm_adjoint_plain(data, cols, g, x.shape[0] // C), x)
+        return d_data, None, d_x
+
+
 def bsr_spmm(data, cols, x):
     """K12: ``Y = A X``, ``x`` of shape ``(nbcols * C, k)``, ``Y`` of shape
     ``(nbrows * R, k)`` in ``promote_types(data, x)``.  :func:`k12_streamed`
-    says which of the two kernels a call takes; ``K12_PATHS`` counts them."""
+    says which of the two kernels a call takes; ``K12_PATHS`` counts them.
+    Differentiable in ``data`` on both devices and in ``x`` on the CPU; on
+    the card an ``x`` that requires a gradient raises."""
+    if _wants_grad(data, x):
+        if x.requires_grad and not _on_cpu(data, cols, x):
+            raise NotImplementedError(
+                "bsr_spmm: no gradient to X on the card; differentiate a solve "
+                "through b with krylov_tpu_torch.diffable.solve")
+        return _BsrSpmm.apply(data, cols, x)
+    return _bsr_spmm(data, cols, x)
+
+
+def _bsr_spmm(data, cols, x):
+    """K12's launch, or its plain version for CPU tensors."""
     if _on_cpu(data, cols, x):
         return bsr_spmm_plain(data, cols, x)
     dt = torch.promote_types(data.dtype, x.dtype)

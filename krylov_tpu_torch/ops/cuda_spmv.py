@@ -16,7 +16,10 @@ and float32 sums.  :class:`PETOperator` keeps the reference's name and its
 
 A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES[name]``; the plain versions count nothing.
+``LAUNCHES[name]``; the plain versions count nothing.  The kernels have no
+backward: on the card a wrapper raises a ``TypeError`` for an input that
+requires a gradient in grad mode (autograd differentiates the plain
+versions on the CPU).
 """
 
 import ctypes
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import _device
-from .cuda_stencil import _check, _on_cpu, _ptr, _require, _stream
+from .cuda_stencil import _check, _on_cpu, _ptr, _refuse_grad, _require, _stream
 from .sparse import _segment_sum
 
 LAUNCHES = {"csr_matvec": 0, "csr_matmat": 0}
@@ -160,6 +163,7 @@ def csr_matvec(indptr, indices, data, x, runs=None):
     the device, later calls with the same tensor copy nothing."""
     if _on_cpu(indptr, indices, data, x):
         return csr_matvec_plain(indptr, indices, data, x)
+    _refuse_grad("csr_matvec", data, x)
     _csr_checks(indptr, indices, data, x, 1)
     n = indptr.numel() - 1
     y = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -186,6 +190,7 @@ def csr_matmat(indptr, indices, data, X, lanes=None):
     32) overrides :func:`lanes_for`."""
     if _on_cpu(indptr, indices, data, X):
         return csr_matvec_plain(indptr, indices, data, X)
+    _refuse_grad("csr_matmat", data, X)
     _csr_checks(indptr, indices, data, X, 2)
     n, k = indptr.numel() - 1, X.shape[1]
     Y = torch.empty((n, k), dtype=torch.float32, device=X.device)
@@ -352,6 +357,17 @@ class _CSR:
             return csr_matvec(self.indptr, self.indices, self.data, x, self.runs)
         return csr_matmat(self.indptr, self.indices, self.data, x, self.lanes)
 
+    def tree_flatten(self):
+        return (self.indptr, self.indices, self.data, self.runs), (self.shape, self.nnz,
+                                                                   self.lanes)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        self = object.__new__(cls)
+        self.shape, self.nnz, self.lanes = aux
+        self.indptr, self.indices, self.data, self.runs = children
+        return self
+
 
 class PETOperator:
     """General-sparsity operator on the CSR kernels K10 and K11.
@@ -363,7 +379,16 @@ class PETOperator:
     symmetric ``reorder`` the operator holds ``B = A[perm][:, perm]`` and
     wraps the kernel in two ``index_select`` gathers, so callers see
     user-order semantics.
+
+    Its leaves (``tree_flatten``) are the CSR tensors of the matrix and of
+    its adjoint, the diagonal and the permutations: format arrays that the
+    kernels do not differentiate, so ``params_differentiable`` is False
+    and :func:`krylov_tpu_torch.diffable.solve` gives gradients through
+    ``b`` only, as the reference does for its PET kernel.  Flattening does
+    not build a lazy adjoint: call :meth:`ensure_adjoint` first.
     """
+
+    params_differentiable = False
 
     def __init__(self, csr, csr_t, diag, shape, sp=None, value_dtype=torch.float32,
                  perm=None, inv_perm=None):
@@ -481,3 +506,14 @@ class PETOperator:
 
     def diagonal(self):
         return self._diag
+
+    def tree_flatten(self):
+        return ((self._csr, self._csr_t, self._diag, self._perm, self._inv_perm),
+                (self.shape, self._value_dtype))
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        shape, value_dtype = aux
+        csr, csr_t, diag, perm, inv_perm = children
+        return cls(csr, csr_t, diag, shape, value_dtype=value_dtype, perm=perm,
+                   inv_perm=inv_perm)

@@ -24,6 +24,14 @@ A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``; the plain versions count nothing.
 
+Gradients: K1 is a ``torch.autograd.Function`` on both devices (its
+backward is plain torch for the coefficients and K1 itself, the adjoint
+stencil, for ``x``), so a solve's parameter gradient reaches it
+(:mod:`krylov_tpu_torch.diffable`).  Every other kernel has no backward: on
+the card its wrapper raises a ``TypeError`` when grad mode is on and an
+input requires a gradient, so no launch drops a gradient silently; on the
+CPU autograd differentiates the plain version.
+
 Const bands are the reference's ``(dr, dc, weight, row_constraints)``
 tuples (``ConstStencilOperator.bands``): band d is valid on global row g
 iff ``0 <= (g // stride) % size + step < size`` for each ``(stride, size,
@@ -47,6 +55,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 LAUNCHES = {
     "stencil2d_matvec": 0,
@@ -196,6 +205,20 @@ def _require(cond, msg):
         raise ValueError(msg)
 
 
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name, *tensors):
+    """On the card: a kernel without a backward refuses inputs that want a
+    gradient rather than return a result autograd cannot see through."""
+    if _wants_grad(*tensors):
+        raise TypeError(
+            f"{name}: this CUDA kernel has no gradient; detach its inputs, or "
+            "differentiate the solve with krylov_tpu_torch.diffable.solve")
+
+
 def _disjoint(a, b):
     a0, b0 = a.data_ptr(), b.data_ptr()
     a1 = a0 + a.numel() * a.element_size()
@@ -265,14 +288,95 @@ def stencil2d_matvec_plain(coeffs, x, row_offsets, col_offsets,
     x_ext, h = _x_ext(x, halo_rows(row_offsets), acc, top_halo, bot_halo)
     y = None
     for d, (dr, dc) in enumerate(zip(row_offsets, col_offsets)):
-        seg = x_ext[..., h + dr : h + dr + M, :]
-        if dc > 0:
-            seg = F.pad(seg[..., dc:], (0, dc))
-        elif dc < 0:
-            seg = F.pad(seg[..., :dc], (-dc, 0))
-        term = coeffs[d].to(acc) * seg
+        term = coeffs[d].to(acc) * _shifted(x_ext, h, M, dr, dc)
         y = term if y is None else y + term
     return y.to(out_dtype)
+
+
+def _shifted(x_ext, h, M, dr, dc):
+    """``x_ext[h + dr + i, j + dc]`` on the ``(M, ny)`` grid, zero where the
+    column leaves it (the padded-shift read of the plain version)."""
+    seg = x_ext[..., h + dr : h + dr + M, :]
+    if dc > 0:
+        seg = F.pad(seg[..., dc:], (0, dc))
+    elif dc < 0:
+        seg = F.pad(seg[..., :dc], (-dc, 0))
+    return seg
+
+
+def _as_grad(t, like):
+    """A gradient ``t`` for an input of ``like``'s dtype: the real part for
+    a real input, then cast."""
+    if t.is_complex() and not like.is_complex():
+        t = t.real
+    return t.to(like.dtype)
+
+
+def stencil2d_coeffs_grad(g, x, row_offsets, col_offsets, top_halo=None,
+                          bot_halo=None):
+    """K1's coefficient gradient, plain torch (as the reference's XLA
+    autodiff): ``dc[d,i,j] = g[i,j] * conj(x[i+dr_d, j+dc_d])``, zero outside
+    the grid but in the halo rows, summed over a batch of ``x``."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    M = x.shape[-2]
+    x_ext, h = _x_ext(x, halo_rows(row_offsets), acc, top_halo, bot_halo)
+    gm = g.to(acc)
+    planes = []
+    for dr, dc in zip(row_offsets, col_offsets):
+        t = gm * _shifted(x_ext, h, M, dr, dc).conj()
+        planes.append(t.sum(0) if t.ndim == 3 else t)
+    return torch.stack(planes)
+
+
+def stencil2d_adjoint_planes(coeffs, row_offsets, col_offsets):
+    """The planes of K1's adjoint stencil, read at the negated offsets:
+    ``out[d, i, j] = conj(coeffs[d, i - dr_d, j - dc_d])``, zero where that
+    point leaves the grid."""
+    M, ny = coeffs.shape[-2:]
+    out = torch.zeros_like(coeffs)
+    for d, (dr, dc) in enumerate(zip(row_offsets, col_offsets)):
+        src = coeffs[d, max(0, -dr) : M - max(0, dr), max(0, -dc) : ny - max(0, dc)]
+        out[d, max(0, dr) : M + min(0, dr), max(0, dc) : ny + min(0, dc)] = src.conj()
+    return out
+
+
+class _Stencil2d(torch.autograd.Function):
+    """K1 with its gradient.  The forward is the wrapper's launch (the plain
+    version on the CPU); the backward computes the coefficient gradient in
+    plain torch (:func:`stencil2d_coeffs_grad`) and the ``x`` gradient as
+    the adjoint stencil, K1 on :func:`stencil2d_adjoint_planes` at the
+    negated offsets (its plain version on the CPU).  A halo's gradient
+    (sharded callers only) is autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, coeffs, x, row_offsets, col_offsets, top_halo, bot_halo):
+        ctx.offsets = (row_offsets, col_offsets)
+        ctx.save_for_backward(coeffs, x, top_halo, bot_halo)
+        return _stencil2d(coeffs, x, row_offsets, col_offsets, top_halo, bot_halo)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coeffs, x, top, bot = ctx.saved_tensors
+        ro, co = ctx.offsets
+        need_c, need_x, _, _, need_top, need_bot = ctx.needs_input_grad
+        g = g.contiguous()
+        d_c = d_x = d_top = d_bot = None
+        if need_c:
+            d_c = _as_grad(stencil2d_coeffs_grad(g, x, ro, co, top, bot), coeffs)
+        if need_x:
+            adj = stencil2d_adjoint_planes(coeffs, ro, co)
+            d_x = _as_grad(_stencil2d(adj, g, tuple(-r for r in ro), tuple(-c for c in co)), x)
+        if need_top or need_bot:
+            with torch.enable_grad():
+                halos = [None if t is None else t.detach().requires_grad_(need)
+                         for t, need in ((top, need_top), (bot, need_bot))]
+                y = stencil2d_matvec_plain(coeffs.detach(), x.detach(), ro, co, *halos)
+                wanted = [t for t in halos if t is not None and t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wanted, g))
+            d_top, d_bot = (next(grads) if t is not None and t.requires_grad else None
+                            for t in halos)
+        return d_c, d_x, None, None, d_top, d_bot
 
 
 def stencil2d_matvec(coeffs, x, row_offsets, col_offsets, top_halo=None,
@@ -284,8 +388,20 @@ def stencil2d_matvec(coeffs, x, row_offsets, col_offsets, top_halo=None,
     except rows taken from ``top_halo``/``bot_halo`` (``(h, ny)``, 2-D ``x``
     only).  Output dtype ``promote_types(coeffs, x)``; ``out`` (optional)
     must not overlap ``x``.  Real and complex (complex64, complex128)
-    coefficients and vectors.
+    coefficients and vectors.  Differentiable in every tensor argument
+    (:class:`_Stencil2d`) but ``out``, which takes no gradient.
     """
+    if _wants_grad(coeffs, x, top_halo, bot_halo):
+        if out is not None:
+            raise TypeError("stencil2d_matvec: out= takes no gradient")
+        return _Stencil2d.apply(coeffs, x, tuple(row_offsets), tuple(col_offsets),
+                                top_halo, bot_halo)
+    return _stencil2d(coeffs, x, row_offsets, col_offsets, top_halo, bot_halo, out)
+
+
+def _stencil2d(coeffs, x, row_offsets, col_offsets, top_halo=None, bot_halo=None,
+               out=None):
+    """K1's launch, or its plain version for CPU tensors."""
     if _on_cpu(coeffs, x, top_halo, bot_halo, out):
         y = stencil2d_matvec_plain(coeffs, x, row_offsets, col_offsets,
                                    top_halo, bot_halo)
@@ -393,6 +509,7 @@ def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
     if _on_cpu(x, top_halo, bot_halo, out):
         y = const_stencil2d_matvec_plain(x, bands, row0, top_halo, bot_halo)
         return y if out is None else out.copy_(y)
+    _refuse_grad("const_stencil2d_matvec", x, top_halo, bot_halo)
 
     if x.dtype not in _K2_TYPES:
         raise TypeError(f"no const stencil kernel for vectors of {x.dtype}")
@@ -489,6 +606,7 @@ def cg_fused_phase_a(omega, r, p, bands, out=None):
         if out is not None:
             pn, ap = out[0].copy_(pn), out[1].copy_(ap)
         return pn, ap, pap
+    _refuse_grad("cg_fused_phase_a", omega, r, p)
 
     def launch(lib, pn, ap, partials, pap):
         return lib.krylov_cg_phase_a_const(
@@ -514,6 +632,7 @@ def cg_fused_phase_a_var(omega, r, p, coeffs, row_offsets, col_offsets, out=None
         if out is not None:
             pn, ap = out[0].copy_(pn), out[1].copy_(ap)
         return pn, ap, pap
+    _refuse_grad("cg_fused_phase_a_var", omega, r, p, coeffs)
 
     _require(coeffs.dtype == torch.float32 and coeffs.is_contiguous()
              and tuple(coeffs.shape[1:]) == tuple(r.shape),
@@ -548,6 +667,7 @@ def cg_fused_phase_a_var_jac(omega, r, p, coeffs, dinv, row_offsets, col_offsets
         if out is not None:
             pn, ap = out[0].copy_(pn), out[1].copy_(ap)
         return pn, ap, pap
+    _refuse_grad("cg_fused_phase_a_var_jac", omega, r, p, coeffs, dinv)
 
     _require(coeffs.dtype == torch.float32 and coeffs.is_contiguous()
              and tuple(coeffs.shape[1:]) == tuple(r.shape),
@@ -593,6 +713,7 @@ def cg_fused_phase_b_jac_plain(alpha, y, r, p, ap, dinv):
 def _phase_b(name, alpha, y, r, p, ap, dinv=None):
     """Check K4/K7's operands, allocate the scratch, launch, count."""
     reads = (p, ap) if dinv is None else (p, ap, dinv)
+    _refuse_grad(name, alpha, y, r, *reads)
     for t in (alpha, y, r) + reads:
         _require(t.dtype == torch.float32, f"{name} is float32-only")
     for t in (y,) + reads:
@@ -684,6 +805,7 @@ def jacobi_sweep_const(w, z, r, bands, update=True, out=None):
     if _on_cpu(z, r, out):
         y = jacobi_sweep_const_plain(w, z, r, bands, update)
         return y if out is None else out.copy_(y)
+    _refuse_grad("jacobi_sweep_const", z, r)
 
     out = _sweep_checks(z, r, out)
     lib = _lib()
@@ -710,6 +832,7 @@ def jacobi_sweep_var(w, z, r, coeffs, row_offsets, col_offsets, update=True,
     if _on_cpu(w, z, r, coeffs, out):
         y = jacobi_sweep_var_plain(w, z, r, coeffs, row_offsets, col_offsets, update)
         return y if out is None else out.copy_(y)
+    _refuse_grad("jacobi_sweep_var", w, z, r, coeffs)
 
     out = _sweep_checks(z, r, out, coeffs, *(() if w is None else (w,)))
     lib = _lib()

@@ -143,6 +143,14 @@ class CSROperator:
         new_data = torch.where(on_diag, d.index_select(0, self.row_ids), self.data)
         return CSROperator(new_data, self.indices, self.indptr, self.shape, self.row_ids)
 
+    def tree_flatten(self):
+        return (self.data, self.indices, self.indptr, self.row_ids), self.shape
+
+    @classmethod
+    def tree_unflatten(cls, shape, children):
+        data, indices, indptr, row_ids = children
+        return cls(data, indices, indptr, shape, row_ids)
+
 
 class DiaOperator:
     """Diagonal-storage (banded) operator, scipy ``spdiags`` convention:
@@ -214,3 +222,11 @@ class DiaOperator:
             (self.diags.cpu().numpy(), np.asarray(self.offsets)), shape=self.shape
         )
         return CSROperator.from_scipy(sp, device=self.device)
+
+    def tree_flatten(self):
+        return (self.diags,), (self.offsets, self.shape)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        offsets, shape = aux
+        return cls(children[0], offsets, shape)

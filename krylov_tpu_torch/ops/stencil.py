@@ -116,6 +116,14 @@ class BandedOperator:
             out[i, i + off] = self.coeffs[d, i]
         return out
 
+    def tree_flatten(self):
+        return (self.coeffs,), (self.offsets, self.hermitian)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        offsets, hermitian = aux
+        return cls(children[0], offsets, hermitian=hermitian)
+
 
 class GridStencilOperator(BandedOperator):
     """Banded operator whose bands decompose over a grid with last dim ``ny``.
@@ -213,6 +221,16 @@ class GridStencilOperator(BandedOperator):
         return self._apply_grid(x.reshape(M, ny)).reshape(x.shape)
 
     matvec = __matmul__
+
+    def tree_flatten(self):
+        return (self.coeffs2d,), (self.ny, self.hermitian,
+                                  (self.row_offsets, self.col_offsets))
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        ny, hermitian, row_col_offsets = aux
+        return cls(children[0], None, ny, hermitian=hermitian,
+                   row_col_offsets=row_col_offsets)
 
 
 def _as_device_tensor(arr, device):
@@ -469,6 +487,16 @@ class ConstStencilOperator:
         from .sparse import CSROperator
 
         return CSROperator.from_scipy(self.toscipy(), device=self.device)
+
+    def tree_flatten(self):
+        # the weights are static, as the reference's: no leaves
+        return (), (self.shape_nd, self.offsets_nd, self.weights, self.dtype,
+                    self.device)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        shape_nd, offsets_nd, weights, dtype, device = aux
+        return cls(shape_nd, offsets_nd, weights, dtype=dtype, device=device)
 
 
 def _laplace_offsets(nd):

@@ -1,6 +1,8 @@
 """Kernels K1, K2, K8 and K9 (real and complex), K3 to K7, and the
 general-sparsity kernels K10, K11 and K12 on a CUDA device, against their
-plain versions, the solves that launch them, and the device rule.
+plain versions, the solves that launch them, and the device rule; the
+gradients of K1 and K12 and ``diffable.solve`` on the card, and the other
+kernels' refusal of inputs that require a gradient.
 
 Needs an NVIDIA Hopper GPU (the kernels are built for sm_90a) and nvcc;
 every test skips without a CUDA device.  Imports no JAX, so it also runs
@@ -786,3 +788,130 @@ def test_ilu_and_block_jacobi_on_the_card_match_the_cpu(dev):
                 assert got.device == dev and got.shape == v.shape
                 torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
                                            atol=1e-5 * float(want.abs().max()))
+
+
+def test_k1_gradient_matches_plain(dev):
+    """K1's Function on the card (the coefficient gradient in torch, the x
+    gradient by K1 on the adjoint planes) against autograd through the
+    plain version on the card, real and complex, batched and with halos."""
+    A = _ops(dev)[1]
+    ro, co = A.row_offsets, A.col_offsets
+    M, ny = A.grid
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5),
+                       (torch.complex128, 1e-12)):
+        c = A.coeffs2d.to(dtype)
+        for shape, halos in (((M, ny), ()), ((3, M, ny), ()),
+                             ((M, ny), (_rand((1, ny), dev, dtype, 5),
+                                        _rand((1, ny), dev, dtype, 6)))):
+            x = _rand(shape, dev, dtype, 7)
+            w = _rand(shape, dev, dtype, 8)
+            grads = []
+            for fn in (cs.stencil2d_matvec, cs.stencil2d_matvec_plain):
+                leaves = [t.clone().requires_grad_() for t in (c, x, *halos)]
+                y = fn(leaves[0], leaves[1], ro, co, *leaves[2:])
+                (y * w.conj()).real.sum().backward()
+                grads.append([t.grad for t in leaves])
+            for got, want in zip(*grads):
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=tol * float(want.abs().max()))
+
+
+def test_k12_gradient_matches_plain_and_refuses_x(dev):
+    """K12's data gradient on the card against autograd through the plain
+    version; a gradient to X through K12 on the card raises."""
+    from krylov_tpu_torch.ops import cuda_bsr as bs
+
+    rng = np.random.default_rng(40)
+    nbrows, max_blocks, R, C, k = 64, 3, 32, 32, 8
+    data = _rand((nbrows * max_blocks, R, C), dev, torch.float32, 41)
+    cols = torch.from_numpy(rng.integers(0, nbrows, (nbrows, max_blocks)).astype(np.int32)).to(dev)
+    x = _rand((nbrows * C, k), dev, torch.float32, 42)
+    w = _rand((nbrows * R, k), dev, torch.float32, 43)
+    grads = []
+    for fn in (bs.bsr_spmm, bs.bsr_spmm_plain):
+        d = data.clone().requires_grad_()
+        bs.reset_launches()
+        (fn(d, cols, x) * w).sum().backward()
+        grads.append(d.grad)
+    assert bs.LAUNCHES["bsr_spmm"] == 0  # the plain run, last, launches nothing
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-5 * float(grads[1].abs().max()))
+    with pytest.raises(NotImplementedError, match="diffable.solve"):
+        bs.bsr_spmm(data, cols, x.clone().requires_grad_())
+
+
+def test_kernels_without_a_gradient_refuse_grad_inputs(dev):
+    """K2 and K10 have no backward: on the card an input that requires a
+    gradient raises in grad mode, and runs under no_grad."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+
+    A = kt.poisson_2d_const(64, 64, device=dev)
+    x = _rand(A.grid, dev, torch.float32, 44).requires_grad_()
+    with pytest.raises(TypeError, match="no gradient"):
+        cs.const_stencil2d_matvec(x, A.kernel_bands)
+    with torch.no_grad():
+        cs.const_stencil2d_matvec(x, A.kernel_bands)
+    sp = scipy.sparse.random(300, 300, density=0.05, random_state=2, format="csr",
+                             dtype=np.float32)
+    indptr, indices, data = (torch.from_numpy(a).to(dev) for a in (
+        sp.indptr.astype(np.int32), sp.indices.astype(np.int32), sp.data))
+    v = _rand(300, dev, torch.float32, 45)
+    with pytest.raises(TypeError, match="no gradient"):
+        sv.csr_matvec(indptr, indices, data.requires_grad_(), v)
+    with pytest.raises(TypeError, match="no gradient"):
+        sv.csr_matvec(indptr, indices, data.detach(), v.requires_grad_())
+
+
+def test_diffable_solve_on_the_card(dev):
+    """diffable.solve through K1 (forward, adjoint, coefficient VJP) on the
+    card equals the same solve on the CPU in float64."""
+    from krylov_tpu_torch import diffable
+
+    a = np.exp(np.random.default_rng(46).standard_normal((24, 32)))
+    b0 = np.random.default_rng(47).standard_normal(24 * 32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        A = st.diffusion_2d(a, device=d)
+        A.coeffs2d.requires_grad_()
+        b = torch.from_numpy(b0).to(d).requires_grad_()
+        cs.reset_launches()
+        x = diffable.solve(A, b, tol=1e-12, maxiter=2000)
+        torch.sin(x).sum().backward()
+        out.append((x.detach().cpu(), b.grad.cpu(), A.coeffs2d.grad.cpu()))
+        if d.type == "cuda":
+            assert cs.LAUNCHES["stencil2d_matvec"] > 0
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-8, atol=1e-10 * float(want.abs().max()))
+
+
+def test_diffable_bsr_default_leaves_on_the_card(dev):
+    """The default leaves of a BSROperator on the card: K12 forward and in
+    the parameter VJP (its data gradient), equal to the same solve on the
+    CPU in float64."""
+    import scipy.sparse
+
+    from krylov_tpu_torch import diffable
+    from krylov_tpu_torch.ops import cuda_bsr as bs
+
+    rng = np.random.default_rng(48)
+    nb, R = 6, 32
+    pattern = np.kron(np.eye(nb) + np.eye(nb, k=1) + np.eye(nb, k=-1), np.ones((R, R)))
+    half = pattern * rng.standard_normal(pattern.shape)
+    dense = half + half.T + 4 * R * np.eye(nb * R)
+    sp = scipy.sparse.csr_matrix(dense)
+    b0 = rng.standard_normal(nb * R)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        A = kt.ops.BSROperator.from_scipy(sp, blocksize=(R, R), device=d)
+        A.data.requires_grad_()
+        b = torch.from_numpy(b0).to(d).requires_grad_()
+        bs.reset_launches()
+        x = diffable.solve(A, b, tol=1e-12, maxiter=200)
+        torch.sin(x).sum().backward()
+        out.append((x.detach().cpu(), b.grad.cpu(), A.data.grad.cpu()))
+        if d.type == "cuda":
+            assert bs.LAUNCHES["bsr_spmm"] > 0
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-8, atol=1e-10 * float(want.abs().max()))
