@@ -91,6 +91,19 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    (K12 and its data gradient against the plain one); (e)
    ``profiling.roofline_report`` for K1 with the card's published
    bandwidth, and ``profiling.trace`` around a solve, which must name K1;
+11. the distribution layer (``krylov_tpu_torch.parallel``): (a)
+   ``sharded_solve`` on a world of one NCCL rank at 4096^2, 300 fixed
+   ``cg`` steps on ``poisson_2d`` (K1) and ``poisson_2d_const`` (K2)
+   against single-device ``cg``, with µs a step of both, their difference,
+   and a loop of the operator's matvec and of an ``all_reduce`` of a
+   scalar; (b) four gloo ranks sharing the card (NCCL takes one rank a
+   GPU, so every transfer is staged through the host; a check of the
+   sharded paths, not a timing), each solve against the same solve on one
+   device: the grid operator (K1, ``M_diag``, the shard monitor), the const
+   stencil (K2, alone and under ``ChebyshevPreconditioner`` through
+   ``M_factory``), CSR in halo and gather mode, PET (``qmr``: K10 and its
+   adjoint; an ``(N, 8)`` b: K11), 6c's block matrix (K12), restarted
+   ``gmres`` and ``make_sharded_solver`` on three right-hand sides;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -2576,6 +2589,229 @@ def phase_diffable(dev, kt, cs, sv, bs, st, A_div, card):
     assert len(k1) >= 10
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 11: the distribution layer
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 300  # fixed steps of 11a at BIG^2
+GLOO_RANKS = 4
+GLOO_N = 1024  # 11b's grid side: 256 grid rows a rank
+GLOO_STEPS = 50  # fixed steps of 11b's solves
+GLOO_NPG = 256  # 11b's sparse matrices: 65,536 rows
+
+
+F32_FLOOR = 1e-4  # below this share of the first residual, f32 histories part
+
+
+def sharded_held(what, got, ref, x_got=None, x_ref=None):
+    """A sharded f32 solve against its single-device twin: equal numsteps
+    and the history within the reference's f32 band for sharded runs over
+    the steps whose residual is above F32_FLOOR of the first (below it two
+    float32 histories part at the float32 floor, as two orders of summation
+    do), finite iterates."""
+    steps, hist = got
+    rel = np.abs(hist - ref.resnorms) / np.abs(ref.resnorms)
+    live = np.abs(ref.resnorms) >= F32_FLOOR * np.abs(ref.resnorms[0])
+    held = rel[live].max()
+    log(f"  {what}: numsteps {steps} (single {ref.numsteps}), max rel resnorm {held:.3e} "
+        f"over the {int(live.all(axis=tuple(range(1, live.ndim))).sum())} steps above "
+        f"{F32_FLOOR:g} of r0 (rtol {TRAJ_RTOL}); {rel.max():.3e} over all")
+    assert steps == ref.numsteps and held <= TRAJ_RTOL, what
+    if x_got is not None:
+        assert np.isfinite(x_got).all()
+        err = float(np.abs(x_got - x_ref).max() / max(np.abs(x_ref).max(), 1e-30))
+        log(f"    iterate max rel err against single {err:.3e}")
+    return held
+
+
+def phase_distributed_one(dev, kt, cs, st, card):
+    """11a: ``sharded_solve`` on one NCCL rank, at full width."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.parallel import mesh as pm
+
+    log(f"phase 11a: sharded_solve on a world of one rank (NCCL) at {BIG}^2, "
+        f"{DIST_STEPS} steps, against single-device cg [{card}]")
+    mesh = parallel.make_mesh(device=dev)  # starts the world through a file:// store
+    assert dist.get_world_size() == 1 and not mesh.staged
+    assert dev.type != "cuda" or "nccl" in dist.get_backend()
+    launches = dict.fromkeys(cs.LAUNCHES, 0)
+    try:
+        for label, A, kernel in (
+            ("poisson_2d", st.poisson_2d(BIG, dtype=np.float32, device=dev), "stencil2d_matvec"),
+            ("poisson_2d_const", st.poisson_2d_const(BIG, dtype=np.float32, device=dev),
+             "const_stencil2d_matvec"),
+        ):
+            b = torch.ones(A.grid, dtype=torch.float32, device=dev)
+            runs = {
+                "single": lambda it: kt.cg(A, b, inner=inner, tol=0.0, atol=0.0, maxiter=it,
+                                           backend="while_loop"),
+                "sharded": lambda it: parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=0.0,
+                                                             atol=0.0, maxiter=it),
+            }
+            infos, us = {}, {}
+            for name, run in runs.items():
+                run(5)  # warm: NCCL's communicator starts at the first collective
+                torch.cuda.synchronize()
+                cs.reset_launches()
+                pm.reset_counts()
+                t0 = time.perf_counter()
+                _, infos[name] = run(DIST_STEPS)
+                torch.cuda.synchronize()
+                us[name] = (time.perf_counter() - t0) / DIST_STEPS * 1e6
+                if name == "sharded":
+                    n_kernel, coll = cs.LAUNCHES[kernel], dict(pm.COUNTS)
+                    for k in launches:
+                        launches[k] += cs.LAUNCHES[k]
+            got = infos["sharded"]
+            sharded_held(f"{label} sharded vs single", (got.numsteps, got.resnorms),
+                         infos["single"])
+            x_err = max_err(got.xk, infos["single"].xk) / float(infos["single"].xk.abs().max())
+            log(f"  {label}: {us['single']:.1f} us/iter single, {us['sharded']:.1f} us/iter "
+                f"sharded (one rank), difference {us['sharded'] - us['single']:+.1f} us/iter; "
+                f"iterate rel err {x_err:.3e}")
+            log(f"  {label}: {n_kernel} {kernel} launches ({n_kernel / DIST_STEPS:.2f} a step), "
+                f"collectives {coll} "
+                f"({coll['all_reduce'] / DIST_STEPS:.2f} all_reduce a step)")
+            assert n_kernel >= DIST_STEPS and np.isfinite(got.resnorms).all()
+            # where the difference goes: the slab's matvec and one reduction
+            A_l = (parallel.ShardedConstStencilOperator(A, BIG, mesh) if kernel.startswith("const")
+                   else parallel.ShardedGridStencilOperator(A.coeffs2d, A.offsets, A.ny, mesh,
+                                                            hermitian=True))
+            one = torch.ones((), dtype=torch.float32, device=dev)
+            mv, mv_l = time_ms(lambda: A @ b, 50), time_ms(lambda: A_l @ b, 50)
+            ar = time_ms(lambda: mesh.all_reduce(one), 200)
+            log(f"  {label}: a loop of matvecs {mv * 1e3:.1f} us single, {mv_l * 1e3:.1f} us "
+                f"the one-rank slab's; a loop of all_reduce on a scalar {ar * 1e3:.1f} us a call")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def single_solve(solver, A, b, dev, **kw):
+    """``solver`` on one device (``while_loop``), a grid-shaped ``b`` with
+    the full-contraction inner; its ``Info``."""
+    b = torch.as_tensor(b).to(dev)
+    if b.ndim >= 2 and hasattr(A, "grid") and tuple(b.shape[:2]) == tuple(A.grid):
+        kw["inner"] = lambda u, v: torch.sum(u * v, dim=(0, 1))
+    return solver(A, b, backend="while_loop", **kw)[1]
+
+
+def sharded_cases(dev, kt, sv, st, ranks):
+    """The sharded solves of 11b (and of ``tools/torch_multigpu_check.py``):
+    ``(label, kernel, (solver, A, b), sharded_solve keywords, the same
+    solve on one device)``, operators on the CPU for the ranks to split,
+    their single-device twins on ``dev``; and ``(A, A on dev, right-hand
+    sides, keywords)`` for ``make_sharded_solver``."""
+    import functools
+
+    from krylov_tpu_torch.ops import bsr as tb
+    from krylov_tpu_torch.parallel import partition_pet
+
+    rng = np.random.default_rng(SEED + 90)
+    f32 = np.float32
+
+    def single(solver, A, b, **kw):
+        return single_solve(solver, A, b, dev, **kw)
+
+    n = GLOO_N
+    field = smooth_field(n).astype(f32)
+    A_div = st.diffusion_2d(field, device="cpu")
+    A_div_d = st.diffusion_2d(field, device=dev)
+    Md = (1.0 / A_div.diagonal()).numpy()
+    A_con = st.poisson_2d_const(n, dtype=np.float32, device=dev)
+    interval = kt.utils.estimate_spectrum(A_con, iters=30)
+    halo_sp, gather_sp = grid_csr(GLOO_NPG), scrambled_poisson(GLOO_NPG // 2)
+    conv_sp, pois_sp = convected_csr(GLOO_NPG), poisson_csr(GLOO_NPG)
+    blk_sp = block_spd_csr()
+    A_bsr = tb.BSROperator.from_scipy(blk_sp, blocksize=(32, 32), device="cpu")
+    A_small = st.poisson_2d(GLOO_NPG, dtype=np.float32, device="cpu")
+    A_small_d = st.poisson_2d(GLOO_NPG, dtype=np.float32, device=dev)
+    fixed = dict(tol=0.0, atol=0.0, maxiter=GLOO_STEPS)
+    ones = np.ones((n, n), f32)
+    b_sp = np.ones(GLOO_NPG * GLOO_NPG, f32)
+    cheb = functools.partial(kt.ChebyshevPreconditioner, interval=interval, degree=6)
+    pet_b = rng.standard_normal((b_sp.size, 8)).astype(f32)
+    cases = [
+        ("grid K1 diffusion_2d + M_diag, monitored", "stencil2d_matvec",
+         (kt.cg, A_div, ones), dict(M_diag=Md, record=True, **fixed),
+         lambda: single(kt.cg, A_div_d, ones,
+                        M=kt.DiagonalOperator(torch.as_tensor(Md).reshape(n, n).to(dev)),
+                        **fixed)),
+        ("const K2 poisson_2d_const", "const_stencil2d_matvec",
+         (kt.cg, st.poisson_2d_const(n, dtype=np.float32, device="cpu"), ones), dict(fixed),
+         lambda: single(kt.cg, A_con, ones, **fixed)),
+        ("const K2 + ChebyshevPreconditioner through M_factory", "const_stencil2d_matvec",
+         (kt.cg, st.poisson_2d_const(n, dtype=np.float32, device="cpu"), ones),
+         dict(M_factory=cheb, tol=0.0, atol=0.0, maxiter=20),
+         lambda: single(kt.cg, A_con, ones, M=cheb(A_con), tol=0.0, atol=0.0, maxiter=20)),
+        ("CSR halo mode", None, (kt.cg, halo_sp, b_sp), dict(fixed),
+         lambda: single(kt.cg, kt.ops.sparse.CSROperator.from_scipy(halo_sp, device=dev), b_sp,
+                        **fixed)),
+        ("CSR gather mode", None, (kt.cg, gather_sp, b_sp[: gather_sp.shape[0]]), dict(fixed),
+         lambda: single(kt.cg, kt.ops.sparse.CSROperator.from_scipy(gather_sp, device=dev),
+                        b_sp[: gather_sp.shape[0]], **fixed)),
+        ("PET qmr (K10 and its adjoint)", "csr_matvec",
+         (kt.qmr, partition_pet(conv_sp, ranks), b_sp), dict(fixed),
+         lambda: single(kt.qmr, sv.PETOperator.from_scipy(conv_sp, device=dev), b_sp, **fixed)),
+        ("PET cg, b of (N, 8) (K11)", "csr_matmat",
+         (kt.cg, partition_pet(pois_sp, ranks), pet_b), dict(fixed),
+         lambda: single(kt.cg, sv.PETOperator.from_scipy(pois_sp, device=dev), pet_b, **fixed)),
+        ("BSR cg (K12, 6c's block matrix)", "bsr_spmm",
+         (kt.cg, A_bsr, np.ones(blk_sp.shape[0], f32)), dict(fixed),
+         lambda: single(kt.cg, tb.BSROperator.from_scipy(blk_sp, blocksize=(32, 32), device=dev),
+                        np.ones(blk_sp.shape[0], f32), **fixed)),
+        ("gmres(restart=20), grid K1", "stencil2d_matvec",
+         (kt.gmres, A_small, np.ones(A_small.grid, f32)), dict(restart=20, **fixed),
+         lambda: single(kt.gmres, A_small_d, np.ones(A_small.grid, f32), restart=20, **fixed)),
+    ]
+    bs = [np.random.default_rng(SEED + 91 + j).standard_normal(A_small.grid).astype(f32)
+          for j in range(3)]
+    return cases, (A_small, A_small_d, bs, fixed)
+
+
+def phase_distributed_gloo(dev, kt, sv, st, card):
+    """11b: four ranks on this one card under gloo, every sharded operator."""
+    from krylov_tpu_torch.parallel import _spawn
+
+    log(f"phase 11b: {GLOO_RANKS} gloo ranks sharing this one card (NCCL takes one rank a "
+        "GPU): every transfer staged through the host; a check of the sharded paths "
+        f"against single-device solves on the card, not a timing [{card}]")
+    on_dev = dev.type == "cuda"
+    cases, (A_small, A_small_d, bs, fixed) = sharded_cases(dev, kt, sv, st, GLOO_RANKS)
+    launches = {}
+    with _spawn.SPMDPool(GLOO_RANKS, backend="gloo", device=dev.type, timeout=600.0) as pool:
+        for label, kernel, args, kw, ref_fn in cases:
+            res = pool.run(_spawn.solve_job, *args, **kw)
+            ref = ref_fn()
+            sharded_held(label, res["info"][1:], ref, res["x"], ref.xk.cpu().numpy())
+            per = res["per_rank"]
+            log(f"    per rank launches {[p['launches'] for p in per]}; staged "
+                f"{[sum(p['staged'].values()) for p in per]} transfers")
+            if on_dev:
+                assert all(sum(p["staged"].values()) > 0 for p in per)
+                if kernel is not None:
+                    assert all(p["launches"].get(kernel, 0) > 0 for p in per), label
+            assert not any(p["forbidden"] for p in per)
+            if kw.get("record"):
+                counts = [len(p["calls"]) for p in per]
+                log(f"    ShardMonitor calls per rank {counts} (numsteps + 1 = "
+                    f"{res['info'][1] + 1})")
+                assert counts == [res["info"][1] + 1] + [0] * (GLOO_RANKS - 1)
+            for p in per:
+                for k, v in p["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        res = pool.run(_spawn.solver_job, kt.cg, A_small, bs, **fixed)
+        for j, b in enumerate(bs):
+            sharded_held(f"make_sharded_solver, right-hand side {j}", res["info"][j][1:],
+                         single_solve(kt.cg, A_small_d, b, dev, **fixed))
+        for p in res["per_rank"]:
+            for k, v in p["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f"  11b launches, all ranks: {launches}")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2627,6 +2863,10 @@ def main():
         launches[k] += n
         errs[k] = max(errs[k], prec_errs[k])
     for k, n in phase_diffable(dev, kt, cs, sv, bs, st, A_div, card).items():
+        launches[k] += n
+    for k, n in phase_distributed_one(dev, kt, cs, st, card).items():
+        launches[k] += n
+    for k, n in phase_distributed_gloo(dev, kt, sv, st, card).items():
         launches[k] += n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))

@@ -38,10 +38,12 @@ and in the native helpers of :mod:`krylov_tpu_torch.ops._native`),
 differentiable solves (:mod:`krylov_tpu_torch.diffable`, gradients by the
 implicit function theorem through one adjoint solve) and
 :mod:`krylov_tpu_torch.profiling` (traces, timed solves, byte models and
-roofline shares).
+roofline shares), and the distribution layer :mod:`krylov_tpu_torch.parallel`
+(row-partitioned solves over ``torch.distributed``: the mesh, the sharded
+operators, :func:`~krylov_tpu_torch.parallel.sharded_solve`).
 """
 
-from . import convert, diffable, ops, profiling, utils
+from . import convert, diffable, ops, parallel, profiling, utils
 from ._device import default_device, set_default_device
 from ._info import Info
 from ._operators import (
@@ -144,6 +146,7 @@ __all__ = [
     "lsqr",
     "minres",
     "ops",
+    "parallel",
     "poisson_2d_const",
     "poisson_3d_const",
     "profiling",

@@ -29,6 +29,12 @@ bool.  A step that sets it overwrites the last history entry with its
 with success and no explicit recheck (the step has just computed an
 explicit residual).  The ``while_loop`` backend folds the flag into the
 step's one stop-flag read.
+
+In a sharded solve (:mod:`krylov_tpu_torch.parallel`) every value the host
+reads here, the residual norms, the explicit residual and
+``early_success``, comes from inner products reduced over the ranks, so
+every rank takes the same branch and meets the others at the next
+collective.
 """
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -37,6 +43,37 @@ import torch
 
 EAGER = "eager"
 WHILE_LOOP = "while_loop"
+
+
+class ShardMonitor:
+    """Per-iteration observability hook for sharded solves.
+
+    Counterpart of ``krylov_tpu._driver.ShardMonitor``.  In a sharded solve
+    ``x`` and ``r`` are rank-local slabs, and a callback would fire once a
+    rank, so the drivers recognize this wrapper and call ``fn(k,
+    resnorm)`` on rank 0 of ``group`` only: ``k`` is the iteration index
+    (0 for the initial residual) and ``resnorm`` (a host array) the global
+    recurrence residual norm appended to the history at step ``k``,
+    already reduced over the ranks.  The explicit-residual double check
+    may later overwrite history entries; the hook saw the recurrence
+    value, as the reference's callback does.  ``fn`` is called
+    ``numsteps + 1`` times.  ``group=None`` fires on every process.
+    """
+
+    def __init__(self, fn, group=None):
+        import torch.distributed as dist
+
+        self.fn = fn
+        self.active = group is None or dist.get_rank(group) == 0
+
+    def __call__(self, *args):
+        # the solvers' pre-loop ``callback(x0, r0)`` lands here with
+        # rank-local vectors; the driver fires (0, resnorm0) itself
+        return None
+
+    def fire(self, k, resnorm):
+        if self.active:
+            self.fn(k, _history(resnorm))
 
 
 class Method(NamedTuple):
@@ -95,14 +132,20 @@ def _history(resnorms):
     return resnorms.cpu().numpy()
 
 
-def _fire(method, callback, state):
-    if callback is not None and method.callback_args is not None:
+def _fire(method, callback, state, k):
+    """The callback of step ``k`` (a :class:`ShardMonitor` gets ``(k,
+    resnorm)``)."""
+    if isinstance(callback, ShardMonitor):
+        callback.fire(k, state.resnorm)
+    elif callback is not None and method.callback_args is not None:
         callback(*method.callback_args(state))
 
 
 def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
     resnorms = [state.resnorm]
     criterion = _criterion(resnorms[0], tol, atol)
+    if isinstance(callback, ShardMonitor):
+        callback.fire(0, state.resnorm)
     success = False
     k = 0
     while True:
@@ -129,7 +172,7 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
             success = True
             break
 
-        _fire(method, callback, state)
+        _fire(method, callback, state, k + 1)
         resnorms.append(state.resnorm)
         k += 1
 
@@ -141,6 +184,8 @@ def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
     buf = resnorm0.new_zeros((maxiter + 1,) + tuple(resnorm0.shape))
     buf[0] = resnorm0
     criterion = _criterion(resnorm0, tol, atol)
+    if isinstance(callback, ShardMonitor):
+        callback.fire(0, resnorm0)
     has_early = hasattr(state, "early_success")
     early = False
     k = 0
@@ -168,7 +213,7 @@ def _run_while(state, method: Method, *, tol, atol, maxiter, callback):
                     buf[k] = state.resnorm
                     early = True
                     break
-            _fire(method, callback, state)
+            _fire(method, callback, state, k + 1)
             k += 1
             buf[k] = state.resnorm
             if k >= maxiter or (stop if has_early else bool(below)):

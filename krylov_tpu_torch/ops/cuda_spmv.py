@@ -234,13 +234,15 @@ def invert_permutation(perm):
     return inv
 
 
-def resolve_reorder(sp, reorder):
+def resolve_reorder(sp, reorder, metric="fill"):
     """A reorder spec as a permutation, or None to keep the order.
 
-    ``"rcm"`` always reorders; ``"auto"`` reorders only when it pays by the
-    reference's sampled PET fill (below 0.15, and RCM at least doubles it),
-    so the port makes the reference's choice; an index array is used as
-    given.  Rectangular matrices raise up front.
+    ``"rcm"`` always reorders; ``"auto"`` reorders only when it pays: by
+    the reference's sampled PET fill for ``metric="fill"`` (below 0.15, and
+    RCM at least doubles it), so the port makes the reference's choice, or
+    by matrix bandwidth for ``metric="bandwidth"`` (RCM at least halves
+    it: the halo a row slab exchanges); an index array is used as given.
+    Rectangular matrices raise up front.
     """
     import scipy.sparse
 
@@ -254,11 +256,22 @@ def resolve_reorder(sp, reorder):
         if reorder != "auto":
             raise ValueError(f"unknown reorder mode {reorder!r}")
         csr = scipy.sparse.csr_matrix(sp)
-        f0 = estimate_pet_fill(csr)
-        if f0 >= 0.15:
+        if metric == "fill":
+            f0 = estimate_pet_fill(csr)
+            if f0 >= 0.15:
+                return None
+            cand = rcm_permutation(csr)
+            return cand if estimate_pet_fill(csr, cand) >= 2.0 * f0 else None
+        if metric != "bandwidth":
+            raise ValueError(f"unknown reorder metric {metric!r}")
+        rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+        if rows.size == 0:
             return None
+        bw0 = int(np.abs(csr.indices - rows).max())
         cand = rcm_permutation(csr)
-        return cand if estimate_pet_fill(csr, cand) >= 2.0 * f0 else None
+        inv = invert_permutation(cand)
+        bw1 = int(np.abs(inv[csr.indices] - inv[rows]).max())
+        return cand if 2 * bw1 <= bw0 else None
     perm = np.asarray(reorder, np.int64)
     if sp.shape[0] != sp.shape[1]:
         raise ValueError("reorder= needs a square matrix (symmetric permutation)")

@@ -187,15 +187,23 @@ def jacobi(A, *args, omega: float = 1.0, **kwargs):
 def _is_grid_stencil(A):
     from ..ops.stencil import GridStencilOperator
 
-    return isinstance(A, GridStencilOperator)
+    if isinstance(A, GridStencilOperator):
+        return True
+    # a rank's slab of a row-partitioned grid stencil
+    # (parallel.ShardedGridStencilOperator): sweeps run on the slab with
+    # block-Jacobi boundaries between ranks, the hybrid smoother (the
+    # lower coupling across slabs is dropped, unlike the exact sweep)
+    return isinstance(getattr(A, "_local", None), GridStencilOperator)
 
 
 def _grid_sweep_update(A, omega_diag, lower):
     """Triangular-sweep update for a GridStencilOperator at any scale: the
     grid sweeps of ``ops/triangular.py``, prepared once; works on flat,
-    grid-shaped and multi-RHS vectors."""
+    grid-shaped and multi-RHS vectors.  For a rank's slab the sweep is
+    local (block-Jacobi boundaries between ranks)."""
     from ..ops.triangular import GridLowerSweep, GridUpperSweep
 
+    A = getattr(A, "_local", A)
     sweep = (GridLowerSweep if lower else GridUpperSweep)(
         A.coeffs2d, A.row_offsets, A.col_offsets, omega=omega_diag)
     M, ny = A.grid

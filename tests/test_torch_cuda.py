@@ -278,7 +278,7 @@ def test_const_and_mg_solves_launch_the_kernels_and_repeat_bitwise(dev):
         for _ in range(2):
             cs.reset_launches()
             x, info = kt.cg(op, b, M=M, inner=lambda u, v: torch.sum(u * v), tol=1e-5,
-                            maxiter=30, backend="while_loop")
+                            maxiter=STEPS, backend="while_loop")
             assert info.success and cs.LAUNCHES[key] > 0
             runs.append(info)
         np.testing.assert_array_equal(runs[0].resnorms, runs[1].resnorms)
@@ -915,3 +915,93 @@ def test_diffable_bsr_default_leaves_on_the_card(dev):
             assert bs.LAUNCHES["bsr_spmm"] > 0
     for got, want in zip(*out):
         torch.testing.assert_close(got, want, rtol=1e-8, atol=1e-10 * float(want.abs().max()))
+
+
+STEPS = 10  # fixed steps of the sharded solves
+
+
+def _sharded_cases(dev):
+    """(label, operator on the CPU, its twin on the card, b, kernel, solver
+    keywords): the grid (K1), PET (K10) and BSR (K12) paths in float32."""
+    import scipy.sparse
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+
+    n = 64
+    sp = scipy.sparse.diags([-1.0, -1.0, 4.5, -1.0, -1.0], [-n, -1, 0, 1, n],
+                            shape=(n * n, n * n), format="csr", dtype=np.float32)
+    rng = np.random.default_rng(50)
+    nb, R = 16, 32
+    pattern = np.kron(np.eye(nb) + np.eye(nb, k=1) + np.eye(nb, k=-1), np.ones((R, R)))
+    half = pattern * rng.standard_normal(pattern.shape)
+    blk = scipy.sparse.csr_matrix((half + half.T + 4 * R * np.eye(nb * R)).astype(np.float32))
+    return [
+        ("grid", st.poisson_2d(n, dtype=np.float32, device="cpu"),
+         st.poisson_2d(n, dtype=np.float32, device=dev), np.ones((n, n), np.float32),
+         "stencil2d_matvec"),
+        ("pet", lambda ranks: parallel.partition_pet(sp, ranks),
+         sv.PETOperator.from_scipy(sp, device=dev), np.ones(n * n, np.float32), "csr_matvec"),
+        ("bsr", kt.ops.BSROperator.from_scipy(blk, blocksize=(R, R), device="cpu"),
+         kt.ops.BSROperator.from_scipy(blk, blocksize=(R, R), device=dev),
+         np.ones(nb * R, np.float32), "bsr_spmm"),
+    ]
+
+
+def _single(A, b, dev):
+    b = torch.as_tensor(b).to(dev)
+    kw = {"inner": lambda u, v: torch.sum(u * v)} if b.ndim == 2 else {}
+    return kt.cg(A, b, tol=0.0, atol=0.0, maxiter=STEPS, backend="while_loop", **kw)[1]
+
+
+def _held(steps, hist, ref):
+    """f32 sharded histories against single-device ones: the reference's
+    band for sharded runs (rtol 2e-3) at equal steps, over the steps above
+    1e-4 of the first residual (below it two float32 histories part)."""
+    assert steps == ref.numsteps
+    live = ref.resnorms >= 1e-4 * ref.resnorms[0]
+    assert live.sum() >= 3
+    np.testing.assert_allclose(hist[live], ref.resnorms[live], rtol=2e-3)
+
+
+def test_sharded_solve_on_one_nccl_rank(dev):
+    """A world of one rank on NCCL through ``sharded_solve`` on the grid,
+    PET and BSR paths, against the single-device solve on the card."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+    from krylov_tpu_torch.parallel import mesh as pm
+
+    mesh = parallel.make_mesh(device=dev)
+    try:
+        assert "nccl" in dist.get_backend() and not mesh.staged
+        for label, A, A_dev, b, kernel in _sharded_cases(dev):
+            A = A(1) if callable(A) else A
+            for mod in (cs, cuda_spmv, cuda_bsr):
+                mod.reset_launches()
+            pm.reset_counts()
+            _, info = parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=0.0, atol=0.0,
+                                             maxiter=STEPS)
+            launched = {**cs.LAUNCHES, **cuda_spmv.LAUNCHES, **cuda_bsr.LAUNCHES}[kernel]
+            assert launched >= STEPS and sum(pm.STAGED.values()) == 0, label
+            assert info.xk.device == dev
+            _held(info.numsteps, info.resnorms, _single(A_dev, b, dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_solve_two_gloo_ranks_on_one_card(dev):
+    """Two ranks sharing the card under gloo: every transfer staged through
+    the host (``mesh.STAGED``), the kernels launched on each rank, the
+    single-device trajectory."""
+    from krylov_tpu_torch.parallel import _spawn
+
+    with _spawn.SPMDPool(2, backend="gloo", device="cuda", timeout=300.0) as pool:
+        for label, A, A_dev, b, kernel in _sharded_cases(dev):
+            A = A(2) if callable(A) else A
+            res = pool.run(_spawn.solve_job, kt.cg, A, b, tol=0.0, atol=0.0, maxiter=STEPS)
+            for per in res["per_rank"]:
+                assert sum(per["staged"].values()) > 0, label
+                assert per["launches"].get(kernel, 0) >= STEPS, label
+            _held(res["info"][1], res["info"][2], _single(A_dev, b, dev))

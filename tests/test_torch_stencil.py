@@ -257,7 +257,8 @@ def test_port_imports_neither_jax_nor_reference():
         "krylov_tpu_torch.solvers.stationary, krylov_tpu_torch.ops.triangular, "
         "krylov_tpu_torch.amg, krylov_tpu_torch.ilu, krylov_tpu_torch.blockjacobi, "
         "krylov_tpu_torch.ops._native, krylov_tpu_torch.diffable, "
-        "krylov_tpu_torch.profiling; "
+        "krylov_tpu_torch.profiling, krylov_tpu_torch.parallel, "
+        "krylov_tpu_torch.parallel._spawn; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'krylov_tpu', 'triton', 'scipy')]; "
         "print(bad); sys.exit(1 if bad else 0)"
