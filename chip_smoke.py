@@ -104,6 +104,23 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    ``M_factory``), CSR in halo and gather mode, PET (``qmr``: K10 and its
    adjoint; an ``(N, 8)`` b: K11), 6c's block matrix (K12), restarted
    ``gmres`` and ``make_sharded_solver`` on three right-hand sides;
+12. the distributed preconditioners: (a) on a world of one NCCL rank at
+   full width, ``cg`` + ``multigrid_factory()`` on ``poisson_2d_const(4096)``
+   (the bench's ``cg_mg`` cell: K2 smoothing, K8 in the gathered coarse
+   V-cycle) against single-device MG-CG (iterations within 2) and on the
+   smooth ``diffusion_2d(4096)`` (``ShardedGalerkinMultigrid``, K1; explicit
+   residual below 1e-3), ``cg`` + ``partition_amg`` on the bench's 1M-row
+   Poisson CSR (the ``cg_amg`` cell: K10 on the PET fine level, the
+   prolongator slab, its explicit adjoint and the tail) against its
+   ``as_global()`` twin and the single-device ``AMGPreconditioner``, bit for
+   bit twice, and ``partition_block_jacobi`` under ``cg`` and
+   ``partition_ilu0`` under ``bicgstab`` at 256^2 against their twins; each
+   with wall ms, iterations, launches per application, collectives per
+   step and host set-up seconds; (b) four gloo ranks on the card: the three
+   couplings of ``multigrid_factory``, the Galerkin cycle, ``partition_amg``
+   with two sharded levels and Chebyshev smoothing, ``partition_ilu0``
+   under ``qmr`` (``with_rmatvec``) and ``partition_block_jacobi``, each
+   held to its single-device twin, every rank launching its kernel;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -2771,6 +2788,38 @@ def sharded_cases(dev, kt, sv, st, ranks):
     return cases, (A_small, A_small_d, bs, fixed)
 
 
+def run_gloo_cases(pool, cases, dev, launches):
+    """Each case on the pool's ranks, held to its single-device twin; every
+    rank staged its transfers and launched the case's kernel (on the card);
+    the ranks' launches added to ``launches``."""
+    from krylov_tpu_torch.parallel import _spawn
+
+    for label, kernel, args, kw, ref_fn in cases:
+        t0 = time.perf_counter()
+        res = pool.run(_spawn.solve_job, *args, **kw)
+        wall = time.perf_counter() - t0
+        ref = ref_fn()
+        sharded_held(f"{label} ({wall * 1e3:.0f} ms on the ranks)", res["info"][1:], ref,
+                     res["x"], ref.xk.cpu().numpy())
+        per = res["per_rank"]
+        log(f"    per rank launches {[p['launches'] for p in per]}; staged "
+            f"{[sum(p['staged'].values()) for p in per]} transfers; collectives (rank 0) "
+            f"{per_step(per[0]['collectives'], res['info'][1])} a step")
+        if dev.type == "cuda":
+            assert all(sum(p["staged"].values()) > 0 for p in per)
+            if kernel is not None:
+                assert all(p["launches"].get(kernel, 0) > 0 for p in per), label
+        assert not any(p["forbidden"] for p in per)
+        if kw.get("record"):
+            counts = [len(p["calls"]) for p in per]
+            log(f"    ShardMonitor calls per rank {counts} (numsteps + 1 = "
+                f"{res['info'][1] + 1})")
+            assert counts == [res["info"][1] + 1] + [0] * (len(per) - 1)
+        for p in per:
+            for k, v in p["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+
 def phase_distributed_gloo(dev, kt, sv, st, card):
     """11b: four ranks on this one card under gloo, every sharded operator."""
     from krylov_tpu_torch.parallel import _spawn
@@ -2778,30 +2827,10 @@ def phase_distributed_gloo(dev, kt, sv, st, card):
     log(f"phase 11b: {GLOO_RANKS} gloo ranks sharing this one card (NCCL takes one rank a "
         "GPU): every transfer staged through the host; a check of the sharded paths "
         f"against single-device solves on the card, not a timing [{card}]")
-    on_dev = dev.type == "cuda"
     cases, (A_small, A_small_d, bs, fixed) = sharded_cases(dev, kt, sv, st, GLOO_RANKS)
     launches = {}
     with _spawn.SPMDPool(GLOO_RANKS, backend="gloo", device=dev.type, timeout=600.0) as pool:
-        for label, kernel, args, kw, ref_fn in cases:
-            res = pool.run(_spawn.solve_job, *args, **kw)
-            ref = ref_fn()
-            sharded_held(label, res["info"][1:], ref, res["x"], ref.xk.cpu().numpy())
-            per = res["per_rank"]
-            log(f"    per rank launches {[p['launches'] for p in per]}; staged "
-                f"{[sum(p['staged'].values()) for p in per]} transfers")
-            if on_dev:
-                assert all(sum(p["staged"].values()) > 0 for p in per)
-                if kernel is not None:
-                    assert all(p["launches"].get(kernel, 0) > 0 for p in per), label
-            assert not any(p["forbidden"] for p in per)
-            if kw.get("record"):
-                counts = [len(p["calls"]) for p in per]
-                log(f"    ShardMonitor calls per rank {counts} (numsteps + 1 = "
-                    f"{res['info'][1] + 1})")
-                assert counts == [res["info"][1] + 1] + [0] * (GLOO_RANKS - 1)
-            for p in per:
-                for k, v in p["launches"].items():
-                    launches[k] = launches.get(k, 0) + v
+        run_gloo_cases(pool, cases, dev, launches)
         res = pool.run(_spawn.solver_job, kt.cg, A_small, bs, **fixed)
         for j, b in enumerate(bs):
             sharded_held(f"make_sharded_solver, right-hand side {j}", res["info"][j][1:],
@@ -2810,6 +2839,282 @@ def phase_distributed_gloo(dev, kt, sv, st, card):
             for k, v in p["launches"].items():
                 launches[k] = launches.get(k, 0) + v
     log(f"  11b launches, all ranks: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the distributed preconditioners (M_partition, multigrid_factory)
+# ---------------------------------------------------------------------------
+
+PART_NPG = 256  # 12a's block-Jacobi and ILU-Schwarz matrices: 65,536 rows
+GAL_MAXITER = 400  # 12a's Galerkin cycle: piecewise-constant transfer, no iteration bound
+
+
+class OneRank:
+    """A mesh of this one process and no process group, for the sharded
+    cycles' single-device twins: a rank alone on its axis runs no
+    collective, so nothing else of a mesh is read."""
+
+    def __init__(self, device):
+        from krylov_tpu_torch.parallel import RHS, ROWS
+
+        self.shape = {ROWS: 1, RHS: 1}
+        self.coord = {ROWS: 0, RHS: 0}
+        self.device = device
+
+
+class LocalTwin:
+    """``multigrid_factory(coupling="local")`` over ``ranks`` slabs, on one
+    device: the single-device V-cycle on each slab of grid rows, with the
+    slab edges as Dirichlet walls."""
+
+    hermitian = True
+
+    def __init__(self, kt, A, ranks):
+        self.m = A.grid[0] // ranks
+        local = type(A)((self.m, A.ny), A.offsets_nd, A.weights, A.dtype, device=A.device)
+        self.M = kt.MultigridPreconditioner(local)
+        self.ranks = ranks
+
+    def __matmul__(self, r):
+        return torch.cat([self.M @ r[i * self.m : (i + 1) * self.m] for i in range(self.ranks)])
+
+
+def counted(cs, sv, pm, fn):
+    """``fn()`` with every kernel and collective count set to 0 just before
+    and read just after: ``(result, launches, collectives)``."""
+    cs.reset_launches()
+    sv.reset_launches()
+    pm.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**cs.LAUNCHES, **sv.LAUNCHES}.items() if v}
+    return out, launches, dict(pm.COUNTS)
+
+
+def per_step(coll, steps):
+    return {k: round(v / max(steps, 1), 2) for k, v in coll.items() if v}
+
+
+def phase_partitions_one(dev, kt, cs, sv, st, card):
+    """12a: the distributed preconditioners through ``sharded_solve`` on one
+    NCCL rank, at full width."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.parallel import mesh as pm
+    from krylov_tpu_torch.parallel.solve import _general_operator
+
+    log(f"phase 12a: distributed preconditioners on a world of one rank (NCCL) [{card}]")
+    mesh = parallel.make_mesh(device=dev)
+    launches = dict.fromkeys(list(cs.LAUNCHES) + list(sv.LAUNCHES), 0)
+
+    def run(label, fn, M_l, r, setup):
+        """The solve twice (a warm-up, then counted and timed); one
+        application of the rank's preconditioner counted; the line."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (_, info), n, coll = counted(cs, sv, pm, fn)
+        wall = time.perf_counter() - t0
+        _, per_app, _ = counted(cs, sv, pm, lambda: M_l @ r)
+        for k, v in n.items():
+            launches[k] += v
+        log(f"  [{card}] {label}: {wall * 1e3:.1f} ms, {info.numsteps} iterations "
+            f"(success {info.success}), launches {n}, per application {per_app}, collectives "
+            f"per step {per_step(coll, info.numsteps)}, host set-up {setup:.3f} s")
+        return info, n
+
+    try:
+        # the reference bench's cg_mg cell through the fully coupled cycle
+        A = st.poisson_2d_const(BIG, device=dev)
+        xs, b = manufactured(A, dev, SEED + 120)
+        t0 = time.perf_counter()
+        M_l = kt.multigrid_factory()(parallel.ShardedConstStencilOperator(A, BIG, mesh))
+        setup = time.perf_counter() - t0
+        assert isinstance(M_l, kt.ShardedMultigridPreconditioner)
+
+        def mg():
+            return parallel.sharded_solve(kt.cg, A, b, mesh=mesh, M_factory=kt.multigrid_factory(),
+                                          tol=1e-6, maxiter=30)
+
+        info, n = run(f"cg + multigrid_factory() on poisson_2d_const({BIG}) ({M_l.n_levels} "
+                      "levels)", mg, M_l, b, setup)
+        _, single = mg_cg(kt, A, b)
+        fwd = float(torch.linalg.norm(info.xk.reshape(A.grid) - xs) / torch.linalg.norm(xs))
+        log(f"    single-device MultigridPreconditioner: {single.numsteps} iterations; forward "
+            f"error of the sharded solve {fwd:.3e}")
+        assert info.success and abs(info.numsteps - single.numsteps) <= 2
+        assert n.get("const_stencil2d_matvec", 0) > 0 and n.get("jacobi_sweep_const", 0) > 0, n
+        idle_line(card, "cg + multigrid_factory() (one rank)", mg)
+
+        # the Galerkin cycle on the smooth variable-coefficient field
+        Ag = st.diffusion_2d(smooth_field(BIG).astype(np.float32), device=dev)
+        xs, b = manufactured(Ag, dev, SEED + 121)
+        t0 = time.perf_counter()
+        M_g = kt.multigrid_factory()(parallel.ShardedGridStencilOperator(
+            Ag.coeffs2d, Ag.offsets, Ag.ny, mesh, hermitian=True))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+
+        def gal():
+            return parallel.sharded_solve(kt.cg, Ag, b, mesh=mesh, M_factory=kt.multigrid_factory(),
+                                          tol=1e-6, maxiter=GAL_MAXITER)
+
+        info, n = run(f"cg + multigrid_factory() on diffusion_2d({BIG}), a = 1 + 0.9 sin cos "
+                      f"(ShardedGalerkinMultigrid, {M_g.n_levels} levels)", gal, M_g, b, setup)
+        res = float(torch.linalg.norm(b - Ag @ info.xk.reshape(Ag.grid)) / torch.linalg.norm(b))
+        log(f"    explicit relative residual {res:.3e} (bound 1e-3; no iteration bound: "
+            "piecewise-constant transfer is mesh-dependent)")
+        assert res < 1e-3 and n.get("stencil2d_matvec", 0) > 0, n
+        del Ag, M_g, b, xs
+
+        # the reference bench's cg_amg cell through partition_amg
+        rng = np.random.default_rng(SEED + 122)
+        lap0 = poisson_csr(NPG, 4.0)
+        nrow = lap0.shape[0]
+        b = torch.from_numpy(rng.standard_normal(nrow).astype(np.float32)).to(dev)
+        t0 = time.perf_counter()
+        part = parallel.partition_amg(lap0, 1, dtype=np.float32)
+        setup = time.perf_counter() - t0
+        pet = parallel.partition_pet(lap0, 1)
+        t0 = time.perf_counter()
+        solver = parallel.make_sharded_solver(kt.cg, pet, mesh=mesh, tol=1e-4, maxiter=60,
+                                              M_partition=part)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        log(f"  partition_amg({NPG}^2, 1): host set-up {setup:.3f} s, levels "
+            f"{list(part.level_sizes)}; make_sharded_solver (the rank's slabs on the card) "
+            f"{build:.3f} s")
+        A_op = _general_operator(pet, mesh, nrow)[0]
+        M_a = part.make_local(A_op, mesh)
+        info, n = run(f"cg + partition_amg on the {NPG}^2 poisson (make_sharded_solver)",
+                      lambda: solver(b), M_a, b, setup)
+        _, again = solver(b)
+        same = np.array_equal(info.resnorms, again.resnorms) and torch.equal(info.xk, again.xk)
+        res = host_residual(lap0, b, info.xk)
+        log(f"    repeat bitwise equal {same}; float64 host residual {res:.3e}")
+        assert info.success and same and res <= HOST_RTOL
+        assert n.get("csr_matvec", 0) > 0, n
+        Ap = sv.PETOperator.from_scipy(part.padded_matrix(0), with_rmatvec=False, device=dev)
+        _, twin = kt.cg(Ap, b, M=part.as_global(dev), tol=1e-4, maxiter=60, backend="while_loop")
+        m = min(len(info.resnorms), len(twin.resnorms)) - 1
+        rel = float(np.max(np.abs(info.resnorms[:m] - twin.resnorms[:m]) / twin.resnorms[:m]))
+        M1 = kt.AMGPreconditioner.from_scipy(lap0, dtype=np.float32, fine_operator=Ap, device=dev)
+        _, one = kt.cg(Ap, b, M=M1, tol=1e-4, maxiter=60, backend="while_loop")
+        log(f"    as_global() twin: {twin.numsteps} iterations, max rel resnorm {rel:.3e} (rtol "
+            f"{TRAJ_RTOL}); single-device AMGPreconditioner: {one.numsteps} iterations, levels "
+            f"{list(M1.level_sizes)}")
+        assert abs(info.numsteps - twin.numsteps) <= 1 and rel <= TRAJ_RTOL and one.success
+        idle_line(card, "cg + partition_amg (one rank)", lambda: solver(b))
+        del solver, M_a, A_op, Ap, M1, pet, part
+
+        # block Jacobi and ILU(0)-Schwarz at 65,536 rows (true grids)
+        g = PART_NPG
+        b = torch.from_numpy(rng.standard_normal(g * g).astype(np.float32)).to(dev)
+        for label, sp, solver_fn, key, build_part, tol, maxiter in (
+            ("cg + partition_block_jacobi(block=64)", grid_csr(g), kt.cg, "M",
+             lambda sp: parallel.partition_block_jacobi(sp, 1, block=64), BJ_TOL, 2000),
+            ("bicgstab + partition_ilu0, convected", grid_csr(g, 0.5, 0.4), kt.bicgstab, "Ml",
+             lambda sp: parallel.partition_ilu0(sp, 1), 1e-4, 200),
+        ):
+            t0 = time.perf_counter()
+            prt = build_part(sp)
+            setup = time.perf_counter() - t0
+            pet = parallel.partition_pet(sp, 1)
+            M_p = prt.make_local(_general_operator(pet, mesh, g * g)[0], mesh)
+
+            def solve(pet=pet, prt=prt, solver_fn=solver_fn, tol=tol, maxiter=maxiter):
+                return parallel.sharded_solve(solver_fn, pet, b, mesh=mesh, tol=tol,
+                                              maxiter=maxiter, M_partition=prt)
+
+            info, n = run(f"{label} at {g}^2", solve, M_p, b, setup)
+            op = sv.PETOperator.from_scipy(sp, device=dev)
+            _, twin = solver_fn(op, b, tol=tol, maxiter=maxiter, backend="while_loop",
+                                **{key: prt.as_global(dev)})
+            m = min(len(info.resnorms), len(twin.resnorms)) - 1
+            rel = float(np.max(np.abs(info.resnorms[:m] - twin.resnorms[:m]) / twin.resnorms[:m]))
+            res = host_residual(sp, b, info.xk)
+            log(f"    as_global() twin: {twin.numsteps} iterations, max rel resnorm {rel:.3e}; "
+                f"float64 host residual {res:.3e}")
+            assert info.success and abs(info.numsteps - twin.numsteps) <= 1 and rel <= TRAJ_RTOL
+            assert n.get("csr_matvec", 0) > 0, n
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def partition_cases(dev, kt, sv, st, ranks):
+    """The sharded solves of 12b (and of ``tools/torch_multigpu_check.py``):
+    ``(label, kernel, (solver, A, b), sharded_solve keywords, the same solve
+    on one device)`` as :func:`sharded_cases`; each single-device twin runs
+    the same preconditioner: the sharded cycles on :class:`OneRank` (their
+    hierarchies do not depend on the rank count here), the slab-local cycle
+    as :class:`LocalTwin`, the partitions' ``as_global()``."""
+    from krylov_tpu_torch import parallel
+
+    f32 = np.float32
+    n = GLOO_N
+    one = OneRank(dev)
+    ones = np.ones((n, n), f32)
+    A_con_h = st.poisson_2d_const(n, dtype=np.float32, device="cpu")
+    A_con = st.poisson_2d_const(n, dtype=np.float32, device=dev)
+    field = smooth_field(n).astype(f32)
+    A_div_h, A_div = st.diffusion_2d(field, device="cpu"), st.diffusion_2d(field, device=dev)
+    lap0, conv, spd = poisson_csr(GLOO_NPG, 4.0), grid_csr(GLOO_NPG, 0.5, 0.4), grid_csr(GLOO_NPG)
+    b_sp = np.random.default_rng(SEED + 123).standard_normal(lap0.shape[0]).astype(f32)
+    amg = parallel.partition_amg(lap0, ranks, dtype=f32, n_sharded_levels=2, smoother="chebyshev")
+    ilu = parallel.partition_ilu0(conv, ranks, with_rmatvec=True)
+    bj = parallel.partition_block_jacobi(spd, ranks, block=64)
+
+    def fixed(k):
+        return dict(tol=0.0, atol=0.0, maxiter=k)
+
+    def mg_twin(coupling):
+        if coupling == "local":
+            return LocalTwin(kt, A_con, ranks)
+        return kt.multigrid_factory(coupling=coupling)(
+            parallel.ShardedConstStencilOperator(A_con, n, one))
+
+    cases = [
+        (f"cg + multigrid_factory(coupling={c!r})", "const_stencil2d_matvec",
+         (kt.cg, A_con_h, ones), dict(M_factory=kt.multigrid_factory(coupling=c), **fixed(12)),
+         lambda c=c: single_solve(kt.cg, A_con, ones, dev, M=mg_twin(c), **fixed(12)))
+        for c in ("auto", "full", "local")
+    ]
+    cases += [
+        ("cg + multigrid_factory(), Galerkin", "stencil2d_matvec", (kt.cg, A_div_h, ones),
+         dict(M_factory=kt.multigrid_factory(), **fixed(30)),
+         lambda: single_solve(kt.cg, A_div, ones, dev, M=kt.multigrid_factory()(
+             parallel.ShardedGridStencilOperator(A_div.coeffs2d, A_div.offsets, A_div.ny, one,
+                                                 hermitian=True)), **fixed(30))),
+        ("cg + partition_amg(n_sharded_levels=2, chebyshev)", "csr_matvec",
+         (kt.cg, parallel.partition_pet(lap0, ranks), b_sp), dict(M_partition=amg, **fixed(15)),
+         lambda: single_solve(kt.cg, sv.PETOperator.from_scipy(lap0, device=dev), b_sp, dev,
+                              M=amg.as_global(dev), **fixed(15))),
+        ("qmr + partition_ilu0(with_rmatvec=True), convected", "csr_matvec",
+         (kt.qmr, parallel.partition_pet(conv, ranks), b_sp), dict(M_partition=ilu, **fixed(10)),
+         lambda: single_solve(kt.qmr, sv.PETOperator.from_scipy(conv, device=dev), b_sp, dev,
+                              Ml=ilu.as_global(dev), **fixed(10))),
+        ("cg + partition_block_jacobi(block=64)", "csr_matvec",
+         (kt.cg, parallel.partition_pet(spd, ranks), b_sp), dict(M_partition=bj, **fixed(50)),
+         lambda: single_solve(kt.cg, sv.PETOperator.from_scipy(spd, device=dev), b_sp, dev,
+                              M=bj.as_global(dev), **fixed(50))),
+    ]
+    return cases
+
+
+def phase_partitions_gloo(dev, kt, sv, st, card):
+    """12b: four ranks on this one card under gloo, every new path."""
+    from krylov_tpu_torch.parallel import _spawn
+
+    log(f"phase 12b: {GLOO_RANKS} gloo ranks sharing this one card: the distributed "
+        "preconditioners against their single-device twins (a check, not a timing) "
+        f"[{card}]")
+    launches = {}
+    with _spawn.SPMDPool(GLOO_RANKS, backend="gloo", device=dev.type, timeout=600.0) as pool:
+        run_gloo_cases(pool, partition_cases(dev, kt, sv, st, GLOO_RANKS), dev, launches)
+    log(f"  12b launches, all ranks: {launches}")
     return launches
 
 
@@ -2867,6 +3172,10 @@ def main():
     for k, n in phase_distributed_one(dev, kt, cs, st, card).items():
         launches[k] += n
     for k, n in phase_distributed_gloo(dev, kt, sv, st, card).items():
+        launches[k] += n
+    for k, n in phase_partitions_one(dev, kt, cs, sv, st, card).items():
+        launches[k] += n
+    for k, n in phase_partitions_gloo(dev, kt, sv, st, card).items():
         launches[k] += n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))

@@ -40,10 +40,15 @@ implicit function theorem through one adjoint solve) and
 :mod:`krylov_tpu_torch.profiling` (traces, timed solves, byte models and
 roofline shares), and the distribution layer :mod:`krylov_tpu_torch.parallel`
 (row-partitioned solves over ``torch.distributed``: the mesh, the sharded
-operators, :func:`~krylov_tpu_torch.parallel.sharded_solve`).
+operators, :func:`~krylov_tpu_torch.parallel.sharded_solve` and its
+host-built preconditioner partitions: distributed AMG, ILU(0)-Schwarz and
+block Jacobi) with the sharded geometric multigrid
+(:class:`ShardedMultigridPreconditioner`, :func:`multigrid_factory`).
+With them the port does all that ``krylov_tpu`` does.
 """
 
 from . import convert, diffable, ops, parallel, profiling, utils
+from .__about__ import __version__
 from ._device import default_device, set_default_device
 from ._info import Info
 from ._operators import (
@@ -68,7 +73,7 @@ from .errors import ArgumentError
 from .givens import givens
 from .householder import Householder
 from .ilu import ILUPreconditioner
-from .multigrid import MultigridPreconditioner
+from .multigrid import MultigridPreconditioner, ShardedMultigridPreconditioner, multigrid_factory
 from .ops.stencil import poisson_2d_const, poisson_3d_const
 from .solvers import (
     SSORSmoother,
@@ -119,6 +124,7 @@ __all__ = [
     "MultigridPreconditioner",
     "Product",
     "SSORSmoother",
+    "ShardedMultigridPreconditioner",
     "arnoldi_res",
     "as_operator",
     "aslinearoperator",
@@ -145,6 +151,7 @@ __all__ = [
     "jacobi_preconditioner",
     "lsqr",
     "minres",
+    "multigrid_factory",
     "ops",
     "parallel",
     "poisson_2d_const",
@@ -159,4 +166,5 @@ __all__ = [
     "symmlq",
     "tfqmr",
     "utils",
+    "__version__",
 ]

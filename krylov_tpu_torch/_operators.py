@@ -235,8 +235,12 @@ class DiagonalOperator:
 
 
 def jacobi_preconditioner(A):
-    """``M = diag(A)^-1`` as a :class:`DiagonalOperator` (guarding zeros)."""
+    """``M = diag(A)^-1`` as a :class:`DiagonalOperator` (guarding zeros).
+    The diagonal of a scipy matrix or numpy array goes to the default
+    device."""
     d = A.diagonal() if hasattr(A, "diagonal") else torch.diagonal(A)
+    if not isinstance(d, torch.Tensor):
+        d = torch.tensor(np.asarray(d), device=_device.resolve(None))
     return DiagonalOperator(torch.where(d != 0, 1.0 / d, 1.0))
 
 

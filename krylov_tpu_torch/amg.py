@@ -23,7 +23,9 @@ device to :class:`~krylov_tpu_torch.ops.cuda_spmv.PETOperator` (kernel K10
 for a vector, K11 for an ``(N, k)`` block), everything else to
 :class:`~krylov_tpu_torch.ops.sparse.CSROperator`.  The SA transfer is
 applied implicitly from ``P_hat`` (forward K10, and K10 on the CSR of
-``P_hat^T`` to restrict) and the level operator; the coarsest level applies
+``P_hat^T`` to restrict; a CSR ``P_hat`` restricts through its explicit
+adjoint too, so no float scatter-add runs and a cycle repeats bit for bit)
+and the level operator; the coarsest level applies
 a dense inverse (``torch.matmul``).  No step has a kernel of its own: the
 reference computes the cycle's vector updates and the coarse product
 outside any Pallas kernel too.
@@ -243,6 +245,44 @@ def _smoothed_prolongator(Al, theta, smooth_prolongator, lmax_method="power", ne
     return P, Ac, lmax, labels, n_agg
 
 
+def _coarsen(A, *, theta=0.08, coarse_size=400, max_levels=12, dtype=None,
+             smooth_prolongator=True, lmax_method="power"):
+    """The host half of the set-up: ``(levels, phats, p_ws, lmaxs)``, the
+    level matrices (fine first), the tentative prolongators, the prolongator
+    smoothing weights and the ``lmax(D^-1 A)`` estimates, as scipy matrices
+    and floats (see :meth:`AMGPreconditioner.from_scipy` for the keywords)."""
+    import scipy.sparse
+
+    if not scipy.sparse.issparse(A):
+        A = scipy.sparse.csr_matrix(np.asarray(A))
+    A = A.tocsr()
+    if A.shape[0] != A.shape[1]:
+        raise ValueError("AMG needs a square matrix")
+    if dtype is not None:
+        A = A.astype(dtype, copy=False)  # no copy when already dtype
+    if not (A.has_canonical_format and A.has_sorted_indices):
+        A = A.copy()  # canonicalize our copy, not the caller's matrix
+        A.sum_duplicates()
+        A.sort_indices()
+
+    levels, phat_sps, p_ws, lmaxs = [A], [], [], []
+    while levels[-1].shape[0] > coarse_size and len(levels) < max_levels:
+        step = _smoothed_prolongator(levels[-1], theta, smooth_prolongator,
+                                     lmax_method=lmax_method, need_P=False)
+        if step is None:
+            break  # coarsening stalled
+        _, Ac, lmax, labels, n_agg = step
+        lmaxs.append(lmax)
+        if dtype is not None:
+            Ac = Ac.astype(dtype, copy=False)
+        p_ws.append(float(4.0 / (3.0 * lmax)) if smooth_prolongator else None)
+        nf = labels.shape[0]
+        phat_sps.append(scipy.sparse.csr_matrix(
+            (np.ones(nf, Ac.dtype), (np.arange(nf), labels)), shape=(nf, int(n_agg))))
+        levels.append(Ac)
+    return levels, phat_sps, p_ws, lmaxs
+
+
 def _device_sparse(sp, device):
     """A set-up scipy matrix as the operator the cycle applies on
     ``device``: the routing of ``as_operator`` minus its block-size probe."""
@@ -278,6 +318,10 @@ class AMGPreconditioner:
         # only the tentative P_hat (one nonzero a row) and its adjoint are
         # operators; p_w[level] is w, or None for unsmoothed aggregation
         self._phats = tuple(phats)
+        # a CSR prolongator restricts through its explicit adjoint (a matvec,
+        # no scatter-add); PETOperator holds one already
+        self._phat_adjs = tuple(p.adjoint() if isinstance(p, CSROperator) else None
+                                for p in self._phats)
         self._p_w = tuple(p_w) or (None,) * len(self._phats)
         self._dinvs = tuple(dinvs)
         self._coarse_inv = coarse_inv
@@ -325,8 +369,6 @@ class AMGPreconditioner:
 
         ``KRYLOV_TORCH_AMG_PROFILE=1`` prints the set-up's phases to stderr.
         """
-        import scipy.sparse
-
         device = _device.resolve(device)
         seconds = {}
         t0 = time.perf_counter()
@@ -339,35 +381,27 @@ class AMGPreconditioner:
                 print(f"[amg-setup] {phase}: {t1 - t0:.3f}s", file=sys.stderr, flush=True)
             t0 = t1
 
-        if not scipy.sparse.issparse(A):
-            A = scipy.sparse.csr_matrix(np.asarray(A))
-        A = A.tocsr()
-        if A.shape[0] != A.shape[1]:
-            raise ValueError("AMG needs a square matrix")
-        if dtype is not None:
-            A = A.astype(dtype, copy=False)  # no copy when already dtype
-        if not (A.has_canonical_format and A.has_sorted_indices):
-            A = A.copy()  # canonicalize our copy, not the caller's matrix
-            A.sum_duplicates()
-            A.sort_indices()
-
-        levels, phat_sps, p_ws, lmaxs = [A], [], [], []
-        while levels[-1].shape[0] > coarse_size and len(levels) < max_levels:
-            step = _smoothed_prolongator(levels[-1], theta, smooth_prolongator,
-                                         lmax_method=lmax_method, need_P=False)
-            if step is None:
-                break  # coarsening stalled
-            _, Ac, lmax, labels, n_agg = step
-            lmaxs.append(lmax)
-            if dtype is not None:
-                Ac = Ac.astype(dtype, copy=False)
-            p_ws.append(float(4.0 / (3.0 * lmax)) if smooth_prolongator else None)
-            nf = labels.shape[0]
-            phat_sps.append(scipy.sparse.csr_matrix(
-                (np.ones(nf, Ac.dtype), (np.arange(nf), labels)), shape=(nf, int(n_agg))))
-            levels.append(Ac)
+        hierarchy = _coarsen(A, theta=theta, coarse_size=coarse_size, max_levels=max_levels,
+                             dtype=dtype, smooth_prolongator=smooth_prolongator,
+                             lmax_method=lmax_method)
         mark("coarsening (labels + Galerkin RAP)")
+        self = cls.from_hierarchy(hierarchy, smooth=smooth, omega=omega, smoother=smoother,
+                                  coarse_size=coarse_size, lmax_method=lmax_method,
+                                  fine_operator=fine_operator, device=device, _mark=mark)
+        self.setup_seconds = seconds
+        return self
 
+    @classmethod
+    def from_hierarchy(cls, hierarchy, *, smooth=2, omega=2.0 / 3.0, smoother="jacobi",
+                       coarse_size=400, lmax_method="power", fine_operator=None, device=None,
+                       _mark=None):
+        """The cycle over a hierarchy that :func:`_coarsen` built on the
+        host (scipy matrices only, so it pickles): its operators, tentative
+        prolongators, diagonals and coarsest solve go to ``device``; the
+        keywords are :meth:`from_scipy`'s."""
+        device = _device.resolve(device)
+        mark = _mark or (lambda phase: None)
+        levels, phat_sps, p_ws, lmaxs = hierarchy
         build = levels[:-1]
         if fine_operator is not None and build:
             build = build[1:]
@@ -402,7 +436,6 @@ class AMGPreconditioner:
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the copies are part of the set-up
         mark("coarse inverse + assembly")
-        self.setup_seconds = seconds
         return self
 
     # -- observables ----------------------------------------------------
@@ -499,7 +532,8 @@ class AMGPreconditioner:
         w = self._p_w[level]
         if w is not None:
             d = d - w * (self._ops[level] @ self._dinv_mul(level, d))
-        return self._phats[level].rmatvec(d)
+        adj = self._phat_adjs[level]
+        return self._phats[level].rmatvec(d) if adj is None else adj @ d
 
     # P e = (I - w D^-1 A) P_hat e
     def _prolong_level(self, level, e):

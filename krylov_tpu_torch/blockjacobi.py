@@ -1,7 +1,8 @@
 """Block-Jacobi preconditioner: batched dense inverses of the diagonal blocks.
 
-Counterpart of ``krylov_tpu.BlockJacobiPreconditioner`` (single device; the
-sharded partition comes with distribution).  Non-overlapping additive
+Counterpart of ``krylov_tpu.BlockJacobiPreconditioner`` and of its sharded
+partition (:func:`partition_block_jacobi`, the ``M_partition`` of
+:func:`krylov_tpu_torch.parallel.sharded_solve`).  Non-overlapping additive
 Schwarz with exact block solves: for SPD ``A`` every diagonal block is SPD,
 so the preconditioner is SPD and a valid ``M`` of cg/minres.  Line-shaped
 blocks (``block = ny`` on an ``nx x ny`` grid) give line Jacobi, which
@@ -19,7 +20,7 @@ import torch
 
 from . import _device
 
-__all__ = ["BlockJacobiPreconditioner"]
+__all__ = ["BlockJacobiPartition", "BlockJacobiPreconditioner", "partition_block_jacobi"]
 
 
 def _block_diag_inverses(A, block, dtype=None):
@@ -106,3 +107,100 @@ class BlockJacobiPreconditioner:
 
     def rmatvec(self, r):
         return _apply_blocks(self._inv.conj().transpose(1, 2), r)
+
+
+class _LocalBlockJacobi:
+    """A rank's slab of the block-Jacobi apply: its own blocks, no
+    communication (blocks never cross a slab's edge)."""
+
+    hermitian = True
+
+    def __init__(self, inv):
+        self._inv = inv
+
+    @property
+    def shape(self):
+        n = self._inv.shape[0] * self._inv.shape[1]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self._inv.dtype
+
+    @property
+    def device(self):
+        return self._inv.device
+
+    def __matmul__(self, r):
+        return _apply_blocks(self._inv, r)
+
+    matvec = __matmul__
+
+    def rmatvec(self, r):
+        return _apply_blocks(self._inv.conj().transpose(1, 2), r)
+
+
+class BlockJacobiPartition:
+    """Sharded block Jacobi for ``sharded_solve(M_partition=)``.
+
+    Host state only (``(S, nb_local, k, k)`` numpy inverses), so it pickles
+    to the ranks.  Blocks never cross a slab's edge, so the sharded apply
+    needs no communication; ``block`` must divide the slab's row count."""
+
+    def __init__(self, inv_stacked, n_shards, n, n_pad):
+        self._inv = inv_stacked
+        self.n_shards = int(n_shards)
+        self.shape = (int(n), int(n))
+        self.n_pad = int(n_pad)
+
+    @property
+    def n_local_fine(self):
+        return self.n_pad // self.n_shards
+
+    @property
+    def block(self):
+        return self._inv.shape[2]
+
+    def make_local(self, A_op, mesh):
+        """This rank's apply on ``mesh.device`` (see the protocol in
+        :mod:`krylov_tpu_torch.parallel.solve`)."""
+        from .parallel.csr import check_local_rows
+        from .parallel.mesh import ROWS
+
+        check_local_rows("block-Jacobi", self.n_local_fine, A_op)
+        inv = self._inv[mesh.coord[ROWS]]
+        return _LocalBlockJacobi(torch.from_numpy(np.ascontiguousarray(inv)).to(mesh.device))
+
+    def as_global(self, device=None):
+        """The single-device twin on the padded problem (the same blocks)."""
+        S, nbl, k, _ = self._inv.shape
+        return BlockJacobiPreconditioner(
+            torch.from_numpy(self._inv.reshape(S * nbl, k, k)).to(_device.resolve(device)),
+            self.n_pad)
+
+
+def partition_block_jacobi(A, n_shards, block=64, dtype=None):
+    """Host set-up of sharded block Jacobi (the ``M_partition`` protocol).
+
+    The matrix is padded with unit-diagonal rows to the shard multiple, as
+    :func:`~krylov_tpu_torch.parallel.csr.partition_csr` pads the solve's
+    (identity blocks there), so pass the SAME matrix to both.  ``block``
+    must divide the slab's row count."""
+    import scipy.sparse
+
+    from .parallel.csr import pad_unit_diagonal
+
+    if not scipy.sparse.issparse(A):
+        A = scipy.sparse.csr_matrix(np.asarray(A))
+    N = A.shape[0]
+    A_pad = pad_unit_diagonal(A.tocsr(), (-N) % n_shards)
+    n_pad = A_pad.shape[0]
+    n_local = n_pad // n_shards
+    k = int(block)
+    if n_local % k:
+        raise ValueError(
+            f"block={k} does not divide the shard-local row count {n_local} (padded "
+            f"N={n_pad} over {n_shards} shards); pick a divisor of {n_local}"
+        )
+    inv, _ = _block_diag_inverses(A_pad, k, dtype=dtype)
+    return BlockJacobiPartition(inv.reshape(n_shards, n_local // k, k, k), n_shards, N, n_pad)

@@ -350,3 +350,509 @@ class MultigridPreconditioner:
 
     def rmatvec(self, x):
         return self @ x  # symmetric cycle
+
+
+# -- piecewise-constant transfer (the sharded Galerkin cycle) ---------------
+
+
+def _block_restrict(x, nd, scale):
+    """Scaled 2x..x2 block sum over the leading ``nd`` axes."""
+    for ax in range(nd):
+        s = tuple(x.shape)
+        x = x.reshape(s[:ax] + (s[ax] // 2, 2) + s[ax + 1 :]).sum(dim=ax + 1)
+    return x * scale
+
+
+def _block_prolong(x, nd):
+    """Piecewise-constant interpolation: each cell repeated 2x an axis."""
+    for ax in range(nd):
+        x = torch.repeat_interleave(x, 2, dim=ax)
+    return x
+
+
+# -- the order-2 transfer along the sharded leading axis --------------------
+#
+# One boundary plane travels to each mesh neighbour a transfer
+# (``Mesh.start_exchange``, zeros at the mesh edges, as the reference's
+# ``ppermute``), and the Dirichlet ghost terms apply on the first and last
+# rank only: the distributed transfer is the single-device one.
+
+
+def _edges(mesh, axis):
+    """Whether this rank holds the first and the last slab of ``axis``."""
+    i = mesh.coord[axis]
+    return i == 0, i == mesh.shape[axis] - 1
+
+
+def _exchange(mesh, axis, to_next, to_prev):
+    """``(from_prev, from_next)``; a rank alone on its axis receives zeros
+    and sends nothing."""
+    if mesh.shape[axis] == 1:
+        return torch.zeros_like(to_next), torch.zeros_like(to_prev)
+    return mesh.start_exchange(to_next, to_prev, axis).wait()
+
+
+def _lead_lin_restrict_axis(x, mesh, axis):
+    """:func:`_lin_restrict_axis` along the leading, row-partitioned axis."""
+    m = x.shape[0] // 2
+    xr = x.reshape((m, 2) + tuple(x.shape[1:]))
+    even, odd = xr[:, 0], xr[:, 1]
+    od_prev, ev_next = _exchange(mesh, axis, odd[-1:], even[:1])
+    even_next = torch.cat([even[1:], ev_next])
+    odd_prev = torch.cat([od_prev, odd[:-1]])
+    t = 0.75 * (even + odd) + 0.25 * even_next + 0.25 * odd_prev
+    first, last = _edges(mesh, axis)
+    if first:  # the exact adjoint of the Dirichlet ghost terms at the walls
+        t[:1] += -0.25 * even[:1]
+    if last:
+        t[m - 1 :] += -0.25 * odd[-1:]
+    return t
+
+
+def _lead_lin_prolong_axis(x, mesh, axis):
+    """:func:`_lin_prolong_axis` along the leading, row-partitioned axis."""
+    c_prev, c_next = _exchange(mesh, axis, x[-1:], x[:1])
+    first, last = _edges(mesh, axis)
+    if first:
+        c_prev = -x[:1]
+    if last:
+        c_next = -x[-1:]
+    even = 0.75 * x + 0.25 * torch.cat([c_prev, x[:-1]])
+    odd = 0.75 * x + 0.25 * torch.cat([x[1:], c_next])
+    return torch.stack([even, odd], dim=1).reshape((2 * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def _sharded_lin_restrict(x, nd, scale, mesh, axis):
+    x = _lead_lin_restrict_axis(x, mesh, axis)
+    for ax in range(1, nd):
+        x = _lin_restrict_axis(x, ax)
+    return x * scale
+
+
+def _sharded_lin_prolong(x, nd, mesh, axis):
+    x = _lead_lin_prolong_axis(x, mesh, axis)
+    for ax in range(1, nd):
+        x = _lin_prolong_axis(x, ax)
+    return x
+
+
+def _galerkin_coarsen_2d(coeffs, row_offsets, col_offsets):
+    """Exact Galerkin coarse stencil ``A_c = P^T A P`` for piecewise-constant
+    transfer (``P`` the 2x2 block repeat, ``R = P^T`` the block sum).
+
+    ``coeffs``: ``(ndiag, Mx, My)`` fine coefficient planes (numpy or a
+    tensor).  Fine entry ``(i, i + d)`` with ``i = 2I + p`` lands at coarse
+    offset ``floor((p + d) / 2)`` a dimension, position ``I``: each fine
+    plane sums into the coarse planes by parity sub-sampling.  Returns
+    ``(coarse_coeffs, coarse_row_offsets, coarse_col_offsets)``, keyed by
+    ``(dr, dc)`` pairs in ascending order; the fine boundary contract (zero
+    coefficients where the neighbour leaves the grid) carries over exactly.
+    """
+    out = {}
+    for d, (dr, dc) in enumerate(zip(row_offsets, col_offsets)):
+        C = coeffs[d]
+        for px in (0, 1):
+            for py in (0, 1):
+                key = ((px + dr) // 2, (py + dc) // 2)
+                sub = C[px::2, py::2]
+                out[key] = sub if key not in out else out[key] + sub
+    keys = sorted(out)
+    stack = np.stack if isinstance(coeffs, np.ndarray) else torch.stack
+    cc = stack([out[k] for k in keys], 0)
+    return cc, tuple(k[0] for k in keys), tuple(k[1] for k in keys)
+
+
+class ShardedMultigridPreconditioner:
+    """Distributed geometric V-cycle over a row-sharded constant stencil
+    (built by :func:`multigrid_factory` on the rank's
+    :class:`~krylov_tpu_torch.parallel.grid.ShardedConstStencilOperator`).
+
+    Per level:
+
+    * smoothing and residuals: the level's
+      :class:`~krylov_tpu_torch.parallel.grid.ShardedConstStencilOperator`
+      (K2 on the slab with ``row0`` and the neighbours' halo rows; one
+      exchange a sweep, no reduction);
+    * restriction and prolongation: the order-2 multilinear transfer, one
+      boundary plane exchanged with each neighbour along the sharded axis,
+      the other axes local;
+    * the coarsest level: once a slab can no longer halve, the small coarse
+      residual is gathered (``all_gather_rows``) and every rank runs the
+      same single-device :class:`MultigridPreconditioner` V-cycle (K8) on
+      the global coarse grid, then keeps its own rows.
+
+    The cycle couples the slabs at every level, so iteration counts match
+    the single-device V-cycle whatever the rank count.
+    """
+
+    hermitian = True
+
+    def __init__(self, A_l, smooth=2, omega=0.8, n_levels=None, coarse_iters=40):
+        from .parallel.grid import ShardedConstStencilOperator
+
+        if not isinstance(A_l, ShardedConstStencilOperator):
+            raise TypeError("ShardedMultigridPreconditioner needs a ShardedConstStencilOperator")
+        if A_l.m_valid is not None:
+            raise ValueError(
+                "padded grids cannot coarsen consistently across shards; use "
+                "multigrid_factory(coupling='local')"
+            )
+        g = A_l._op
+        inner_rows = int(np.prod(g.shape_nd[1:-1]))
+        if A_l.m_local % inner_rows:
+            raise ValueError(
+                f"shard slab of {A_l.m_local} grid rows does not tile the inner grid dims "
+                f"{g.shape_nd[1:-1]}"
+            )
+        self.mesh, self.axis = A_l.mesh, A_l.axis
+        self.smooth = int(smooth)
+        self.omega = float(omega)
+        self.coarse_iters = int(coarse_iters)
+
+        shapes, leads = [g.shape_nd], [A_l.m_local // inner_rows]
+        # halve while every slab keeps whole leading cells and the unsharded
+        # dims stay halvable
+        while (leads[-1] % 2 == 0 and _can_halve(shapes[-1][1:])
+               and (n_levels is None or len(shapes) < n_levels)):
+            shapes.append(_halve_all(shapes[-1]))
+            leads.append(leads[-1] // 2)
+        dev = A_l.device
+        ops = [ConstStencilOperator(s, g.offsets_nd, g.weights, g.dtype, device=dev)
+               for s in shapes]
+        self._leads = tuple(leads)
+        self._nds = tuple(len(s) for s in shapes)
+        self._local_nd = tuple((lead,) + tuple(s[1:]) for lead, s in zip(leads, shapes))
+        # every level's slab operator, made once
+        self._slabs = tuple(
+            ShardedConstStencilOperator(op, lead * int(np.prod(s[1:-1])), self.mesh, self.axis)
+            for op, lead, s in zip(ops, leads, shapes)
+        )
+        # the gathered coarse solve: one single-device V-cycle on the global
+        # coarse grid (which keeps coarsening below the slabs' limit)
+        self._coarse = MultigridPreconditioner(ops[-1], smooth=smooth, omega=omega,
+                                               coarse_iters=coarse_iters)
+        center = [w for off, w in zip(g.offsets_nd, g.weights) if all(o == 0 for o in off)]
+        if not center or center[0] == 0.0:
+            raise ValueError("stencil needs a nonzero center weight")
+        self._w = self.omega / float(center[0])
+        self._r_scale = 4.0 / (2 ** len(g.shape_nd))
+        self._dtype = g.dtype
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def n_levels(self):
+        return len(self._slabs) + self._coarse.n_levels - 1
+
+    def _apply(self, level, x_nd):
+        """The level's sharded matvec in the slab's n-D layout."""
+        sh = self._slabs[level]
+        tail = tuple(x_nd.shape[self._nds[level]:])
+        return (sh @ x_nd.reshape(tuple(sh.grid) + tail)).reshape(x_nd.shape)
+
+    def _smooth(self, level, z, r, iters):
+        for _ in range(iters):
+            z = z + self._w * (r - self._apply(level, z))
+        return z
+
+    def _vcycle(self, level, r):
+        nd = self._nds[level]
+        if level == len(self._slabs) - 1:
+            alone = self.mesh.shape[self.axis] == 1
+            rg = r if alone else self.mesh.all_gather_rows(r, self.axis)
+            zg = self._coarse._vcycle(0, rg)
+            lead = self._leads[level]
+            row0 = self.mesh.coord[self.axis] * lead
+            return zg[row0 : row0 + lead]
+        z = self._w * r  # the first Jacobi sweep from zero, no matvec
+        z = self._smooth(level, z, r, self.smooth - 1)
+        d = r - self._apply(level, z)
+        e = self._vcycle(level + 1,
+                         _sharded_lin_restrict(d, nd, self._r_scale, self.mesh, self.axis))
+        z = z + _sharded_lin_prolong(e, nd, self.mesh, self.axis)
+        return self._smooth(level, z, r, self.smooth)
+
+    def __matmul__(self, r):
+        # r: the slab's collapsed (m_local, last)(+tail) vector
+        tail = tuple(r.shape[2:])
+        return self._vcycle(0, r.reshape(self._local_nd[0] + tail)).reshape(r.shape)
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        return self @ x  # a symmetric cycle
+
+
+class ShardedGalerkinMultigrid:
+    """Distributed Galerkin V-cycle over a row-sharded variable-coefficient
+    2-D grid stencil (built by :func:`multigrid_factory` on the rank's
+    :class:`~krylov_tpu_torch.parallel.grid.ShardedGridStencilOperator`).
+
+    Every level smooths with damped Jacobi through a halo-exchanging
+    :class:`~krylov_tpu_torch.parallel.grid.ShardedGridStencilOperator`
+    (K1; one exchange a sweep, no reduction).  Each coarse level's
+    coefficients are the exact Galerkin product ``P^T A P`` for
+    piecewise-constant transfer, computed on each rank from its own slab by
+    parity sub-sampling (an even slab row count keeps global and local
+    parities equal, and each fine coefficient lives with its row, so no
+    coefficient travels).  When the slab can no longer halve, the small
+    coarse coefficient planes are gathered, the global problem keeps
+    coarsening on every rank, and the bottom is a dense inverse.  All of
+    this happens here, once; an application only smooths and transfers.
+    """
+
+    hermitian = True
+
+    def __init__(self, A_l, smooth=2, omega=0.8, n_levels=None, coarse_iters=40):
+        from .parallel.grid import ShardedGridStencilOperator
+
+        if not isinstance(A_l, ShardedGridStencilOperator):
+            raise TypeError("ShardedGalerkinMultigrid needs a ShardedGridStencilOperator")
+        if not A_l.hermitian:
+            raise ValueError("multigrid preconditioning needs a hermitian (SPD) operator")
+        lop = A_l._local
+        if any(o not in (-1, 0, 1) for o in lop.row_offsets + lop.col_offsets):
+            raise ValueError(
+                "Galerkin multigrid supports nearest-neighbor 2-D stencils; got row/col "
+                f"offsets {lop.row_offsets}/{lop.col_offsets}"
+            )
+        self.mesh, self.axis = A_l.mesh, A_l.axis
+        self.smooth = int(smooth)
+        self.omega = float(omega)
+        self.coarse_iters = int(coarse_iters)
+
+        cc, ro, co = lop.coeffs2d, lop.row_offsets, lop.col_offsets
+        coeffs, offs = [cc], [(ro, co)]
+        while (coeffs[-1].shape[1] % 2 == 0  # the slab's rows halve cleanly
+               and coeffs[-1].shape[1] >= 2
+               and coeffs[-1].shape[2] % 2 == 0
+               and coeffs[-1].shape[2] // 2 >= 4
+               and (n_levels is None or len(coeffs) < n_levels)):
+            cc, ro, co = _galerkin_coarsen_2d(cc, ro, co)
+            coeffs.append(cc)
+            offs.append((ro, co))
+        self._ops = tuple(
+            A_l if i == 0 else ShardedGridStencilOperator(
+                c, None, c.shape[2], self.mesh, self.axis, hermitian=True, row_col_offsets=o)
+            for i, (c, o) in enumerate(zip(coeffs, offs))
+        )
+        self._winv = tuple(self._weights(c, o) for c, o in zip(coeffs, offs))
+
+        # the gathered tail: the coarse planes of every slab, coarsened
+        # further on every rank down to a dense inverse
+        n_sh = self.mesh.shape[self.axis]
+        m_loc_c, ny_c = coeffs[-1].shape[1], coeffs[-1].shape[2]
+        self._tail_ops, self._tail_winv, self._tail_inv = (), (), None
+        if m_loc_c * n_sh * ny_c <= 65536:
+            cg = coeffs[-1]
+            if n_sh > 1:  # the planes' grid rows are axis 1: gather them as axis 0
+                cg = self.mesh.all_gather_rows(cg.movedim(1, 0).contiguous(),
+                                               self.axis).movedim(0, 1)
+            ro, co = offs[-1]
+            t_c, t_o = [cg], [(ro, co)]
+            while (t_c[-1].shape[1] * t_c[-1].shape[2] > 256
+                   and t_c[-1].shape[1] % 2 == 0
+                   and t_c[-1].shape[1] // 2 >= 1
+                   and t_c[-1].shape[2] % 2 == 0
+                   and t_c[-1].shape[2] // 2 >= 4):
+                cg, ro, co = _galerkin_coarsen_2d(cg, ro, co)
+                t_c.append(cg)
+                t_o.append((ro, co))
+            self._tail_ops = tuple(
+                GridStencilOperator(c.contiguous(), None, c.shape[2], hermitian=True,
+                                    row_col_offsets=o)
+                for c, o in zip(t_c, t_o))
+            self._tail_winv = tuple(self._weights(c, o) for c, o in zip(t_c, t_o))
+            bottom = self._tail_ops[-1]
+            if bottom.grid[0] * bottom.grid[1] <= 4096:
+                dense = bottom.todense().cpu().numpy()
+                self._tail_inv = torch.from_numpy(_dense_inverse(dense)).to(bottom.device)
+
+    def _weights(self, cc, ro_co):
+        d = cc[list(zip(*ro_co)).index((0, 0))]
+        return self.omega / torch.where(d != 0, d, torch.ones_like(d))
+
+    @property
+    def dtype(self):
+        return self._ops[0].dtype
+
+    @property
+    def n_levels(self):
+        return len(self._ops)
+
+    @staticmethod
+    def _bcast(w, r):
+        return w.reshape(tuple(w.shape) + (1,) * (r.ndim - w.ndim)) * r
+
+    def _smooth(self, level, z, r, iters):
+        op = self._ops[level]
+        for _ in range(iters):
+            z = z + self._bcast(self._winv[level], r - op @ z)
+        return z
+
+    # -- the gathered tail (plain K1, no halo exchange) -------------------
+    def _tail_apply(self, level, x):
+        op = self._tail_ops[level]
+        if x.ndim == 3:
+            return op._apply_grid(x.permute(2, 0, 1)).permute(1, 2, 0)
+        return op._apply_grid(x)
+
+    def _tail_vcycle(self, level, r):
+        w = self._tail_winv[level]
+        last = level == len(self._tail_ops) - 1
+        if last and self._tail_inv is not None:
+            sh = tuple(r.shape)
+            z2 = torch.tensordot(self._tail_inv, r.reshape((sh[0] * sh[1],) + sh[2:]), dims=1)
+            return z2.reshape(sh)
+        z = self._bcast(w, r)
+        for _ in range(self.coarse_iters - 1 if last else self.smooth - 1):
+            z = z + self._bcast(w, r - self._tail_apply(level, z))
+        if last:
+            return z
+        d = r - self._tail_apply(level, z)
+        e = self._tail_vcycle(level + 1, _block_restrict(d, 2, 1.0))
+        z = z + _block_prolong(e, 2)
+        for _ in range(self.smooth):
+            z = z + self._bcast(w, r - self._tail_apply(level, z))
+        return z
+
+    def _vcycle(self, level, r):
+        if level == len(self._ops) - 1:
+            if self._tail_ops:
+                alone = self.mesh.shape[self.axis] == 1
+                rg = r if alone else self.mesh.all_gather_rows(r, self.axis)
+                zg = self._tail_vcycle(0, rg)
+                m_loc = r.shape[0]
+                row0 = self.mesh.coord[self.axis] * m_loc
+                return zg[row0 : row0 + m_loc]
+            z = self._bcast(self._winv[level], r)
+            return self._smooth(level, z, r, self.coarse_iters - 1)
+        z = self._bcast(self._winv[level], r)  # the first sweep from zero, no matvec
+        z = self._smooth(level, z, r, self.smooth - 1)
+        d = r - self._ops[level] @ z
+        e = self._vcycle(level + 1, _block_restrict(d, 2, 1.0))
+        z = z + _block_prolong(e, 2)
+        return self._smooth(level, z, r, self.smooth)
+
+    def __matmul__(self, r):
+        return self._vcycle(0, r)
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        return self @ x  # a symmetric cycle
+
+
+class _MultigridFactory:
+    """The callable :func:`multigrid_factory` returns (a class, so that it
+    pickles to the ranks of a spawned world)."""
+
+    def __init__(self, smooth, omega, n_levels, coarse_iters, coupling):
+        if coupling not in ("auto", "full", "local"):
+            raise ValueError(f"unknown coupling {coupling!r}")
+        self.kw = dict(smooth=smooth, omega=omega, n_levels=n_levels,
+                       coarse_iters=coarse_iters)
+        self.coupling = coupling
+
+    def __call__(self, A_l):
+        if isinstance(A_l, ConstStencilOperator):
+            return MultigridPreconditioner(A_l, **self.kw)
+        from .parallel.grid import ShardedConstStencilOperator, ShardedGridStencilOperator
+
+        if isinstance(A_l, ShardedGridStencilOperator):
+            # variable coefficients: the distributed Galerkin cycle
+            if self.coupling == "local":
+                raise ValueError(
+                    "coupling='local' needs host-side subdomain setup, which "
+                    "variable-coefficient slabs cannot do inside shard_map; use "
+                    "coupling='full' (the default route)"
+                )
+            return ShardedGalerkinMultigrid(A_l, **self.kw)
+        if not isinstance(A_l, ShardedConstStencilOperator):
+            raise TypeError(
+                "multigrid_factory needs a (Sharded)ConstStencilOperator or "
+                f"ShardedGridStencilOperator; got {type(A_l).__name__} (general sparsity: "
+                "AMGPreconditioner)"
+            )
+        g = A_l._op
+        m_local = A_l.m_local
+        # the slab's rows slice the collapsed leading grid axis; it is a clean
+        # n-D sub-grid iff m_local splits the inner dims
+        inner_rows = int(np.prod(g.shape_nd[1:-1]))
+        aligned = m_local % inner_rows == 0
+        if self.coupling == "full" or (self.coupling == "auto" and aligned
+                                       and A_l.m_valid is None):
+            return ShardedMultigridPreconditioner(A_l, **self.kw)
+        if not aligned:
+            raise ValueError(
+                f"shard slab of {m_local} grid rows does not tile the inner grid dims "
+                f"{g.shape_nd[1:-1]}: choose a mesh whose rows axis divides the leading "
+                "grid dimension"
+            )
+        local = ConstStencilOperator((m_local // inner_rows,) + tuple(g.shape_nd[1:]),
+                                     g.offsets_nd, g.weights, g.dtype, device=A_l.device)
+        return _ShardLocalMG(MultigridPreconditioner(local, **self.kw), A_l)
+
+
+def multigrid_factory(smooth=2, omega=0.8, n_levels=None, coarse_iters=40, coupling="auto"):
+    """``M_factory`` for :func:`~krylov_tpu_torch.parallel.sharded_solve`: a
+    geometric V-cycle over the rank's grid slab.
+
+    * ``coupling="full"``: :class:`ShardedMultigridPreconditioner`, halo
+      exchanges in every smoother, slab-local grid transfer, a gathered
+      coarse solve; iteration counts match the single-device V-cycle
+      whatever the rank count.
+    * ``coupling="local"``: additive Schwarz, each rank a
+      :class:`MultigridPreconditioner` on its own slab with Dirichlet walls
+      at the slab edges; no traffic between ranks, iteration counts grow
+      mildly with the rank count.
+    * ``coupling="auto"`` (default): "full" where the partition allows it,
+      "local" for zero-padded grids.  A slab that does not tile the inner
+      grid dims supports neither and raises.
+
+    On a variable-coefficient slab (``ShardedGridStencilOperator``) the
+    factory builds :class:`ShardedGalerkinMultigrid` ("local" refuses).  It
+    also takes a plain :class:`ConstStencilOperator`, so the same factory
+    serves a single-device ``solver(..., M=factory(A))``.
+    """
+    return _MultigridFactory(smooth, omega, n_levels, coarse_iters, coupling)
+
+
+class _ShardLocalMG:
+    """The slab-local V-cycle with the padded rows masked.
+
+    When the grid was padded to the shard multiple, the sharded matvec keeps
+    the padded entries exactly zero; the local V-cycle would leak nonzeros
+    into them (its slab operator couples padded and real rows), so its
+    output rows at or past ``m_valid`` are zeroed, keeping trajectories
+    those of the unpadded problem."""
+
+    hermitian = True
+
+    def __init__(self, mg, A_l):
+        self._mg = mg
+        self.m_local = int(A_l.m_local)
+        self.m_valid = A_l.m_valid
+        self._row0 = A_l.row0
+
+    @property
+    def shape(self):
+        return self._mg.shape
+
+    @property
+    def dtype(self):
+        return self._mg.dtype
+
+    def __matmul__(self, r):
+        z = self._mg @ r
+        if self.m_valid is not None and self._row0 + self.m_local > self.m_valid:
+            z = z.clone()
+            z[max(0, self.m_valid - self._row0):] = 0
+        return z
+
+    matvec = __matmul__
+
+    def rmatvec(self, x):
+        return self @ x

@@ -111,6 +111,20 @@ class CSROperator:
                           device=x.device)
         return out.index_add_(0, self.indices, prod)
 
+    def adjoint(self):
+        """``A^H`` as a CSR operator of its own, regrouped by column on the
+        device (each column's entries in ascending row order): its matvec is
+        :meth:`rmatvec` without the scatter-add, so on a CUDA device it
+        repeats bit for bit."""
+        order = torch.argsort(self.indices, stable=True)
+        cols = self.indices.index_select(0, order)
+        data = self.data.index_select(0, order)
+        if data.is_complex():
+            data = data.conj_physical()
+        return CSROperator(data, self.row_ids.index_select(0, order),
+                           _indptr_of_rows(cols, self.shape[1], self.device),
+                           (self.shape[1], self.shape[0]), row_ids=cols)
+
     def diagonal(self):
         on_diag = self.indices == self.row_ids
         return _segment_sum(torch.where(on_diag, self.data, 0), self.indptr)

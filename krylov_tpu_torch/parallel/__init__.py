@@ -11,25 +11,36 @@ solving its own row slab):
 * :class:`ShardedCSROperator` / :func:`partition_csr`: general sparsity
   with a halo or all-gather strategy, :class:`ShardedBSROperator`, and
   :class:`ShardedPETOperator` / :func:`partition_pet` on the CSR kernels,
+* the host-built preconditioner partitions for ``sharded_solve(M_partition=)``:
+  :func:`partition_amg` (distributed AMG), :func:`partition_ilu0`
+  (ILU(0)-Schwarz) and :func:`partition_block_jacobi`,
 * :func:`sharded_solve` / :func:`make_sharded_solver`: any solver, run
   sharded,
 * :mod:`multihost`: the process group from ``torchrun``'s environment.
 
-The host-built preconditioner partitions of the reference
-(``partition_amg``, ``partition_ilu0``, ``partition_block_jacobi``) are
-not ported yet.
+The sharded geometric multigrid is :func:`krylov_tpu_torch.multigrid_factory`,
+an ``M_factory``.
 """
 
 from . import multihost
+from ..blockjacobi import BlockJacobiPartition, partition_block_jacobi
+from .amg import AMGPartition, partition_amg
 from .banded import ShardedBandedOperator
 from .bsr import ShardedBSROperator
 from .csr import ShardedCSROperator, partition_csr
 from .grid import ShardedConstStencilOperator, ShardedGridStencilOperator
 from .mesh import RHS, ROWS, make_mesh, psum_inner
 from .pet import PETPartition, ShardedPETOperator, partition_pet
+from .schwarz import ILUSchwarzPartition, partition_ilu0
 from .solve import make_sharded_solver, sharded_solve
 
 __all__ = [
+    "AMGPartition",
+    "partition_amg",
+    "BlockJacobiPartition",
+    "partition_block_jacobi",
+    "ILUSchwarzPartition",
+    "partition_ilu0",
     "make_mesh",
     "psum_inner",
     "ROWS",

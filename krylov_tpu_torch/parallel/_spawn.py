@@ -33,6 +33,7 @@ import traceback
 import numpy as np
 
 _FORBIDDEN = ("jax", "jaxlib", "krylov_tpu", "triton")
+_ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
 class SPMDError(RuntimeError):
@@ -100,17 +101,29 @@ class SPMDPool:
         ctx = mp.get_context("spawn")
         self._dir = tempfile.mkdtemp(prefix="krylov_spmd_")
         store = os.path.join(self._dir, "store")
-        for rank in range(self.world_size):
-            parent, child = ctx.Pipe()
-            proc = ctx.Process(
-                target=_worker, daemon=True,
-                args=(rank, self.world_size, store, self.backend, self.device,
-                      self.group_timeout, child),
-            )
-            proc.start()
-            child.close()
-            self._procs.append(proc)
-            self._conns.append(parent)
+        # one thread a rank in the host's BLAS too (torch's is set in the
+        # worker): ranks that each spin a full thread pool contend for the
+        # cores, and a small dense inverse of the set-up then takes seconds
+        saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+        os.environ.update(dict.fromkeys(_ONE_THREAD, "1"))
+        try:
+            for rank in range(self.world_size):
+                parent, child = ctx.Pipe()
+                proc = ctx.Process(
+                    target=_worker, daemon=True,
+                    args=(rank, self.world_size, store, self.backend, self.device,
+                          self.group_timeout, child),
+                )
+                proc.start()
+                child.close()
+                self._procs.append(proc)
+                self._conns.append(parent)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
     def close(self):
         """Stop every rank (killed if it does not stop at once)."""
@@ -414,3 +427,51 @@ def monitor_job(solver, A, b, *, backend, n_rows=None, **kwargs):
 
     _, info = solver(A_op, b_l, inner=inner, callback=monitor, backend=backend, **kwargs)
     return {"info": _info(info), "calls": calls}
+
+
+def partition_apply_job(A, part, x, *, adjoint=False):
+    """This rank's preconditioner from the partition ``part``
+    (``make_local`` around the slab ``sharded_solve`` builds of ``A``)
+    applied to its slab of the padded ``x`` (``rmatvec`` with ``adjoint``),
+    gathered: ``x`` has the partition's padded row count."""
+    from .mesh import ROWS, make_mesh
+    from .solve import _general_operator, _tensor
+
+    mesh = make_mesh()
+    n = A["shape"][0] if isinstance(A, dict) else A.shape[0]
+    A_op, _, rows = _general_operator(A, mesh, n)
+    M = part.make_local(A_op, mesh)
+    x_l = _tensor(x)[rows].contiguous().to(mesh.device)
+    _reset()
+    y_l = M.rmatvec(x_l) if adjoint else M @ x_l
+    return {"x": _host(mesh.all_gather_rows(y_l, ROWS)), **_counts()}
+
+
+def transfer_job(x, nd, scale):
+    """The sharded order-2 restriction and prolongation of
+    :mod:`krylov_tpu_torch.multigrid` over the leading ``nd`` axes of this
+    rank's slab (along axis 0) of the grid vector ``x``, each gathered."""
+    import torch
+
+    from ..multigrid import _sharded_lin_prolong, _sharded_lin_restrict
+    from .mesh import ROWS, make_mesh
+
+    mesh = make_mesh()
+    x = torch.as_tensor(x)
+    m = x.shape[0] // mesh.shape[ROWS]
+    x_l = x[mesh.coord[ROWS] * m : (mesh.coord[ROWS] + 1) * m].contiguous().to(mesh.device)
+    restricted = _sharded_lin_restrict(x_l, nd, scale, mesh, ROWS)
+    prolonged = _sharded_lin_prolong(x_l, nd, mesh, ROWS)
+    return {"x": (_host(mesh.all_gather_rows(restricted, ROWS)),
+                  _host(mesh.all_gather_rows(prolonged, ROWS)))}
+
+
+def main_job(module, argv):
+    """``module.main(argv)`` on this rank, for a script importable by name
+    (an example): each ``Info`` it returns as ``(success, numsteps)``."""
+    import importlib
+
+    from .._info import Info
+
+    out = importlib.import_module(module).main(list(argv))
+    return {k: (bool(v.success), int(v.numsteps)) for k, v in out.items() if isinstance(v, Info)}

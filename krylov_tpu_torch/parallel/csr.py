@@ -49,6 +49,17 @@ def pad_unit_diagonal(A, pad):
     return A
 
 
+def check_local_rows(what, n_local, A_op):
+    """A preconditioner partition built for another slab size than the
+    solve's operator refuses (``what`` names it)."""
+    n_op = getattr(A_op, "n_local", None)
+    if n_op is not None and int(n_op) != n_local:
+        raise ValueError(
+            f"{what} partition built for local rows {n_local} but the sharded operator "
+            f"has n_local={int(n_op)}"
+        )
+
+
 def _scipy_csr(A):
     """A scipy CSR matrix of a scipy matrix, of the port's
     :class:`CSROperator` or of an operator with a scipy twin

@@ -11,6 +11,19 @@ its own slab with the ``while_loop`` driver, and gets back the same global
 iterate and :class:`~krylov_tpu_torch.Info` as every other rank.  Every
 value the driver reads on the host comes from reduced inner products, so
 the ranks stop together.
+
+The ``M_partition`` protocol.  A partition (:func:`~krylov_tpu_torch.parallel.
+partition_amg`, :func:`~krylov_tpu_torch.parallel.partition_ilu0`,
+:func:`~krylov_tpu_torch.parallel.partition_block_jacobi`) is built on the
+host from the global matrix and holds host state only (numpy and scipy
+arrays), so it pickles to the ranks.  It has ``n_shards`` (the rows-axis
+size it was built for), ``n_pad`` (the padded row count) and
+``make_local(A_op, mesh)``, which takes this rank's slab by
+``mesh.coord[ROWS]``, builds its tensors on ``mesh.device`` and returns the
+rank's preconditioner, around the solve's own slab operator ``A_op`` where
+it needs one.  The reference's ``device_arrays()`` / ``specs()`` pair, which
+stacks the arrays for ``shard_map``, has no counterpart: ``make_local``
+runs once a solve, and once for all solves of :func:`make_sharded_solver`.
 """
 
 import inspect
@@ -34,12 +47,6 @@ from .mesh import (
     psum_inner,
 )
 from .pet import PETPartition, ShardedPETOperator
-
-_NO_PARTITIONS = (
-    "M_partition is not ported yet: the host-built partitions "
-    "(partition_amg, partition_ilu0, partition_block_jacobi) and the sharded "
-    "multigrid are still to come (ROADMAP.md item 7b)"
-)
 
 
 def _tensor(v):
@@ -90,7 +97,12 @@ def sharded_solve(
       returning a preconditioner built on it, e.g. ``lambda A_l:
       ChebyshevPreconditioner(A_l, (lo, hi), degree=6)``: its matvecs are
       the slab's halo-exchanging ones.
-    * ``M_partition``: not ported yet (raises ``NotImplementedError``).
+    * ``M_partition``: a host-built distributed preconditioner partition
+      (:func:`partition_amg`, :func:`partition_ilu0`,
+      :func:`partition_block_jacobi`; the protocol above), built on the SAME
+      matrix and ordering as ``A`` for ``mesh``'s rows axis; exclusive of
+      ``M_diag``, ``M_factory`` and ``reorder``.  Grid operators take
+      ``M_factory=multigrid_factory(...)`` instead.
     * ``reorder``: for scipy/CSR operators, solve on the symmetric RCM
       reordering (``"rcm"``, an index array, or ``"auto"``, which
       reorders when it at least halves the bandwidth); the vectors are
@@ -104,9 +116,9 @@ def sharded_solve(
     when unconverged, ``info.resnorms`` a host array of shape ``(numsteps
     + 1, *b.shape[1:])``; the iterate is global, on the mesh's device.
     """
-    if M_partition is not None:
-        raise NotImplementedError(_NO_PARTITIONS)
     mesh = make_mesh() if mesh is None else mesh
+    if M_partition is not None:
+        _check_partition(A, mesh, M_diag, M_factory, M_partition, reorder)
     b = _tensor(b)
 
     if reorder is not None:
@@ -142,8 +154,8 @@ def sharded_solve(
     if restart is not None:
         return _sharded_restarted(
             solver, A, b, restart=restart, mesh=mesh, shard_rhs=shard_rhs, x0=x0,
-            M_diag=M_diag, M_factory=M_factory, tol=tol, atol=atol, maxiter=maxiter,
-            callback=callback, **solver_kwargs,
+            M_diag=M_diag, M_factory=M_factory, M_partition=M_partition, tol=tol, atol=atol,
+            maxiter=maxiter, callback=callback, **solver_kwargs,
         )
 
     if _grid_path(A, b, shard_rhs):
@@ -154,10 +166,37 @@ def sharded_solve(
 
     run = _make_general_run(
         solver, A, mesh=mesh, shard_rhs=shard_rhs, M_diag=M_diag, M_factory=M_factory,
-        tol=tol, atol=atol, maxiter=maxiter, callback=callback, rhs_ndim=b.ndim,
-        N=b.shape[0], solver_kwargs=solver_kwargs,
+        M_partition=M_partition, tol=tol, atol=atol, maxiter=maxiter, callback=callback,
+        rhs_ndim=b.ndim, N=b.shape[0], solver_kwargs=solver_kwargs,
     )
     return run(b, x0)
+
+
+def _check_partition(A, mesh, M_diag, M_factory, M_partition, reorder=None):
+    """The refusals an ``M_partition`` meets before anything is built."""
+    if M_diag is not None or M_factory is not None:
+        raise ValueError("M_partition is mutually exclusive with M_diag/M_factory")
+    if reorder is not None:
+        raise ValueError(
+            "M_partition is built on a fixed row ordering; reorder= would misalign it "
+            "(reorder the matrix before partition_amg)"
+        )
+    if isinstance(A, (GridStencilOperator, ConstStencilOperator)):
+        raise TypeError(
+            "grid operators precondition via M_factory=multigrid_factory(...), not "
+            "M_partition"
+        )
+    if isinstance(A, PETPartition) and A.get("perm") is not None:
+        raise ValueError(
+            "M_partition needs the PET partition built without reorder= (orderings must "
+            "match)"
+        )
+    n_rows = mesh.shape[ROWS]
+    if M_partition.n_shards != n_rows:
+        raise ValueError(
+            f"M_partition built for {M_partition.n_shards} shards but the mesh rows axis "
+            f"has {n_rows} ranks"
+        )
 
 
 def _grid_path(A, b, shard_rhs):
@@ -193,12 +232,17 @@ def _solver_kwargs(solver, mesh, solver_kwargs, callback, vector_ndim):
     return kw, prec
 
 
-def _preconditioner(kw, prec, solver, M_diag_l, M_factory, A_op):
-    if M_diag_l is None and M_factory is None:
+def _preconditioner(kw, prec, solver, M_diag_l, M_factory, A_op, M_partition=None, mesh=None):
+    if M_diag_l is None and M_factory is None and M_partition is None:
         return
     if prec is None:
         raise ValueError(f"{solver} accepts neither M nor Ml")
-    kw[prec] = DiagonalOperator(M_diag_l) if M_diag_l is not None else M_factory(A_op)
+    if M_diag_l is not None:
+        kw[prec] = DiagonalOperator(M_diag_l)
+    elif M_factory is not None:
+        kw[prec] = M_factory(A_op)
+    else:
+        kw[prec] = M_partition.make_local(A_op, mesh)
 
 
 def _finish(mesh, xk, info, rhs_split):
@@ -284,8 +328,8 @@ def _general_operator(A, mesh, N):
 
 
 def _make_general_run(
-    solver, A, *, mesh, shard_rhs, M_diag, M_factory, tol, atol, maxiter, callback,
-    rhs_ndim, N, solver_kwargs,
+    solver, A, *, mesh, shard_rhs, M_diag, M_factory, M_partition, tol, atol, maxiter,
+    callback, rhs_ndim, N, solver_kwargs,
 ):
     """Build the reusable core of the general (flat-vector) sharded solve.
 
@@ -302,6 +346,11 @@ def _make_general_run(
     if perm is not None and M_diag is not None:
         M_diag = _tensor(M_diag)[torch.as_tensor(perm)]
     A_op, pad_rows, rows = _general_operator(A, mesh, N)
+    if M_partition is not None and M_partition.n_pad != N + pad_rows:
+        raise ValueError(
+            f"M_partition built for padded size {M_partition.n_pad} but the solve's padded "
+            f"size is {N + pad_rows}: build the partition on the same matrix"
+        )
 
     M_diag_l = None
     if M_diag is not None:
@@ -309,7 +358,7 @@ def _make_general_run(
         Md = torch.cat([Md, torch.ones(pad_rows, dtype=Md.dtype, device=Md.device)])
         M_diag_l = Md[rows].to(dev)
     kw, prec = _solver_kwargs(solver, mesh, solver_kwargs, callback, vector_ndim=1)
-    _preconditioner(kw, prec, solver, M_diag_l, M_factory, A_op)
+    _preconditioner(kw, prec, solver, M_diag_l, M_factory, A_op, M_partition, mesh)
     n_rhs = mesh.shape[RHS]
     rhs_split = shard_rhs and rhs_ndim > 1 and n_rhs > 1
     pj = None if perm is None else torch.as_tensor(perm)
@@ -390,9 +439,9 @@ def make_sharded_solver(
             "matrix (or partition_pet(reorder=...)) and use sharded_solve for "
             "restarted cycles"
         )
-    if M_partition is not None:
-        raise NotImplementedError(_NO_PARTITIONS)
     mesh = make_mesh() if mesh is None else mesh
+    if M_partition is not None:
+        _check_partition(A, mesh, M_diag, M_factory, M_partition)
     if isinstance(A, (GridStencilOperator, ConstStencilOperator)) and not shard_rhs:
         return _make_grid_run(
             solver, A, mesh=mesh, tol=tol, atol=atol, maxiter=maxiter, M_diag=M_diag,
@@ -402,7 +451,7 @@ def make_sharded_solver(
     N = A["shape"][0] if isinstance(A, PETPartition) else A.shape[0]
     return _make_general_run(
         solver, A, mesh=mesh, shard_rhs=shard_rhs, M_diag=M_diag, M_factory=M_factory,
-        tol=tol, atol=atol, maxiter=maxiter, callback=callback,
+        M_partition=M_partition, tol=tol, atol=atol, maxiter=maxiter, callback=callback,
         rhs_ndim=1 if n_rhs is None else 2, N=N, solver_kwargs=solver_kwargs,
     )
 
@@ -553,7 +602,7 @@ def _pad_bsr(A, pad_blk):
 
 
 def _sharded_restarted(solver, A, b, *, restart, mesh, shard_rhs, x0, M_diag,
-                       M_factory=None, tol, atol, maxiter, callback=None,
+                       M_factory=None, M_partition=None, tol, atol, maxiter, callback=None,
                        **solver_kwargs):
     """Restarted sharded solve: one sharded solve a cycle, warm-started.
 
@@ -572,7 +621,8 @@ def _sharded_restarted(solver, A, b, *, restart, mesh, shard_rhs, x0, M_diag,
     while True:
         kw = dict(
             mesh=mesh, shard_rhs=shard_rhs, x0=x, M_diag=M_diag, M_factory=M_factory,
-            maxiter=min(m, total_max - numsteps), callback=callback, **solver_kwargs,
+            M_partition=M_partition, maxiter=min(m, total_max - numsteps), callback=callback,
+            **solver_kwargs,
         )
         if criterion is None:
             _, info = sharded_solve(solver, A, b, tol=tol, atol=atol, **kw)

@@ -1005,3 +1005,65 @@ def test_sharded_solve_two_gloo_ranks_on_one_card(dev):
                 assert sum(per["staged"].values()) > 0, label
                 assert per["launches"].get(kernel, 0) >= STEPS, label
             _held(res["info"][1], res["info"][2], _single(A_dev, b, dev))
+
+
+def _distributed_preconditioner_cases():
+    """``(label, A, b, sharded_solve keywords, kernels)`` on one rank: the
+    distributed AMG with the PET fine level (K10 on the slab, both
+    transfers and the tail), the block-Jacobi partition over the PET route,
+    the sharded geometric cycle on the const stencil (K2 smoothing, K8 in
+    the gathered coarse V-cycle) and the Galerkin cycle (K1).  The
+    preconditioned solves stop at 1e-4 (these float32 problems stagnate near
+    1e-5 of the first residual); block Jacobi, which needs hundreds of steps
+    here, runs 50 fixed ones."""
+    from krylov_tpu_torch import parallel
+
+    sp = _shifted_poisson_f32(256, shift=0.0)
+    b = np.ones(sp.shape[0], np.float32)
+    X, Y = np.meshgrid(np.linspace(0, 1, 256), np.linspace(0, 1, 256), indexing="ij")
+    field = (1.0 + 0.9 * np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y)).astype(np.float32)
+    grid_b = np.ones((256, 256), np.float32)
+    stop = dict(tol=1e-4, maxiter=300)
+    return [
+        ("partition_amg", parallel.partition_pet(sp, 1), b,
+         dict(M_partition=parallel.partition_amg(sp, 1, dtype=np.float32), **stop),
+         ["csr_matvec"]),
+        ("partition_block_jacobi", parallel.partition_pet(sp, 1), b,
+         dict(M_partition=parallel.partition_block_jacobi(sp, 1, block=64), tol=0.0, atol=0.0,
+              maxiter=50), ["csr_matvec"]),
+        ("multigrid_factory, const", st.poisson_2d_const(256, dtype=np.float32, device="cpu"),
+         grid_b, dict(M_factory=kt.multigrid_factory(), **stop),
+         ["const_stencil2d_matvec", "jacobi_sweep_const"]),
+        ("multigrid_factory, Galerkin", st.diffusion_2d(field, device="cpu"), grid_b,
+         dict(M_factory=kt.multigrid_factory(), **stop), ["stencil2d_matvec"]),
+    ]
+
+
+def test_distributed_preconditioners_on_one_nccl_rank(dev):
+    """``ShardedAMG``, the block-Jacobi partition and
+    ``ShardedMultigridPreconditioner`` / ``ShardedGalerkinMultigrid`` on a
+    world of one NCCL rank: each launches its kernels, converges, and two
+    solves repeat bit for bit (no float atomics on these paths)."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.ops import cuda_spmv
+
+    mesh = parallel.make_mesh(device=dev)
+    try:
+        for label, A, b, kw, kernels in _distributed_preconditioner_cases():
+            infos = []
+            for _ in range(2):
+                cs.reset_launches()
+                cuda_spmv.reset_launches()
+                _, info = parallel.sharded_solve(kt.cg, A, b, mesh=mesh, **kw)
+                launched = {**cs.LAUNCHES, **cuda_spmv.LAUNCHES}
+                assert all(launched[k] > 0 for k in kernels), (label, launched)
+                assert info.xk.device == dev and torch.isfinite(info.xk).all(), label
+                assert info.success or kw["tol"] == 0.0, label
+                infos.append(info)
+            assert infos[0].numsteps == infos[1].numsteps, label
+            np.testing.assert_array_equal(infos[0].resnorms, infos[1].resnorms)
+            assert torch.equal(infos[0].xk, infos[1].xk), label
+    finally:
+        dist.destroy_process_group()

@@ -755,8 +755,21 @@ def test_make_sharded_solver_refuses_what_it_cannot_take():
         run(torch.zeros(64, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         tpar.make_sharded_solver(kt.gmres, A, mesh=mesh, restart=10)
-    with pytest.raises(NotImplementedError, match="7b"):
-        tpar.sharded_solve(kt.cg, A, np.ones(64), mesh=mesh, M_partition=object())
+    # a grid operator takes multigrid_factory, not a partition; a partition
+    # built for another rows axis refuses, in both entry points
+    sp = scipy.sparse.diags([-1.0, 3.0, -1.0], [-1, 0, 1], shape=(64, 64), format="csr")
+    with pytest.raises(TypeError, match="multigrid_factory"):
+        tpar.sharded_solve(kt.cg, A, np.ones(64), mesh=mesh,
+                           M_partition=tpar.partition_block_jacobi(sp, 1, block=8))
+    with pytest.raises(TypeError, match="multigrid_factory"):
+        tpar.make_sharded_solver(kt.cg, A, mesh=mesh,
+                                 M_partition=tpar.partition_block_jacobi(sp, 1, block=8))
+    with pytest.raises(ValueError, match="shards"):
+        tpar.make_sharded_solver(kt.cg, sp, mesh=mesh,
+                                 M_partition=tpar.partition_block_jacobi(sp, 2, block=8))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tpar.make_sharded_solver(kt.cg, sp, mesh=mesh, M_diag=np.ones(64),
+                                 M_partition=tpar.partition_block_jacobi(sp, 1, block=8))
 
 
 @pytest.mark.parametrize("solver,b_shape", [

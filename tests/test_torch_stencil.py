@@ -258,7 +258,8 @@ def test_port_imports_neither_jax_nor_reference():
         "krylov_tpu_torch.amg, krylov_tpu_torch.ilu, krylov_tpu_torch.blockjacobi, "
         "krylov_tpu_torch.ops._native, krylov_tpu_torch.diffable, "
         "krylov_tpu_torch.profiling, krylov_tpu_torch.parallel, "
-        "krylov_tpu_torch.parallel._spawn; "
+        "krylov_tpu_torch.parallel._spawn, krylov_tpu_torch.parallel.amg, "
+        "krylov_tpu_torch.parallel.schwarz; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'krylov_tpu', 'triton', 'scipy')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -275,6 +276,9 @@ def test_port_imports_neither_jax_nor_reference():
         "shape=(900, 900), format='csr'); r = torch.ones(900, dtype=torch.float64); "
         "[M @ r for M in (kt.AMGPreconditioner.from_scipy(A, coarse_size=50), "
         "kt.ILUPreconditioner.from_scipy(A), kt.BlockJacobiPreconditioner.from_scipy(A))]; "
+        "P = kt.parallel; "
+        "[p.as_global() @ r for p in (P.partition_amg(A, 2, coarse_size=50), "
+        "P.partition_ilu0(A, 2), P.partition_block_jacobi(A, 2, block=30))]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'krylov_tpu', 'triton')]; "
         "print(bad); sys.exit(1 if bad else 0)"

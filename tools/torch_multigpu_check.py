@@ -8,7 +8,11 @@ the solves of ``chip_smoke.py`` 11b (``chip_smoke.sharded_cases``: the
 grid operator with ``M_diag`` and the shard monitor, the const stencil
 alone and under ``ChebyshevPreconditioner``, CSR in halo and gather mode,
 PET ``qmr`` and an ``(N, 8)`` b, 6c's block matrix, restarted ``gmres``,
-``make_sharded_solver`` on three right-hand sides), and with four ranks
+``make_sharded_solver`` on three right-hand sides) and 12b
+(``chip_smoke.partition_cases``: ``multigrid_factory`` in its three
+couplings and on the Galerkin path, ``partition_amg`` with two sharded
+levels and Chebyshev smoothing, ``partition_ilu0`` under ``qmr``,
+``partition_block_jacobi``), and with four ranks
 ``cg`` on two right-hand-side columns over a 2 x 2 mesh (``shard_rhs``).
 Rank 0 holds each result to the same solve on its one device (the f32
 band of ``chip_smoke.py``); every rank checks that it launched the kernel
@@ -64,6 +68,7 @@ def main():
     rng = np.random.default_rng(cm.SEED + 92)
     B = rng.standard_normal((A_small.shape[0], 2)).astype(np.float32)
     runs = [(label, kernel, args_, kw, ref) for label, kernel, args_, kw, ref in cases]
+    runs += cm.partition_cases(dev, kt, cuda_spmv, st, world)
     runs += [(f"make_sharded_solver, right-hand side {j}", "stencil2d_matvec",
               (kt.cg, A_small, b), dict(fixed, build=True),
               lambda b=b: cm.single_solve(kt.cg, A_small_d, b, dev, **fixed))
