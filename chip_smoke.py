@@ -121,6 +121,20 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    with two sharded levels and Chebyshev smoothing, ``partition_ilu0``
    under ``qmr`` (``with_rmatvec``) and ``partition_block_jacobi``, each
    held to its single-device twin, every rank launching its kernel;
+13. the device-resident loop: eleven ``while_loop`` cells at full width
+   (generic ``cg`` and the three fused CGs at 4096^2, MG-CG, ``bicgstab``,
+   ``qmr``, ``cg`` + Jacobi to 1500 steps and ``cg`` + AMG on the bench's
+   1M-row CSR, ``cg`` with an ``(N, 8)`` b through K11 and K12), each on
+   the route its cost rule picks and on ``_driver._host_stepped()``, six
+   of them also under a capture forced by ``_driver._capture_at``,
+   alternating, 10 repeats: every route bit-equal to the host-stepped
+   loop, with equal launch counts, inputs unchanged, memory back at its
+   level, the rule's median no slower than the host-stepped median by
+   more than the larger spread, the forced route taking a capture and
+   reading the stop flag less than once a step; each cell's wall, device
+   busy, idle share, host steps before the capture, capture and
+   instantiation ms, flag reads a step, the rule's route minus the host
+   loop pair by pair, and the kept pool's size after a forced capture;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -135,6 +149,7 @@ Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3118,6 +3133,260 @@ def phase_partitions_gloo(dev, kt, sv, st, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the device-resident loop (the while_loop graph route)
+# ---------------------------------------------------------------------------
+
+ROUTE_REPEATS = 10  # timed solves of each route a cell, alternating
+
+
+def device_busy(fn):
+    """(device-busy s, kernel events) of one call of ``fn`` by
+    ``torch.profiler``'s CUDA events; kernels replayed from a CUDA graph
+    are recorded like launched ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) * 1e-6, sum(e.count for e in rows)
+
+
+def all_launches(cs, sv, bs):
+    """Every kernel wrapper's launch counts, K2's and K12's paths too."""
+    return {**cs.LAUNCHES, **{f"K2 {k}": v for k, v in cs.K2_PATHS.items()}, **sv.LAUNCHES,
+            **bs.LAUNCHES, **{f"K12 {k}": v for k, v in bs.K12_PATHS.items()}}
+
+
+def route_counted(solve, mods, ctx):
+    """``(info, launches, the driver's counts, LAST_GRAPH)`` of one
+    ``solve()`` under ``ctx``."""
+    from krylov_tpu_torch import _driver
+
+    for mod in mods:
+        mod.reset_launches()
+    _driver.reset_counts()
+    with ctx:
+        _, info = solve()
+    torch.cuda.synchronize()
+    return info, all_launches(*mods), dict(_driver.COUNTS), dict(_driver.LAST_GRAPH)
+
+
+def route_cell(name, solve, inputs, card, mods, forced=None):
+    """One cell of phase 13: ``solve()`` (a ``while_loop`` solve, returning
+    ``(x, info)``) on the route the driver's cost rule picks, on the
+    host-stepped loop and, with ``forced`` (``(after, steps, replays)``),
+    under a capture forced by ``_driver._capture_at``.  Holds each route's
+    history, step count, success, iterate and kernel launches bit for bit
+    to the host-stepped loop's, ``inputs`` (the caller's tensors)
+    unchanged, and the memory back at its level (the reserved memory after
+    ``torch.cuda.empty_cache()``); the forced route to a capture and the
+    stop flag read less than once a step.  Times the routes alternating,
+    ``ROUTE_REPEATS`` each, and holds the rule's median to the host-stepped
+    median plus the larger spread.  With ``forced``, measures the kept
+    pool: the reserved memory with it and without it
+    (``_graphs.release_pools``).  Returns the counted solve's kernel
+    launches and a summary."""
+    import gc
+
+    from krylov_tpu_torch import _driver, _graphs
+
+    before = [t.clone() for t in inputs]
+    torch.cuda.synchronize()
+    base0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref, n_host, _, _ = route_counted(solve, mods, _driver._host_stepped())
+    host_peak_mb = (torch.cuda.max_memory_allocated() - base0) / 2**20
+    routes = {"rule": contextlib.nullcontext}
+    if forced:
+        routes["forced"] = lambda: _driver._capture_at(*forced)
+    got = {}
+    for route, ctx in routes.items():
+        info, launches, counts, last = route_counted(solve, mods, ctx())
+        same = (info.numsteps == ref.numsteps and info.success == ref.success
+                and np.array_equal(info.resnorms, ref.resnorms) and torch.equal(info.xk, ref.xk))
+        unchanged = all(torch.equal(t, t0) for t, t0 in zip(inputs, before))
+        log(f"  13 {name}, {route}: {info.numsteps} steps, success {info.success}; {counts}; "
+            f"plan {last.get('plan')} after {last.get('host_steps')} host steps; bit-equal to "
+            f"the host-stepped loop {same}; inputs unchanged {unchanged}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } (host-stepped the same: "
+            f"{launches == n_host})")
+        for k, costs, plan in last.get("decisions", ()):
+            log(f"  [{card}] 13 {name} the rule after host step {k}: plan {plan}, "
+                + ", ".join(f"{f} {v:.4g}" for f, v in costs._asdict().items()))
+        assert counts["graph_route"] == 1 and counts["host_stepped"] == 0, counts
+        assert same and unchanged and launches == n_host, (name, route, launches, n_host)
+        if route == "forced":
+            assert counts["captures"] == 1, (name, counts)
+            assert counts["flag_reads"] < info.numsteps, (name, counts)
+        got[route] = launches
+        del info
+    steps = ref.numsteps
+    del ref
+    walls = {"host-stepped": [], **{r: [] for r in routes}}
+    parts = {r: [] for r in routes}
+    ctxs = {"host-stepped": _driver._host_stepped, **routes}
+    for rep in range(ROUTE_REPEATS):
+        for route in list(walls)[::1 if rep % 2 == 0 else -1]:  # parent, change, change, parent
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            _driver.reset_counts()
+            t0 = time.perf_counter()
+            with ctxs[route]():
+                out = solve()
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            del out
+            if route != "host-stepped":
+                parts[route].append((dict(_driver.LAST_GRAPH), dict(_driver.COUNTS)))
+                torch.cuda.synchronize()
+                left = torch.cuda.memory_allocated() - base
+                assert left == 0, f"{name}, {route}: {left} bytes left after a solve"
+        p = parts["rule"][-1][0]
+        log(f"    13 {name} repeat {rep}: host-stepped {walls['host-stepped'][-1] * 1e3:.3f} ms, "
+            + ", ".join(f"{r} {walls[r][-1] * 1e3:.3f} ms" for r in routes)
+            + f"; the rule: plan {p['plan']} after {p['host_steps']} host steps "
+            f"({p['host_steps_s'] * 1e3:.3f} ms), {p['held_steps']} held, decisions "
+            f"{p['decide_s'] * 1e3:.3f} ms, capture {p['capture_s'] * 1e3:.3f} + "
+            f"{p['instantiate_s'] * 1e3:.3f} ms, replays {p['replays_s'] * 1e3:.3f} ms")
+    for ctx in routes.values():
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        with ctx():
+            solve()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_reserved() - reserved
+        assert left == 0, f"{name}: {left} bytes still reserved after a solve"
+    pool_mb = None
+    if forced:
+        # the kept pool: what the device holds with it and without it
+        torch.cuda.empty_cache()
+        with_pool = torch.cuda.memory_reserved()
+        assert _graphs.release_pools(), name
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool_mb = (with_pool - torch.cuda.memory_reserved()) / 2**20
+    med = {r: float(np.median(w)) for r, w in walls.items()}
+    spread = {r: float(np.max(w) - np.min(w)) for r, w in walls.items()}
+    diffs = [g - h for g, h in zip(walls["rule"], walls["host-stepped"])]
+    busy = {}
+    for route, ctx in ctxs.items():
+        with ctx():
+            busy[route] = device_busy(solve)
+    summary = dict(name=name, steps=steps, host_peak_mb=host_peak_mb, pool_mb=pool_mb)
+    for route in walls:
+        summary[route] = dict(
+            ms=med[route] * 1e3, spread_ms=spread[route] * 1e3, busy_ms=busy[route][0] * 1e3,
+            idle=1 - busy[route][0] / med[route])
+        log(f"  [{card}] 13 {name} {route}: {med[route] * 1e3:.3f} ms (spread "
+            f"{spread[route] * 1e3:.3f}), median of {ROUTE_REPEATS}, alternating; a step "
+            f"{med[route] / steps * 1e6:.1f} us; device busy {busy[route][0] * 1e3:.3f} ms "
+            f"({busy[route][1]} kernel events), idle share {summary[route]['idle']:.3f}")
+        if route in parts:
+            cap_ms = [(p["capture_s"] + p["instantiate_s"]) * 1e3 for p, _ in parts[route]]
+            summary[route].update(
+                captures=[c["captures"] for _, c in parts[route]],
+                host_steps=[p["host_steps"] for p, _ in parts[route]],
+                capture_ms=[round(c, 3) for c in cap_ms],
+                flag_reads_a_step=float(np.median([c["flag_reads"] for _, c in parts[route]]))
+                / steps)
+            log(f"  [{card}] 13 {name} {route}: captures {summary[route]['captures']}, host "
+                f"steps before the capture {summary[route]['host_steps']}, capture and "
+                f"instantiation ms {summary[route]['capture_ms']}, flag reads a step "
+                f"{summary[route]['flag_reads_a_step']:.3f}")
+    summary["rule_minus_host_ms"] = float(np.median(diffs)) * 1e3
+    log(f"  [{card}] 13 {name}: the rule's route minus the host-stepped loop, pair by pair: "
+        f"median {np.median(diffs) * 1e3:+.3f} ms, {sum(d <= 0 for d in diffs)} of "
+        f"{len(diffs)} pairs no slower; the host-stepped solve's peak {host_peak_mb:.0f} MB "
+        f"over its inputs" + ("" if pool_mb is None else f"; the kept pool {pool_mb:.0f} MB"))
+    assert med["rule"] <= med["host-stepped"] + max(spread["rule"], spread["host-stepped"]), (
+        name, med, spread)
+    return got["rule"], summary
+
+
+def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
+    """13: the ``while_loop`` route the cost rule picks against the
+    host-stepped loop at full width, each cell through :func:`route_cell`:
+    generic and the three fused CGs at 4096^2, MG-CG on
+    ``poisson_2d_const(4096)``, ``bicgstab``, ``qmr`` and ``cg`` + Jacobi on
+    the bench's 1M-row CSR, ``cg`` + AMG on its unshifted matrix, ``cg``
+    with an ``(N, 8)`` b (K11) and on the block-structured SPD matrix
+    (K12).  Returns the rule's solves' kernel launches."""
+    log(f"phase 13: the device-resident loop (captured CUDA graphs) against the host-stepped "
+        f"loop, at {BIG}^2 and {NPG * NPG} rows")
+    log(f"  torch.cuda.CUDAGraph.begin_capture_to_if_node: "
+        f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}; torch.version.cuda "
+        f"{torch.version.cuda} (the IF nodes: krylov_tpu_torch/csrc/graph.cu)")
+    t_phase = time.perf_counter()
+    totals = {}
+    summary = []
+    mods = (cs, sv, bs)
+
+    def cell(name, solve, *inputs, forced=None):
+        n, row = route_cell(name, solve, inputs, card, mods, forced)
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+        summary.append(row)
+
+    fixed = dict(tol=0.0, atol=0.0, maxiter=100)
+    A_p = st.poisson_2d(BIG, dtype=np.float32, device=dev)
+    b = torch.ones(A_p.grid, dtype=torch.float32, device=dev)
+    cell("cg, poisson_2d, 100 steps", lambda: kt.cg(A_p, b, inner=inner,
+                                                     backend="while_loop", **fixed), b,
+         forced=(3, 8, 4))
+    cell("fused cg (K5/K4), poisson_2d, 100 steps",
+         lambda: kt.cg_stencil(A_p, b, fused=True, **fixed), b, forced=(3, 4, 8))
+    cell("fused Jacobi cg (K6/K7), poisson_2d, 100 steps",
+         lambda: kt.cg_stencil(A_p, b, fused=True, M="jacobi", **fixed), b,
+         forced=(3, 4, 8))
+    del A_p
+    A_c = st.poisson_2d_const(BIG, device=dev)
+    cell("fused const cg (K3/K4), poisson_2d_const, 100 steps",
+         lambda: kt.cg_stencil(A_c, b, fused=True, **fixed), b, forced=(3, 4, 8))
+    M = kt.MultigridPreconditioner(A_c)
+    _, b_mg = manufactured(A_c, dev, SEED + 20)
+    cell("MG-CG, poisson_2d_const, to 1e-6", lambda: mg_cg(kt, A_c, b_mg, M), b_mg)
+    del A_c, M, b_mg, b
+
+    lap, lap0 = poisson_csr(NPG), poisson_csr(NPG, 4.0)
+    op, op0 = kt.as_operator(lap, dev), kt.as_operator(lap0, dev)
+    assert type(op).__name__ == type(op0).__name__ == "PETOperator"
+    rng = np.random.default_rng(SEED + 130)
+    b_s = torch.from_numpy(rng.standard_normal(NPG * NPG).astype(np.float32)).to(dev)
+
+    def jac(sp):
+        return kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+
+    cell("bicgstab Ml=Jacobi, 1M-row CSR, to 1e-4", lambda: kt.bicgstab(
+        op, b_s, Ml=jac(lap), tol=1e-4, maxiter=400, backend="while_loop"), b_s)
+    cell("qmr Ml=Jacobi, 1M-row CSR, to 1e-4", lambda: kt.qmr(
+        op, b_s, Ml=jac(lap), tol=1e-4, maxiter=400, backend="while_loop"), b_s,
+        forced=(3, 2, 8))
+    cell("cg M=Jacobi, unshifted 1M-row CSR, 1500 steps", lambda: kt.cg(
+        op0, b_s, M=jac(lap0), tol=1e-4, maxiter=1500, backend="while_loop"), b_s,
+        forced=(3, 4, 8))
+    amg = kt.AMGPreconditioner.from_scipy(lap0, dtype=np.float32, fine_operator=op0, device=dev)
+    cell("cg + AMG, unshifted 1M-row CSR, to 1e-4", lambda: kt.cg(
+        op0, b_s, M=amg, tol=1e-4, maxiter=60, backend="while_loop"), b_s)
+    del amg
+    B = torch.from_numpy(rng.standard_normal((NPG * NPG, 8)).astype(np.float32)).to(dev)
+    cell("cg, (N, 8) b (K11), 1M-row CSR, to 1e-5", lambda: kt.cg(
+        op, B, tol=1e-5, maxiter=300, backend="while_loop"), B)
+    del op, op0, B, b_s
+    spd = block_spd_csr()
+    op_b = kt.as_operator(spd, dev)
+    assert type(op_b).__name__ == "BSROperator"
+    Bb = torch.from_numpy(rng.standard_normal((spd.shape[0], 8)).astype(np.float32)).to(dev)
+    cell("cg, (N, 8) b, block-tridiagonal BSR (K12), to 1e-5", lambda: kt.cg(
+        op_b, Bb, tol=1e-5, maxiter=300, backend="while_loop"), Bb)
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    log("  13 summary: " + json.dumps(summary))
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -3177,6 +3446,8 @@ def main():
         launches[k] += n
     for k, n in phase_partitions_gloo(dev, kt, sv, st, card).items():
         launches[k] += n
+    for k, n in phase_graph_loop(dev, kt, cs, sv, bs, st, card).items():
+        launches[k] = launches.get(k, 0) + n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 

@@ -1,0 +1,321 @@
+"""Captured CUDA graphs with conditional steps: the device side of the
+``while_loop`` driver's graph route (:mod:`krylov_tpu_torch._driver`).
+
+:func:`capture` records ``body(guard)`` into a ``torch.cuda.CUDAGraph``.
+Inside the body, ``guard(flag, expect, fn)`` captures ``fn()`` into a
+conditional IF node whose work runs, at each replay, only when the 0-d
+device bool ``flag`` equals ``expect`` at that point of the replay
+(``csrc/graph.cu``): the device reads the flag, the host never does.  IF
+nodes nest.  :func:`host_guard` is the plain version: it reads the flag
+on the host and runs ``fn`` or not, so the same body runs step by step on
+any device.
+
+A body is captured on a stream of its own per nesting depth, fixed per
+device, and allocates from the device's kept pool (:func:`_bodies_pool`;
+:func:`release_pools` gives it back).  :func:`host_reads` notes, on the
+calling thread only, the operations that a graph could not replay (a read
+of a device value on the host, a copy from the host).
+
+The kernel wrappers count their launches through :func:`count`.  While
+:func:`recording` is on, a launch is not counted but appended to the
+recording's list: a captured launch has not run.  The driver credits each
+captured step's list once per step that a replay ran.
+"""
+
+import contextlib
+import ctypes
+import functools
+import gc
+import threading
+import time
+
+import torch
+from torch.utils import _pytree
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# streams: 0 the capture's own, 1 + d the bodies at nesting depth d
+_STREAMS = {}
+# the bodies' pool of each device, and whether a live graph holds it
+_POOLS = {}
+_POOLS_HELD = set()
+_POOLS_LOCK = threading.Lock()
+# the last capture's instantiation, host seconds
+LAST = {"instantiate_s": 0.0}
+_RECORD = threading.local()  # .launches: this thread's list while recording
+
+
+def count(table, key):
+    """One launch of kernel ``key`` into the wrapper's counter ``table``,
+    or, while this thread records a captured step, into that record."""
+    launches = getattr(_RECORD, "launches", None)
+    if launches is None:
+        table[key] += 1
+    else:
+        launches.append((table, key))
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: this thread's launches go to the list yielded, not to the
+    wrappers' counters."""
+    prev = getattr(_RECORD, "launches", None)
+    _RECORD.launches = launches = []
+    try:
+        yield launches
+    finally:
+        _RECORD.launches = prev
+
+
+def credit(launches, times):
+    """Add ``times`` runs of a recorded step's ``launches`` to the
+    counters."""
+    for table, key in launches:
+        table[key] += times
+
+
+@functools.cache
+def _lib():
+    from . import _build
+
+    lib = _build.load()
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        ("krylov_graph_if_begin", [vp, vp, i32, vp]),
+        ("krylov_graph_if_end", [vp]),
+        ("krylov_graph_runtime_version", []),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, i32
+    lib.krylov_error_string.argtypes = [i32]
+    lib.krylov_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(err, what):
+    if err:
+        lib = _lib()
+        raise RuntimeError(
+            f"{what}: CUDA error {err}: {lib.krylov_error_string(err).decode()} "
+            f"(CUDA runtime {lib.krylov_graph_runtime_version()}; conditional "
+            "nodes need 12.4 or later)")
+
+
+def _stream(index, depth):
+    key = (index, depth)
+    if key not in _STREAMS:
+        _STREAMS[key] = torch.cuda.Stream(device=index)
+    return _STREAMS[key]
+
+
+def _index(device):
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def host_guard(flag, expect, fn):
+    """The plain guard: ``fn()`` when ``flag`` reads ``expect`` on the
+    host, else None."""
+    return fn() if bool(flag) == expect else None
+
+
+class _Guards:
+    def __init__(self, index):
+        self.index = index
+        self.depth = 0
+
+    def __call__(self, flag, expect, fn):
+        if flag.dtype != torch.bool or flag.numel() != 1:
+            raise TypeError("a guard's flag is a one-element bool tensor")
+        lib = _lib()
+        parent = torch.cuda.current_stream(self.index)
+        body = _stream(self.index, 1 + self.depth)
+        _check(lib.krylov_graph_if_begin(parent.cuda_stream, flag.data_ptr(), int(not expect),
+                                         body.cuda_stream), "an IF node")
+        self.depth += 1
+        try:
+            with torch.cuda.stream(body):
+                out = fn()
+        except BaseException:
+            lib.krylov_graph_if_end(body.cuda_stream)
+            raise
+        finally:
+            self.depth -= 1
+        _check(lib.krylov_graph_if_end(body.cuda_stream), "the end of an IF node")
+        return out
+
+
+# operations that read a device value on the host (a scalar, or a size
+# that depends on the values)
+_HOST_READ_OPS = frozenset((
+    "aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select", "aten::_unique2",
+    "aten::unique_consecutive", "aten::unique_dim", "aten::repeat_interleave",
+    "aten::_linalg_check_errors"))
+# the functions that make a tensor from host data, which reach the device
+# as a copy that no dispatched operation shows
+_FROM_HOST = (torch.tensor, torch.as_tensor, torch.asarray)
+
+
+class _HostReads(TorchDispatchMode):
+    """Notes each operation of this thread that a CUDA graph could not
+    replay: a read of a value of a tensor on ``device_type`` on the host, a
+    boolean-mask index of such a tensor, or an operation that mixes host
+    tensors with such tensors (a copy from the host)."""
+
+    def __init__(self, device_type, seen):
+        super().__init__()
+        self.device_type, self.seen = device_type, seen
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func._schema.name
+        tensors = [t for t in _pytree.tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+        kinds = {t.device.type for t in tensors}
+        if name == "aten::_to_copy" and "device" in kwargs and kwargs["device"] is not None:
+            kinds.add(torch.device(kwargs["device"]).type)
+        mask = name.startswith("aten::index") and any(
+            t.dtype in (torch.bool, torch.uint8) for t in tensors[1:])
+        if self.device_type in kinds and (name in _HOST_READ_OPS or len(kinds) > 1 or mask):
+            self.seen.append(f"{name} on {sorted(kinds)}")
+        return func(*args, **kwargs)
+
+
+class _HostData(TorchFunctionMode):
+    """Notes each tensor that this thread makes on a ``device_type`` that
+    is not the host's from host data (``torch.tensor(3.0, device=...)``)."""
+
+    def __init__(self, device_type, seen):
+        super().__init__()
+        self.device_type, self.seen = device_type, seen
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func in _FROM_HOST and self.device_type != "cpu" and isinstance(out, torch.Tensor)
+                and out.device.type == self.device_type
+                and not (args and isinstance(args[0], torch.Tensor)
+                         and args[0].device.type == self.device_type)):
+            self.seen.append(f"torch.{func.__name__} of host data")
+        return out
+
+
+@contextlib.contextmanager
+def host_reads(device_type):
+    """Within: this thread's operations that read a value of a tensor on
+    ``device_type`` on the host, or copy one from the host, are noted in
+    the list yielded (by name), and run as ever.  Other threads are not
+    watched."""
+    seen = []
+    with _HostData(device_type, seen), _HostReads(device_type, seen):
+        yield seen
+
+
+def on_body_stream(fn, device):
+    """``fn()`` run now on the stream the outermost bodies are captured on,
+    ordered after the current stream's work and before its later work: the
+    step before a capture makes that stream's own state (a cuBLAS
+    workspace) there, outside any capture."""
+    index = _index(device)
+    cur = torch.cuda.current_stream(index)
+    body = _stream(index, 1)
+    body.wait_stream(cur)
+    with torch.cuda.stream(body):
+        out = fn()
+    cur.wait_stream(body)
+    return out
+
+
+def _bodies_pool(index):
+    """``(pool, give_back)``: the memory pool a capture allocates from, and
+    what :meth:`Captured.release` calls once the graph is gone.
+
+    The device keeps one pool for the next capture: a solve's steps
+    allocate the same sizes again, and a pool made anew for each solve
+    paid ``cudaMalloc`` during the capture and a synchronizing ``cudaFree``
+    at its release.  Its free blocks serve any allocation that would
+    otherwise run out of memory (``use_on_oom``).  While a live graph holds
+    it, another capture (a solve on another thread) gets a pool of its own,
+    freed with its graph."""
+    with _POOLS_LOCK:
+        if index in _POOLS_HELD:
+            return torch.cuda.MemPool(use_on_oom=True), None
+        if index not in _POOLS:
+            _POOLS[index] = torch.cuda.MemPool(use_on_oom=True)
+        _POOLS_HELD.add(index)
+    return _POOLS[index], lambda: _POOLS_HELD.discard(index)
+
+
+def release_pools():
+    """Drop each device's kept pool that no live graph holds: its memory
+    goes back to the device at the next ``torch.cuda.empty_cache()``, and
+    the next capture makes a new one.  Returns the devices whose pools
+    were dropped."""
+    with _POOLS_LOCK:
+        dropped = [i for i in _POOLS if i not in _POOLS_HELD]
+        for i in dropped:
+            del _POOLS[i]
+    return dropped
+
+
+class Captured:
+    """A captured graph: :meth:`replay` launches it on the current stream,
+    :meth:`release` drops it and gives back its memory pool."""
+
+    def __init__(self, graph, pool, give_back):
+        self._graph, self._pool, self._give_back = graph, pool, give_back
+
+    def replay(self):
+        self._graph.replay()
+
+    def release(self):
+        # the graph first: its executable reads the pool's blocks
+        self._graph = self._pool = None
+        if self._give_back is not None:
+            with _POOLS_LOCK:
+                self._give_back()
+            self._give_back = None
+
+
+def capture(body, device):
+    """``body(guard)`` captured on ``device``; returns a :class:`Captured`.
+
+    Any exception raised inside ``body`` (an operation the capture refuses,
+    such as a read of a device value on the host) ends the capture and is
+    raised again; the graph is then never instantiated."""
+    index = _index(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    # the graph's own pool takes its capture stream's allocations; the
+    # bodies' streams capture into IF nodes under capture sequences of
+    # their own, so every allocation of the capture goes to the kept pool
+    bodies, give_back = _bodies_pool(index)
+    cur = torch.cuda.current_stream(index)
+    side = _stream(index, 0)
+    side.wait_stream(cur)
+    failure = None
+    # a capture makes many short-lived objects and no garbage cycles: a
+    # collection of a large process's heap in the middle would only stall it
+    collecting = gc.isenabled()
+    gc.disable()
+    with torch.cuda.device(index), torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            with torch.cuda.use_mem_pool(bodies, index):
+                body(_Guards(index))
+        except Exception as exc:  # noqa: BLE001 - raised below, after the capture ends
+            failure = exc
+        finally:
+            if collecting:
+                gc.enable()
+        try:
+            graph.capture_end()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            failure = failure or exc
+    cur.wait_stream(side)
+    captured = Captured(graph, bodies, give_back)
+    if failure is not None:
+        graph.reset()
+        captured.release()
+        raise failure
+    t0 = time.perf_counter()
+    graph.instantiate()
+    LAST["instantiate_s"] = time.perf_counter() - t0
+    return captured

@@ -14,7 +14,9 @@ launches one of K12's two kernels or raises: the streamed one (a warp
 streams 32 rows of a block row through a ring in shared memory) where
 :func:`k12_streamed` says so, from type, shape and alignment alone, and the
 general one otherwise.  Each launch adds one to ``LAUNCHES["bsr_spmm"]`` and
-to the kernel's entry of ``K12_PATHS``.
+to the kernel's entry of ``K12_PATHS``.  A launch captured into the
+``while_loop`` driver's CUDA graph counts once for each step that a replay
+runs (:func:`krylov_tpu_torch._graphs.count`).
 
 Gradients (:class:`_BsrSpmm`, on both devices): the data gradient is plain
 torch, block by block, as the reference's XLA autodiff; the ``X``
@@ -29,6 +31,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from .._graphs import count as _count
 from .cuda_stencil import _CODES, _as_grad, _check, _on_cpu, _ptr, _require, _stream, _wants_grad
 
 LAUNCHES = {"bsr_spmm": 0}
@@ -181,6 +184,6 @@ def _bsr_spmm(data, cols, x):
         err = lib.krylov_bsr_spmm(_CODES[dt], int(streamed), _ptr(data), _ptr(cols), _ptr(x),
                                   _ptr(y), nbrows, max_blocks, R, C, k, _stream(x))
     _check(lib, err, "bsr_spmm")
-    LAUNCHES["bsr_spmm"] += 1
-    K12_PATHS["streamed" if streamed else "general"] += 1
+    _count(LAUNCHES, "bsr_spmm")
+    _count(K12_PATHS, "streamed" if streamed else "general")
     return y

@@ -16,7 +16,9 @@ and float32 sums.  :class:`PETOperator` keeps the reference's name and its
 
 A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES[name]``; the plain versions count nothing.  The kernels have no
+``LAUNCHES[name]``; the plain versions count nothing.  A launch captured into the
+``while_loop`` driver's CUDA graph counts once for each step that a replay
+runs (:func:`krylov_tpu_torch._graphs.count`).  The kernels have no
 backward: on the card a wrapper raises a ``TypeError`` for an input that
 requires a gradient in grad mode (autograd differentiates the plain
 versions on the CPU).
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._graphs import count as _count
 from .cuda_stencil import _check, _on_cpu, _ptr, _refuse_grad, _require, _stream
 from .sparse import _segment_sum
 
@@ -180,7 +183,7 @@ def csr_matvec(indptr, indices, data, x, runs=None):
             _VALUE_CODES[data.dtype], RUN_CAPACITY, runs.numel() - 1, _ptr(runs), _ptr(indptr),
             _ptr(indices), _ptr(data), _ptr(x), _ptr(y), data.numel(), _stream(x))
     _check(lib, err, "csr_matvec")
-    LAUNCHES["csr_matvec"] += 1
+    _count(LAUNCHES, "csr_matvec")
     return y
 
 
@@ -203,7 +206,7 @@ def csr_matmat(indptr, indices, data, X, lanes=None):
             _VALUE_CODES[data.dtype], lanes, _ptr(indptr), _ptr(indices), _ptr(data), _ptr(X),
             _ptr(Y), n, k, _stream(X))
     _check(lib, err, "csr_matmat")
-    LAUNCHES["csr_matmat"] += 1
+    _count(LAUNCHES, "csr_matmat")
     return Y
 
 

@@ -22,7 +22,9 @@ K9 with planes that are real or of the vector's type.
 
 A wrapper runs its plain version only when its tensors lie on the CPU; on
 a CUDA device it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES[name]``; the plain versions count nothing.
+``LAUNCHES[name]``; the plain versions count nothing.  A launch captured into the
+``while_loop`` driver's CUDA graph counts once for each step that a replay
+runs (:func:`krylov_tpu_torch._graphs.count`).
 
 Gradients: K1 is a ``torch.autograd.Function`` on both devices (its
 backward is plain torch for the coefficients and K1 itself, the adjoint
@@ -56,6 +58,8 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from .._graphs import count as _count
 
 LAUNCHES = {
     "stencil2d_matvec": 0,
@@ -431,7 +435,7 @@ def _stencil2d(coeffs, x, row_offsets, col_offsets, top_halo=None, bot_halo=None
             x.shape[0] if batched else 1, M, ny, ndiag, dr, dc, h, _stream(x),
         )
     _check(lib, err, "stencil2d_matvec")
-    LAUNCHES["stencil2d_matvec"] += 1
+    _count(LAUNCHES, "stencil2d_matvec")
     return out
 
 
@@ -530,8 +534,8 @@ def const_stencil2d_matvec(x, bands, row0=None, top_halo=None, bot_halo=None,
             0 if row0 is None else int(row0), *_const_bands(lib, bands), _stream(x),
         )
     _check(lib, err, "const_stencil2d_matvec")
-    LAUNCHES["const_stencil2d_matvec"] += 1
-    K2_PATHS["tiled" if tiled else "general"] += 1
+    _count(LAUNCHES, "const_stencil2d_matvec")
+    _count(K2_PATHS, "tiled" if tiled else "general")
     return out
 
 
@@ -588,7 +592,7 @@ def _phase_a(name, launch, omega, r, p, out):
     with torch.cuda.device(r.device):
         err = launch(lib, pn_out, ap_out, partials, pap)
     _check(lib, err, name)
-    LAUNCHES[name] += 1
+    _count(LAUNCHES, name)
     return pn_out, ap_out, pap
 
 
@@ -738,7 +742,7 @@ def _phase_b(name, alpha, y, r, p, ap, dinv=None):
         else:
             err = lib.krylov_cg_phase_b_jac(*head, _ptr(dinv), *tail)
     _check(lib, err, name)
-    LAUNCHES[name] += 1
+    _count(LAUNCHES, name)
     return y, r, rho
 
 
@@ -815,7 +819,7 @@ def jacobi_sweep_const(w, z, r, bands, update=True, out=None):
             int(update), *z.shape, *_const_bands(lib, bands), _stream(z),
         )
     _check(lib, err, "jacobi_sweep_const")
-    LAUNCHES["jacobi_sweep_const"] += 1
+    _count(LAUNCHES, "jacobi_sweep_const")
     return out
 
 
@@ -843,5 +847,5 @@ def jacobi_sweep_var(w, z, r, coeffs, row_offsets, col_offsets, update=True,
             *z.shape, len(row_offsets), dr, dc, _stream(z),
         )
     _check(lib, err, "jacobi_sweep_var")
-    LAUNCHES["jacobi_sweep_var"] += 1
+    _count(LAUNCHES, "jacobi_sweep_var")
     return out

@@ -31,7 +31,7 @@ import inspect
 import numpy as np
 import torch
 
-from .._driver import ShardMonitor
+from .._driver import ShardMonitor, _host_stepped
 from .._info import Info
 from .._operators import DiagonalOperator
 from ..ops.bsr import BSROperator
@@ -387,8 +387,11 @@ def _make_general_run(
             return v[rows][:, cols].contiguous().to(dev) if v.ndim > 1 else v[rows].to(dev)
 
         b_l = slab(b)
-        _, info = solver(A_op, b_l, inner=psum_inner(b_l.shape, mesh), x0=slab(x0), tol=tol,
-                         atol=atol, maxiter=maxiter, backend="while_loop", **kw)
+        # host-stepped: a rank's step runs collectives, and NCCL or gloo
+        # inside a captured graph is later work
+        with _host_stepped():
+            _, info = solver(A_op, b_l, inner=psum_inner(b_l.shape, mesh), x0=slab(x0),
+                             tol=tol, atol=atol, maxiter=maxiter, backend="while_loop", **kw)
         xk = mesh.all_gather_rows(info.xk, ROWS)
         xk, success, numsteps, hist = _finish(mesh, xk, info, rhs_split)
         xk = xk[:N]
@@ -554,8 +557,9 @@ def _make_grid_run(solver, A, *, mesh, tol, atol, maxiter, M_diag, M_factory, ca
 
         b_l = slab(b)
         x0_l = torch.zeros_like(b_l) if x0 is None else slab(_tensor(x0))
-        _, info = solver(A_op, b_l, inner=inner, x0=x0_l, tol=tol, atol=atol,
-                         maxiter=maxiter, backend="while_loop", **kw)
+        with _host_stepped():  # as in _make_general_run
+            _, info = solver(A_op, b_l, inner=inner, x0=x0_l, tol=tol, atol=atol,
+                             maxiter=maxiter, backend="while_loop", **kw)
         xk = mesh.all_gather_rows(info.xk, ROWS)[:Mg]
         if flat_in:
             xk = xk.reshape(b.shape)

@@ -90,6 +90,7 @@ def bicg(
         xk=lambda s: s.x,
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
         callback_args=lambda s: (s.x, torch.stack([s.r0, s.r1])),
+        capturable=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -152,6 +152,8 @@ def cg(
         explicit_resnorm=explicit_resnorm,
         callback_args=lambda s: (xk_of(s), s.Ml_rk),
         on_step=on_step,
+        # the device Arnoldi wrapper counts its steps on the host
+        capturable=not return_arnoldi,
     )
 
     state, success, k, resnorms = run(

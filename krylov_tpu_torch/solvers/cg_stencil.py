@@ -168,7 +168,12 @@ def cg_stencil(
     def explicit_resnorm(xk):
         return torch.sqrt(mnorm2(b2 - (A @ xk)))
 
-    method = Method(step=step, xk=xk_of, explicit_resnorm=explicit_resnorm)
+    # capturable: every fused phase writes into buffers of its own, and
+    # p_spare alternates between two, so a graph of an even number of steps
+    # starts each replay with the direction back in its first buffer and
+    # copies nothing back for it
+    method = Method(step=step, xk=xk_of, explicit_resnorm=explicit_resnorm,
+                    capturable=True, even_steps=use_fused)
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter, backend=WHILE_LOOP,
     )

@@ -161,6 +161,7 @@ def lsqr(
         explicit_resnorm=lambda xk: _norm_u(b - A @ xk),
         # r_k = phibar_k * u_{k+1} exactly (in exact arithmetic)
         callback_args=lambda s: (s.x, s.phibar * s.u),
+        capturable=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -146,6 +146,7 @@ def minres(
         xk=xk_of,
         explicit_resnorm=residual_norm,
         callback_args=lambda s: (xk_of(s), s.resnorm),
+        capturable=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -53,7 +53,11 @@ def _stationary(
     maxiter: Optional[int] = None,
     callback: Optional[Callable] = None,
     backend: str = EAGER,
+    _capturable: bool = False,
 ):
+    # _capturable: the update reads nothing on the host (Richardson,
+    # Jacobi); the triangular sweeps' steps, ~23 launches a grid row, stay
+    # on the host-stepped loop
     x0_default = x0 is None
     A, b, x0, N, inner, maxiter = setup(A, b, x0=x0, inner=inner, maxiter=maxiter)
 
@@ -77,6 +81,7 @@ def _stationary(
         xk=lambda s: s.x,
         explicit_resnorm=None,  # stationary methods skip the double-check
         callback_args=lambda s: (s.x, s.r),
+        capturable=_capturable,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,
@@ -171,7 +176,7 @@ def _bcast(d, r):
 
 def richardson(*args, omega: float = 1.0, **kwargs):
     """x_{k+1} = x_k + omega * r."""
-    return _stationary(lambda r: omega * r, *args, **kwargs)
+    return _stationary(lambda r: omega * r, *args, _capturable=True, **kwargs)
 
 
 def jacobi(A, *args, omega: float = 1.0, **kwargs):
@@ -181,7 +186,7 @@ def jacobi(A, *args, omega: float = 1.0, **kwargs):
     def _update(r):
         return omega * r / _bcast(D, r)
 
-    return _stationary(_update, A, *args, **kwargs)
+    return _stationary(_update, A, *args, _capturable=True, **kwargs)
 
 
 def _is_grid_stencil(A):

@@ -11,11 +11,14 @@ where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import krylov_tpu_torch as kt
+from krylov_tpu_torch import _driver
 from krylov_tpu_torch.ops import cuda_stencil as cs
 from krylov_tpu_torch.ops import stencil as st
 
@@ -1067,3 +1070,344 @@ def test_distributed_preconditioners_on_one_nccl_rank(dev):
             assert torch.equal(infos[0].xk, infos[1].xk), label
     finally:
         dist.destroy_process_group()
+
+
+# --- the while_loop graph route: captured CUDA graphs with conditional steps ---
+
+
+def _graph_cases(dev):
+    """``{label: solve}`` of every solver and preconditioner the graph route
+    takes, small: a grid stencil (K1), the const stencil (K2, fused K3/K4,
+    the MG cycle's K8), the lognormal field's fused K5/K4 and K6/K7, the
+    shifted Poisson CSR on the PET route (K10 forward and adjoint), its
+    unshifted twin under AMG, ILU(0), block Jacobi and Chebyshev, an
+    ``(N, 8)`` b (K11), the block-structured SPD matrix (K12), a bfloat16
+    PET operator and complex Hermitian solves."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.cuda_spmv import PETOperator
+
+    rng = np.random.default_rng(40)
+    A = st.diffusion_2d(np.exp(rng.standard_normal((64, 96))).astype(np.float32), device=dev)
+    Ac = st.poisson_2d_const(96, 64, device=dev)
+    bg, bc = torch.ones(A.grid, device=dev), Ac @ _rand(Ac.grid, dev, torch.float32, 41)
+    grid_inner = lambda u, v: torch.sum(u * v)  # noqa: E731
+    sp, lap = _shifted_poisson_f32(128), _shifted_poisson_f32(128, shift=0.0)
+    n = sp.shape[0]
+    b = _rand(n, dev, torch.float32, 42)
+    B8 = _rand((n, 8), dev, torch.float32, 43)
+    dinv = kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+    dinv0 = kt.DiagonalOperator(torch.from_numpy(1.0 / lap.diagonal()).to(dev))
+    blk = scipy.sparse.random(64, 64, density=0.5, random_state=9, dtype=np.float64)
+    spd = scipy.sparse.csr_matrix(np.kron(np.eye(16), blk @ blk.T + 64 * np.eye(64)))
+    Bb = torch.ones((spd.shape[0], 4), device=dev, dtype=torch.float64)
+    grid = _grid_poisson_f32(64)  # a true grid: ILU(0)'s levels are its wavefront
+    pet16 = PETOperator.from_scipy(sp, data_dtype=torch.bfloat16, with_rmatvec=False,
+                                   device=dev)
+    wl = dict(backend="while_loop")
+    lo, hi = kt.utils.estimate_spectrum(Ac)
+    Q, _ = np.linalg.qr(rng.standard_normal((96, 96)) + 1j * rng.standard_normal((96, 96)))
+    hpd = Q @ np.diag(np.geomspace(1.0, 10.0, 96)) @ Q.conj().T
+    bz = rng.standard_normal(96) + 1j * rng.standard_normal(96)
+    Az = {dt: torch.from_numpy(hpd.astype(dt)).to(dev) for dt in (np.complex64, np.complex128)}
+    bz = {dt: torch.from_numpy(bz.astype(dt)).to(dev) for dt in Az}
+    return {
+        "cg, grid": lambda: kt.cg(A, bg, inner=grid_inner, tol=1e-6, maxiter=400, **wl),
+        "cg, const, maxiter 37": lambda: kt.cg(Ac, bc, inner=grid_inner, tol=1e-8, maxiter=37,
+                                               **wl),
+        "cg_stencil fused const": lambda: kt.cg_stencil(Ac, bc, tol=1e-6, maxiter=400,
+                                                        fused=True),
+        "cg_stencil fused var": lambda: kt.cg_stencil(A, bg, tol=1e-6, maxiter=400, fused=True),
+        "cg_stencil fused jacobi": lambda: kt.cg_stencil(A, bg, tol=1e-6, maxiter=400,
+                                                         fused=True, M="jacobi"),
+        "cg_stencil unfused": lambda: kt.cg_stencil(A, bg, tol=1e-6, maxiter=400),
+        "cg + multigrid": lambda: kt.cg(Ac, bc, M=kt.MultigridPreconditioner(Ac),
+                                        inner=grid_inner, tol=1e-6, maxiter=50, **wl),
+        "cg + chebyshev": lambda: kt.cg(Ac, bc, M=kt.ChebyshevPreconditioner(Ac, (lo, hi), 4),
+                                        inner=grid_inner, tol=1e-6, maxiter=200, **wl),
+        "bicgstab": lambda: kt.bicgstab(sp, b, Ml=dinv, tol=1e-4, maxiter=200, **wl),
+        "qmr": lambda: kt.qmr(sp, b, Ml=dinv, tol=1e-4, maxiter=200, **wl),
+        "bicg": lambda: kt.bicg(sp, b, tol=1e-4, maxiter=200, **wl),
+        "cgs": lambda: kt.cgs(sp, b, tol=1e-4, maxiter=200, **wl),
+        "minres": lambda: kt.minres(sp, b, tol=1e-4, maxiter=200, **wl),
+        "lsqr": lambda: kt.lsqr(sp, b, tol=1e-4, maxiter=400, **wl),
+        "cgnr": lambda: kt.cgnr(sp, b, tol=1e-4, maxiter=200, **wl),
+        "richardson": lambda: kt.richardson(A, bg.reshape(-1), omega=0.05, tol=1e-30,
+                                            maxiter=20, **wl),
+        "jacobi": lambda: kt.jacobi(A, bg.reshape(-1), omega=0.8, tol=1e-30, maxiter=20, **wl),
+        "cg + jacobi": lambda: kt.cg(lap, b, M=dinv0, tol=1e-4, maxiter=1500, **wl),
+        "cg + amg": lambda: kt.cg(lap, b, M=kt.AMGPreconditioner.from_scipy(
+            lap, dtype=np.float32, device=dev), tol=1e-4, maxiter=60, **wl),
+        "cg + ilu": lambda: kt.cg(grid, b[:grid.shape[0]], M=kt.ILUPreconditioner.from_scipy(
+            grid, device=dev), tol=1e-4, maxiter=100, **wl),
+        "cg + block jacobi": lambda: kt.cg(lap, b, M=kt.BlockJacobiPreconditioner.from_scipy(
+            lap, block=64, device=dev), tol=1e-3, maxiter=600, **wl),
+        "cg, (N, 8) b": lambda: kt.cg(lap, B8, tol=1e-4, maxiter=600, **wl),
+        "cg, bsr": lambda: kt.cg(spd, Bb, tol=1e-8, maxiter=100, **wl),
+        # K10 on bfloat16 values gives float32 products: the state's types
+        # change over its first two steps, which the host launches
+        "cg, bf16 values": lambda: kt.cg(pet16, b.bfloat16(), tol=1e-2, maxiter=100, **wl),
+        # a complex inner product's imaginary part is checked on the host
+        # only on the host-stepped steps
+        "cg, complex64": lambda: kt.cg(Az[np.complex64], bz[np.complex64], tol=1e-5,
+                                       maxiter=200, **wl),
+        "cg, complex128": lambda: kt.cg(Az[np.complex128], bz[np.complex128], tol=1e-10,
+                                        maxiter=200, **wl),
+        "minres, complex64": lambda: kt.minres(Az[np.complex64], bz[np.complex64], tol=1e-5,
+                                               maxiter=200, **wl),
+        "minres, complex128": lambda: kt.minres(Az[np.complex128], bz[np.complex128],
+                                                tol=1e-10, maxiter=200, **wl),
+    }
+
+
+def _grid_poisson_f32(g, shift=0.5):
+    """The shifted 5-point Laplacian on a ``g x g`` grid, no coupling across
+    grid rows."""
+    import scipy.sparse
+
+    n = g * g
+    side = np.ones(n - 1)
+    side[g - 1::g] = 0.0
+    return scipy.sparse.diags([-np.ones(n - g), -side, (4.0 + shift) * np.ones(n), -side,
+                               -np.ones(n - g)], [-g, -1, 0, 1, g], format="csr",
+                              dtype=np.float32)
+
+
+def _launches():
+    """Every kernel wrapper's launch counts, the K2 and K12 paths included."""
+    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+
+    return {**cs.LAUNCHES, **{f"K2 {k}": v for k, v in cs.K2_PATHS.items()},
+            **cuda_spmv.LAUNCHES, **cuda_bsr.LAUNCHES,
+            **{f"K12 {k}": v for k, v in cuda_bsr.K12_PATHS.items()}}
+
+
+def _reset_launches():
+    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+
+    for mod in (cs, cuda_spmv, cuda_bsr):
+        mod.reset_launches()
+
+
+def _both_routes(solve, route):
+    """``(host-stepped info, graph-route info, the driver's counts of the
+    graph-route solve, the kernel launches of each)`` of one solve;
+    ``route`` the graph route's context (a forced capture, or none)."""
+    _reset_launches()
+    with _driver._host_stepped():
+        _, ref = solve()
+    torch.cuda.synchronize()
+    launches = [_launches()]
+    _reset_launches()
+    _driver.reset_counts()
+    with route:
+        _, got = solve()
+    torch.cuda.synchronize()
+    launches.append(_launches())
+    return ref, got, dict(_driver.COUNTS), launches
+
+
+_GRAPH_LABELS = (
+    "cg, grid", "cg, const, maxiter 37", "cg_stencil fused const", "cg_stencil fused var",
+    "cg_stencil fused jacobi", "cg_stencil unfused", "cg + multigrid", "cg + chebyshev",
+    "bicgstab", "qmr", "bicg", "cgs", "minres", "lsqr", "cgnr", "richardson", "jacobi",
+    "cg + jacobi", "cg + amg", "cg + ilu", "cg + block jacobi", "cg, (N, 8) b", "cg, bsr",
+    "cg, bf16 values", "cg, complex64", "cg, complex128", "minres, complex64",
+    "minres, complex128")
+
+
+def _assert_bit_equal(got, ref, label):
+    assert got.numsteps == ref.numsteps and got.success == ref.success, label
+    np.testing.assert_array_equal(got.resnorms, ref.resnorms)
+    assert torch.equal(got.xk, ref.xk), label
+
+
+@pytest.mark.parametrize("label", _GRAPH_LABELS)
+def test_graph_route_is_bit_equal_to_the_host_stepped_loop(dev, label):
+    """Each solve of the slice with a capture forced after its third step
+    (a graph of 4 steps, the fused CG's even count; 2 replays a read of the
+    flag): one capture, and the host-stepped loop's history, step count,
+    success, iterate and kernel launches (a replayed step's launches
+    counted once for each time it ran) bit for bit."""
+    steps = 4
+    ref, got, counts, (n_host, n_graph) = _both_routes(
+        _graph_cases(dev)[label], _driver._capture_at(after=3, steps=steps, replays=2))
+    assert counts["graph_route"] == 1 and counts["host_stepped"] == 0, counts
+    assert counts["captures"] == (1 if got.numsteps > 3 else 0), counts
+    if counts["captures"]:
+        # a read of the flag a run of replays, one more a failed recheck
+        bound = 3 + -(-(got.numsteps - 3) // (2 * steps)) + counts["rechecks"] + 1
+        assert counts["flag_reads"] <= bound, (counts, got.numsteps)
+    _assert_bit_equal(got, ref, label)
+    assert n_graph == n_host, label
+
+
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_graph_route_of_other_step_counts(dev, steps):
+    """Graphs of 1, 3 and 8 steps: steps ending anywhere in a replay."""
+    for label in ("cg, grid", "bicgstab", "minres", "cg + jacobi"):
+        ref, got, counts, (n_host, n_graph) = _both_routes(
+            _graph_cases(dev)[label], _driver._capture_at(after=2, steps=steps, replays=3))
+        assert counts["captures"] == 1, (label, counts)
+        _assert_bit_equal(got, ref, label)
+        assert n_graph == n_host, label
+
+
+def test_the_rule_captures_a_long_solve_and_keeps_a_short_one_on_the_host(dev):
+    """Unforced: ``cg`` + Jacobi, 3000 fixed steps on a 16k-row CSR, ~10
+    kernels of a few microseconds a step, is host-bound: the first
+    decision (after step 24) could repay at no device time, step 25 is held
+    behind a sleep to time its device work, the decision after it repays,
+    step 26 is the rehearsal and the graph takes the rest.  A 2-step solve
+    reaches no decision and runs the host-stepped loop's launches and
+    nothing else.  Both bit-equal to the host-stepped loop, with its launch
+    counts."""
+    sp = _shifted_poisson_f32(128, shift=0.0)
+    b = _rand(sp.shape[0], dev, torch.float32, 42)
+    dinv = kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+    long = lambda: kt.cg(sp, b, M=dinv, tol=0.0, atol=0.0, maxiter=3000,  # noqa: E731
+                         backend="while_loop")
+    ref, got, counts, (n_host, n_graph) = _both_routes(long, contextlib.nullcontext())
+    assert counts["captures"] == counts["held_steps"] == 1, counts
+    assert _driver.LAST_GRAPH["host_steps"] == _driver.FIRST_CHECK + 2, _driver.LAST_GRAPH
+    assert counts["flag_reads"] < got.numsteps / 4, counts
+    _assert_bit_equal(got, ref, "cg + jacobi, 3000 steps")
+    assert n_graph == n_host
+    A = st.poisson_2d_const(96, 64, device=dev)
+    b = torch.ones(A.grid, device=dev)
+    short = lambda: kt.cg(A, b, inner=lambda u, v: torch.sum(u * v), tol=0.0, atol=0.0,  # noqa: E731
+                          maxiter=2, backend="while_loop")
+    ref, got, counts, (n_host, n_graph) = _both_routes(short, contextlib.nullcontext())
+    assert counts["graph_route"] == 1 and counts["captures"] == counts["held_steps"] == 0, counts
+    assert counts["host_steps"] == counts["flag_reads"] == 2
+    _assert_bit_equal(got, ref, "short")
+    assert n_graph == n_host and n_host["const_stencil2d_matvec"] == 2
+
+
+def test_graph_route_keeps_the_callers_inputs_and_frees_its_graph(dev):
+    """``cg`` with ``x0=None`` starts from ``r0 = b`` itself: the graph
+    works on buffers of its own, so ``b`` is unchanged; a complex solve
+    keeps its ``b`` too.  Once the solve's results are dropped the memory is
+    back at its level before the solve (after a first graph solve has made
+    the process's per-stream state and the kept pool): the allocated memory
+    at once, the reserved memory after ``torch.cuda.empty_cache()``."""
+    A = st.poisson_2d_const(96, 64, device=dev)
+    b = A @ _rand(A.grid, dev, torch.float32, 44)
+    b0 = b.clone()
+    Az = (torch.eye(64, dtype=torch.complex64, device=dev) * 4
+          + 1j * torch.diag(torch.ones(63, dtype=torch.complex64, device=dev), 1))
+    Az = Az + Az.conj().T
+    bz = torch.ones(64, dtype=torch.complex64, device=dev)
+    bz0 = bz.clone()
+
+    def solve():
+        with _driver._capture_at(after=2, steps=4, replays=2):
+            return kt.cg(A, b, inner=lambda u, v: torch.sum(u * v), tol=1e-6, maxiter=200,
+                         backend="while_loop")
+
+    solve()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    _driver.reset_counts()
+    x, info = solve()
+    assert info.success and torch.equal(b, b0) and _driver.COUNTS["captures"] == 1
+    del x, info
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == base
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) == reserved
+    with _driver._capture_at(after=2, steps=2, replays=2):
+        _, info = kt.cg(Az, bz, tol=1e-6, maxiter=100, backend="while_loop")
+    assert info.success and torch.equal(bz, bz0) and _driver.COUNTS["captures"] == 2
+
+
+def test_graph_route_keeps_a_step_that_reads_the_host_on_the_host_loop(dev):
+    """An ``inner`` that reads a device value on the host, and one that
+    makes a tensor from host data on the device: the rehearsal step before
+    the capture notes it, and the solve runs host-stepped from there,
+    every time, nothing captured and nothing rerun: the host-stepped
+    loop's trajectory bit for bit."""
+    A = st.poisson_2d_const(64, 64, device=dev)
+    b = torch.ones(A.grid, device=dev)
+
+    def reads(u, v):
+        return torch.sum(u * v) * float(u.abs().max() > 0)
+
+    def host_value(u, v):
+        return torch.sum(u * v) * torch.tensor(1.0, device=u.device)
+
+    for inner in (reads, host_value):
+        def solve():
+            return kt.cg(A, b, inner=inner, tol=1e-6, maxiter=50, backend="while_loop")
+
+        with _driver._host_stepped():
+            _, ref = solve()
+        for _ in range(2):
+            _driver.reset_counts()
+            with _driver._capture_at(after=3, steps=2, replays=2):
+                _, got = solve()
+            c = dict(_driver.COUNTS)
+            assert c["graph_route"] == c["uncapturable"] == 1 and c["captures"] == 0, c
+            assert c["host_steps"] == got.numsteps and c["graph_steps"] == 0, c
+            _assert_bit_equal(got, ref, inner.__name__)
+    # a capture that follows captures as ever
+    _driver.reset_counts()
+    with _driver._capture_at(after=3, steps=2, replays=2):
+        _, info = kt.cg(A, b, inner=lambda u, v: torch.sum(u * v), tol=1e-6, maxiter=50,
+                        backend="while_loop")
+    assert _driver.COUNTS["captures"] == 1 and _driver.COUNTS["uncapturable"] == 0
+
+
+def test_graph_route_raises_when_a_capture_fails(dev):
+    """A step that fails only while it is captured: the solve raises a
+    ``RuntimeError`` naming the solver and the operation, and nothing runs
+    the solve again on the host-stepped loop."""
+    A = st.poisson_2d_const(64, 64, device=dev)
+    b = torch.ones(A.grid, device=dev)
+
+    def capture_shy(u, v):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("no capture here")
+        return torch.sum(u * v)
+
+    _driver.reset_counts()
+    with pytest.raises(RuntimeError, match=r"cg: .*capture_shy"):
+        with _driver._capture_at(after=3, steps=2, replays=2):
+            kt.cg(A, b, inner=capture_shy, tol=1e-6, maxiter=50, backend="while_loop")
+    c = dict(_driver.COUNTS)
+    assert c["graph_route"] == 1 and c["host_stepped"] == 0 and c["captures"] == 0, c
+    assert c["host_steps"] == 3 and c["graph_steps"] == 0, c  # the rehearsal was the last
+    _driver.reset_counts()
+    with _driver._capture_at(after=3, steps=2, replays=2):
+        _, info = kt.cg(A, b, inner=lambda u, v: torch.sum(u * v), tol=1e-6, maxiter=50,
+                        backend="while_loop")
+    assert _driver.COUNTS["captures"] == 1 and info.numsteps > 3
+
+
+def test_graph_route_is_decided_before_any_capture(dev):
+    """A callback, a ``ShardMonitor``, ``return_arnoldi``, a solver that
+    branches on a host step counter and a state that requires a gradient
+    run the host-stepped loop; nothing is captured, even when forced."""
+    A = st.poisson_2d_const(64, 64, device=dev)
+    b = torch.ones(64 * 64, device=dev)
+    Ad = torch.eye(64, device=dev) * 3.0 + torch.diag(torch.ones(63, device=dev), 1)
+    Ad = Ad + Ad.T
+    bd = torch.ones(64, device=dev, requires_grad=True)
+    calls = []
+    for solve in (
+        lambda: kt.cg(A, b, tol=1e-6, maxiter=50, callback=lambda *a: calls.append(1),
+                      backend="while_loop"),
+        lambda: kt.cg(A, b, tol=1e-6, maxiter=50, callback=_driver.ShardMonitor(
+            lambda k, r: calls.append(k)), backend="while_loop"),
+        lambda: kt.cg(A, b, tol=1e-6, maxiter=50, return_arnoldi=True, backend="while_loop"),
+        lambda: kt.tfqmr(A, b, tol=1e-6, maxiter=50, backend="while_loop"),
+        lambda: kt.cg(Ad, bd, tol=1e-6, maxiter=50, backend="while_loop"),
+    ):
+        _driver.reset_counts()
+        with _driver._capture_at():
+            solve()
+        assert _driver.COUNTS["host_stepped"] == 1, _driver.COUNTS
+        assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
+    assert calls
+
