@@ -127,7 +127,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    1M-row CSR, ``cg`` with an ``(N, 8)`` b through K11 and K12), each on
    the route its cost rule picks and on ``_driver._host_stepped()``, six
    of them also under a capture forced by ``_driver._capture_at``,
-   alternating, 10 repeats: every route bit-equal to the host-stepped
+   alternating, 10 repeats; then nine cells of the methods whose step
+   depends on its step number (``gmres`` x3 on the convected 1M-row CSR,
+   ``tfqmr``, ``cg_pipelined``, ``cg_block`` (K11), ``symmlq``, ``gcr`` on
+   the shifted one, ``chebyshev`` on ``poisson_2d_const(1024)`` (K2)), all
+   three routes, 5 repeats: every route bit-equal to the host-stepped
    loop, with equal launch counts, inputs unchanged, memory back at its
    level, the rule's median no slower than the host-stepped median by
    more than the larger spread, the forced route taking a capture and
@@ -3138,6 +3142,7 @@ def phase_partitions_gloo(dev, kt, sv, st, card):
 # ---------------------------------------------------------------------------
 
 ROUTE_REPEATS = 10  # timed solves of each route a cell, alternating
+COUNTED_REPEATS = 5  # the same for the cells of the methods whose step depends on its number
 
 
 def device_busy(fn):
@@ -3174,7 +3179,7 @@ def route_counted(solve, mods, ctx):
     return info, all_launches(*mods), dict(_driver.COUNTS), dict(_driver.LAST_GRAPH)
 
 
-def route_cell(name, solve, inputs, card, mods, forced=None):
+def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
     """One cell of phase 13: ``solve()`` (a ``while_loop`` solve, returning
     ``(x, info)``) on the route the driver's cost rule picks, on the
     host-stepped loop and, with ``forced`` (``(after, steps, replays)``),
@@ -3184,8 +3189,8 @@ def route_cell(name, solve, inputs, card, mods, forced=None):
     unchanged, and the memory back at its level (the reserved memory after
     ``torch.cuda.empty_cache()``); the forced route to a capture and the
     stop flag read less than once a step.  Times the routes alternating,
-    ``ROUTE_REPEATS`` each, and holds the rule's median to the host-stepped
-    median plus the larger spread.  With ``forced``, measures the kept
+    ``repeats`` each (``ROUTE_REPEATS`` for None), and holds the rule's
+    median to the host-stepped median plus the larger spread.  With ``forced``, measures the kept
     pool: the reserved memory with it and without it
     (``_graphs.release_pools``).  Returns the counted solve's kernel
     launches and a summary."""
@@ -3193,6 +3198,8 @@ def route_cell(name, solve, inputs, card, mods, forced=None):
 
     from krylov_tpu_torch import _driver, _graphs
 
+    repeats = ROUTE_REPEATS if repeats is None else repeats
+    t_cell = time.perf_counter()
     before = [t.clone() for t in inputs]
     torch.cuda.synchronize()
     base0 = torch.cuda.memory_allocated()
@@ -3228,7 +3235,7 @@ def route_cell(name, solve, inputs, card, mods, forced=None):
     walls = {"host-stepped": [], **{r: [] for r in routes}}
     parts = {r: [] for r in routes}
     ctxs = {"host-stepped": _driver._host_stepped, **routes}
-    for rep in range(ROUTE_REPEATS):
+    for rep in range(repeats):
         for route in list(walls)[::1 if rep % 2 == 0 else -1]:  # parent, change, change, parent
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -3282,7 +3289,7 @@ def route_cell(name, solve, inputs, card, mods, forced=None):
             ms=med[route] * 1e3, spread_ms=spread[route] * 1e3, busy_ms=busy[route][0] * 1e3,
             idle=1 - busy[route][0] / med[route])
         log(f"  [{card}] 13 {name} {route}: {med[route] * 1e3:.3f} ms (spread "
-            f"{spread[route] * 1e3:.3f}), median of {ROUTE_REPEATS}, alternating; a step "
+            f"{spread[route] * 1e3:.3f}), median of {repeats}, alternating; a step "
             f"{med[route] / steps * 1e6:.1f} us; device busy {busy[route][0] * 1e3:.3f} ms "
             f"({busy[route][1]} kernel events), idle share {summary[route]['idle']:.3f}")
         if route in parts:
@@ -3298,13 +3305,57 @@ def route_cell(name, solve, inputs, card, mods, forced=None):
                 f"instantiation ms {summary[route]['capture_ms']}, flag reads a step "
                 f"{summary[route]['flag_reads_a_step']:.3f}")
     summary["rule_minus_host_ms"] = float(np.median(diffs)) * 1e3
+    summary["cell_s"] = time.perf_counter() - t_cell
     log(f"  [{card}] 13 {name}: the rule's route minus the host-stepped loop, pair by pair: "
         f"median {np.median(diffs) * 1e3:+.3f} ms, {sum(d <= 0 for d in diffs)} of "
         f"{len(diffs)} pairs no slower; the host-stepped solve's peak {host_peak_mb:.0f} MB "
-        f"over its inputs" + ("" if pool_mb is None else f"; the kept pool {pool_mb:.0f} MB"))
+        f"over its inputs" + ("" if pool_mb is None else f"; the kept pool {pool_mb:.0f} MB")
+        + f"; the cell took {summary['cell_s']:.1f} s")
     assert med["rule"] <= med["host-stepped"] + max(spread["rule"], spread["host-stepped"]), (
         name, med, spread)
     return got["rule"], summary
+
+
+def counted_solves(dev, kt, st):
+    """The solves of 13's cells of the methods whose step depends on its
+    step number (``Method.counted``: picks on the device counter, IF nodes,
+    WHILE-node sweeps), as ``(name, solve, inputs)``: ``gmres`` x3 on the
+    bench's convected 1M-row CSR (its 6b call), ``tfqmr``, ``cg_pipelined``,
+    ``cg_block`` ``(N, 8)`` (K11), ``symmlq`` (100 fixed steps: its reported
+    norm vanishes only once the Krylov space is exhausted) and ``gcr`` on
+    the shifted Poisson CSR (7c's matrix), ``chebyshev`` on
+    ``poisson_2d_const(1024)`` (K2) with the Laplacian's analytic spectrum
+    (1000 fixed steps: it takes ~2400 to 1e-3 in float32, and at 1e-4 its
+    recurrence residual parts from the explicit one, and each of ~900
+    failed rechecks reads the host)."""
+    conv, lap = convected_csr(NPG), poisson_csr(NPG)
+    op_c, op = kt.as_operator(conv, dev), kt.as_operator(lap, dev)
+    assert type(op_c).__name__ == type(op).__name__ == "PETOperator"
+    rng = np.random.default_rng(SEED + 131)
+    b = torch.from_numpy(rng.standard_normal(NPG * NPG).astype(np.float32)).to(dev)
+    B = torch.from_numpy(rng.standard_normal((NPG * NPG, 8)).astype(np.float32)).to(dev)
+    jac = kt.DiagonalOperator(torch.from_numpy(1.0 / lap.diagonal()).to(dev))
+    A = st.poisson_2d_const(NPG, device=dev)
+    bg = b.reshape(A.grid)
+    c = 4.0 * np.cos(np.pi / (NPG + 1))  # the spectrum: 4 -+ 4 cos(pi / (n + 1))
+    wl = dict(backend="while_loop")
+    cells = [(f"gmres {o}, convected 1M-row CSR, to 1e-4", lambda o=o: kt.gmres(
+        op_c, b, ortho=o, tol=1e-4, maxiter=120, **wl), (b,))
+        for o in ("mgs", "householder", "cgs")]
+    return cells + [
+        ("tfqmr M=Jacobi, 1M-row CSR, to 1e-4", lambda: kt.tfqmr(
+            op, b, M=jac, tol=1e-4, maxiter=400, **wl), (b,)),
+        ("cg_pipelined M=Jacobi, 1M-row CSR, to 1e-4", lambda: kt.cg_pipelined(
+            op, b, M=jac, tol=1e-4, maxiter=400, **wl), (b,)),
+        ("cg_block (N, 8) (K11), 1M-row CSR, to 1e-4", lambda: kt.cg_block(
+            op, B, tol=1e-4, maxiter=400, **wl), (B,)),
+        ("symmlq, 1M-row CSR, 100 steps", lambda: kt.symmlq(
+            op, b, tol=0.0, atol=0.0, maxiter=100, **wl), (b,)),
+        ("gcr, 1M-row CSR, to 1e-4", lambda: kt.gcr(op, b, tol=1e-4, maxiter=120, **wl), (b,)),
+        ("chebyshev, poisson_2d_const(1024) (K2), 1000 steps", lambda: kt.chebyshev(
+            A, bg, (4.0 - c, 4.0 + c), inner=inner, tol=0.0, atol=0.0, maxiter=1000, **wl),
+         (bg,)),
+    ]
 
 
 def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
@@ -3314,7 +3365,8 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
     ``poisson_2d_const(4096)``, ``bicgstab``, ``qmr`` and ``cg`` + Jacobi on
     the bench's 1M-row CSR, ``cg`` + AMG on its unshifted matrix, ``cg``
     with an ``(N, 8)`` b (K11) and on the block-structured SPD matrix
-    (K12).  Returns the rule's solves' kernel launches."""
+    (K12), then :func:`counted_solves`'s cells.  Returns the rule's solves' kernel
+    launches."""
     log(f"phase 13: the device-resident loop (captured CUDA graphs) against the host-stepped "
         f"loop, at {BIG}^2 and {NPG * NPG} rows")
     log(f"  torch.cuda.CUDAGraph.begin_capture_to_if_node: "
@@ -3325,8 +3377,8 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
     summary = []
     mods = (cs, sv, bs)
 
-    def cell(name, solve, *inputs, forced=None):
-        n, row = route_cell(name, solve, inputs, card, mods, forced)
+    def cell(name, solve, *inputs, forced=None, repeats=None):
+        n, row = route_cell(name, solve, inputs, card, mods, forced, repeats)
         for k, v in n.items():
             totals[k] = totals.get(k, 0) + v
         summary.append(row)
@@ -3382,6 +3434,9 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
     Bb = torch.from_numpy(rng.standard_normal((spd.shape[0], 8)).astype(np.float32)).to(dev)
     cell("cg, (N, 8) b, block-tridiagonal BSR (K12), to 1e-5", lambda: kt.cg(
         op_b, Bb, tol=1e-5, maxiter=300, backend="while_loop"), Bb)
+    del op_b, Bb
+    for name, solve, inputs in counted_solves(dev, kt, st):
+        cell(name, solve, *inputs, forced=(3, 4, 8), repeats=COUNTED_REPEATS)
     log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
     log("  13 summary: " + json.dumps(summary))
     return totals

@@ -26,8 +26,10 @@ Backends:
   - the **host-stepped loop**: the host launches each step and reads one
     stop flag a step.  It runs every solve on the CPU, with a callback (a
     :class:`ShardMonitor` too), with state that requires a gradient, of a
-    ``Method`` that is not ``capturable`` (a step that branches on a host
-    counter), and the sharded solves of :mod:`.parallel`;
+    ``Method`` that is not ``capturable`` (the triangular sweeps
+    ``gauss_seidel``, ``sor`` and ``ssor``; ``fgmres`` runs a host loop of
+    its own, as the reference's eager-only form does), and the sharded
+    solves of :mod:`.parallel`;
   - the **graph route**, every other solve on a CUDA device.  It starts as
     the host-stepped loop, launching the same kernels.  After step 24
     (:data:`FIRST_CHECK`), and again when the step count has
@@ -43,8 +45,10 @@ Backends:
     host-stepped loop's, with nothing added.  A capture follows one more
     step from the host, its rehearsal, on the capture's stream and watched
     for any operation that reads a device value on the host (this thread only,
-    :func:`._graphs.host_reads`); a step that does keeps the rest of the
-    solve on the host-stepped loop, before any capture.  The capture
+    :func:`._graphs.host_reads`), as is a screen before it: the step's
+    device form, run once on a clone of the state with every conditional
+    body run once; a read in either keeps the rest of the solve on the
+    host-stepped loop, before any capture.  The capture
     records one CUDA graph of ``U`` steps, each behind a conditional IF
     node (:mod:`._graphs`) on a device stop flag: a guarded step runs
     ``method.step``, writes the new resnorm into the history at a device
@@ -54,6 +58,17 @@ Backends:
     replays, then reads the flag once.  A failed recheck goes back to
     replaying the same graph.  A solve that ends before its capture ran
     the host-stepped loop's launches, and nothing more.
+
+  A step gets its step number (:mod:`._steps`): on the host-stepped loop
+  the host's count, for branches and loops on the host; in a captured step
+  the device counter ``k``, with which a method whose step depends on it
+  selects cheap branches with ``torch.where``, runs a dear one (a periodic
+  residual replacement) in an IF node and a sweep whose length grows with
+  ``k`` (GMRES's Gram-Schmidt and Householder sweeps and rotations, GCR's
+  sweep) in a WHILE node, so a captured step records the same kernels at
+  any ``maxiter`` and a replayed one does O(k) work.  The launches inside
+  such an IF or WHILE body are credited from a device tally of its runs,
+  read with the step counter when the replays stop.
 
   Both routes launch the same kernels in the same order on one stream, so
   their trajectories agree bit for bit.  The graph works on buffers of the
@@ -81,6 +96,7 @@ collective.
 """
 
 import contextlib
+import functools
 import math
 import threading
 import time
@@ -89,6 +105,9 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from . import _steps
+from ._steps import DeviceStep, HostStep
 
 EAGER = "eager"
 WHILE_LOOP = "while_loop"
@@ -202,10 +221,16 @@ class Method(NamedTuple):
     # eager-only bookkeeping hook, e.g. cg's return_arnoldi basis collection
     on_step: Optional[Callable[[Any, Any], None]] = None
     # True when a step may be captured once and replayed: it reads nothing
-    # on the host and keeps no host-side counter or state that a replay
-    # would freeze (cg's device Arnoldi basis, the solvers that branch on
-    # their step number).  Only such methods take the graph route.
+    # on the host and keeps no host-side state that a replay would freeze.
+    # Only such methods take the graph route.
     capturable: bool = False
+    # the hooks' form.  False: the reference's ``step(state, criterion)``,
+    # ``xk(state)``, ``callback_args(state)``.  True: ``step(state,
+    # criterion, ctl)`` with a :mod:`._steps` control (``ctl.k`` the steps
+    # before it: the host's count, or on the graph route the device
+    # counter), ``xk(state, k)`` and ``callback_args(state, k)`` with the
+    # step count.  The drivers call the second form (:func:`_counted`)
+    counted: bool = False
     # True when a graph must hold an even number of steps: the step
     # alternates a field between two buffers of its own (cg_stencil's
     # direction), so after an even number it is back in the first
@@ -227,6 +252,7 @@ def run(
     Returns ``(state, success, numsteps, resnorms)`` where ``resnorms`` is a
     host ndarray of shape ``(numsteps + 1, *rhs)``.
     """
+    method = _counted(method)
     if backend == EAGER:
         return _run_eager(
             state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=callback
@@ -244,6 +270,19 @@ def run(
         return _run_graph(state0, method, tol=tol, atol=atol, maxiter=maxiter,
                           plain=route == "plain", plan=plan)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def _counted(method):
+    """``method`` with hooks of the counted form; the reference's form
+    gets the step number and drops it."""
+    if method.counted:
+        return method
+    step, xk, args = method.step, method.xk, method.callback_args
+    return method._replace(
+        step=functools.wraps(step)(lambda state, criterion, ctl: step(state, criterion)),
+        xk=lambda state, k: xk(state),
+        callback_args=None if args is None else (lambda state, k: args(state)),
+        counted=True)
 
 
 def _route(state0, method, callback):
@@ -408,7 +447,7 @@ def _fire(method, callback, state, k):
     if isinstance(callback, ShardMonitor):
         callback.fire(k, state.resnorm)
     elif callback is not None and method.callback_args is not None:
-        callback(*method.callback_args(state))
+        callback(*method.callback_args(state, k))
 
 
 def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
@@ -423,7 +462,7 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
             if method.explicit_resnorm is None:
                 success = True
                 break
-            rn = method.explicit_resnorm(method.xk(state))
+            rn = method.explicit_resnorm(method.xk(state, k))
             COUNTS["rechecks"] += 1
             resnorms[-1] = rn  # overwrite persists even if the check fails
             if bool(torch.all(rn <= criterion)):
@@ -432,7 +471,7 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
         if k == maxiter:
             break
 
-        new_state = method.step(state, criterion)
+        new_state = method.step(state, criterion, HostStep(k))
         COUNTS["host_steps"] += 1
         if method.on_step is not None:
             method.on_step(state, new_state)
@@ -470,7 +509,7 @@ def _outer(state, method: Method, inner, *, tol, atol, maxiter, callback):
             break
         ok = bool(torch.all(buf[k] <= criterion))
         if ok and method.explicit_resnorm is not None:
-            rn = method.explicit_resnorm(method.xk(state)).to(buf.dtype)
+            rn = method.explicit_resnorm(method.xk(state, k)).to(buf.dtype)
             COUNTS["rechecks"] += 1
             buf[k] = rn  # overwrite persists even if the check fails
             ok = bool(torch.all(rn <= criterion))
@@ -481,9 +520,10 @@ def _outer(state, method: Method, inner, *, tol, atol, maxiter, callback):
 
 
 def _step_once(method, step, state, k, buf, criterion, callback):
-    """One step launched from the host and its one read of the stop flag:
-    ``(state, k, early, stop)``."""
-    state = step(state, criterion)
+    """One step launched from the host (``step``: ``method.step`` or a
+    wrapper of it) and its one read of the stop flag: ``(state, k, early,
+    stop)``."""
+    state = step(state, criterion, HostStep(k))
     COUNTS["host_steps"] += 1
     COUNTS["flag_reads"] += 1
     below = torch.all(state.resnorm <= criterion)
@@ -561,24 +601,30 @@ def _copy_s(fields):
                for t in fields)
 
 
-def _graph_body(method, static, criterion, buf, k, stop, maxiter, steps, per_step):
+def _graph_body(method, static, criterion, buf, k, stop, maxiter, steps, per_step,
+                sites=None, tallies=None):
     """One replay of the graph route as ``body(guard)``: ``steps`` steps
     from the state in ``static``, each run by ``guard`` only while the
     device flag ``stop`` is down; the step that raises it, or the last
     one, copies its state back into ``static``.  When ``per_step`` is a
-    list, each step's kernel launches are recorded into it, not counted."""
+    list, each step's kernel launches are recorded into it, not counted,
+    but for those of a counted step's conds and loops: ``sites`` takes
+    them, and ``tallies`` counts their runs (:class:`._steps.DeviceStep`)."""
     from . import _graphs
 
     has_early = hasattr(static, "early_success")
     layout = _layout(static)
 
     def body(guard):
+        def take(s):
+            return method.step(s, criterion, DeviceStep(k, guard, sites, tallies))
+
         def guarded_step(s):
             if per_step is None:
-                s2 = method.step(s, criterion)
+                s2 = take(s)
             else:
                 with _graphs.recording() as launches:
-                    s2 = method.step(s, criterion)
+                    s2 = take(s)
                 per_step.append(launches)
             if _layout(s2) != layout:
                 raise RuntimeError(f"a step changed the state's types or shapes: {layout} "
@@ -637,6 +683,8 @@ class _GraphLoop:
         self.plan = None  # (U, R), once decided
         self.graph = None  # a _graphs.Captured, or the plain twin's replay
         self.per_step = None
+        # a counted step's conds and loops: their launches, the runs credited
+        self.sites, self.credited, self.tallies = [], [], None
         self.walls, self.launches = [], []  # host s of the steps before the last decision
         self.held_s = None  # device s of the held step, once held
         self.copy_s = self.clone_s = 0.0  # copying the fields a step moves; all fields
@@ -670,20 +718,20 @@ class _GraphLoop:
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             sleep = int(HOLD_CYCLES_PER_S * _sleep_s(self._costs(self.left)))
 
-        def step(s, crit):
+        def step(s, crit, ctl):
             if events is not None:
                 torch.cuda._sleep(sleep)
                 events[0].record()
-            s2 = self.method.step(s, crit)
+            s2 = self.method.step(s, crit, ctl)
             t_launch.append(time.perf_counter())
             if events is not None:
                 events[1].record()
             return s2
 
+        if rehearse:
+            step = functools.partial(self._rehearse, step)
         t0 = time.perf_counter()
-        new, k2, early, stop = _step_once(
-            self.method, (lambda s, c: self._rehearse(step, s, c)) if rehearse else step,
-            state, k, buf, criterion, None)
+        new, k2, early, stop = _step_once(self.method, step, state, k, buf, criterion, None)
         t1 = time.perf_counter()
         if not (rehearse or hold):
             self.walls.append(t1 - t0)
@@ -755,22 +803,43 @@ class _GraphLoop:
 
     # capture and replays
 
-    def _rehearse(self, step, state, criterion):
-        """``step(state, criterion)`` as the capture's rehearsal: on the
-        stream the graph's steps are captured on (a kernel module, a cuBLAS
-        workspace of that stream are made here, outside any capture),
-        ``ensure_real`` reading nothing on the host, and each operation that
-        a graph could not replay noted; the first one, if any, in
-        ``self.uncapturable``."""
+    def _rehearse(self, step, state, criterion, ctl):
+        """``step(state, criterion, ctl)`` as the capture's rehearsal, after
+        a screen of the step's device form: on the stream the graph's steps
+        are captured on (a kernel module, a cuBLAS workspace of that stream
+        are made here, outside any capture), ``ensure_real`` reading nothing
+        on the host, and each operation that a graph could not replay
+        noted; the first one, if any, in ``self.uncapturable``.
+
+        The screen runs the form the capture records (:class:`DeviceStep`
+        on a device counter at ``ctl.k``) once on a clone of ``state``, each
+        IF and WHILE body once (:data:`._graphs.ONCE`: what a conditional
+        body holds is screened whether or not this step would run it), its
+        launches not counted and its results dropped.  An exception there
+        raises as a failed capture would."""
         from . import _graphs
         from ._inner import host_checks_off
 
         dev = state.resnorm.device
+
+        def screen():
+            probe = _own(state)
+            k = torch.full((), ctl.k, dtype=torch.int64, device=dev)
+            with _graphs.recording():
+                self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
+
         with host_checks_off(), _graphs.host_reads(dev.type) as seen:
+            try:
+                if self.plain:
+                    screen()
+                else:
+                    _graphs.on_body_stream(screen, dev)
+            except Exception as exc:  # noqa: BLE001 - raised again, naming the step
+                raise _capture_failed(self.method, exc) from exc
             if self.plain:
-                out = step(state, criterion)
+                out = step(state, criterion, ctl)
             else:
-                out = _graphs.on_body_stream(lambda: step(state, criterion), dev)
+                out = _graphs.on_body_stream(lambda: step(state, criterion, ctl), dev)
         self.uncapturable = seen[0] if seen else None
         return out
 
@@ -782,19 +851,18 @@ class _GraphLoop:
         self.static = _own(state)
         self.k_dev = torch.full((), k, dtype=torch.int64, device=dev)
         self.stop = torch.zeros((), dtype=torch.bool, device=dev)
-        if self.plain:
-            from ._graphs import host_guard
-
-            body = _graph_body(self.method, self.static, criterion, buf, self.k_dev, self.stop,
-                               self.maxiter, steps, None)
-            self.graph = lambda: body(host_guard)
-            COUNTS["captures"] += 1
-            return self.static
         from . import _graphs
 
+        if self.plain:
+            body = _graph_body(self.method, self.static, criterion, buf, self.k_dev, self.stop,
+                               self.maxiter, steps, None)
+            self.graph = lambda: body(_graphs.PLAIN)
+            COUNTS["captures"] += 1
+            return self.static
         per_step = []
+        self.tallies = torch.zeros(_steps.MAX_SITES, dtype=torch.int64, device=dev)
         body = _graph_body(self.method, self.static, criterion, buf, self.k_dev, self.stop,
-                           self.maxiter, steps, per_step)
+                           self.maxiter, steps, per_step, self.sites, self.tallies)
         t0 = time.perf_counter()
         try:
             self.graph = _graphs.capture(body, dev)
@@ -805,6 +873,17 @@ class _GraphLoop:
         inst = _graphs.LAST["instantiate_s"]
         self.info.update(capture_s=time.perf_counter() - t0 - inst, instantiate_s=inst)
         return self.static
+
+    def _sites_ran(self, tallies):
+        """Credit the runs of each counted site since the last call, from
+        its device tally (read with the step counter)."""
+        from ._graphs import credit
+
+        for i, (launches, n) in enumerate(zip(self.sites, tallies)):
+            if i == len(self.credited):
+                self.credited.append(0)
+            credit(launches, n - self.credited[i])
+            self.credited[i] = n
 
     def _ran(self, n):
         """Credit ``n`` steps that replays ran, from a replay's first."""
@@ -856,7 +935,12 @@ class _GraphLoop:
                 break
             self._ran(n * steps)  # no step raised the flag: all of them ran
             k += n * steps
-        k_end = int(self.k_dev)
+        if self.sites:
+            k_end, *tallies = torch.cat((self.k_dev.reshape(1),
+                                         self.tallies[: len(self.sites)])).tolist()
+            self._sites_ran(tallies)
+        else:
+            k_end = int(self.k_dev)
         early = hasattr(self.static, "early_success") and bool(self.static.early_success)
         self._ran(k_end - k + early)  # an early exit's step leaves k as it was
         self.info["replays_s"] += time.perf_counter() - t0

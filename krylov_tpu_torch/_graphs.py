@@ -5,10 +5,13 @@
 Inside the body, ``guard(flag, expect, fn)`` captures ``fn()`` into a
 conditional IF node whose work runs, at each replay, only when the 0-d
 device bool ``flag`` equals ``expect`` at that point of the replay
-(``csrc/graph.cu``): the device reads the flag, the host never does.  IF
-nodes nest.  :func:`host_guard` is the plain version: it reads the flag
-on the host and runs ``fn`` or not, so the same body runs step by step on
-any device.
+(``csrc/graph.cu``): the device reads the flag, the host never does.
+``guard.loop(counter, limit, fn)`` captures ``fn(counter)`` into a WHILE
+node that runs it, and adds one to the 0-d int64 device ``counter``, while
+``counter < limit``.  Conditional nodes nest.  :data:`PLAIN` is the plain
+version (:func:`host_guard`, :func:`host_loop`): it reads each flag on the
+host and runs ``fn`` or not, so the same body runs step by step on any
+device.  :data:`ONCE` runs each body once and reads nothing.
 
 A body is captured on a stream of its own per nesting depth, fixed per
 device, and allocates from the device's kept pool (:func:`_bodies_pool`;
@@ -83,6 +86,8 @@ def _lib():
     for name, args in (
         ("krylov_graph_if_begin", [vp, vp, i32, vp]),
         ("krylov_graph_if_end", [vp]),
+        ("krylov_graph_while_begin", [vp, vp, vp, vp, ctypes.POINTER(ctypes.c_ulonglong)]),
+        ("krylov_graph_while_end", [vp, vp, vp, ctypes.c_ulonglong]),
         ("krylov_graph_runtime_version", []),
     ):
         fn = getattr(lib, name)
@@ -118,30 +123,89 @@ def host_guard(flag, expect, fn):
     return fn() if bool(flag) == expect else None
 
 
+def host_loop(counter, limit, fn):
+    """The plain loop: ``fn(counter)`` and ``counter += 1`` while
+    ``counter < limit``, each test read on the host."""
+    while bool(counter < limit):
+        fn(counter)
+        counter.add_(1)
+
+
+class _Plain:
+    """The plain guards: an IF node's and a WHILE node's flags read on the
+    host."""
+
+    __call__ = staticmethod(host_guard)
+    loop = staticmethod(host_loop)
+
+
+PLAIN = _Plain()
+
+
+class _Once:
+    """Guards that run each IF and WHILE body once and read no flag: a
+    step's device form run as a capture records it."""
+
+    @staticmethod
+    def __call__(flag, expect, fn):
+        return fn()
+
+    @staticmethod
+    def loop(counter, limit, fn):
+        fn(counter)
+
+
+ONCE = _Once()
+
+
+def _scalar(t, dtype, what):
+    if t.dtype != dtype or t.numel() != 1:
+        raise TypeError(f"{what} is a one-element {dtype} tensor")
+
+
 class _Guards:
     def __init__(self, index):
         self.index = index
         self.depth = 0
 
+    def _body(self, fn, args, end, what):
+        """``fn(*args)`` captured on the body stream of this depth; ``end``
+        ends that capture."""
+        self.depth += 1
+        try:
+            with torch.cuda.stream(_stream(self.index, self.depth)):
+                out = fn(*args)
+        except BaseException:
+            end()
+            raise
+        finally:
+            self.depth -= 1
+        _check(end(), f"the end of {what}")
+        return out
+
     def __call__(self, flag, expect, fn):
-        if flag.dtype != torch.bool or flag.numel() != 1:
-            raise TypeError("a guard's flag is a one-element bool tensor")
+        _scalar(flag, torch.bool, "a guard's flag")
         lib = _lib()
         parent = torch.cuda.current_stream(self.index)
         body = _stream(self.index, 1 + self.depth)
         _check(lib.krylov_graph_if_begin(parent.cuda_stream, flag.data_ptr(), int(not expect),
                                          body.cuda_stream), "an IF node")
-        self.depth += 1
-        try:
-            with torch.cuda.stream(body):
-                out = fn()
-        except BaseException:
-            lib.krylov_graph_if_end(body.cuda_stream)
-            raise
-        finally:
-            self.depth -= 1
-        _check(lib.krylov_graph_if_end(body.cuda_stream), "the end of an IF node")
-        return out
+        return self._body(fn, (), lambda: lib.krylov_graph_if_end(body.cuda_stream),
+                          "an IF node")
+
+    def loop(self, counter, limit, fn):
+        _scalar(counter, torch.int64, "a loop's counter")
+        _scalar(limit, torch.int64, "a loop's limit")
+        lib = _lib()
+        parent = torch.cuda.current_stream(self.index)
+        body = _stream(self.index, 1 + self.depth)
+        handle = ctypes.c_ulonglong(0)
+        _check(lib.krylov_graph_while_begin(parent.cuda_stream, counter.data_ptr(),
+                                            limit.data_ptr(), body.cuda_stream,
+                                            ctypes.byref(handle)), "a WHILE node")
+        self._body(fn, (counter,), lambda: lib.krylov_graph_while_end(
+            body.cuda_stream, counter.data_ptr(), limit.data_ptr(), handle.value),
+            "a WHILE node")
 
 
 # operations that read a device value on the host (a scalar, or a size

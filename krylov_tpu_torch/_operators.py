@@ -17,6 +17,7 @@ default parameters.
 """
 
 import functools
+from typing import Protocol
 
 import numpy as np
 import torch
@@ -24,6 +25,14 @@ import torch
 from . import _device
 
 _LEAF = object()  # the tree definition of a leaf
+
+
+class LinearOperator(Protocol):
+    def __matmul__(self, x): ...
+
+
+class RLinearOperator(LinearOperator, Protocol):
+    def rmatvec(self, x): ...
 
 
 def tree_flatten(op):

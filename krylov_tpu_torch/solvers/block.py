@@ -16,7 +16,9 @@ matrix ill-conditioned; a relative ridge keeps the solves stable (the
 residual criterion is still checked per column).
 
 ``block_inner(U, V) -> (k, k)`` replaces the default contraction over all
-vector axes.
+vector axes.  The periodic replacement tests the step number the driver
+gives the step (:mod:`.._steps`): a host branch on the host, an IF node on
+the device counter on the graph route (the reference's ``lax.cond``).
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -30,7 +32,6 @@ from ._common import preconditioner, setup
 
 
 class BlockCGState(NamedTuple):
-    k: int  # completed steps (host integer)
     X: torch.Tensor  # (N, k) iterate offset from x0
     R: torch.Tensor  # (N, k) residuals
     Z: torch.Tensor  # (N, k) preconditioned residuals
@@ -125,7 +126,6 @@ def cg_block(
 
     vdtype = torch.promote_types(Z0.dtype, R0.dtype)
     state0 = BlockCGState(
-        k=0,
         X=torch.zeros(B.shape, dtype=vdtype, device=b.device),
         R=R0.to(vdtype),
         Z=Z0.to(vdtype),
@@ -134,7 +134,7 @@ def cg_block(
         resnorm=columns(resnorm0),
     )
 
-    def step(st: BlockCGState, criterion) -> BlockCGState:
+    def step(st: BlockCGState, criterion, ctl) -> BlockCGState:
         Q = A @ st.P
         delta = block_inner(st.P, Q)  # (k, k), one reduction
         alpha = _gram_solve(delta, st.gamma)
@@ -147,15 +147,18 @@ def cg_block(
 
         # periodic explicit replacement: the explicit residual and P reset
         # to Z; the conjugacy chain (P against gamma) is where f32 drift
-        # lives, so a kept P after refreshing gamma diverges
-        k1 = st.k + 1
-        if k1 % replace_every == 0:
-            R = residuals(X0 + X).to(vdtype)
-            Z = P = (M @ R).to(vdtype)
-            gamma_new = block_inner(R, Z)
+        # lives, so a kept P after refreshing gamma diverges.  Written over
+        # this step's own R, Z, P and gamma.
+        def replace():
+            R.copy_(residuals(X0 + X))
+            Z.copy_(M @ R)
+            P.copy_(Z)
+            gamma_new.copy_(block_inner(R, Z))
+
+        ctl.cond((ctl.k + 1) % replace_every == 0, replace)
 
         return BlockCGState(
-            k=k1, X=X, R=R, Z=Z, P=P, gamma=gamma_new,
+            X=X, R=R, Z=Z, P=P, gamma=gamma_new,
             resnorm=columns(torch.sqrt(column_norms2(R, gamma_new))),
         )
 
@@ -168,9 +171,11 @@ def cg_block(
 
     method = Method(
         step=step,
-        xk=xk_of,
+        xk=lambda st, k: xk_of(st),
         explicit_resnorm=explicit_resnorm,
-        callback_args=lambda st: (xk_of(st), columns(st.R)),
+        callback_args=lambda st, k: (xk_of(st), columns(st.R)),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -21,6 +21,7 @@ from .._driver import EAGER, Method, run
 from .._info import Info
 from .._inner import ensure_real
 from .._operators import Product
+from .._steps import put, put2
 from ._common import initial_residual, preconditioner, setup
 
 
@@ -87,7 +88,7 @@ def cg(
         resnorm=resnorm0,
     )
 
-    def step(s: CGState, criterion) -> CGState:
+    def step(s: CGState, criterion, ctl) -> CGState:
         omega = s.rho / torch.where(s.rho_old != 0, s.rho_old, 1.0)
         p = s.M_Ml_rk + omega * s.p  # exact for k==0 since p0 == 0
         Ap = Ml_A @ p
@@ -115,6 +116,7 @@ def cg(
     def explicit_resnorm(xk):
         return torch.sqrt(residual_and_norm2(xk)[2])
 
+    # the device Arnoldi wrapper writes its buffers at the step's number
     if return_arnoldi and backend != EAGER:
         step = _arnoldi_on_device(step, state0, b.shape, maxiter)
 
@@ -148,12 +150,12 @@ def cg(
 
     method = Method(
         step=step,
-        xk=xk_of,
+        xk=lambda s, k: xk_of(s),
         explicit_resnorm=explicit_resnorm,
-        callback_args=lambda s: (xk_of(s), s.Ml_rk),
+        callback_args=lambda s, k: (xk_of(s), s.Ml_rk),
         on_step=on_step,
-        # the device Arnoldi wrapper counts its steps on the host
-        capturable=not return_arnoldi,
+        capturable=True,
+        counted=True,
     )
 
     state, success, k, resnorms = run(
@@ -182,6 +184,9 @@ def cg(
         arnoldi = [arnoldi_acc["V"], H, arnoldi_acc["P"]]
     elif return_arnoldi:
         Vb, Hb, Pb = step.buffers
+        # the superdiagonal mirrors the subdiagonal: H[i - 1, i] = H[i, i - 1]
+        i = torch.arange(1, k, device=Hb.device)
+        Hb[i - 1, i] = Hb[i, i - 1]
         arnoldi = [list(Vb[: k + 1]), Hb[: k + 1, :k].cpu().numpy(), list(Pb[: k + 1])]
 
     info = Info(success, xk, k, resnorms, num_operations, arnoldi)
@@ -193,8 +198,10 @@ def _arnoldi_on_device(step, state0, b_shape, maxiter):
     the reference's compiled backend does: the V and P bases in fixed
     ``(maxiter + 1, *b.shape)`` buffers, the tridiagonal H in a
     ``(maxiter + 1, maxiter, *b.shape[1:])`` buffer, each written from
-    device scalars.  The step count is a host integer, so nothing is read
-    back.  The buffers are the wrapper's ``buffers`` attribute."""
+    device scalars at the step's number (:mod:`.._steps`: the host's count,
+    or the device counter of the graph route), so nothing is read back.
+    The superdiagonal is left to the caller, a mirror of the subdiagonal.
+    The buffers are the wrapper's ``buffers`` attribute."""
     vdt = state0.M_Ml_rk.dtype
     dev = state0.M_Ml_rk.device
     safe0 = torch.where(state0.resnorm > 0.0, state0.resnorm, 1.0)
@@ -204,21 +211,21 @@ def _arnoldi_on_device(step, state0, b_shape, maxiter):
     Pb[0] = state0.Ml_rk / safe0
     Hb = torch.zeros((maxiter + 1, maxiter) + tuple(b_shape[1:]),
                      dtype=torch.promote_types(state0.rho.dtype, vdt), device=dev)
-    k = 0
-    alpha_old = None
 
-    def arn_step(s: CGState, criterion) -> CGState:
-        nonlocal k, alpha_old
-        ns = step(s, criterion)
-        sign = 1.0 if (k + 1) % 2 == 0 else -1.0
-        Vb[k + 1] = sign * ns.M_Ml_rk / ns.resnorm
-        Pb[k + 1] = sign * ns.Ml_rk / ns.resnorm
-        Hb[k, k] = 1.0 / ns.alpha if k == 0 else 1.0 / ns.alpha + ns.omega / alpha_old
-        if k > 0:
-            Hb[k - 1, k] = Hb[k, k - 1]  # mirror last step's subdiagonal
-        Hb[k + 1, k] = torch.sqrt(ns.rho / ns.rho_old) / ns.alpha
-        alpha_old = ns.alpha
-        k += 1
+    def arn_step(s: CGState, criterion, ctl) -> CGState:
+        k = ctl.k
+        ns = step(s, criterion, ctl)
+
+        def signed(v):  # (-1)^(k + 1) v
+            return ctl.pick(k % 2 == 1, lambda: v, lambda: -v)
+
+        put(Vb, k + 1, signed(ns.M_Ml_rk / ns.resnorm))
+        put(Pb, k + 1, signed(ns.Ml_rk / ns.resnorm))
+        # s.alpha: the step size of the step before
+        inv_alpha = 1.0 / ns.alpha
+        put2(Hb, k, k, ctl.pick(k == 0, lambda: inv_alpha,
+                                lambda: inv_alpha + ns.omega / s.alpha))
+        put2(Hb, k + 1, k, torch.sqrt(ns.rho / ns.rho_old) / ns.alpha)
         return ns
 
     arn_step.buffers = (Vb, Hb, Pb)

@@ -74,6 +74,7 @@ def cgr(
         xk=lambda s: s.x,
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
         callback_args=lambda s: (s.x, s.r),
+        capturable=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -2,9 +2,10 @@
 (counterpart of ``krylov_tpu.solvers.chebyshev``).
 
 ``eigenvalue_estimates=(lmin, lmax)``, optional ``M``, arbitrary inner.
-The k == 0 / k == 1 coefficient special cases test the step counter, a host
-integer in the state (``p`` starts at zero, so ``p = z + beta * 0`` is
-exact at k == 0).
+The k == 0 / k == 1 coefficient special cases test the step number the
+driver gives the step (:mod:`.._steps`: a host branch on the host, a
+``torch.where`` on the device counter of the graph route); ``p`` starts at
+zero, so ``p = z + beta * 0`` is exact at k == 0.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -18,7 +19,6 @@ from ._common import inner_tail, nonzero, preconditioner, setup
 
 
 class ChebyshevState(NamedTuple):
-    k: int  # completed steps (host integer)
     x: torch.Tensor
     r: torch.Tensor
     p: torch.Tensor
@@ -59,7 +59,6 @@ def chebyshev(
         callback(x0, r0)
 
     state0 = ChebyshevState(
-        k=0,
         x=x0.to(r0.dtype),
         r=r0,
         p=torch.zeros_like(M @ r0),
@@ -67,25 +66,30 @@ def chebyshev(
         resnorm=_norm(r0),
     )
 
-    def step(s: ChebyshevState, criterion) -> ChebyshevState:
+    def step(s: ChebyshevState, criterion, ctl) -> ChebyshevState:
         z = M @ s.r
-        if s.k == 0:
-            beta = torch.zeros_like(s.alpha)
-        else:
-            beta = (0.25 if s.k > 1 else 0.5) * (c * s.alpha) ** 2
+        k = ctl.k
+
+        def later():
+            q = (c * s.alpha) ** 2
+            return ctl.pick(k > 1, lambda: 0.25 * q, lambda: 0.5 * q)
+
+        beta = ctl.pick(k == 0, lambda: torch.zeros_like(s.alpha), later)
         alpha = 1.0 / (d - beta / nonzero(s.alpha))
         p = z + beta * s.p  # exact for k == 0 since p0 == 0 and beta == 0
         x = s.x + alpha * p
         r = s.r - alpha * (A @ p)
         return ChebyshevState(
-            k=s.k + 1, x=x, r=r, p=p, alpha=alpha.to(s.alpha.dtype), resnorm=_norm(r),
+            x=x, r=r, p=p, alpha=alpha.to(s.alpha.dtype), resnorm=_norm(r),
         )
 
     method = Method(
         step=step,
-        xk=lambda s: s.x,
+        xk=lambda s, k: s.x,
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
-        callback_args=lambda s: (s.x, s.r),
+        callback_args=lambda s, k: (s.x, s.r),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -5,8 +5,10 @@ Grows the s/v direction bases and orthogonalizes each new A-image against
 all previous ones by modified Gram-Schmidt.  One buffered implementation
 serves both backends: the bases live in fixed ``(maxiter, *b.shape)``
 tensors on the solve's device, written in place, and the sweep's trip count
-is the step counter, a host integer, so a step reads nothing back.
-``maxiter`` defaults to N.
+is the step number the driver gives the step (:mod:`.._steps`): a Python
+loop on the host, a WHILE node on the device counter on the graph route
+(the reference's ``fori_loop(0, k)``), so a step reads nothing back and its
+device work stays O(k).  ``maxiter`` defaults to N.
 
 ``M`` is a (flexible) preconditioner: search directions become
 ``s_k = M r_k``; since the A-images are orthonormalized explicitly, even a
@@ -20,11 +22,11 @@ import torch
 from .._driver import EAGER, Method, run
 from .._info import Info
 from .._inner import ensure_real
+from .._steps import at, owned, put
 from ._common import nonzero, preconditioner, setup
 
 
 class GcrState(NamedTuple):
-    k: int  # completed steps (host integer)
     x: torch.Tensor
     r: torch.Tensor
     S: torch.Tensor  # (maxiter, N, *tail) search directions
@@ -60,7 +62,6 @@ def gcr(
     vdtype = torch.promote_types(
         r0.dtype, a_dtype if isinstance(a_dtype, torch.dtype) else torch.float64)
     state0 = GcrState(
-        k=0,
         x=x0.to(vdtype),
         r=r0.to(vdtype),
         S=torch.zeros((maxiter,) + tuple(b.shape), dtype=vdtype, device=b.device),
@@ -68,15 +69,19 @@ def gcr(
         resnorm=_norm(r0),
     )
 
-    def step(st: GcrState, criterion) -> GcrState:
-        k = st.k
-        s_new = (M @ st.r).to(vdtype)
-        v_new = (A @ s_new).to(vdtype)
+    def step(st: GcrState, criterion, ctl) -> GcrState:
+        k = ctl.k
+        # the sweep writes both in place (M = I returns st.r itself)
+        s_new = owned((M @ st.r).to(vdtype), st.r)
+        v_new = owned((A @ s_new).to(vdtype), s_new)
 
-        for i in range(k):
-            alpha = inner(v_new, st.V[i])
-            v_new = v_new - alpha * st.V[i]
-            s_new = s_new - alpha * st.S[i]  # keep A s == v
+        def mgs(i):
+            Vi = at(st.V, i)
+            alpha = inner(v_new, Vi)
+            v_new.sub_(alpha * Vi)
+            s_new.sub_(alpha * at(st.S, i))  # keep A s == v
+
+        ctl.loop(k, mgs)
 
         safe = nonzero(_norm(v_new))
         v_new = v_new / safe
@@ -86,15 +91,17 @@ def gcr(
         x = st.x + gamma * s_new
         r = st.r - gamma * v_new
         # the bases are written in place: row k is read by later steps only
-        st.S[k] = s_new
-        st.V[k] = v_new
-        return GcrState(k=k + 1, x=x, r=r, S=st.S, V=st.V, resnorm=_norm(r))
+        put(st.S, k, s_new)
+        put(st.V, k, v_new)
+        return GcrState(x=x, r=r, S=st.S, V=st.V, resnorm=_norm(r))
 
     method = Method(
         step=step,
-        xk=lambda s: s.x,
+        xk=lambda s, k: s.x,
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
-        callback_args=lambda s: (s.x, s.r),
+        callback_args=lambda s, k: (s.x, s.r),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

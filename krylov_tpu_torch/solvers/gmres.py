@@ -13,9 +13,16 @@ Two drivers over the same mathematics:
 * while_loop — fixed ``(maxiter + 1, N, ...)`` basis buffers (V and P, one
   buffer when ``M`` is the identity, since ``V = M P``), the Hessenberg
   factor R, the stored rotations G and the rotated right-hand side y, all
-  on the device and written in place; the step count is a host integer, so
-  the MGS loop, the rotations and the triangular solve at exit read nothing
-  back, and the only host read per step is the driver's stop flag.
+  on the device and written in place.  The step number is the driver's
+  (:mod:`.._steps`): on the host a host integer, so the MGS sweep, the
+  rotations and the Householder projections are Python loops that read
+  nothing back and the only host read per step is the driver's stop flag;
+  on the graph route the device counter, the loops WHILE nodes (the
+  reference's ``fori_loop``), so a replayed step's work stays O(k).  CGS
+  contracts against the basis in chunks of :data:`CGS_ROWS` rows, as many
+  as hold rows ``0..k`` (a WHILE node on the graph route, a Python loop on
+  the host): at most one chunk more than the k + 1 rows a contraction
+  needs, the same shapes on both routes at any ``maxiter``.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -28,9 +35,14 @@ from .._info import Info
 from .._inner import ensure_real
 from .._operators import Identity, Product
 from ..arnoldi import ArnoldiCGS, ArnoldiHouseholder, ArnoldiMGS, padded_reflector_at
+from .._steps import add_at, at, owned, put, put_col, put_head, rows
 from ..givens import apply_givens, givens
 from ..ops.triangular import multi_solve_triangular
 from ._common import initial_residual, preconditioner, setup
+
+# the basis rows a CGS contraction takes at a time (all of them when
+# maxiter + 1 is fewer)
+CGS_ROWS = 32
 
 
 def _num_operations(k):
@@ -262,21 +274,26 @@ def _gmres_eager(
     return xk if success else None, info
 
 
-def _givens_qr_update(G, R, y, h, k):
+def _givens_qr_update(G, R, y, h, ctl):
     """Fold the Hessenberg column ``h`` into the running Givens QR, in
-    place: apply the ``k`` stored rotations to it, store the rotation that
-    annihilates its subdiagonal entry, write column ``k`` of R and rotate
-    ``y``.  Returns ``|y[k+1]|``, the GMRES residual-norm recurrence."""
+    place: apply the ``k`` stored rotations to it (``k = ctl.k``), store
+    the rotation that annihilates its subdiagonal entry, write column ``k``
+    of R and rotate ``y``.  Returns ``|y[k+1]|``, the GMRES residual-norm
+    recurrence."""
+    k = ctl.k
     c = h.clone()
-    for i in range(k):
-        c[i: i + 2] = apply_givens(G[i], c[i: i + 2])
-    g, r = givens(c[k: k + 2])
-    c[k] = r
-    c[k + 1] = 0
-    R[:-1, k] = c[:-1]
-    G[k] = g
-    ypair = apply_givens(g, y[k: k + 2])
-    y[k: k + 2] = ypair
+
+    def rotate(i):
+        put(c, i, apply_givens(at(G, i), rows(c, i, 2)), n=2)
+
+    ctl.loop(k, rotate)
+    g, r = givens(rows(c, k, 2))
+    put(c, k, r)
+    put(c, k + 1, 0.0)
+    put_col(R[:-1], k, c[:-1])
+    put(G, k, g)
+    ypair = apply_givens(g, rows(y, k, 2))
+    put(y, k, ypair, n=2)
     return ypair[1].abs()
 
 
@@ -285,9 +302,8 @@ def _eye2_rotations(K, tail, dtype, device):
     return eye2.expand((K, 2, 2) + tail).clone()
 
 
-def _solution(s, K, x0, Mr):
-    """``x0 + Mr V_k y_k`` with ``R_k y_k = y[:k]`` (k the step count)."""
-    kk = s.k
+def _solution(s, kk, x0, Mr):
+    """``x0 + Mr V_k y_k`` with ``R_k y_k = y[:k]`` (``kk`` the step count)."""
     if kk == 0:
         yk = torch.zeros_like(s.V[0])
     else:
@@ -297,9 +313,8 @@ def _solution(s, K, x0, Mr):
 
 
 class _WhileState(NamedTuple):
-    k: int  # step count, a host integer
     V: torch.Tensor  # (K+1, N, *tail) M-preconditioned basis
-    P: torch.Tensor  # (K+1, N, *tail) dual basis, V = M P (V itself if M = I)
+    P: torch.Tensor  # (K+1, N, *tail) dual basis, V = M P (empty if M = I: V)
     R: torch.Tensor  # (K+1, K, *tail) triangular factor
     G: torch.Tensor  # (K, 2, 2, *tail) rotation history
     y: torch.Tensor  # (K+1, *tail) rotated projected rhs
@@ -307,7 +322,7 @@ class _WhileState(NamedTuple):
 
 
 def _finish(state, success, k, resnorms, xk_of):
-    xk = xk_of(state)
+    xk = xk_of(state, k)
     info = Info(success, xk, k, resnorms, _num_operations(k))
     return (xk if success else None), info
 
@@ -324,49 +339,86 @@ def _gmres_while(
     safe0 = torch.where(norm0 != 0.0, norm0, 1.0)
     V0 = torch.zeros((K + 1,) + tuple(b.shape), dtype=dtype, device=dev)
     V0[0] = M_Ml_r0 / safe0
-    if isinstance(M, Identity):
-        P0 = V0  # V = M P = P: one buffer
+    same = isinstance(M, Identity)  # V = M P = P: one buffer
+    if same:
+        P0 = V0.new_zeros(0)
     else:
         P0 = torch.zeros_like(V0)
         P0[0] = Ml_r0 / safe0
     R0 = torch.zeros((K + 1, K) + tail, dtype=dtype, device=dev)
     y0 = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
     y0[0] = norm0
-    state0 = _WhileState(k=0, V=V0, P=P0, R=R0, G=_eye2_rotations(K, tail, dtype, dev),
+    state0 = _WhileState(V=V0, P=P0, R=R0, G=_eye2_rotations(K, tail, dtype, dev),
                          y=y0, resnorm=norm0)
+    width = min(CGS_ROWS, K + 1)  # the rows of a CGS chunk
+    last = K + 1 - width  # the first row of the basis's last whole chunk
+    lanes = torch.arange(width, device=dev).reshape((width,) + (1,) * len(tail))
 
-    def step(s: _WhileState, criterion) -> _WhileState:
-        k = s.k
-        Av = Ml_A_Mr @ s.V[k]
+    def chunk(c):
+        """The first row of CGS chunk ``c`` (rows ``c * width ..``) and the
+        mask of the rows that are its own, or None for all of them: a chunk
+        that would run past the basis starts at ``last`` instead, over rows
+        of the chunk before it."""
+        start = c * width
+        if isinstance(c, int):
+            return (start, None) if start <= last else (last, lanes >= start - last)
+        first = torch.clamp(start, max=last)
+        return first, lanes >= start - first
+
+    def step(s: _WhileState, criterion, ctl) -> _WhileState:
+        k = ctl.k
+        P = s.V if same else s.P
+        # the sweeps write Av in place
+        Av = owned(Ml_A_Mr @ at(s.V, k), s.V)
         h = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
         if cgs:
-            # classical Gram-Schmidt: per pass, one batched contraction
-            # against the k + 1 basis vectors and one basis combination
+            # classical Gram-Schmidt: per pass, the coefficients of rows
+            # 0..k against Av, then Av less their combination, each by the
+            # chunks that hold those rows (rows past k are still zero)
+            def coefficients(c):
+                first, own = chunk(c)
+                alphas = batch_inner(rows(s.V, first, width), Av)
+                add_at(a, first, alphas if own is None else torch.where(own, alphas, 0),
+                       n=width)
+
+            def combine(c):
+                first, own = chunk(c)
+                alphas = rows(a, first, width)
+                if own is not None:
+                    alphas = torch.where(own, alphas, 0)
+                Av.sub_(torch.einsum("k...,kn...->n...", alphas, rows(P, first, width)))
+
+            chunks = k // width + 1
             for _ in range(num_reorthos):
-                alphas = batch_inner(s.V[: k + 1], Av)
-                h[: k + 1] += alphas
-                Av = Av - torch.einsum("k...,kn...->n...", alphas, s.P[: k + 1])
+                a = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
+                ctl.loop(chunks, coefficients)
+                ctl.loop(chunks, combine)
+                h.add_(a)
         else:
+            def mgs(j):
+                Vj = at(s.V, j)
+                alpha = inner(Vj, Av)
+                add_at(h, j, alpha)
+                Av.sub_(alpha * (Vj if same else at(P, j)))
+
             for _ in range(num_reorthos):
-                for j in range(k + 1):
-                    alpha = inner(s.V[j], Av)
-                    h[j] += alpha
-                    Av = Av - alpha * s.P[j]
+                ctl.loop(k + 1, mgs)
         MAv = M @ Av
         hk1 = torch.sqrt(inner(Av, MAv))
-        h[k + 1] = hk1
+        put(h, k + 1, hk1)
         safe = torch.where(hk1 != 0.0, hk1, 1.0)
-        s.V[k + 1] = MAv / safe
-        if s.P is not s.V:
-            s.P[k + 1] = Av / safe
-        resnorm = _givens_qr_update(s.G, s.R, s.y, h, k)
-        return s._replace(k=k + 1, resnorm=resnorm)
+        put(s.V, k + 1, MAv / safe)
+        if not same:
+            put(s.P, k + 1, Av / safe)
+        resnorm = _givens_qr_update(s.G, s.R, s.y, h, ctl)
+        return s._replace(resnorm=resnorm)
 
-    def xk_of(s):
-        return _solution(s, K, x0, Mr)
+    def xk_of(s, k):
+        return _solution(s, k, x0, Mr)
 
     method = Method(step=step, xk=xk_of, explicit_resnorm=residual_norm,
-                    callback_args=lambda s: (xk_of(s), s.resnorm))
+                    callback_args=lambda s, k: (xk_of(s, k), s.resnorm),
+                    capturable=True, counted=True)
     state, success, k, resnorms = run(state0, method, tol=tol, atol=atol,
                                       maxiter=maxiter, callback=callback,
                                       backend=WHILE_LOOP)
@@ -374,7 +426,6 @@ def _gmres_while(
 
 
 class _WhileHouseState(NamedTuple):
-    k: int  # step count, a host integer
     V: torch.Tensor  # (K+1, N, *tail) orthonormal basis (reconstructed)
     U: torch.Tensor  # (K+2, N, *tail) padded reflector directions
     betas: torch.Tensor  # (K+2, *tail)
@@ -400,7 +451,8 @@ def _gmres_while_householder(
     dev = b.device
 
     def reflect(u, beta, w):
-        return w - beta * u * torch.sum(u.conj() * w, dim=0)
+        """``w`` reflected by ``(u, beta)``, in place."""
+        w.sub_(beta * u * torch.sum(u.conj() * w, dim=0))
 
     r0 = Ml_r0.to(dtype)
     u0, b0, a0, _ = padded_reflector_at(r0, 0)
@@ -416,45 +468,47 @@ def _gmres_while_householder(
     R0 = torch.zeros((K + 1, K) + tail, dtype=dtype, device=dev)
     y0 = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
     y0[0] = norm0
-    state0 = _WhileHouseState(k=0, V=V0, U=U0, betas=betas0, alphas=alphas0, R=R0,
+    state0 = _WhileHouseState(V=V0, U=U0, betas=betas0, alphas=alphas0, R=R0,
                               G=_eye2_rotations(K, tail, dtype, dev), y=y0,
                               resnorm=norm0)
 
-    def step(s: _WhileHouseState, criterion) -> _WhileHouseState:
-        k = s.k
-        w = (Ml_A_Mr @ s.V[k]).to(dtype)
-        # forward projection: reflectors 0..k, fixing the phase of entry j
-        for j in range(k + 1):
-            w = reflect(s.U[j], s.betas[j], w)
-            w[j] = w[j] * s.alphas[j].conj()
+    def step(s: _WhileHouseState, criterion, ctl) -> _WhileHouseState:
+        k = ctl.k
+        # the projections write w in place
+        w = owned((Ml_A_Mr @ at(s.V, k)).to(dtype), s.V)
+
+        def project(j):  # reflector j, fixing the phase of entry j
+            reflect(at(s.U, j), at(s.betas, j), w)
+            put(w, j, at(w, j) * at(s.alphas, j).conj())
+
+        # forward projection: reflectors 0..k
+        ctl.loop(k + 1, project)
         # new reflector annihilating w below position k + 1 (none past N)
         u, beta, alpha, xnorm = padded_reflector_at(w, k + 1)
-        s.U[k + 1] = u
-        s.betas[k + 1] = beta
-        s.alphas[k + 1] = alpha
-        w = reflect(u, beta.to(dtype), w)
-        if k + 1 < N:
-            w[k + 1] = w[k + 1] * alpha.conj()
+        put(s.U, k + 1, u)
+        put(s.betas, k + 1, beta)
+        put(s.alphas, k + 1, alpha)
+        reflect(u, beta.to(dtype), w)
+        ctl.cond(k + 1 < N, lambda: put(w, k + 1, at(w, k + 1) * alpha.conj()))
         # Hessenberg column: entries 0..k, then |w[k+1]| = xnorm
         h = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
-        h[: k + 1] = w[: k + 1]
-        h[k + 1] = xnorm
+        put_head(h, k + 1, w)
+        put(h, k + 1, xnorm)
         # basis vector k + 1: reflectors k+1..0 applied to e_{k+1}, scaled by
         # the newest phase
         e = torch.zeros(tuple(b.shape), dtype=dtype, device=dev)
-        if k + 1 < N:
-            e[k + 1] = 1
-        for j in range(k + 1, -1, -1):
-            e = reflect(s.U[j], s.betas[j], e)
-        s.V[k + 1] = e * s.alphas[k + 1]
-        resnorm = _givens_qr_update(s.G, s.R, s.y, h, k)
-        return s._replace(k=k + 1, resnorm=resnorm)
+        ctl.cond(k + 1 < N, lambda: put(e, k + 1, 1.0))
+        ctl.loop(k + 2, lambda i: reflect(at(s.U, k + 1 - i), at(s.betas, k + 1 - i), e))
+        put(s.V, k + 1, e * at(s.alphas, k + 1))
+        resnorm = _givens_qr_update(s.G, s.R, s.y, h, ctl)
+        return s._replace(resnorm=resnorm)
 
-    def xk_of(s):
-        return _solution(s, K, x0, Mr)
+    def xk_of(s, k):
+        return _solution(s, k, x0, Mr)
 
     method = Method(step=step, xk=xk_of, explicit_resnorm=residual_norm,
-                    callback_args=lambda s: (xk_of(s), s.resnorm))
+                    callback_args=lambda s, k: (xk_of(s, k), s.resnorm),
+                    capturable=True, counted=True)
     state, success, k, resnorms = run(state0, method, tol=tol, atol=atol,
                                       maxiter=maxiter, callback=callback,
                                       backend=WHILE_LOOP)

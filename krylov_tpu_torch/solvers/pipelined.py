@@ -13,8 +13,10 @@ The price is the textbook one: four more vectors, one extra
 matvec-recurrence per iteration, and residual drift: the recurrence
 residual slowly decouples from the true one, so every ``replace_every``
 iterations all recurrence vectors are replaced with explicitly computed
-ones (Cools et al. 2018).  The replacement tests the step counter, a host
-integer in the state, so it costs no device read.
+ones (Cools et al. 2018).  The replacement tests the step number the
+driver gives the step (:mod:`.._steps`): a host branch on the host, which
+costs no device read, and on the graph route an IF node on the device
+counter (the reference's ``lax.cond``), so it runs only where it fires.
 
 ``fused_inner`` (a stacked inner product over a tuple of vector pairs)
 controls how the combined reduction is computed; by default it is one
@@ -32,7 +34,6 @@ from ._common import nonzero, preconditioner, setup
 
 
 class PipeCGState(NamedTuple):
-    k: int  # completed steps (host integer)
     x: torch.Tensor
     r: torch.Tensor  # residual (recurrence)
     u: torch.Tensor  # M r
@@ -85,7 +86,6 @@ def cg_pipelined(
     vdtype = torch.promote_types(u0.dtype, w0.dtype)
     zeros = torch.zeros(u0.shape, dtype=vdtype, device=b.device)
     state0 = PipeCGState(
-        k=0,
         x=x0.to(vdtype),
         r=r0.to(vdtype),
         u=u0.to(vdtype),
@@ -96,7 +96,7 @@ def cg_pipelined(
         resnorm=resnorm0,
     )
 
-    def step(st: PipeCGState, criterion) -> PipeCGState:
+    def step(st: PipeCGState, criterion, ctl) -> PipeCGState:
         # One fused reduction per iteration.  Besides the pipelined-CG
         # scalars gamma = <r,u> and delta = <w,u>, it carries the inner
         # products that let the post-update residual norm be recurred
@@ -113,10 +113,8 @@ def cg_pipelined(
         m = M @ st.w
         n = A @ m
 
-        if st.k == 0:
-            beta = torch.zeros_like(gamma)
-        else:
-            beta = gamma / nonzero(st.gamma)
+        beta = ctl.pick(ctl.k == 0, lambda: torch.zeros_like(gamma),
+                        lambda: gamma / nonzero(st.gamma))
         alpha = gamma / nonzero(delta - beta * gamma / nonzero(st.alpha))
 
         z = n + beta * st.z
@@ -136,27 +134,31 @@ def cg_pipelined(
         # recurrence vectors explicitly, r/u/w and the direction images
         # s = A p, q = M s, z = A q.  Refreshing only the residual chain
         # leaves the direction chain inconsistent and destabilizes the
-        # recurrence instead of fixing it.
-        k1 = st.k + 1
-        if k1 % replace_every == 0:
-            r = (b - A @ x).to(vdtype)
-            u = (M @ r).to(vdtype)
-            w = (A @ u).to(vdtype)
-            s = (A @ p).to(vdtype)
-            q = (M @ s).to(vdtype)
-            z = (A @ q).to(vdtype)
+        # recurrence instead of fixing it.  Written over the recurrence's
+        # vectors, which are this step's own.
+        def replace():
+            r.copy_(b - A @ x)
+            u.copy_(M @ r)
+            w.copy_(A @ u)
+            s.copy_(A @ p)
+            q.copy_(M @ s)
+            z.copy_(A @ q)
+
+        ctl.cond((ctl.k + 1) % replace_every == 0, replace)
 
         return PipeCGState(
-            k=k1, x=x, r=r, u=u, w=w, p=p, s=s, q=q, z=z,
+            x=x, r=r, u=u, w=w, p=p, s=s, q=q, z=z,
             gamma=gamma, alpha=alpha,
             resnorm=torch.sqrt(rr_new),
         )
 
     method = Method(
         step=step,
-        xk=lambda s: s.x,
+        xk=lambda s, k: s.x,
         explicit_resnorm=lambda xk: explicit_state(xk)[4],
-        callback_args=lambda s: (s.x, s.r),
+        callback_args=lambda s, k: (s.x, s.r),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -6,8 +6,10 @@ history, optional ``M`` preconditioner, arbitrary inner product, CG-point
 extraction for the returned iterate.
 
 The two-deep ``c/s/ceta`` history is scalar state shifted by assignment.
-The k == 0 special cases test the step counter, not data: it is a host
-integer in the state and the branch costs no device read.  As in the
+The k == 0 special cases test the step number the driver gives the step,
+not data (:mod:`.._steps`): a host branch on the host, which costs no
+device read, and a ``torch.where`` on the device counter of the graph
+route, as in the reference's compiled loop.  As in the
 reference, ``ceta`` starts at 0 (a zero right-hand side converges at k = 0
 with the CG point degenerating to ``x``) and the ``beta`` divisions are
 guarded.
@@ -24,7 +26,6 @@ from ._common import inner_tail, nonzero, preconditioner, setup
 
 
 class SymmlqState(NamedTuple):
-    k: int  # completed steps (host integer)
     x: torch.Tensor
     r: torch.Tensor
     z: torch.Tensor
@@ -88,7 +89,6 @@ def symmlq(
         return torch.full(tail, val, dtype=sdtype, device=b.device)
 
     state0 = SymmlqState(
-        k=0,
         x=x0.to(vdtype),
         r=r_init.to(vdtype),
         z=z_init,
@@ -109,20 +109,21 @@ def symmlq(
         resnorm=resnorm0,
     )
 
-    def step(s: SymmlqState, criterion) -> SymmlqState:
-        if s.k > 0:  # the basis and solution shift is skipped at k == 0
+    def step(s: SymmlqState, criterion, ctl) -> SymmlqState:
+        first = ctl.k == 0
+
+        def shift():  # the basis and solution shift, skipped at k == 0
             inv_b = 1.0 / nonzero(s.beta)
-            v_old, u_old = s.v, s.u
             v = s.r * inv_b
             u = s.z * inv_b
             w = s.c_cur * s.w_bar + s.s_cur * u
             w_bar = -s.s_cur * s.w_bar + s.c_cur * u
             x = s.x + s.ceta_cur * w
-            ceta_last2, ceta_last = s.ceta_last, s.ceta_cur
-        else:
-            v_old, u_old, v, u, w, w_bar, x = (
-                s.v_old, s.u_old, s.v, s.u, s.w, s.w_bar, s.x)
-            ceta_last2, ceta_last = s.ceta_last2, s.ceta_last
+            return s.v, s.u, v, u, w, w_bar, x, s.ceta_last, s.ceta_cur
+
+        v_old, u_old, v, u, w, w_bar, x, ceta_last2, ceta_last = ctl.pick(
+            first, lambda: (s.v_old, s.u_old, s.v, s.u, s.w, s.w_bar, s.x, s.ceta_last2,
+                            s.ceta_last), shift)
 
         # Lanczos
         r = A @ u
@@ -145,13 +146,11 @@ def symmlq(
         c_cur = gamma_bar / gamma
         s_cur = beta_new / gamma
 
-        if s.k == 0:
-            ceta_cur = beta1 / gamma
-        else:
-            ceta_cur = -(delta * ceta_last + epsilon * ceta_last2) / gamma
+        ceta_cur = ctl.pick(
+            first, lambda: (beta1 / gamma).to(sdtype),
+            lambda: (-(delta * ceta_last + epsilon * ceta_last2) / gamma).to(sdtype))
 
         return SymmlqState(
-            k=s.k + 1,
             x=x,
             r=r,
             z=z,
@@ -166,7 +165,7 @@ def symmlq(
             c_last=c_last,
             s_cur=s_cur.to(sdtype),
             s_last=s_last,
-            ceta_cur=ceta_cur.to(sdtype),
+            ceta_cur=ceta_cur,
             ceta_last=ceta_last,
             ceta_last2=ceta_last2,
             resnorm=_norm(r),
@@ -179,9 +178,11 @@ def symmlq(
 
     method = Method(
         step=step,
-        xk=xout_of,
+        xk=lambda s, k: xout_of(s),
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
-        callback_args=lambda s: (xout_of(s), s.r),
+        callback_args=lambda s, k: (xout_of(s), s.r),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -9,11 +9,12 @@ One step of the solve loop is one TFQMR **half-step** (Saad, *Iterative
 Methods for Sparse Linear Systems* 2nd ed., alg. 7.4), so the residual
 history has the resolution of scipy's ``tfqmr`` and convergence can fire
 mid-pair.  The
-parity of the half-step is a step counter, not data: it is carried as a
-host integer in the state and the even/odd updates are host branches, which
-cost no device read (the reference selects with ``where`` inside one traced
-program and computes the same values).  Cost per half-step: 1 matvec, 1
-``M`` apply, 2 reductions.
+parity of the half-step is the step number the driver gives the step, not
+data (:mod:`.._steps`): on the host the even/odd updates are host branches,
+which cost no device read; on the graph route both are computed and
+selected with ``torch.where`` on the device counter, as the reference does
+inside one traced program (one more reduction a half-step there).  Cost
+per half-step on the host: 1 matvec, 1 ``M`` apply, 2 reductions.
 
 Preconditioning is right-sided (``A @ M``), so ``w`` lives in the true
 residual space and the reported quasi-residual bound ``tau * sqrt(j + 1)``
@@ -29,6 +30,7 @@ import torch
 from .._driver import EAGER, Method, run
 from .._info import Info
 from .._inner import ensure_real
+from .._steps import at
 from ._common import initial_residual, inner_tail, nonzero, preconditioner, setup
 
 
@@ -46,7 +48,6 @@ class TfqmrState(NamedTuple):
     theta: torch.Tensor
     eta: torch.Tensor
     tau: torch.Tensor
-    j: int  # completed half-steps (host integer)
     resnorm: torch.Tensor
 
 
@@ -98,6 +99,10 @@ def tfqmr(
     def zeros(dtype):
         return torch.zeros(tail, dtype=dtype, device=b.device)
 
+    # sqrt(j + 1) of the quasi-residual bound, by the half-step's number
+    roots = torch.sqrt(torch.arange(1, maxiter + 2, dtype=torch.float64,
+                                    device=b.device)).to(rdtype)
+
     state0 = TfqmrState(
         x=x0.to(sdtype),
         w=r0,
@@ -112,28 +117,30 @@ def tfqmr(
         theta=zeros(rdtype),
         eta=zeros(sdtype),
         tau=tau0,
-        j=0,
         resnorm=tau0,
     )
 
-    def step(s: TfqmrState, criterion) -> TfqmrState:
-        even = s.j % 2 == 0
+    def step(s: TfqmrState, criterion, ctl) -> TfqmrState:
+        j = ctl.k
+        even = j % 2 == 0
 
         Mu = M @ s.u
         Au = A @ Mu
 
         # the single recurrence inner product of the half-step: <r*, v> at
         # even steps (for alpha), <r*, w_new> at odd ones (for rho)
-        if even:
+        def even_half():
             # this pair's v = A u_even + beta (A u_odd + beta v)
             v = Au + s.beta * s.vtail
             ip = inner(rstar, v)
-            alpha = s.rho / nonzero(ip)
-            w = s.w - alpha * Au
-        else:
-            v, alpha = s.v, s.alpha
-            w = s.w - alpha * Au
-            ip = inner(rstar, w)
+            alpha = (s.rho / nonzero(ip)).to(sdtype)
+            return v, alpha, s.w - alpha * Au, ip.to(sdtype)
+
+        def odd_half():
+            w = s.w - s.alpha * Au
+            return s.v, s.alpha, w, inner(rstar, w).to(sdtype)
+
+        v, alpha, w, ip = ctl.pick(even, even_half, odd_half)
 
         scale = s.theta * s.theta * s.eta / nonzero(alpha)
         d = s.u + scale * s.d
@@ -145,31 +152,31 @@ def tfqmr(
         eta = c2.to(sdtype) * alpha
         x = s.x + eta * dM
 
-        if even:
-            rho, beta, vtail = s.rho, s.beta, s.vtail
-            u = s.u - alpha * v
-        else:
-            rho = ip
-            beta = ip / nonzero(s.rho)
-            u = w + beta * s.u
-            vtail = Au + beta * v
+        def odd_tail():
+            beta = (ip / nonzero(s.rho)).to(sdtype)
+            return ip, beta, w + beta * s.u, Au + beta * v
 
-        j = s.j + 1
-        # quasi-residual bound ||r_j|| <= tau_j sqrt(j + 1)
-        resnorm = tau * float(j + 1) ** 0.5
+        rho, beta, u, vtail = ctl.pick(
+            even, lambda: (s.rho, s.beta, s.u - alpha * v, s.vtail), odd_tail)
+
+        tau = tau.to(rdtype)
+        # quasi-residual bound ||r_j|| <= tau_j sqrt(j + 1), after this half-step
+        resnorm = tau * at(roots, j + 1)
         return TfqmrState(
             x=x, w=w, u=u, v=v, vtail=vtail, d=d, dM=dM,
-            alpha=alpha.to(sdtype), beta=beta.to(sdtype),
-            rho=rho.to(sdtype), theta=theta.to(rdtype),
-            eta=eta.to(sdtype), tau=tau.to(rdtype), j=j,
+            alpha=alpha, beta=beta,
+            rho=rho, theta=theta.to(rdtype),
+            eta=eta.to(sdtype), tau=tau,
             resnorm=resnorm,
         )
 
     method = Method(
         step=step,
-        xk=lambda s: s.x,
+        xk=lambda s, k: s.x,
         explicit_resnorm=lambda xk: _norm(b - A @ xk),
-        callback_args=lambda s: (s.x, s.w),
+        callback_args=lambda s, k: (s.x, s.w),
+        capturable=True,
+        counted=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,

@@ -1157,6 +1157,27 @@ def _graph_cases(dev):
                                                maxiter=200, **wl),
         "minres, complex128": lambda: kt.minres(Az[np.complex128], bz[np.complex128],
                                                 tol=1e-10, maxiter=200, **wl),
+        # the methods whose step depends on its step number: a pick on the
+        # device counter, an IF node (the replacements, which fire inside
+        # the replays), WHILE nodes (gmres's and gcr's sweeps)
+        "cgr": lambda: kt.cgr(sp, b, tol=1e-4, maxiter=200, **wl),
+        "chebyshev": lambda: kt.chebyshev(Ac, bc, (lo, hi), inner=grid_inner, tol=1e-5,
+                                          maxiter=400, **wl),
+        "symmlq, 60 steps": lambda: kt.symmlq(sp, b, tol=0.0, atol=0.0, maxiter=60, **wl),
+        "tfqmr": lambda: kt.tfqmr(sp, b, M=dinv, tol=1e-4, maxiter=400, **wl),
+        "cg, return_arnoldi": lambda: kt.cg(sp, b, tol=1e-4, maxiter=200, return_arnoldi=True,
+                                            **wl),
+        "cg_pipelined": lambda: kt.cg_pipelined(sp, b, M=dinv, tol=1e-5, maxiter=200,
+                                                replace_every=6, **wl),
+        "cg_block": lambda: kt.cg_block(lap, B8, tol=1e-4, maxiter=600, replace_every=10, **wl),
+        "gcr": lambda: kt.gcr(sp, b, tol=1e-4, maxiter=100, **wl),
+        "gmres mgs": lambda: kt.gmres(sp, b, tol=1e-4, maxiter=120, **wl),
+        "gmres mgs2, M": lambda: kt.gmres(sp, b, M=dinv, ortho="mgs2", tol=1e-4, maxiter=120,
+                                          **wl),
+        "gmres cgs": lambda: kt.gmres(sp, b, ortho="cgs", tol=1e-4, maxiter=120, **wl),
+        "gmres householder": lambda: kt.gmres(sp, b, ortho="householder", tol=1e-4,
+                                              maxiter=120, **wl),
+        "gmres restart": lambda: kt.gmres(lap, b, restart=12, tol=1e-4, maxiter=60, **wl),
     }
 
 
@@ -1213,13 +1234,19 @@ _GRAPH_LABELS = (
     "bicgstab", "qmr", "bicg", "cgs", "minres", "lsqr", "cgnr", "richardson", "jacobi",
     "cg + jacobi", "cg + amg", "cg + ilu", "cg + block jacobi", "cg, (N, 8) b", "cg, bsr",
     "cg, bf16 values", "cg, complex64", "cg, complex128", "minres, complex64",
-    "minres, complex128")
+    "minres, complex128", "cgr", "chebyshev", "symmlq, 60 steps", "tfqmr",
+    "cg, return_arnoldi", "cg_pipelined", "cg_block", "gcr", "gmres mgs", "gmres mgs2, M",
+    "gmres cgs", "gmres householder", "gmres restart")
 
 
 def _assert_bit_equal(got, ref, label):
     assert got.numsteps == ref.numsteps and got.success == ref.success, label
     np.testing.assert_array_equal(got.resnorms, ref.resnorms)
     assert torch.equal(got.xk, ref.xk), label
+    if getattr(ref, "arnoldi", None) is not None:  # cg's return_arnoldi: V, H, P
+        np.testing.assert_array_equal(got.arnoldi[1], ref.arnoldi[1])
+        assert all(torch.equal(a, c) for a, c in zip(
+            got.arnoldi[0] + got.arnoldi[2], ref.arnoldi[0] + ref.arnoldi[2], strict=True))
 
 
 @pytest.mark.parametrize("label", _GRAPH_LABELS)
@@ -1232,11 +1259,14 @@ def test_graph_route_is_bit_equal_to_the_host_stepped_loop(dev, label):
     steps = 4
     ref, got, counts, (n_host, n_graph) = _both_routes(
         _graph_cases(dev)[label], _driver._capture_at(after=3, steps=steps, replays=2))
-    assert counts["graph_route"] == 1 and counts["host_stepped"] == 0, counts
-    assert counts["captures"] == (1 if got.numsteps > 3 else 0), counts
+    runs = 5 if label == "gmres restart" else 1  # a run a GMRES(12) cycle
+    assert counts["graph_route"] == runs and counts["host_stepped"] == 0, counts
+    assert counts["uncapturable"] == 0, (counts, _driver.LAST_GRAPH.get("uncapturable"))
+    assert counts["captures"] == (runs if got.numsteps > 3 else 0), counts
     if counts["captures"]:
         # a read of the flag a run of replays, one more a failed recheck
-        bound = 3 + -(-(got.numsteps - 3) // (2 * steps)) + counts["rechecks"] + 1
+        per_run = got.numsteps // runs
+        bound = runs * (3 + -(-(per_run - 3) // (2 * steps)) + 1) + counts["rechecks"]
         assert counts["flag_reads"] <= bound, (counts, got.numsteps)
     _assert_bit_equal(got, ref, label)
     assert n_graph == n_host, label
@@ -1386,9 +1416,9 @@ def test_graph_route_raises_when_a_capture_fails(dev):
 
 
 def test_graph_route_is_decided_before_any_capture(dev):
-    """A callback, a ``ShardMonitor``, ``return_arnoldi``, a solver that
-    branches on a host step counter and a state that requires a gradient
-    run the host-stepped loop; nothing is captured, even when forced."""
+    """A callback, a ``ShardMonitor`` and a state that requires a gradient
+    run the host-stepped loop, ``fgmres`` its own host loop; nothing is
+    captured, even when forced."""
     A = st.poisson_2d_const(64, 64, device=dev)
     b = torch.ones(64 * 64, device=dev)
     Ad = torch.eye(64, device=dev) * 3.0 + torch.diag(torch.ones(63, device=dev), 1)
@@ -1400,8 +1430,6 @@ def test_graph_route_is_decided_before_any_capture(dev):
                       backend="while_loop"),
         lambda: kt.cg(A, b, tol=1e-6, maxiter=50, callback=_driver.ShardMonitor(
             lambda k, r: calls.append(k)), backend="while_loop"),
-        lambda: kt.cg(A, b, tol=1e-6, maxiter=50, return_arnoldi=True, backend="while_loop"),
-        lambda: kt.tfqmr(A, b, tol=1e-6, maxiter=50, backend="while_loop"),
         lambda: kt.cg(Ad, bd, tol=1e-6, maxiter=50, backend="while_loop"),
     ):
         _driver.reset_counts()
@@ -1409,5 +1437,9 @@ def test_graph_route_is_decided_before_any_capture(dev):
             solve()
         assert _driver.COUNTS["host_stepped"] == 1, _driver.COUNTS
         assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
+    _driver.reset_counts()
+    with _driver._capture_at():
+        kt.fgmres(A, b, tol=1e-6, maxiter=20)
+    assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
     assert calls
 

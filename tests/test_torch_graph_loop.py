@@ -29,6 +29,8 @@ import functools
 from typing import NamedTuple
 from unittest import mock
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,6 +154,8 @@ def _case(name):
         Mt, Mj = kt.AMGPreconditioner.from_scipy(A), krylov_tpu.AMGPreconditioner.from_scipy(A)
         return (lambda: kt.cg(A, b, M=Mt, tol=1e-10, maxiter=60, **wl),
                 lambda: krylov_tpu.cg(A, b, M=Mj, tol=1e-10, maxiter=60))
+    if name in COUNTED:
+        return _counted_case(name)
     if name == "cg bf16":
         At, Aj, b = _bf16_pet()
         bt = torch.from_numpy(b).bfloat16()
@@ -161,9 +165,61 @@ def _case(name):
     raise KeyError(name)
 
 
+def _counted_case(name):
+    """The methods whose step depends on its step number
+    (``Method.counted``): a shifted Poisson of 81 rows, made nonsymmetric
+    for the nonsymmetric solvers (symmlq: an SPD matrix of 8); the
+    replacements of ``cg_pipelined`` and ``cg_block`` fire every 5 and 4
+    steps, inside the twin's replays; a ``gmres`` cut by ``maxiter`` and
+    restarted."""
+    wl = dict(backend="while_loop")
+    solver = name.split()[0]
+    A = _shifted_poisson(9)
+    if solver in ("tfqmr", "gcr", "gmres"):
+        A = (A + scipy.sparse.diags([0.1, -0.1], [1, -1], shape=(81, 81))).tocsr()
+    b = np.random.default_rng(11).standard_normal(81)
+    kw = dict(tol=1e-10)
+    if name.endswith(" M"):
+        d = 1.0 / A.diagonal()
+        Mt, Mj = kt.DiagonalOperator(torch.from_numpy(d)), krylov_tpu.DiagonalOperator(
+            jnp.asarray(d))
+    kw_t, kw_j = dict(kw), dict(kw)
+    if name.endswith(" M"):
+        kw_t["M"], kw_j["M"] = Mt, Mj
+    if solver == "chebyshev":
+        # the Poisson's spectrum: 4.5 -+ 4 cos(pi / 10)
+        bounds = (4.5 - 4 * np.cos(np.pi / 10), 4.5 + 4 * np.cos(np.pi / 10))
+        kw_t["eigenvalue_estimates"] = kw_j["eigenvalue_estimates"] = bounds
+    elif name == "symmlq":
+        # its reported norm (of the Lanczos vector) vanishes only once the
+        # Krylov space is exhausted (tests/test_torch_symmetric.py)
+        A, b = _spd(8, 10.0, 13)
+        kw_t["tol"] = kw_j["tol"] = 1e-8
+    elif name == "cg arnoldi":
+        kw_t["return_arnoldi"] = kw_j["return_arnoldi"] = True
+    elif solver == "cg_pipelined":
+        kw_t["replace_every"] = kw_j["replace_every"] = 5
+    elif solver == "cg_block":
+        b = np.random.default_rng(12).standard_normal((81, 3))
+        kw_t["replace_every"] = kw_j["replace_every"] = 4
+    elif solver == "gmres":
+        ortho = {"gmres mgs": "mgs", "gmres mgs2 M": "mgs2", "gmres cgs": "cgs",
+                 "gmres householder": "householder", "gmres restart cut": "mgs"}[name]
+        kw_t["ortho"] = kw_j["ortho"] = ortho
+        if name == "gmres restart cut":
+            for k_ in (kw_t, kw_j):
+                k_.update(restart=7, maxiter=26)
+    solver_t, solver_j = getattr(kt, solver), getattr(krylov_tpu, solver)
+    return (lambda: solver_t(A, b, **kw_t, **wl), lambda: solver_j(A, b, **kw_j, **wl))
+
+
+COUNTED = ("cgr", "chebyshev", "symmlq", "tfqmr M", "cg arnoldi", "cg_pipelined replace",
+           "cg_block replace", "gcr", "gmres mgs", "gmres mgs2 M", "gmres cgs",
+           "gmres householder", "gmres restart cut")
 CASES = ("cg", "cg M", "cg maxiter", "cg recheck fails", "cg complex", "cg_stencil",
          "cg_stencil fused", "bicgstab early", "qmr", "minres", "minres complex", "bicg", "cgs",
-         "lsqr", "cgnr", "richardson", "jacobi", "cg + multigrid", "cg + amg", "cg bf16")
+         "lsqr", "cgnr", "richardson", "jacobi", "cg + multigrid", "cg + amg",
+         "cg bf16") + COUNTED
 
 
 @pytest.fixture(autouse=True)
@@ -196,13 +252,19 @@ def _bit_equal(got, ref):
     assert got.numsteps == ref.numsteps and got.success == ref.success
     np.testing.assert_array_equal(got.resnorms, ref.resnorms)
     assert torch.equal(got.xk, ref.xk)
+    if getattr(ref, "arnoldi", None) is not None:  # cg's return_arnoldi: V, H, P
+        V, H, P = got.arnoldi
+        V0, H0, P0 = ref.arnoldi
+        np.testing.assert_array_equal(H, H0)
+        assert all(torch.equal(a, c) for a, c in zip(V + P, V0 + P0, strict=True))
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_graph_is_bit_equal_to_the_host_stepped_loop(name):
     (x_h, host), (x_g, graph), counts = _routes(name)
-    assert counts["graph_route"] == 1 and counts["host_stepped"] == 0
-    assert counts["captures"] == 1  # the twin's graph, made once
+    runs = -(-26 // 7) if name == "gmres restart cut" else 1  # a run a GMRES(7) cycle
+    assert counts["graph_route"] == runs and counts["host_stepped"] == 0
+    assert counts["captures"] == runs  # the twin's graph, made once a run
     steps = counts["host_steps"] + counts["graph_steps"]
     assert steps == graph.numsteps + ("bicgstab" in name and graph.success)
     _bit_equal(graph, host)
@@ -242,6 +304,76 @@ def test_plain_graph_matches_the_reference_while_loop(name):
                                atol=1e-14 * np.max(np.abs(want[0])))
     np.testing.assert_allclose(info.xk.numpy(), np.asarray(ref.xk), rtol=XTOL, atol=1e-12)
     assert (x is None) == (xj is None)
+
+
+def _variant(name):
+    """A counted method on a complex or blocked right-hand side, or with a
+    user inner product or split preconditioners: a 40-row matrix of the
+    spectrum of the "cg" case (complex Hermitian, or real tridiagonal)."""
+    rng = np.random.default_rng(14)
+    Hz, bz = (torch.from_numpy(a) for a in _hpd(40, 10.0, 15))
+    Nz = Hz + 0.3 * torch.diag(torch.ones(39, dtype=Hz.dtype), 1)  # nonnormal
+    A = torch.from_numpy(np.diag(np.geomspace(1.0, 10.0, 40)) + 0.2 * (
+        np.eye(40, k=1) + np.eye(40, k=-1)))
+    B = torch.from_numpy(rng.standard_normal((40, 3)))
+    b = B[:, 0].contiguous()
+    D = kt.DiagonalOperator(1.0 / torch.diagonal(A))
+    wl = dict(tol=1e-10, backend="while_loop")
+    # 45 steps of a 46-row basis: CGS's second chunk runs past the basis
+    # and starts over rows of the first
+    W = torch.from_numpy(np.diag(np.geomspace(1.0, 1e3, 120)) + 0.2 * (
+        np.eye(120, k=1) - np.eye(120, k=-1)))
+    w = torch.from_numpy(rng.standard_normal(120))
+    return {
+        "gmres cgs past a chunk": lambda: kt.gmres(W, w, ortho="cgs", maxiter=45, **wl),
+        "gmres cgs past a chunk, a user inner": lambda: kt.gmres(
+            W, w, ortho="cgs", maxiter=45, inner=lambda u, v: torch.sum(u * v), **wl),
+        "gmres mgs complex": lambda: kt.gmres(Nz, bz, **wl),
+        "gmres cgs complex": lambda: kt.gmres(Nz, bz, ortho="cgs", **wl),
+        "gmres householder complex": lambda: kt.gmres(Nz, bz, ortho="householder", **wl),
+        "gmres mgs (N, 3)": lambda: kt.gmres(A, B, **wl),
+        "gmres cgs3 (N, 3)": lambda: kt.gmres(A, B, ortho="cgs3", **wl),
+        "gmres householder (N, 3)": lambda: kt.gmres(A, B, ortho="householder", **wl),
+        "gmres cgs, a user inner": lambda: kt.gmres(A, b, ortho="cgs",
+                                                    inner=lambda u, v: torch.sum(u * v), **wl),
+        "gmres Ml, Mr": lambda: kt.gmres(A, b, Ml=D, Mr=kt.DiagonalOperator(
+            torch.full((40,), 0.5, dtype=torch.float64)), **wl),
+        "gmres householder restarted": lambda: kt.gmres(A, b, ortho="householder", restart=5,
+                                                        maxiter=33, **wl),
+        "cg arnoldi (N, 3)": lambda: kt.cg(A, B, return_arnoldi=True, **wl),
+        "cg arnoldi complex": lambda: kt.cg(Hz, bz, return_arnoldi=True, **wl),
+        "tfqmr complex": lambda: kt.tfqmr(Nz, bz, **wl),
+        "tfqmr (N, 3)": lambda: kt.tfqmr(A, B, **wl),
+        "chebyshev (N, 3)": lambda: kt.chebyshev(A, B, (0.6, 10.5), maxiter=300, **wl),
+        "cg_pipelined complex": lambda: kt.cg_pipelined(Hz, bz, replace_every=3, **wl),
+        "cg_block complex": lambda: kt.cg_block(Hz, torch.stack([bz, bz.conj()], 1),
+                                                replace_every=3, **wl),
+        "gcr (N, 3)": lambda: kt.gcr(A, B, **wl),
+        "gcr M": lambda: kt.gcr(A, b, M=D, **wl),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "gmres mgs complex", "gmres cgs complex", "gmres householder complex", "gmres mgs (N, 3)",
+    "gmres cgs3 (N, 3)", "gmres householder (N, 3)", "gmres cgs, a user inner", "gmres Ml, Mr",
+    "gmres householder restarted", "cg arnoldi (N, 3)", "cg arnoldi complex", "tfqmr complex",
+    "tfqmr (N, 3)", "chebyshev (N, 3)", "cg_pipelined complex", "cg_block complex", "gcr (N, 3)",
+    "gcr M", "gmres cgs past a chunk", "gmres cgs past a chunk, a user inner"])
+def test_plain_graph_of_counted_variants_is_bit_equal_to_the_host_stepped_loop(name):
+    """The counted methods' device forms (``torch.where`` over complex and
+    blocked states, ``index_copy_`` into tails of right-hand-side columns,
+    a user inner product in CGS's chunks, a chunk past the basis) on the
+    twin, bit for bit the host-stepped loop's, with graphs of 3 and of 1
+    step."""
+    solve = _variant(name)
+    with _driver._host_stepped():
+        _, host = solve()
+    for plan in ((2, 3, 2), (3, 1, 5)):
+        _driver.reset_counts()
+        with _driver._plain_graph(*plan):
+            _, graph = solve()
+        assert _driver.COUNTS["captures"] >= 1
+        _bit_equal(graph, host)
 
 
 def test_the_cases_reach_what_they_are_for():
@@ -522,10 +654,12 @@ def test_cpu_solves_take_the_host_stepped_loop():
 
 def test_the_route_is_decided_before_any_step():
     """Under the twin's switch, a callback, a ``ShardMonitor``, a method
-    that is not capturable (``return_arnoldi``, a solver that branches on a
-    host step counter, a triangular sweep) and a state that requires a
-    gradient still run the host-stepped loop; ``_host_stepped()`` overrides
-    the switch."""
+    that is not capturable (a triangular sweep) and a state that requires
+    a gradient still run the host-stepped loop, and ``fgmres`` its own host
+    loop, as the reference's eager-only form does; the solvers
+    whose step depends on its step number (``return_arnoldi``, ``tfqmr``,
+    ``symmlq``, ``cg_pipelined``, ``gcr``, ``chebyshev``) take the graph
+    route; ``_host_stepped()`` overrides the switch."""
     A, b = _spd(20, 10.0, 7)
     At, bt = torch.from_numpy(A), torch.from_numpy(b)
     calls = []
@@ -533,21 +667,27 @@ def test_the_route_is_decided_before_any_step():
         lambda: kt.cg(A, b, callback=lambda *a: calls.append(1), backend="while_loop"),
         lambda: kt.cg(A, b, callback=_driver.ShardMonitor(lambda k, r: calls.append(k)),
                       backend="while_loop"),
+        lambda: kt.cg(At, bt.clone().requires_grad_(), backend="while_loop"),
+        lambda: kt.gauss_seidel(A, b, maxiter=5, backend="while_loop"),
+    ]
+    graph = [
+        lambda: kt.cg(A, b, backend="while_loop"),
         lambda: kt.cg(A, b, return_arnoldi=True, backend="while_loop"),
         lambda: kt.tfqmr(A, b, backend="while_loop"),
         lambda: kt.symmlq(A, b, backend="while_loop"),
         lambda: kt.cg_pipelined(A, b, backend="while_loop"),
         lambda: kt.gcr(A, b, backend="while_loop"),
         lambda: kt.chebyshev(A, b, (1.0, 10.0), backend="while_loop", maxiter=5),
-        lambda: kt.cg(At, bt.clone().requires_grad_(), backend="while_loop"),
-        lambda: kt.gauss_seidel(A, b, maxiter=5, backend="while_loop"),
     ]
     with _driver._plain_graph():
         for solve in host:
             c = _counts_of(solve)
             assert c["host_stepped"] == 1 and c["graph_route"] == 0, c
-        c = _counts_of(lambda: kt.cg(A, b, backend="while_loop"))
-        assert c["graph_route"] == 1 and c["host_stepped"] == 0
+        c = _counts_of(lambda: kt.fgmres(A, b, maxiter=5))
+        assert c["graph_route"] == c["captures"] == 0, c
+        for solve in graph:
+            c = _counts_of(solve)
+            assert c["graph_route"] == 1 and c["host_stepped"] == 0, c
         with _driver._host_stepped():
             c = _counts_of(lambda: kt.cg(A, b, backend="while_loop"))
         assert c["host_stepped"] == 1 and c["graph_route"] == 0
@@ -580,6 +720,111 @@ def test_a_one_rank_sharded_solve_takes_the_host_stepped_loop():
 
 
 # --- the pieces under a capture ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("counter,limit", [(0, 5), (3, 4), (2, 9), (4, 4), (6, 2)])
+def test_the_plain_loop_runs_its_body_limit_minus_counter_times(counter, limit):
+    """``_graphs.host_loop`` (a WHILE node's plain twin): ``fn`` sees the
+    counter at each of ``limit - counter`` runs (none from a counter at or
+    past the limit), and the counter ends at the limit."""
+    c = torch.tensor(counter, dtype=torch.int64)
+    seen = []
+    _graphs.host_loop(c, torch.tensor(limit, dtype=torch.int64), lambda j: seen.append(int(j)))
+    assert seen == list(range(counter, limit))
+    assert int(c) == max(counter, limit)
+
+
+class _Once:
+    """Guards that run each IF and WHILE body once, as a capture records
+    it: what they record does not depend on the flags."""
+
+    def __call__(self, flag, expect, fn):
+        return fn()
+
+    def loop(self, counter, limit, fn):
+        fn(counter)
+
+
+class _Ops(TorchDispatchMode):
+    """The operations dispatched within but views (on the card, the
+    kernels a capture records)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.shapes = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops.append(func._schema.name)
+            self.shapes.append(tuple(tuple(a.shape) for a in args
+                                     if isinstance(a, torch.Tensor)))
+        return func(*args, **(kwargs or {}))
+
+
+class _Caught(Exception):
+    pass
+
+
+def _recorded_step(name, maxiter, k=5, host=False):
+    """The operations step ``k`` of a solve records, with each sweep's body
+    recorded once (:class:`_Once`), at ``maxiter``; with ``host``, the
+    operations the host-stepped loop's step ``k`` dispatches."""
+    from krylov_tpu_torch._steps import DeviceStep, HostStep
+
+    A = _shifted_poisson(9) + scipy.sparse.diags([0.1, -0.1], [1, -1], shape=(81, 81))
+    b = np.random.default_rng(13).standard_normal(81)
+    module = "gcr" if name == "gcr" else "gmres"
+    solve = getattr(kt, module)
+    kw = {} if name == "gcr" else dict(ortho=name.split()[1].rstrip(","))
+    if name.endswith("a user inner"):
+        kw["inner"] = lambda u, v: torch.sum(u * v)
+
+    def caught(state0, method, **_):
+        raise _Caught(state0, method)
+
+    with mock.patch(f"krylov_tpu_torch.solvers.{module}.run", caught):
+        with pytest.raises(_Caught) as exc:
+            solve(A.tocsr(), b, maxiter=maxiter, backend="while_loop", **kw)
+    state0, method = exc.value.args
+    ctl = HostStep(k) if host else DeviceStep(torch.tensor(k), _Once())
+    with _Ops() as rec:
+        method.step(state0, state0.resnorm, ctl)
+    return list(zip(rec.ops, rec.shapes)) if host else rec.ops
+
+
+@pytest.mark.parametrize("name", ["gmres mgs", "gmres cgs", "gmres householder", "gcr",
+                                  "gmres cgs, a user inner"])
+def test_a_recorded_step_does_not_grow_with_maxiter(name):
+    """A captured step of each masked sweep records the same operations at
+    maxiter 40 and 400: its sweeps are WHILE nodes (cgs: a loop over chunks
+    of a fixed number of rows, each contracted by the user's inner row by
+    row), not maxiter-long unrolled loops."""
+    ops40, ops400 = _recorded_step(name, 40), _recorded_step(name, 400)
+    assert len(ops40) == len(ops400) and ops40 == ops400
+    assert len(_recorded_step(name, 40, k=30)) == len(ops40)  # nor with the step's number
+
+
+# the operations that reduce over the basis's rows: the Euclidean batched
+# contraction and combination (``mv``), a user inner's ``sum``
+_REDUCTIONS = ("aten::mv", "aten::mm", "aten::bmm", "aten::dot", "aten::vdot", "aten::sum")
+
+
+@pytest.mark.parametrize("name", ["gmres cgs", "gmres cgs, a user inner"])
+@pytest.mark.parametrize("k", [5, 35])
+def test_a_host_cgs_step_reduces_the_same_at_any_maxiter(name, k):
+    """The host-stepped loop's CGS step launches the same reductions, of
+    the same shapes, at maxiter 40 and 400: one contraction and one
+    combination for each chunk of ``gmres.CGS_ROWS`` rows that holds rows
+    0..k (for a user inner, one inner product a row of those chunks),
+    however long the basis; at maxiter 80 and 400, where no chunk runs
+    past the basis, the very same operations."""
+
+    def reductions(ops):
+        return [(op, shapes) for op, shapes in ops if op in _REDUCTIONS]
+
+    ops40, ops80, ops400 = (_recorded_step(name, m, k=k, host=True) for m in (40, 80, 400))
+    assert reductions(ops40) == reductions(ops400)
+    assert [op for op, _ in ops80] == [op for op, _ in ops400]
 
 
 def test_ensure_real_skips_its_check_while_capturing(monkeypatch):
@@ -655,6 +900,38 @@ def test_a_step_that_reads_the_host_stays_on_the_host_loop(route):
         assert c["graph_route"] == c["uncapturable"] == 1 and c["captures"] == 0, c
         assert c["host_steps"] == info.numsteps and "_local_scalar_dense" in last["uncapturable"]
         _bit_equal(info, ref)
+
+
+class _X(NamedTuple):
+    x: torch.Tensor
+    resnorm: torch.Tensor
+
+
+def test_a_conditional_body_that_reads_the_host_stays_on_the_host_loop():
+    """A counted step whose IF body, due at step 49 only, reads the host:
+    the rehearsal's host form never runs it, the screen of the device form
+    runs every body once and notes the read, and the solve stays
+    host-stepped, before any capture, bit for bit the host-stepped loop."""
+
+    def step(s, criterion, ctl):
+        x = s.x + 1
+        ctl.cond(ctl.k == 49, lambda: x.add_(float(x) * 0.0))
+        return _X(x, s.resnorm * 0.5)
+
+    method = _driver.Method(step=step, xk=lambda s, k: s.x, capturable=True, counted=True)
+    s0 = _X(torch.tensor(0.0, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64))
+    with _driver._host_stepped():
+        _, _, k_host, hist_host = _driver.run(s0, method, tol=1e-30, atol=0.0, maxiter=30,
+                                              backend="while_loop")
+    _driver.reset_counts()
+    with _driver._plain_graph(3, 2, 2):
+        state, _, k, hist = _driver.run(s0, method, tol=1e-30, atol=0.0, maxiter=30,
+                                        backend="while_loop")
+    c, last = dict(_driver.COUNTS), dict(_driver.LAST_GRAPH)
+    assert c["uncapturable"] == 1 and c["captures"] == 0, c
+    assert "_local_scalar_dense" in last["uncapturable"] and c["host_steps"] == 30
+    assert k == k_host == 30 and float(state.x) == 30.0
+    np.testing.assert_array_equal(hist, hist_host)
 
 
 def test_a_wrapped_inner_copies_nothing_it_need_not():

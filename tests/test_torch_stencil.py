@@ -286,3 +286,14 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_operator_protocols_match_the_references():
+    """``LinearOperator`` and ``RLinearOperator``, the reference's typing
+    protocols (``krylov_tpu/_operators.py``), with the same members."""
+    from krylov_tpu import _operators as ref
+    from krylov_tpu_torch import _operators as ops
+
+    for name in ("LinearOperator", "RLinearOperator"):
+        got, want = getattr(ops, name), getattr(ref, name)
+        assert got._is_protocol and got.__protocol_attrs__ == want.__protocol_attrs__

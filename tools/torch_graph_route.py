@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Phase 13 of ``chip_smoke.py`` alone, in a fresh process: the
 ``while_loop`` route the driver's cost rule picks, the host-stepped loop
-and, in six cells, a forced capture, in eleven cells at full width (see
-``chip_smoke.phase_graph_loop``).
+and, in fifteen cells, a forced capture, in twenty cells at full width
+(see ``chip_smoke.phase_graph_loop``).
 
 Run from the root of the repository on one CUDA device:
 
@@ -26,7 +26,7 @@ import chip_smoke  # noqa: E402
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=chip_smoke.ROUTE_REPEATS,
-                        help="timed solves of each route a cell")
+                        help="timed solves of each route a cell of the first eleven")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_graph_route: no CUDA device; this runs only on a GPU")
