@@ -2630,6 +2630,8 @@ def phase_diffable(dev, kt, cs, sv, bs, st, A_div, card):
 # ---------------------------------------------------------------------------
 
 DIST_STEPS = 300  # fixed steps of 11a at BIG^2
+DIST_REPEATS = 5  # timed solves of each of 11a's runs, alternating
+DIST_JAC_STEPS = 1500  # fixed steps of 11a's sharded cg + Jacobi on the 1M-row CSR
 GLOO_RANKS = 4
 GLOO_N = 1024  # 11b's grid side: 256 grid rows a rank
 GLOO_STEPS = 50  # fixed steps of 11b's solves
@@ -2660,11 +2662,19 @@ def sharded_held(what, got, ref, x_got=None, x_ref=None):
     return held
 
 
-def phase_distributed_one(dev, kt, cs, st, card):
-    """11a: ``sharded_solve`` on one NCCL rank, at full width."""
+def phase_distributed_one(dev, kt, cs, sv, bs, st, card):
+    """11a: ``sharded_solve`` on one NCCL rank, at full width.  The rank is
+    alone on its mesh, so the mesh launches no collective: ``cg`` at
+    ``BIG^2`` takes the route and makes the kernel launches of the
+    single-device solve beside it, in the same time within the spread
+    (``DIST_REPEATS`` solves of each, alternating).  Then phase 13's ``cg``
+    + Jacobi cell sharded (``sharded_solve(M_diag=)`` on the PET partition
+    of the unshifted 1M-row CSR, ``DIST_JAC_STEPS`` fixed steps) through
+    :func:`route_cell`: the rule's route captures and is bit-equal to the
+    host-stepped loop."""
     import torch.distributed as dist
 
-    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch import _driver, parallel
     from krylov_tpu_torch.parallel import mesh as pm
 
     log(f"phase 11a: sharded_solve on a world of one rank (NCCL) at {BIG}^2, "
@@ -2672,7 +2682,7 @@ def phase_distributed_one(dev, kt, cs, st, card):
     mesh = parallel.make_mesh(device=dev)  # starts the world through a file:// store
     assert dist.get_world_size() == 1 and not mesh.staged
     assert dev.type != "cuda" or "nccl" in dist.get_backend()
-    launches = dict.fromkeys(cs.LAUNCHES, 0)
+    launches = {}
     try:
         for label, A, kernel in (
             ("poisson_2d", st.poisson_2d(BIG, dtype=np.float32, device=dev), "stencil2d_matvec"),
@@ -2680,38 +2690,54 @@ def phase_distributed_one(dev, kt, cs, st, card):
              "const_stencil2d_matvec"),
         ):
             b = torch.ones(A.grid, dtype=torch.float32, device=dev)
+            x0 = torch.zeros_like(b)  # as the sharded solve's slab: r0 = b - A x0, one matvec
             runs = {
-                "single": lambda it: kt.cg(A, b, inner=inner, tol=0.0, atol=0.0, maxiter=it,
-                                           backend="while_loop"),
+                "single": lambda it: kt.cg(A, b, inner=inner, x0=x0, tol=0.0, atol=0.0,
+                                           maxiter=it, backend="while_loop"),
                 "sharded": lambda it: parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=0.0,
                                                              atol=0.0, maxiter=it),
             }
-            infos, us = {}, {}
+            infos, walls, seen = {}, {n: [] for n in runs}, {n: [] for n in runs}
             for name, run in runs.items():
-                run(5)  # warm: NCCL's communicator starts at the first collective
-                torch.cuda.synchronize()
-                cs.reset_launches()
-                pm.reset_counts()
-                t0 = time.perf_counter()
-                _, infos[name] = run(DIST_STEPS)
-                torch.cuda.synchronize()
-                us[name] = (time.perf_counter() - t0) / DIST_STEPS * 1e6
-                if name == "sharded":
-                    n_kernel, coll = cs.LAUNCHES[kernel], dict(pm.COUNTS)
-                    for k in launches:
-                        launches[k] += cs.LAUNCHES[k]
+                run(5)  # warm
+            for rep in range(DIST_REPEATS):
+                for name in list(runs)[::1 if rep % 2 == 0 else -1]:
+                    torch.cuda.synchronize()
+                    cs.reset_launches()
+                    pm.reset_counts()
+                    _driver.reset_counts()
+                    t0 = time.perf_counter()
+                    _, infos[name] = runs[name](DIST_STEPS)
+                    torch.cuda.synchronize()
+                    walls[name].append(time.perf_counter() - t0)
+                    seen[name].append((cs.LAUNCHES[kernel], sum(pm.COUNTS.values()),
+                                       _driver.COUNTS["graph_route"], _driver.COUNTS["captures"]))
+                    if name == "sharded":
+                        for k, v in cs.LAUNCHES.items():
+                            launches[k] = launches.get(k, 0) + v
             got = infos["sharded"]
             sharded_held(f"{label} sharded vs single", (got.numsteps, got.resnorms),
                          infos["single"])
             x_err = max_err(got.xk, infos["single"].xk) / float(infos["single"].xk.abs().max())
-            log(f"  {label}: {us['single']:.1f} us/iter single, {us['sharded']:.1f} us/iter "
-                f"sharded (one rank), difference {us['sharded'] - us['single']:+.1f} us/iter; "
-                f"iterate rel err {x_err:.3e}")
-            log(f"  {label}: {n_kernel} {kernel} launches ({n_kernel / DIST_STEPS:.2f} a step), "
-                f"collectives {coll} "
-                f"({coll['all_reduce'] / DIST_STEPS:.2f} all_reduce a step)")
-            assert n_kernel >= DIST_STEPS and np.isfinite(got.resnorms).all()
-            # where the difference goes: the slab's matvec and one reduction
+            med = {n: float(np.median(w)) / DIST_STEPS * 1e6 for n, w in walls.items()}
+            spread = {n: (max(w) - min(w)) / DIST_STEPS * 1e6 for n, w in walls.items()}
+            log(f"  [{card}] {label}: {med['single']:.1f} us/iter single (spread "
+                f"{spread['single']:.1f}), {med['sharded']:.1f} us/iter sharded on one rank "
+                f"(spread {spread['sharded']:.1f}), medians of {DIST_REPEATS} alternating, "
+                f"difference {med['sharded'] - med['single']:+.1f} us/iter; iterate rel err "
+                f"{x_err:.3e}")
+            for name in runs:
+                n_k, n_c, n_g, n_cap = (list(v) for v in zip(*seen[name]))
+                log(f"  {label} {name}, each solve: {kernel} launches {n_k}, collectives {n_c} "
+                    f"({sum(n_c) / DIST_STEPS / DIST_REPEATS:.2f} a step), graph route {n_g}, "
+                    f"captures {n_cap}")
+            launched = [n for n, _, _, _ in seen["sharded"]]
+            assert not any(c for _, c, _, _ in seen["sharded"]), seen["sharded"]
+            assert launched == [n for n, _, _, _ in seen["single"]], (label, seen)
+            assert min(launched) >= DIST_STEPS
+            assert np.isfinite(got.resnorms).all()
+            assert med["sharded"] <= med["single"] + max(spread.values()), (label, med, spread)
+            # the slab's matvec; a reduction, which launches nothing on one rank
             A_l = (parallel.ShardedConstStencilOperator(A, BIG, mesh) if kernel.startswith("const")
                    else parallel.ShardedGridStencilOperator(A.coeffs2d, A.offsets, A.ny, mesh,
                                                             hermitian=True))
@@ -2720,6 +2746,29 @@ def phase_distributed_one(dev, kt, cs, st, card):
             ar = time_ms(lambda: mesh.all_reduce(one), 200)
             log(f"  {label}: a loop of matvecs {mv * 1e3:.1f} us single, {mv_l * 1e3:.1f} us "
                 f"the one-rank slab's; a loop of all_reduce on a scalar {ar * 1e3:.1f} us a call")
+            del A, A_l, b, x0, infos, got
+
+        lap0 = poisson_csr(NPG, 4.0)
+        pet = parallel.partition_pet(lap0, 1)
+        Md = torch.from_numpy((1.0 / lap0.diagonal()).astype(np.float32))
+        rng = np.random.default_rng(SEED + 130)
+        b_s = torch.from_numpy(rng.standard_normal(NPG * NPG).astype(np.float32)).to(dev)
+        pm.reset_counts()
+        n, summary = route_cell(
+            f"sharded cg M_diag=Jacobi, one rank, unshifted 1M-row CSR, {DIST_JAC_STEPS} steps",
+            lambda: parallel.sharded_solve(kt.cg, pet, b_s, mesh=mesh, M_diag=Md, tol=0.0,
+                                           atol=0.0, maxiter=DIST_JAC_STEPS),
+            (b_s,), card, (cs, sv, bs), forced=(3, 4, 8), repeats=DIST_REPEATS, phase="11a")
+        captured = sum(c >= 1 for c in summary["rule"]["captures"])
+        log(f"  11a the sharded cell's collectives over all its solves: {dict(pm.COUNTS)}; the "
+            f"rule captured in {captured} of {DIST_REPEATS} timed solves")
+        assert not any(pm.COUNTS.values()), pm.COUNTS
+        # a held step's device time varies with the host's pace, so a
+        # decision may go either way now and then: most solves capture
+        assert 2 * captured > DIST_REPEATS, summary["rule"]
+        assert n.get("csr_matvec", 0) >= DIST_JAC_STEPS, n
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     return launches
@@ -2823,9 +2872,13 @@ def run_gloo_cases(pool, cases, dev, launches):
         per = res["per_rank"]
         log(f"    per rank launches {[p['launches'] for p in per]}; staged "
             f"{[sum(p['staged'].values()) for p in per]} transfers; collectives (rank 0) "
-            f"{per_step(per[0]['collectives'], res['info'][1])} a step")
+            f"{per_step(per[0]['collectives'], res['info'][1])} a step; routes (rank 0) "
+            f"{per[0]['routes']}")
         if dev.type == "cuda":
             assert all(sum(p["staged"].values()) > 0 for p in per)
+            # staged transfers: every rank's solve runs the host-stepped loop
+            assert all(p["routes"]["graph_route"] == 0 < p["routes"]["host_stepped"]
+                       for p in per), [p["routes"] for p in per]
             if kernel is not None:
                 assert all(p["launches"].get(kernel, 0) > 0 for p in per), label
         assert not any(p["forbidden"] for p in per)
@@ -2869,19 +2922,6 @@ PART_NPG = 256  # 12a's block-Jacobi and ILU-Schwarz matrices: 65,536 rows
 GAL_MAXITER = 400  # 12a's Galerkin cycle: piecewise-constant transfer, no iteration bound
 
 
-class OneRank:
-    """A mesh of this one process and no process group, for the sharded
-    cycles' single-device twins: a rank alone on its axis runs no
-    collective, so nothing else of a mesh is read."""
-
-    def __init__(self, device):
-        from krylov_tpu_torch.parallel import RHS, ROWS
-
-        self.shape = {ROWS: 1, RHS: 1}
-        self.coord = {ROWS: 0, RHS: 0}
-        self.device = device
-
-
 class LocalTwin:
     """``multigrid_factory(coupling="local")`` over ``ranks`` slabs, on one
     device: the single-device V-cycle on each slab of grid rows, with the
@@ -2900,15 +2940,24 @@ class LocalTwin:
 
 
 def counted(cs, sv, pm, fn):
-    """``fn()`` with every kernel and collective count set to 0 just before
-    and read just after: ``(result, launches, collectives)``."""
+    """``fn()`` with every kernel, collective and route count set to 0 just
+    before and read just after: ``(result, launches, collectives, route)``,
+    the route a line of the driver's counts and last plan."""
+    from krylov_tpu_torch import _driver
+
     cs.reset_launches()
     sv.reset_launches()
     pm.reset_counts()
+    _driver.reset_counts()
     out = fn()
     torch.cuda.synchronize()
     launches = {k: v for k, v in {**cs.LAUNCHES, **sv.LAUNCHES}.items() if v}
-    return out, launches, dict(pm.COUNTS)
+    c, last = _driver.COUNTS, _driver.LAST_GRAPH
+    route = (f"graph route {c['graph_route']}, host-stepped {c['host_stepped']}, captures "
+             f"{c['captures']}, steps replayed {c['graph_steps']}, uncapturable "
+             f"{c['uncapturable']}" + (f" ({last.get('uncapturable')})"
+                                       if c["uncapturable"] else ""))
+    return out, launches, dict(pm.COUNTS), route
 
 
 def per_step(coll, steps):
@@ -2934,14 +2983,16 @@ def phase_partitions_one(dev, kt, cs, sv, st, card):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (_, info), n, coll = counted(cs, sv, pm, fn)
+        (_, info), n, coll, route = counted(cs, sv, pm, fn)
         wall = time.perf_counter() - t0
-        _, per_app, _ = counted(cs, sv, pm, lambda: M_l @ r)
+        _, per_app, _, _ = counted(cs, sv, pm, lambda: M_l @ r)
         for k, v in n.items():
             launches[k] += v
         log(f"  [{card}] {label}: {wall * 1e3:.1f} ms, {info.numsteps} iterations "
             f"(success {info.success}), launches {n}, per application {per_app}, collectives "
             f"per step {per_step(coll, info.numsteps)}, host set-up {setup:.3f} s")
+        log(f"    the rank's while_loop: {route}")
+        assert not any(coll.values()), coll  # a rank alone launches no collective
         return info, n
 
     try:
@@ -3067,14 +3118,14 @@ def partition_cases(dev, kt, sv, st, ranks):
     """The sharded solves of 12b (and of ``tools/torch_multigpu_check.py``):
     ``(label, kernel, (solver, A, b), sharded_solve keywords, the same solve
     on one device)`` as :func:`sharded_cases`; each single-device twin runs
-    the same preconditioner: the sharded cycles on :class:`OneRank` (their
+    the same preconditioner: the sharded cycles on ``Mesh.of_one`` (their
     hierarchies do not depend on the rank count here), the slab-local cycle
     as :class:`LocalTwin`, the partitions' ``as_global()``."""
     from krylov_tpu_torch import parallel
 
     f32 = np.float32
     n = GLOO_N
-    one = OneRank(dev)
+    one = parallel.mesh.Mesh.of_one(dev)
     ones = np.ones((n, n), f32)
     A_con_h = st.poisson_2d_const(n, dtype=np.float32, device="cpu")
     A_con = st.poisson_2d_const(n, dtype=np.float32, device=dev)
@@ -3179,7 +3230,7 @@ def route_counted(solve, mods, ctx):
     return info, all_launches(*mods), dict(_driver.COUNTS), dict(_driver.LAST_GRAPH)
 
 
-def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
+def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None, phase="13"):
     """One cell of phase 13: ``solve()`` (a ``while_loop`` solve, returning
     ``(x, info)``) on the route the driver's cost rule picks, on the
     host-stepped loop and, with ``forced`` (``(after, steps, replays)``),
@@ -3192,8 +3243,8 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
     ``repeats`` each (``ROUTE_REPEATS`` for None), and holds the rule's
     median to the host-stepped median plus the larger spread.  With ``forced``, measures the kept
     pool: the reserved memory with it and without it
-    (``_graphs.release_pools``).  Returns the counted solve's kernel
-    launches and a summary."""
+    (``_graphs.release_pools``).  ``phase`` heads its lines.  Returns the
+    counted solve's kernel launches and a summary."""
     import gc
 
     from krylov_tpu_torch import _driver, _graphs
@@ -3215,13 +3266,13 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
         same = (info.numsteps == ref.numsteps and info.success == ref.success
                 and np.array_equal(info.resnorms, ref.resnorms) and torch.equal(info.xk, ref.xk))
         unchanged = all(torch.equal(t, t0) for t, t0 in zip(inputs, before))
-        log(f"  13 {name}, {route}: {info.numsteps} steps, success {info.success}; {counts}; "
+        log(f"  {phase} {name}, {route}: {info.numsteps} steps, success {info.success}; {counts}; "
             f"plan {last.get('plan')} after {last.get('host_steps')} host steps; bit-equal to "
             f"the host-stepped loop {same}; inputs unchanged {unchanged}; launches "
             f"{ {k: v for k, v in launches.items() if v} } (host-stepped the same: "
             f"{launches == n_host})")
         for k, costs, plan in last.get("decisions", ()):
-            log(f"  [{card}] 13 {name} the rule after host step {k}: plan {plan}, "
+            log(f"  [{card}] {phase} {name} the rule after host step {k}: plan {plan}, "
                 + ", ".join(f"{f} {v:.4g}" for f, v in costs._asdict().items()))
         assert counts["graph_route"] == 1 and counts["host_stepped"] == 0, counts
         assert same and unchanged and launches == n_host, (name, route, launches, n_host)
@@ -3252,12 +3303,16 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
                 left = torch.cuda.memory_allocated() - base
                 assert left == 0, f"{name}, {route}: {left} bytes left after a solve"
         p = parts["rule"][-1][0]
-        log(f"    13 {name} repeat {rep}: host-stepped {walls['host-stepped'][-1] * 1e3:.3f} ms, "
+        log(f"    {phase} {name} repeat {rep}: host-stepped {walls['host-stepped'][-1] * 1e3:.3f} ms, "
             + ", ".join(f"{r} {walls[r][-1] * 1e3:.3f} ms" for r in routes)
             + f"; the rule: plan {p['plan']} after {p['host_steps']} host steps "
             f"({p['host_steps_s'] * 1e3:.3f} ms), {p['held_steps']} held, decisions "
             f"{p['decide_s'] * 1e3:.3f} ms, capture {p['capture_s'] * 1e3:.3f} + "
-            f"{p['instantiate_s'] * 1e3:.3f} ms, replays {p['replays_s'] * 1e3:.3f} ms")
+            f"{p['instantiate_s'] * 1e3:.3f} ms, replays {p['replays_s'] * 1e3:.3f} ms"
+            + ("" if p["plan"] is not None or not p["decisions"] else
+               "; its last decision, after host step {}: {}".format(
+                   p["decisions"][-1][0], ", ".join(
+                       f"{f} {v:.4g}" for f, v in p["decisions"][-1][1]._asdict().items()))))
     for ctx in routes.values():
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
@@ -3288,7 +3343,7 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
         summary[route] = dict(
             ms=med[route] * 1e3, spread_ms=spread[route] * 1e3, busy_ms=busy[route][0] * 1e3,
             idle=1 - busy[route][0] / med[route])
-        log(f"  [{card}] 13 {name} {route}: {med[route] * 1e3:.3f} ms (spread "
+        log(f"  [{card}] {phase} {name} {route}: {med[route] * 1e3:.3f} ms (spread "
             f"{spread[route] * 1e3:.3f}), median of {repeats}, alternating; a step "
             f"{med[route] / steps * 1e6:.1f} us; device busy {busy[route][0] * 1e3:.3f} ms "
             f"({busy[route][1]} kernel events), idle share {summary[route]['idle']:.3f}")
@@ -3300,13 +3355,13 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None):
                 capture_ms=[round(c, 3) for c in cap_ms],
                 flag_reads_a_step=float(np.median([c["flag_reads"] for _, c in parts[route]]))
                 / steps)
-            log(f"  [{card}] 13 {name} {route}: captures {summary[route]['captures']}, host "
+            log(f"  [{card}] {phase} {name} {route}: captures {summary[route]['captures']}, host "
                 f"steps before the capture {summary[route]['host_steps']}, capture and "
                 f"instantiation ms {summary[route]['capture_ms']}, flag reads a step "
                 f"{summary[route]['flag_reads_a_step']:.3f}")
     summary["rule_minus_host_ms"] = float(np.median(diffs)) * 1e3
     summary["cell_s"] = time.perf_counter() - t_cell
-    log(f"  [{card}] 13 {name}: the rule's route minus the host-stepped loop, pair by pair: "
+    log(f"  [{card}] {phase} {name}: the rule's route minus the host-stepped loop, pair by pair: "
         f"median {np.median(diffs) * 1e3:+.3f} ms, {sum(d <= 0 for d in diffs)} of "
         f"{len(diffs)} pairs no slower; the host-stepped solve's peak {host_peak_mb:.0f} MB "
         f"over its inputs" + ("" if pool_mb is None else f"; the kept pool {pool_mb:.0f} MB")
@@ -3493,8 +3548,8 @@ def main():
         errs[k] = max(errs[k], prec_errs[k])
     for k, n in phase_diffable(dev, kt, cs, sv, bs, st, A_div, card).items():
         launches[k] += n
-    for k, n in phase_distributed_one(dev, kt, cs, st, card).items():
-        launches[k] += n
+    for k, n in phase_distributed_one(dev, kt, cs, sv, bs, st, card).items():
+        launches[k] = launches.get(k, 0) + n
     for k, n in phase_distributed_gloo(dev, kt, sv, st, card).items():
         launches[k] += n
     for k, n in phase_partitions_one(dev, kt, cs, sv, st, card).items():

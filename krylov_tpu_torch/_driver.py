@@ -28,8 +28,8 @@ Backends:
     :class:`ShardMonitor` too), with state that requires a gradient, of a
     ``Method`` that is not ``capturable`` (the triangular sweeps
     ``gauss_seidel``, ``sor`` and ``ssor``; ``fgmres`` runs a host loop of
-    its own, as the reference's eager-only form does), and the sharded
-    solves of :mod:`.parallel`;
+    its own, as the reference's eager-only form does), and a sharded solve
+    whose transfers are staged through the host;
   - the **graph route**, every other solve on a CUDA device.  It starts as
     the host-stepped loop, launching the same kernels.  After step 24
     (:data:`FIRST_CHECK`), and again when the step count has
@@ -92,7 +92,12 @@ In a sharded solve (:mod:`krylov_tpu_torch.parallel`) every value the host
 reads here, the residual norms, the explicit residual and
 ``early_success``, comes from inner products reduced over the ranks, so
 every rank takes the same branch and meets the others at the next
-collective.
+collective.  On the graph route the ranks also take every decision as one
+(:func:`_sharded`): the costs a rank measures differ from another's, so
+they agree on the largest, then on whether any rank's rehearsal read the
+host and whether every rank captured.  A captured step records its
+collectives with its kernels, and every rank replays its graph together
+with the others, its stop flag set from the same reduced values.
 """
 
 import contextlib
@@ -119,10 +124,11 @@ WHILE_LOOP = "while_loop"
 # reads of a stop flag (one a host step, one a run of replays), host steps
 # held behind a sleep to time their device work for the cost rule,
 # graph-route solves whose rehearsal step read the host (the rest ran
-# host-stepped), explicit-residual rechecks.
+# host-stepped), explicit-residual rechecks, and the meetings at which a
+# sharded solve's ranks agreed on a decision (:func:`_sharded`).
 COUNTS = dict.fromkeys(
     ("host_stepped", "graph_route", "captures", "host_steps", "graph_steps", "replays",
-     "flag_reads", "held_steps", "uncapturable", "rechecks"), 0)
+     "flag_reads", "held_steps", "uncapturable", "rechecks", "meetings"), 0)
 # The last graph-route solve: its decisions (the host step after which
 # each came, the :class:`Costs` it saw and its plan), the plan taken (steps
 # a graph ``U``, replays a flag read ``R``) or None, the steps launched from
@@ -133,7 +139,17 @@ COUNTS = dict.fromkeys(
 # instantiation, of the replays and of the whole loop.
 LAST_GRAPH = {}
 
-_ROUTES = threading.local()  # .forced: this thread's stack of (route, plan)
+_ROUTES = threading.local()  # .forced: this thread's stack of (route, plan); .ranks
+
+
+class Ranks(NamedTuple):
+    """The ranks of a sharded solve that take its graph route's decisions
+    as one: a mesh's rows group (:func:`_sharded`)."""
+
+    group: Any  # the torch.distributed process group
+    ranks: tuple  # its global ranks, in group order
+    index: int  # this rank's place in ``ranks``
+    device: torch.device  # where the group's collectives take their tensors
 
 
 @contextlib.contextmanager
@@ -170,6 +186,29 @@ def _capture_at(after=2, steps=2, replays=2):
     takes captures with this plan (see :func:`_plain_graph`) whatever its
     costs: the card's tests of the graph at sizes no capture repays."""
     return _forced("capture", (after, steps, replays, None))
+
+
+@contextlib.contextmanager
+def _sharded(ranks):
+    """Within: every ``while_loop`` solve of this thread is one rank's part
+    of a sharded solve over :class:`Ranks` ``ranks`` (:mod:`.parallel`),
+    whose steps run collectives.  On the graph route its ranks agree, at
+    one small collective and one host read each, on every decision's
+    :class:`Costs` (the largest of each), on whether any rank's rehearsal
+    read the host and on whether every rank captured, so that every rank
+    takes one plan, captures together and replays together.  A rank alone
+    meets no one."""
+    stack = _ROUTES.__dict__.setdefault("ranks", [])
+    stack.append(ranks)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _ranks():
+    stack = getattr(_ROUTES, "ranks", None)
+    return stack[-1] if stack else None
 
 
 def reset_counts():
@@ -658,10 +697,13 @@ def _failing_op(exc):
     return "?" if f is None else f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
 
 
+def _name(method):
+    return getattr(method.step, "__qualname__", repr(method.step)).split(".")[0]
+
+
 def _capture_failed(method, exc):
-    name = getattr(method.step, "__qualname__", repr(method.step)).split(".")[0]
     return RuntimeError(
-        f"{name}: the while_loop graph route failed to capture a step: "
+        f"{_name(method)}: the while_loop graph route failed to capture a step: "
         f"{_failing_op(exc)} ({type(exc).__name__}: {exc})")
 
 
@@ -695,6 +737,8 @@ class _GraphLoop:
         self.uncapturable = None  # the rehearsal's first host read
         self.left = maxiter  # the last decision's estimate of the steps left
         self.hold_k = None  # the step count once the held step has run
+        ranks = _ranks()  # a rank alone decides alone
+        self.ranks = ranks if ranks is not None and len(ranks.ranks) > 1 else None
         self.info = dict(decisions=[], plan=None, host_steps=0, held_steps=0, uncapturable=None,
                          host_steps_s=0.0, decide_s=0.0, capture_s=0.0, instantiate_s=0.0,
                          replays_s=0.0)
@@ -774,7 +818,8 @@ class _GraphLoop:
             cols = [ends[i: n * (k + 1): n] for i in range(n)]
             crit = ends[n * (k + 1):]
             self.left = _steps_left(cols, crit * (n // len(crit)), self.maxiter - k)
-        costs = self._costs(self.left)
+        costs = self._agreed(self._costs(self.left))
+        self.left = costs.steps_left
         plan = _plan(costs)
         self.walls, self.launches = self.walls[-2:], self.launches[-2:]
         self.info["decisions"].append((k, costs, plan))
@@ -795,6 +840,44 @@ class _GraphLoop:
             self.next_check = max(2 * k, k + costs.steps_left)
         return plan
 
+    # the ranks of a sharded solve (see _sharded)
+
+    def _meet(self, values):
+        """The largest of each of ``values`` over the solve's ranks: one
+        small collective and one host read (on a rank alone, the values)."""
+        if self.ranks is None:
+            return list(values)
+        import torch.distributed as dist
+
+        t = torch.tensor(values, dtype=torch.float64, device=self.ranks.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.ranks.group)
+        COUNTS["meetings"] += 1
+        return t.tolist()
+
+    def _agreed(self, c):
+        """The :class:`Costs` ``c`` with the steps left and each time the
+        largest over the solve's ranks, so that every rank plans alike."""
+        if self.ranks is None:
+            return c
+        left, *times = self._meet(c[:6])
+        return Costs(int(left), *times, c.even)
+
+    def _agree(self, failed, uncapturable=None):
+        """After a rehearsal or a capture: raise on every rank when any
+        rank's failed (``failed`` on that rank, an error naming it on the
+        others), so that no rank replays alone; note a host read of any
+        rank's rehearsal in ``self.uncapturable``."""
+        me = self.ranks.index + 1 if self.ranks is not None else 1
+        f, u = self._meet([me if failed is not None else 0, me if uncapturable else 0])
+        if failed is not None:
+            raise failed
+        if f:
+            raise RuntimeError(
+                f"{_name(self.method)}: rank {self.ranks.ranks[int(f) - 1]} of this sharded "
+                "solve failed to capture a step, so no rank replays its graph")
+        self.uncapturable = uncapturable or (
+            f"a host read on rank {self.ranks.ranks[int(u) - 1]}" if u else None)
+
     def _measures(self, k):
         """Whether host step ``k + 1`` is noted: a step of the two before a
         decision, a held step, the rehearsal, every step of a forced plan."""
@@ -812,35 +895,39 @@ class _GraphLoop:
         noted; the first one, if any, in ``self.uncapturable``.
 
         The screen runs the form the capture records (:class:`DeviceStep`
-        on a device counter at ``ctl.k``) once on a clone of ``state``, each
-        IF and WHILE body once (:data:`._graphs.ONCE`: what a conditional
-        body holds is screened whether or not this step would run it), its
-        launches not counted and its results dropped.  An exception there
-        raises as a failed capture would."""
+        on a device counter at ``ctl.k``) once on a clone of ``state``
+        taken before the step, each IF and WHILE body once
+        (:data:`._graphs.ONCE`: what a conditional body holds is screened
+        whether or not this step would run it), its launches not counted,
+        its collectives not launched (:func:`._graphs.dry`) and its results
+        dropped.  An exception there raises as a failed capture would, on
+        every rank of a sharded solve, which then agree (:meth:`_agree`)."""
         from . import _graphs
         from ._inner import host_checks_off
 
         dev = state.resnorm.device
+        probe = _own(state)
 
         def screen():
-            probe = _own(state)
             k = torch.full((), ctl.k, dtype=torch.int64, device=dev)
-            with _graphs.recording():
+            with _graphs.recording(), _graphs.dry():
                 self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
 
+        failed = None
         with host_checks_off(), _graphs.host_reads(dev.type) as seen:
+            if self.plain:
+                out = step(state, criterion, ctl)
+            else:
+                out = _graphs.on_body_stream(lambda: step(state, criterion, ctl), dev)
             try:
                 if self.plain:
                     screen()
                 else:
                     _graphs.on_body_stream(screen, dev)
             except Exception as exc:  # noqa: BLE001 - raised again, naming the step
-                raise _capture_failed(self.method, exc) from exc
-            if self.plain:
-                out = step(state, criterion, ctl)
-            else:
-                out = _graphs.on_body_stream(lambda: step(state, criterion, ctl), dev)
-        self.uncapturable = seen[0] if seen else None
+                failed = _capture_failed(self.method, exc)
+                failed.__cause__ = exc
+        self._agree(failed, seen[0] if seen else None)
         return out
 
     def _capture(self, state, k, buf, criterion):
@@ -865,7 +952,10 @@ class _GraphLoop:
                            self.maxiter, steps, per_step, self.sites, self.tallies)
         t0 = time.perf_counter()
         try:
-            self.graph = _graphs.capture(body, dev)
+            # a process group's watchdog thread queries the events of its
+            # collectives while this thread captures
+            self.graph = _graphs.capture(body, dev, "global" if self.ranks is None
+                                         else "thread_local")
         except Exception as exc:  # noqa: BLE001 - raised again, naming the step
             raise _capture_failed(self.method, exc) from exc
         self.per_step = per_step
@@ -904,7 +994,12 @@ class _GraphLoop:
             if self.rehearsed:
                 self.info["plan"] = self.plan
                 self._host_part()
-                state = self._capture(state, k, buf, criterion)
+                failed = None
+                try:
+                    state = self._capture(state, k, buf, criterion)
+                except Exception as exc:  # noqa: BLE001 - raised on every rank, below
+                    failed = exc
+                self._agree(failed)
                 break
             if not self._measures(k):  # the host-stepped loop's step
                 state, k, early, stop = _step_once(self.method, self.method.step, state, k,

@@ -19,7 +19,8 @@ device, and allocates from the device's kept pool (:func:`_bodies_pool`;
 calling thread only, the operations that a graph could not replay (a read
 of a device value on the host, a copy from the host).
 
-The kernel wrappers count their launches through :func:`count`.  While
+The kernel wrappers and the mesh's collectives count their launches
+through :func:`count`.  While
 :func:`recording` is on, a launch is not counted but appended to the
 recording's list: a captured launch has not run.  The driver credits each
 captured step's list once per step that a replay ran.
@@ -45,7 +46,7 @@ _POOLS_HELD = set()
 _POOLS_LOCK = threading.Lock()
 # the last capture's instantiation, host seconds
 LAST = {"instantiate_s": 0.0}
-_RECORD = threading.local()  # .launches: this thread's list while recording
+_RECORD = threading.local()  # .launches: this thread's list while recording; .dry
 
 
 def count(table, key):
@@ -68,6 +69,24 @@ def recording():
         yield launches
     finally:
         _RECORD.launches = prev
+
+
+@contextlib.contextmanager
+def dry():
+    """Within: this thread's collectives (:mod:`.parallel.mesh`) launch
+    nothing and give tensors of their results' shapes whose values are
+    unset: a screen of a step, whose results are dropped, meets no other
+    rank."""
+    prev = getattr(_RECORD, "dry", False)
+    _RECORD.dry = True
+    try:
+        yield
+    finally:
+        _RECORD.dry = prev
+
+
+def is_dry():
+    return getattr(_RECORD, "dry", False)
 
 
 def credit(launches, times):
@@ -339,12 +358,15 @@ class Captured:
             self._give_back = None
 
 
-def capture(body, device):
+def capture(body, device, mode="global"):
     """``body(guard)`` captured on ``device``; returns a :class:`Captured`.
 
     Any exception raised inside ``body`` (an operation the capture refuses,
     such as a read of a device value on the host) ends the capture and is
-    raised again; the graph is then never instantiated."""
+    raised again; the graph is then never instantiated.  ``mode`` is the
+    capture's error mode (``torch.cuda.CUDAGraph.capture_begin``):
+    ``"thread_local"`` lets other threads call what a capture forbids, as
+    a process group's watchdog queries the events of its collectives."""
     index = _index(device)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     # the graph's own pool takes its capture stream's allocations; the
@@ -360,7 +382,7 @@ def capture(body, device):
     collecting = gc.isenabled()
     gc.disable()
     with torch.cuda.device(index), torch.cuda.stream(side):
-        graph.capture_begin()
+        graph.capture_begin(capture_error_mode=mode)
         try:
             with torch.cuda.use_mem_pool(bodies, index):
                 body(_Guards(index))

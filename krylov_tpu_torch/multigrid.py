@@ -386,9 +386,7 @@ def _edges(mesh, axis):
 
 def _exchange(mesh, axis, to_next, to_prev):
     """``(from_prev, from_next)``; a rank alone on its axis receives zeros
-    and sends nothing."""
-    if mesh.shape[axis] == 1:
-        return torch.zeros_like(to_next), torch.zeros_like(to_prev)
+    and sends nothing (:meth:`~krylov_tpu_torch.parallel.mesh.Mesh.alone`)."""
     return mesh.start_exchange(to_next, to_prev, axis).wait()
 
 
@@ -560,8 +558,7 @@ class ShardedMultigridPreconditioner:
     def _vcycle(self, level, r):
         nd = self._nds[level]
         if level == len(self._slabs) - 1:
-            alone = self.mesh.shape[self.axis] == 1
-            rg = r if alone else self.mesh.all_gather_rows(r, self.axis)
+            rg = self.mesh.all_gather_rows(r, self.axis)
             zg = self._coarse._vcycle(0, rg)
             lead = self._leads[level]
             row0 = self.mesh.coord[self.axis] * lead
@@ -721,8 +718,7 @@ class ShardedGalerkinMultigrid:
     def _vcycle(self, level, r):
         if level == len(self._ops) - 1:
             if self._tail_ops:
-                alone = self.mesh.shape[self.axis] == 1
-                rg = r if alone else self.mesh.all_gather_rows(r, self.axis)
+                rg = self.mesh.all_gather_rows(r, self.axis)
                 zg = self._tail_vcycle(0, rg)
                 m_loc = r.shape[0]
                 row0 = self.mesh.coord[self.axis] * m_loc

@@ -277,8 +277,10 @@ def run_spmd(job, world_size, *args, backend="gloo", device="cpu", timeout=120.0
 
 def _counts():
     """What this rank launched since the counters were last reset: kernel
-    launches, collective launches and host-staged transfers, and the
-    modules of the packages the port must never import."""
+    launches, collective launches and host-staged transfers, the
+    ``while_loop`` routes its solves took, and the modules of the packages
+    the port must never import."""
+    from .. import _driver
     from ..ops import cuda_bsr, cuda_spmv, cuda_stencil
     from . import mesh
 
@@ -287,17 +289,20 @@ def _counts():
         "launches": {k: v for k, v in launches.items() if v},
         "collectives": dict(mesh.COUNTS),
         "staged": dict(mesh.STAGED),
+        "routes": {k: _driver.COUNTS[k] for k in ("host_stepped", "graph_route", "captures")},
         "forbidden": sorted(m for m in sys.modules if m.split(".")[0] in _FORBIDDEN),
     }
 
 
 def _reset():
+    from .. import _driver
     from ..ops import cuda_bsr, cuda_spmv, cuda_stencil
     from . import mesh
 
     for mod in (cuda_stencil, cuda_spmv, cuda_bsr):
         mod.reset_launches()
     mesh.reset_counts()
+    _driver.reset_counts()
 
 
 def _host(t):
@@ -475,3 +480,99 @@ def main_job(module, argv):
 
     out = importlib.import_module(module).main(list(argv))
     return {k: (bool(v.success), int(v.numsteps)) for k, v in out.items() if isinstance(v, Info)}
+
+
+def _rule_costs(host_s):
+    """Synthetic costs for the graph route's rule on this rank: a host
+    step of ``host_s[rank]`` seconds, launches of 1 us, no device time."""
+    import torch.distributed as dist
+
+    from .._driver import Costs
+
+    mine = float(host_s[dist.get_rank() % len(host_s)])
+    return lambda left: Costs(left, mine, 1e-6, 0.0, 0.0, 0.0)
+
+
+def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
+              read_rank=None, fail_rank=None, **kwargs):
+    """The solve of :func:`solve_job` (with ``build``,
+    :func:`~krylov_tpu_torch.parallel.make_sharded_solver` built once and
+    run on each right-hand side of the list ``b``) on this rank, first on
+    the host-stepped loop, then on ``route``, the graph route's plain twin
+    (:func:`krylov_tpu_torch._driver._plain_graph`):
+
+    * ``("plain", after, steps, replays)``: that plan, forced;
+    * ``("rule", host_s)``: the cost rule's plan, decided from step 3 on
+      costs fed per rank (:func:`_rule_costs`);
+    * ``("capture", after, steps, replays)``: that plan forced on the
+      card (:func:`krylov_tpu_torch._driver._capture_at`), a CUDA graph.
+
+    ``read_rank``: on that rank of the rows axis each ``all_reduce`` reads
+    its operand on the host.  ``fail_rank``: that rank's capture raises.
+    Returns ``x`` and ``info`` as (host-stepped, route) pairs, each route's
+    collectives and kernel launches, the route's driver counts and plan,
+    and the error the route raised (then ``x`` and ``info`` hold the
+    host-stepped results only)."""
+    import contextlib
+    from unittest import mock
+
+    from .. import _driver
+    from .mesh import ROWS, Mesh, make_mesh
+    from .solve import make_sharded_solver, sharded_solve
+
+    mesh = make_mesh(mesh_rows, mesh_rhs)
+    patches = contextlib.ExitStack()
+    if read_rank == mesh.coord[ROWS]:
+        reduce = Mesh.all_reduce
+
+        def reading(self, t, *args, **kw):
+            float(t.real.sum())  # a read of a device value on the host
+            return reduce(self, t, *args, **kw)
+
+        patches.enter_context(mock.patch.object(Mesh, "all_reduce", reading))
+    if build:
+        solve = make_sharded_solver(solver, A, mesh=mesh, **kwargs)
+
+        def run():
+            infos = [solve(bj)[1] for bj in b]
+            return [_host(i.xk) for i in infos], [_info(i) for i in infos]
+    else:
+        def run():
+            _, info = sharded_solve(solver, A, b, mesh=mesh, **kwargs)
+            return _host(info.xk), _info(info)
+
+    out = {"x": [], "info": [], "collectives": [], "launches": [], "error": None}
+
+    def record(x, info):
+        out["x"].append(x)
+        out["info"].append(info)
+        counts = _counts()
+        out["collectives"].append(counts["collectives"])
+        out["launches"].append(counts["launches"])
+
+    with patches:
+        _reset()
+        with _driver._host_stepped():
+            record(*run())
+        if route[0] == "plain":
+            ctx = _driver._plain_graph(*route[1:])
+        elif route[0] == "capture":
+            ctx = _driver._capture_at(*route[1:])
+        else:
+            ctx = _driver._plain_graph(costs=_rule_costs(route[1]))
+            patches.enter_context(mock.patch.object(_driver, "FIRST_CHECK", 3))
+        if fail_rank == mesh.coord[ROWS]:
+            def failing(self, *args):
+                raise RuntimeError(f"rank {fail_rank}'s capture fails on purpose")
+
+            patches.enter_context(mock.patch.object(_driver._GraphLoop, "_capture", failing))
+        _reset()
+        try:
+            with ctx:
+                record(*run())
+        except RuntimeError as exc:
+            out["error"] = str(exc)
+    out["driver"] = dict(_driver.COUNTS)
+    out["plan"] = _driver.LAST_GRAPH.get("plan")
+    out["forbidden"] = _counts()["forbidden"]
+    return out

@@ -23,8 +23,8 @@ coarsens the matrix instead of a grid stencil.
   CSR product): no float scatter-add, so an application repeats bit for
   bit.  The partial restriction is summed by ``all_reduce`` when the next
   level is the replicated tail, by ``reduce_scatter_rows`` when it is
-  sharded (with ``all_gather_rows`` on the way back up); a rank alone on its
-  axis skips the collective.
+  sharded (with ``all_gather_rows`` on the way back up); on a rank alone on
+  its axis the mesh launches none of them.
 * **Replicated tail**: after ``n_sharded_levels`` coarsenings every rank
   runs the same single-device ``AMGPreconditioner`` V-cycle (K10/K11) on
   the ~4^levels smaller problem.
@@ -121,8 +121,9 @@ class ShardedAMG:
     def n_sharded_levels(self):
         return len(self._ops)
 
-    def _alone(self):
-        return self.mesh is None or self.mesh.shape[self.axis] == 1
+    def _twin(self):
+        """The single-device twin (no mesh): nothing to reduce."""
+        return self.mesh is None
 
     # -- smoothing: AMGPreconditioner's, on the sharded level operators ----
     _dinv_mul = AMGPreconditioner._dinv_mul
@@ -139,9 +140,9 @@ class ShardedAMG:
         d = r - self._ops[level] @ z
         partial = self._transfers[level].restrict(d)  # P_s^H d over the whole next level
         if last:
-            rc = partial if self._alone() else self.mesh.all_reduce(partial, self.axis)
+            rc = partial if self._twin() else self.mesh.all_reduce(partial, self.axis)
             e = self._tail @ rc
-        elif self._alone():
+        elif self._twin():
             e = self._vcycle(level + 1, partial)
         else:
             e_loc = self._vcycle(level + 1, self.mesh.reduce_scatter_rows(partial, self.axis))

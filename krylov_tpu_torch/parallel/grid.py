@@ -132,7 +132,7 @@ class ShardedGridStencilOperator:
         """
         if x2.ndim not in (2, 3) or tuple(x2.shape[:2]) != self.grid:
             raise ValueError(f"x {tuple(x2.shape)} is not on the local grid {self.grid}")
-        if self.mesh.shape[self.axis] == 1:
+        if self.mesh.alone(self.axis):
             return self._local @ x2  # alone on the axis: nothing to exchange
         xb = _batched(x2.contiguous())
         pending = self.start_exchange(xb)
@@ -225,7 +225,7 @@ class ShardedConstStencilOperator:
     def __matmul__(self, x2):
         if x2.ndim not in (2, 3) or tuple(x2.shape[:2]) != self.grid:
             raise ValueError(f"x {tuple(x2.shape)} is not on the local grid {self.grid}")
-        if self.mesh.shape[self.axis] == 1:
+        if self.mesh.alone(self.axis):
             return self._op @ x2  # alone on the axis: no halos, no padded rows
         h = self.halo_rows
         if h > self.m_local:

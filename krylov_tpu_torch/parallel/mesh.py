@@ -20,6 +20,17 @@ stages every transfer through the host explicitly, in :func:`_staged`,
 counted in :data:`STAGED`; nothing else chooses the host.  Every group is
 created with a timeout, so a rank that diverges from the others raises in
 its next collective instead of hanging.
+
+A rank alone on an axis launches nothing along it: a sum over one rank is
+its operand, a gather of one slab is that slab, and the halo exchange has
+no neighbour to meet (the reference's ``psum`` over an axis of size 1
+compiles to nothing).  :meth:`Mesh.alone` is the one place that decides.
+Within :func:`krylov_tpu_torch._graphs.dry` (the graph route's screen of
+a step) no rank launches any: the results have their shapes, not values.
+:data:`COUNTS` counts the collectives launched, through
+:func:`krylov_tpu_torch._graphs.count`: a collective captured into a CUDA
+graph is credited once for each replayed step that ran it, as a kernel
+launch is.
 """
 
 import datetime
@@ -29,14 +40,15 @@ import tempfile
 import torch
 import torch.distributed as dist
 
-from .. import _device
+from .. import _device, _graphs
 
 ROWS = "rows"
 RHS = "rhs"
 
 DEFAULT_TIMEOUT = 60.0  # seconds a collective waits for the other ranks
 
-# collective launches by kind; host-staged transfers (gloo with CUDA tensors)
+# collective launches by kind (none along an axis of one rank); host-staged
+# transfers (gloo with CUDA tensors)
 COUNTS = {"all_reduce": 0, "exchange": 0, "all_gather": 0, "reduce_scatter": 0}
 STAGED = {"all_reduce": 0, "exchange": 0, "all_gather": 0, "reduce_scatter": 0}
 
@@ -126,8 +138,25 @@ class Mesh:
         self._groups = {ROWS: groups[ROWS][self.coord[RHS]][1],
                         RHS: groups[RHS][self.coord[ROWS]][1]}
 
+    @classmethod
+    def of_one(cls, device):
+        """This process alone on both axes, with no process group: a mesh
+        whose every collective gives its operand (a sharded operator's
+        single-device twin)."""
+        mesh = cls.__new__(cls)
+        mesh.shape, mesh.coord = {ROWS: 1, RHS: 1}, {ROWS: 0, RHS: 0}
+        mesh.device, mesh.timeout = torch.device(device), DEFAULT_TIMEOUT
+        mesh.backend, mesh.staged = None, False
+        mesh._ranks, mesh._groups = {ROWS: (0,), RHS: (0,)}, {ROWS: None, RHS: None}
+        return mesh
+
     def group(self, axis=ROWS):
         return self._groups[axis]
+
+    def alone(self, axis=ROWS):
+        """Whether this rank is the only one on ``axis``: then nothing is
+        launched along it."""
+        return self.shape[axis] == 1
 
     def neighbours(self, axis=ROWS):
         """Whether this rank has a previous and a next rank along ``axis``."""
@@ -137,8 +166,11 @@ class Mesh:
     # -- transport ---------------------------------------------------------
 
     def all_reduce(self, t, axis=ROWS, op=dist.ReduceOp.SUM):
-        """The sum (or ``op``) of ``t`` over ``axis``, as a new tensor."""
-        COUNTS["all_reduce"] += 1
+        """The sum (or ``op``) of ``t`` over ``axis``: a new tensor, or
+        ``t`` itself on a rank alone on ``axis``."""
+        if self.alone(axis) or _graphs.is_dry():
+            return t
+        _graphs.count(COUNTS, "all_reduce")
 
         def run(buf):
             dist.all_reduce(_real(buf), op=op, group=self._groups[axis])
@@ -148,9 +180,14 @@ class Mesh:
 
     def all_gather_rows(self, x, axis=ROWS):
         """The slabs of ``axis`` stacked along axis 0, in mesh order
-        (``lax.all_gather(..., tiled=True)``)."""
-        COUNTS["all_gather"] += 1
+        (``lax.all_gather(..., tiled=True)``); ``x`` itself on a rank
+        alone on ``axis``."""
+        if self.alone(axis):
+            return x
         n = self.shape[axis]
+        if _graphs.is_dry():
+            return x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        _graphs.count(COUNTS, "all_gather")
 
         def run(buf):
             out = torch.empty((n * buf.shape[0],) + tuple(buf.shape[1:]), dtype=buf.dtype,
@@ -162,9 +199,14 @@ class Mesh:
 
     def reduce_scatter_rows(self, t, axis=ROWS):
         """Block ``coord[axis]`` along axis 0 of the sum of ``t`` over
-        ``axis`` (``lax.psum_scatter(..., tiled=True)``)."""
-        COUNTS["reduce_scatter"] += 1
+        ``axis`` (``lax.psum_scatter(..., tiled=True)``); ``t`` itself on a
+        rank alone on ``axis``."""
+        if self.alone(axis):
+            return t
         n = self.shape[axis]
+        if _graphs.is_dry():
+            return t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+        _graphs.count(COUNTS, "reduce_scatter")
 
         def run(buf):
             out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]), dtype=buf.dtype,
@@ -180,8 +222,10 @@ class Mesh:
         once.  ``wait()`` on the result gives ``(from_prev, from_next)``:
         the previous rank's ``to_next`` and the next rank's ``to_prev``,
         zeros at the edges of the mesh (the reference's ``ppermute`` with
-        no wrap, which fills the ranks that receive nothing with zeros)."""
-        COUNTS["exchange"] += 1
+        no wrap, which fills the ranks that receive nothing with zeros).
+        A rank alone on ``axis`` sends and receives nothing."""
+        if not (self.alone(axis) or _graphs.is_dry()):
+            _graphs.count(COUNTS, "exchange")
         return _Exchange(self, to_next, to_prev, axis)
 
     def shift(self, x, direction, axis=ROWS):
@@ -226,7 +270,9 @@ class _Exchange:
         self._like = (to_next, to_prev)
         self._recv = [None, None]  # from_prev, from_next
         ops = []
-        if mesh.staged:
+        if mesh.alone(axis) or _graphs.is_dry():
+            to_next = to_prev = None  # nothing sent, zeros received
+        elif mesh.staged:
             STAGED["exchange"] += 1
         for slot, (src, peer_out, peer_in) in enumerate(
             ((to_next, next_rank, prev_rank), (to_prev, prev_rank, next_rank))

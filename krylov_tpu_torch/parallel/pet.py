@@ -92,9 +92,7 @@ class ShardedPETOperator:
         return (self.n_local, self.n_local)  # the local SPMD view
 
     def _cols(self, csr, x):
-        x = x.to(torch.float32)
-        if self.mesh.shape[self.axis] > 1:  # a rank alone on its axis holds all of x
-            x = self.mesh.all_gather_rows(x, self.axis)
+        x = self.mesh.all_gather_rows(x.to(torch.float32), self.axis)
         return csr.apply(x.contiguous())
 
     def __matmul__(self, x):

@@ -12,6 +12,17 @@ iterate and :class:`~krylov_tpu_torch.Info` as every other rank.  Every
 value the driver reads on the host comes from reduced inner products, so
 the ranks stop together.
 
+The route.  The reference's sharded solve is one compiled program with no
+host round trip a step; a rank's ``while_loop`` here takes the driver's
+graph route as a single-device solve does, its ranks deciding as one
+(:func:`krylov_tpu_torch._driver._sharded`, over the rows group: the rhs
+shards solve on their own).  A rank alone on the rows axis launches no
+collective, so it captures as one device does.  Two explicit rules keep
+the host-stepped loop (counted in ``_driver.COUNTS["host_stepped"]``): a
+staged mesh (gloo carrying CUDA tensors: every transfer goes through the
+host), and a rows axis of several NCCL ranks unless :func:`nccl_graphs`.
+A ``callback`` (a :class:`ShardMonitor`) keeps it too, as on one device.
+
 The ``M_partition`` protocol.  A partition (:func:`~krylov_tpu_torch.parallel.
 partition_amg`, :func:`~krylov_tpu_torch.parallel.partition_ilu0`,
 :func:`~krylov_tpu_torch.parallel.partition_block_jacobi`) is built on the
@@ -27,11 +38,12 @@ runs once a solve, and once for all solves of :func:`make_sharded_solver`.
 """
 
 import inspect
+import os
 
 import numpy as np
 import torch
 
-from .._driver import ShardMonitor, _host_stepped
+from .._driver import Ranks, ShardMonitor, _host_stepped, _sharded
 from .._info import Info
 from .._operators import DiagonalOperator
 from ..ops.bsr import BSROperator
@@ -268,6 +280,42 @@ def _gather_cols(mesh, t):
     return mesh.all_gather_rows(t.movedim(1, 0).contiguous(), RHS).movedim(0, 1)
 
 
+# Several NCCL ranks on the graph route: off.  On four H100s with
+# NCCL_GRAPH_MIXING_SUPPORT=0 every case of tools/torch_multigpu_check.py
+# captured its collectives and replayed bit-equal, and sharded cg ran 3.9 to
+# 5.0 times faster a step, but cg_pipelined and cg_block crashed (SIGSEGV)
+# on 2 and 4 ranks; see PERF.md.  The checking tools turn it on.
+NCCL_GRAPHS = False
+
+
+def nccl_graphs():
+    """Whether the ranks of a rows axis of several NCCL ranks take the graph
+    route, their collectives captured into the graph's conditional bodies
+    with the kernels: with :data:`NCCL_GRAPHS`, and only where NCCL records
+    captured work without the event nodes of its support for mixing graph
+    and eager launches, which a conditional body refuses
+    (``NCCL_GRAPH_MIXING_SUPPORT=0`` in the environment;
+    ``tools/torch_collective_graph_probe.py``).  NCCL then asks that no
+    eager collective follow a graph launch still running: the driver reads
+    the stop flag, which waits for the replays, before its next one.  Gloo
+    ranks on the CPU take the route's plain twin (the tests); a rank alone
+    launches no collective and captures as one device does."""
+    return NCCL_GRAPHS and os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") == "0"
+
+
+def _graph_ranks(mesh):
+    """The context of a rank's solve: its ``while_loop`` takes the graph
+    route's decisions as one with the other ranks of its rows group (the
+    rhs shards solve on their own and may stop at different steps).  A
+    staged mesh runs the host-stepped loop, and so does a rows group of
+    several NCCL ranks unless :func:`nccl_graphs`."""
+    if mesh.staged or (mesh.device.type == "cuda" and not mesh.alone(ROWS)
+                       and not nccl_graphs()):
+        return _host_stepped()
+    return _sharded(Ranks(mesh.group(ROWS), tuple(mesh._ranks[ROWS]), mesh.coord[ROWS],
+                          mesh.device))
+
+
 def _general_operator(A, mesh, N):
     """This rank's slab of ``A`` on its device, for flat vectors of ``N``
     rows: ``(A_op, pad_rows, rows)``, the rows the vectors are padded by
@@ -387,9 +435,7 @@ def _make_general_run(
             return v[rows][:, cols].contiguous().to(dev) if v.ndim > 1 else v[rows].to(dev)
 
         b_l = slab(b)
-        # host-stepped: a rank's step runs collectives, and NCCL or gloo
-        # inside a captured graph is later work
-        with _host_stepped():
+        with _graph_ranks(mesh):
             _, info = solver(A_op, b_l, inner=psum_inner(b_l.shape, mesh), x0=slab(x0),
                              tol=tol, atol=atol, maxiter=maxiter, backend="while_loop", **kw)
         xk = mesh.all_gather_rows(info.xk, ROWS)
@@ -557,7 +603,7 @@ def _make_grid_run(solver, A, *, mesh, tol, atol, maxiter, M_diag, M_factory, ca
 
         b_l = slab(b)
         x0_l = torch.zeros_like(b_l) if x0 is None else slab(_tensor(x0))
-        with _host_stepped():  # as in _make_general_run
+        with _graph_ranks(mesh):
             _, info = solver(A_op, b_l, inner=inner, x0=x0_l, tol=tol, atol=atol,
                              maxiter=maxiter, backend="while_loop", **kw)
         xk = mesh.all_gather_rows(info.xk, ROWS)[:Mg]

@@ -1010,6 +1010,69 @@ def test_sharded_solve_two_gloo_ranks_on_one_card(dev):
             _held(res["info"][1], res["info"][2], _single(A_dev, b, dev))
 
 
+def test_sharded_capture_on_one_nccl_rank(dev):
+    """A world of one NCCL rank, ``cg`` at 256^2 with a capture forced:
+    the mesh launches no collective, the rank captures as one device
+    does, bit-equal to its host-stepped run with the same launches."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.parallel import mesh as pm
+
+    A = st.poisson_2d(256, dtype=np.float32, device="cpu")
+    b = torch.ones(A.grid, dtype=torch.float32)
+    mesh = parallel.make_mesh(device=dev)
+    got = {}
+    try:
+        assert "nccl" in dist.get_backend() and mesh.alone()
+        for route, ctx in (("host", _driver._host_stepped), ("capture", lambda: (
+                _driver._capture_at(after=3, steps=4, replays=4)))):
+            cs.reset_launches()
+            pm.reset_counts()
+            _driver.reset_counts()
+            with ctx():
+                _, info = parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=0.0, atol=0.0,
+                                                 maxiter=STEPS)
+            torch.cuda.synchronize()
+            assert not any(pm.COUNTS.values()), pm.COUNTS
+            got[route] = (info, dict(cs.LAUNCHES), dict(_driver.COUNTS))
+    finally:
+        dist.destroy_process_group()
+    (h, n_h, c_h), (g, n_g, c_g) = got["host"], got["capture"]
+    assert c_h["host_stepped"] == 1 and c_g["captures"] == 1 and c_g["graph_steps"] > 0, c_g
+    assert c_g["meetings"] == 0 and n_g == n_h and n_h["stencil2d_matvec"] >= STEPS
+    assert g.numsteps == h.numsteps == STEPS and torch.equal(g.xk, h.xk)
+    np.testing.assert_array_equal(g.resnorms, h.resnorms)
+
+
+def test_sharded_capture_on_four_nccl_ranks(dev):
+    """Four NCCL ranks, one a GPU, ``cg`` on the grid with a capture
+    forced: with ``parallel.solve.nccl_graphs()`` the ranks capture their
+    collectives with the kernels, else every rank runs the host-stepped
+    loop; either way each is bit-equal to its host-stepped run with the
+    same collectives."""
+    from krylov_tpu_torch.parallel import _spawn, solve
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four GPUs")
+    A = st.poisson_2d(256, dtype=np.float32, device="cpu")
+    b = np.ones(A.grid, np.float32)
+    with _spawn.SPMDPool(4, backend="nccl", device="cuda", timeout=300.0) as pool:
+        res = pool.run(_spawn.graph_job, kt.cg, A, b, route=("capture", 3, 4, 4), tol=0.0,
+                       atol=0.0, maxiter=STEPS)
+    assert res["error"] is None, res["error"]
+    (x_h, x_g), (i_h, i_g) = res["x"], res["info"]
+    np.testing.assert_array_equal(x_g, x_h)
+    np.testing.assert_array_equal(i_g[2], i_h[2])
+    for p in res["per_rank"]:
+        assert p["collectives"][0] == p["collectives"][1] and p["collectives"][1]["exchange"]
+        assert p["launches"][0] == p["launches"][1]
+        if solve.nccl_graphs():
+            assert p["driver"]["captures"] == 1 and p["driver"]["graph_steps"] > 0, p["driver"]
+        else:
+            assert p["driver"]["host_stepped"] == 1 and p["driver"]["captures"] == 0, p["driver"]
+
+
 def _distributed_preconditioner_cases():
     """``(label, A, b, sharded_solve keywords, kernels)`` on one rank: the
     distributed AMG with the PET fine level (K10 on the slab, both

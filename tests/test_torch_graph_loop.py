@@ -702,21 +702,41 @@ def test_the_route_is_decided_before_any_step():
 
 
 def test_a_one_rank_sharded_solve_takes_the_host_stepped_loop():
-    """``sharded_solve`` on a world of one gloo rank runs the rank's solve
-    on the host-stepped loop even where the graph route would be taken."""
+    """``sharded_solve`` on a world of one gloo rank takes the graph route
+    (its plain twin here) where a single-device solve would, launching no
+    collective; it takes the host-stepped loop with a ``ShardMonitor``
+    callback, and on a staged mesh (gloo carrying CUDA tensors), whose
+    every transfer goes through the host."""
     import torch.distributed as dist
 
     from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.parallel import mesh as pm
+    from krylov_tpu_torch.parallel.solve import _graph_ranks as graph_ranks
 
     A = ts.poisson_2d(16, dtype=np.float64, device="cpu")
     b = torch.ones(A.grid, dtype=torch.float64)
     mesh = parallel.make_mesh(device="cpu")
     try:
         with _driver._plain_graph():
+            pm.reset_counts()
             c = _counts_of(lambda: parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=1e-8))
+            assert not any(pm.COUNTS.values()), pm.COUNTS
+            monitored = _counts_of(lambda: parallel.sharded_solve(
+                kt.cg, A, b, mesh=mesh, tol=1e-8, callback=lambda k, rn: None))
     finally:
         dist.destroy_process_group()
-    assert c["host_stepped"] == 1 and c["graph_route"] == 0, c
+    assert c["graph_route"] == c["captures"] == 1 and c["host_stepped"] == 0, c
+    assert c["meetings"] == 0, c  # a rank alone meets no one
+    assert monitored["host_stepped"] == 1 and monitored["graph_route"] == 0, monitored
+    method = _driver.Method(step=None, xk=None, capturable=True)
+    s0 = _S(torch.zeros(()), torch.ones(()), torch.tensor(False))
+    staged = pm.Mesh.of_one("cpu")
+    staged.staged = True
+    with _driver._plain_graph():
+        with graph_ranks(pm.Mesh.of_one("cpu")):
+            assert _driver._route(s0, method, None)[0] == "plain"
+        with graph_ranks(staged):
+            assert _driver._route(s0, method, None) == ("host", None)
 
 
 # --- the pieces under a capture ---------------------------------------------------------
