@@ -37,7 +37,9 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    and adjoint, an RCM-reordered scrambled Poisson, and small matrices with
    empty rows, a row longer than a run, one row, rectangles and ragged
    sizes, on and off 16-byte boundaries, each repeated bit for bit), K11
-   CSR SpMM (k = 1, 3, 8, 16, 17) and K12 BSR SpMM on both of its kernels
+   CSR SpMM (k = 1 to 64, one column to two slabs, f32 and bf16 values, on
+   the same small matrices, the Poisson and the irregular CSR, on and off
+   16-byte boundaries, each repeated bit for bit) and K12 BSR SpMM on both of its kernels
    (square blocks of 32, 64, 128, rectangles, a block row that is no whole
    number of 16-byte pieces, k = 1, 3, 8, 16, 17, 1, 3 and 7 blocks a block
    row, four dtypes, each repeated bit for bit, with a count of which kernel
@@ -142,8 +144,9 @@ Phases, in order; any failure raises, so the exit code is nonzero:
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
-   matrix, its adjoint and the Poisson CSR, K2 at 5, 9 and 25 bands and K12
-   at two shapes, by device time inside a CUDA graph as well); per-iteration
+   matrix, its adjoint and the Poisson CSR, K11 at k = 8 and 16 on both,
+   with ``bench.py``'s amortizations, K2 at 5, 9 and 25 bands and K12 at two
+   shapes, by device time inside a CUDA graph as well); per-iteration
    slopes
    of the stencil solvers; time to solution of cg100, of MG-CG and of the
    sparse solves with the device's idle share (``torch.profiler``); each
@@ -1127,22 +1130,56 @@ def k10_edge_cases():
             ("ragged 12001 rows", band(n, 5, 50))]
 
 
+K11_KS = (1, 2, 3, 4, 5, 8, 16, 17, 31, 32, 33, 64)  # one column to two slabs
+
+
 def phase_sparse_kernels(dev, sv, bs):
     """6a: K10, K11 and K12 against their plain versions on the card.
 
-    K10's tolerance is 1e-5 of the largest entry of the product everywhere:
-    both sides multiply in float32 and sum each row in float32, in different
-    orders (the kernel by lanes and a shuffle tree, the plain version by a
-    segment sum), over at most 49 terms on the bench matrices and 12001 on
-    the long row; bf16 values widen to float32 exactly, so they get the same
-    bound.  Every K10 product is also repeated and must come out bit for
-    bit."""
+    K10's and K11's tolerance is 1e-5 of the largest entry of the product
+    everywhere: both sides multiply in float32 (K11 by fused multiply-adds)
+    and sum each row in float32, in different orders (the kernels by lanes
+    and a shuffle tree, the plain version by a segment sum), over at most 49
+    terms on the bench matrices and 12001 on the long row; bf16 values widen
+    to float32 exactly, so they get the same bound.  Every K10 and K11
+    product is also repeated and must come out bit for bit."""
     log("phase 6a: K10, K11, K12 against their plain versions")
     errs = {"csr_matvec": 0.0, "csr_matmat": 0.0, "bsr_spmm": 0.0}
     rng = np.random.default_rng(SEED + 42)
 
     def vec(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def k11(label, arrays, m):
+        """K11 at every k of K11_KS with f32 and bf16 values, on ``arrays``
+        (a matrix of ``m`` columns) with the runs prepared, and on offset
+        views of the columns, the values and X (the 4-byte paths) with the
+        runs made on the spot."""
+        runs = torch.from_numpy(sv.csr_runs(arrays[0].cpu().numpy())).to(dev)
+        for vdt in (torch.float32, torch.bfloat16):
+            a = arrays[:2] + (arrays[2].to(vdt),)
+            off = (a[0], offset_copy(a[1]), offset_copy(a[2]))
+            worst = 0.0
+            for k in K11_KS:
+                X = vec((m, k))
+                want = sv.csr_matvec_plain(*a, X)
+                bound = 1e-5 * float(want.abs().max())
+                for tag, b, xx, r in (("", a, X, runs), (", offset views", off, offset_copy(X),
+                                                         None)):
+                    got = sv.csr_matmat(*b, xx, r)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, sv.csr_matmat(*b, xx, r)), \
+                        f"K11 {label}, {vdt}, k={k}{tag} does not repeat bit for bit"
+                    err = max_err(got, want)
+                    if not err <= bound:
+                        raise AssertionError(f"K11 {label}, {vdt}, k={k}{tag}: max_abs_err "
+                                             f"{err:.3e} above {bound:.3e}")
+                    worst = max(worst, err / bound if bound else 0.0)
+                    errs["csr_matmat"] = max(errs["csr_matmat"], err)
+                del X, want
+            log(f"  K11 {label}, {vdt}, k = {', '.join(map(str, K11_KS))}, aligned and offset "
+                f"views: worst error {worst:.2f} of the bound (1e-5 of the largest entry), "
+                f"repeats bit for bit")
 
     def k10(label, arrays, x, got_fn):
         got = got_fn()
@@ -1164,6 +1201,7 @@ def phase_sparse_kernels(dev, sv, bs):
             b = (a[0], offset_copy(a[1]), offset_copy(a[2]))
             k10(f"{label}, {vdt}, offset views, runs made on the spot", b, x,
                 lambda: sv.csr_matvec(*b, x))
+        k11(label, arrays, sp.shape[1])
     lap = poisson_csr(NPG)
     op = sv.PETOperator.from_scipy(lap, with_rmatvec=True, device=dev)
     x = vec(lap.shape[1])
@@ -1176,11 +1214,11 @@ def phase_sparse_kernels(dev, sv, bs):
         lambda: op.rmatvec(x))
     del op
 
+    k11(f"poisson {NPG}^2", csr_tensors(lap, dev), lap.shape[1])
     sp = irregular_csr()
     log(f"  irregular matrix: {sp.shape[0]} rows, {sp.nnz} entries, "
         f"{sp.nnz / sp.shape[0]:.1f} a row, {len(sv.csr_runs(sp.indptr)) - 1} runs of at most "
-        f"{sv.RUN_CAPACITY - 3} entries (K10), {sv.lanes_for(sp.nnz, sp.shape[0])} lanes a "
-        f"row (K11)")
+        f"{sv.RUN_CAPACITY - 3} entries (K10 and K11)")
     ip, ix, data = csr_tensors(sp, dev)
     x = vec(sp.shape[1])
     for vdt in (torch.float32, torch.bfloat16):
@@ -1190,12 +1228,7 @@ def phase_sparse_kernels(dev, sv, bs):
         err = rel_close(f"K10 irregular values {vdt}", got, sv.csr_matvec_plain(ip, ix, d, x),
                         1e-5)
         errs["csr_matvec"] = max(errs["csr_matvec"], err)
-    for k in (1, 3, 8, 16, 17):
-        X = vec((sp.shape[1], k))
-        got = sv.csr_matmat(ip, ix, data, X)
-        torch.cuda.synchronize()
-        errs["csr_matmat"] = max(errs["csr_matmat"], rel_close(
-            f"K11 irregular k={k}", got, sv.csr_matvec_plain(ip, ix, data, X), 1e-5))
+    k11("irregular", (ip, ix, data), sp.shape[1])
     op = sv.PETOperator.from_scipy(sp, with_rmatvec=True, device=dev)
     spt = sp.T.tocsr()
     tp, tx, tdata = csr_tensors(spt, dev)
@@ -1443,6 +1476,7 @@ def sparse_timing(dev, kt, sv, bs, card):
     # Python loop of launches (as earlier figures were taken; on the Poisson
     # matrix it measures the host).
     fwd, adj, pois = csr_tensors(sp, dev), csr_tensors(sp.T.tocsr(), dev), csr_tensors(lap, dev)
+    k10_graph = {}
     for label, arrays, xv in (
         (f"irregular {n} rows {nnz} nnz, f32", fwd, x),
         ("irregular adjoint (CSR of A^T), f32", adj, x),
@@ -1468,27 +1502,48 @@ def sparse_timing(dev, kt, sv, bs, card):
                 f"max |library - K10| {lib_err:.2e}")
         if arrays is fwd:
             times["csr_matvec"] = record
-    del fwd, adj
-    pip, pix, pdata = pois
-    for k in (8, 16):
-        X = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
-        ms = time_ms(lambda: sv.csr_matmat(pip, pix, pdata, X), 50)
-        plain = time_ms(lambda: sv.csr_matvec_plain(pip, pix, pdata, X), 10)
-        tiles = -(-k // 8)
-        by = tiles * (lap.nnz * 8 + 4 * m) + 2 * 4 * m * k
-        log(f"  [{card}] K11 csr_matmat poisson {NPG}^2 k={k}: {ms * 1e3:.1f} us "
-            f"({by / (ms * 1e-3) / 1e9:.0f} GB/s by tiles*(8*nnz + 4*n) + 8*n*k); plain "
-            f"{plain * 1e3:.1f} us")
-        if k == 8:
-            lib_op = torch.sparse_csr_tensor(pip, pix, pdata, size=lap.shape)
-            lib_err = max_err(lib_op @ X, sv.csr_matmat(pip, pix, pdata, X))
-            lib = time_ms(lambda: lib_op @ X, 20)
-            log(f"  [{card}] library torch.sparse_csr_tensor @ X, poisson {NPG}^2 k=8: "
-                f"{lib * 1e3:.1f} us; max |library - K11| {lib_err:.2e}")
-            # bound: the matrix streamed once, X read once, Y written once
-            times["csr_matmat"] = timed(ms, plain, lap.nnz * 8 + 4 * m + 2 * 4 * m * k,
-                                        2 * lap.nnz * k, lib)
-            del lib_op
+            k10_graph["irregular"] = ms
+        if arrays is pois:
+            k10_graph["poisson"] = ms
+    del adj
+
+    # K11 as PETOperator runs it at k = 8 and 16 on both matrices, by device
+    # time in a CUDA graph, beside its plain version, the library call and
+    # k launches of K10 on the same matrix (bench.py's amortization)
+    for key, arrays in (("irregular", fwd), ("poisson", pois)):
+        rows, entries = arrays[0].numel() - 1, arrays[1].numel()
+        runs = torch.from_numpy(sv.csr_runs(arrays[0].cpu().numpy())).to(dev)
+        lib_op = torch.sparse_csr_tensor(*arrays, size=(rows, rows))
+        amort = {}
+        for k in (8, 16):
+            X = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32)).to(dev)
+            ms = graph_ms(lambda: sv.csr_matmat(*arrays, X, runs))
+            plain = time_ms(lambda: sv.csr_matvec_plain(*arrays, X), 10)
+            lib_err = max_err(lib_op @ X, sv.csr_matmat(*arrays, X, runs))
+            try:
+                lib = graph_ms(lambda: lib_op @ X)
+            except RuntimeError:  # the library call does not capture into a graph here
+                torch.cuda.synchronize()
+                lib = time_ms(lambda: lib_op @ X, 20)
+            # one pass: the matrix streamed once, X read once, Y written once
+            by = entries * 8 + 4 * rows + 2 * 4 * rows * k
+            record = timed(ms, plain, by, 2 * entries * k, lib)
+            amort[k] = k * k10_graph[key] / ms
+            log(f"  [{card}] K11 csr_matmat {key} ({rows} rows, {entries} nnz) k={k}: "
+                f"{ms * 1e3:.1f} us in a CUDA graph ({by / (ms * 1e-3) / 1e9:.0f} GB/s by 8*nnz + "
+                f"4*n + 8*n*k; bound {record['bound_ms'] * 1e3:.1f} us, "
+                f"{record['bound_ms'] / ms * 100:.0f} %); plain {plain * 1e3:.1f} us; library "
+                f"torch.sparse_csr_tensor @ X {lib * 1e3:.1f} us, max |library - K11| "
+                f"{lib_err:.2e}")
+            if key == "poisson" and k == 8:
+                times["csr_matmat"] = record
+            del X
+        log(f"  [{card}] {key}: csr_pet_spmm_amortization {amort[8]:.2f}, "
+            f"csr_pet_spmm_k16_amortization {amort[16]:.2f} (k * t(K10) / t(K11), both in a "
+            f"CUDA graph in this run)")
+        del lib_op
+    del fwd
+
     def k12_timed(label, data, cols, xb, by, flops, lib_op=None):
         """K12 by both clocks beside its plain version and, where given,
         the library call on the same blocks, all in this run."""

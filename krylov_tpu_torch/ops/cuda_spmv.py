@@ -54,35 +54,22 @@ def _lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.krylov_csr_spmv.argtypes = [i32, i32, i32] + [vp] * 6 + [i32, vp]
     lib.krylov_csr_spmv.restype = i32
-    lib.krylov_csr_spmm.argtypes = [i32, i32] + [vp] * 5 + [i32, i32, vp]
+    lib.krylov_csr_spmm.argtypes = [i32, i32, i32] + [vp] * 6 + [i32, i32, vp]
     lib.krylov_csr_spmm.restype = i32
     lib.krylov_error_string.argtypes = [i32]
     lib.krylov_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lanes_for(nnz, nrows):
-    """Lanes per row of K11: the largest power of two, at most 32, that
-    leaves each lane about four or more of a row's entries, so each lane
-    keeps several independent loads in flight (the mean row length as the
-    rule left K11's lanes idle on short rows).  K10 no longer takes it: it
-    streams entries by runs (:func:`csr_runs`) and applies the same rule to
-    each run's mean row length inside the kernel, for the row sums alone."""
-    mean = nnz / max(1, nrows)
-    lanes = 1
-    while lanes < 32 and 2 * lanes * 4 <= mean:
-        lanes *= 2
-    return lanes
-
-
-# products a block of K10 keeps in shared memory (csrc/spmv.cu builds 1024,
-# 2048, 4096 and 8192)
+# entries a block of K10 or K11 keeps in shared memory (csrc/spmv.cu builds
+# 1024, 2048, 4096 and 8192)
 RUN_CAPACITY = 2048
 
 
 def csr_runs(indptr, capacity=RUN_CAPACITY):
-    """K10's row partition, made once per matrix on the host: the first row
-    of each run and, last, the number of rows, as an int32 array.  A run is
+    """The row partition of K10 and K11, made once per matrix on the host:
+    the first row of each run and, last, the number of rows, as an int32
+    array.  A run is
     a stretch of whole rows that a block streams at once: it takes rows
     while they hold at most ``capacity - 3`` stored entries together (the
     kernel rounds a run's first entry down to a 16-byte boundary) and
@@ -156,6 +143,15 @@ def _csr_checks(indptr, indices, data, x, ndim):
     _require(indices.numel() == data.numel(), "indices and data differ in length")
 
 
+def _runs_of(indptr, runs, x):
+    if runs is None:
+        runs = cached_runs(indptr)
+    _require(runs.dtype == torch.int32 and runs.ndim == 1 and runs.is_contiguous()
+             and runs.device == x.device and runs.numel() >= 2,
+             "runs must be csr_runs(indptr) as a contiguous int32 tensor on x's device")
+    return runs
+
+
 def csr_matvec(indptr, indices, data, x, runs=None):
     """K10: ``y = A x`` for CSR ``(indptr, indices, data)``; ``x`` float32
     of length ``m``, ``y`` float32 of length ``n = len(indptr) - 1``.
@@ -172,11 +168,7 @@ def csr_matvec(indptr, indices, data, x, runs=None):
     y = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return y
-    if runs is None:
-        runs = cached_runs(indptr)
-    _require(runs.dtype == torch.int32 and runs.ndim == 1 and runs.is_contiguous()
-             and runs.device == x.device and runs.numel() >= 2,
-             "runs must be csr_runs(indptr) as a contiguous int32 tensor on x's device")
+    runs = _runs_of(indptr, runs, x)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.krylov_csr_spmv(
@@ -187,10 +179,11 @@ def csr_matvec(indptr, indices, data, x, runs=None):
     return y
 
 
-def csr_matmat(indptr, indices, data, X, lanes=None):
+def csr_matmat(indptr, indices, data, X, runs=None):
     """K11: ``Y = A X`` for ``X`` float32 of shape ``(m, k)``, any ``k``
-    (row-major); ``Y`` float32 ``(n, k)``.  ``lanes`` (a power of two up to
-    32) overrides :func:`lanes_for`."""
+    (row-major); ``Y`` float32 ``(n, k)``.  ``runs``: K10's row partition,
+    which K11 takes too (see :func:`csr_matvec`); one launch reads the
+    matrix once for every 32 columns of ``X``."""
     if _on_cpu(indptr, indices, data, X):
         return csr_matvec_plain(indptr, indices, data, X)
     _refuse_grad("csr_matmat", data, X)
@@ -199,12 +192,12 @@ def csr_matmat(indptr, indices, data, X, lanes=None):
     Y = torch.empty((n, k), dtype=torch.float32, device=X.device)
     if n == 0 or k == 0:
         return Y
-    lanes = lanes_for(data.numel(), n) if lanes is None else int(lanes)
+    runs = _runs_of(indptr, runs, X)
     lib = _lib()
     with torch.cuda.device(X.device):
         err = lib.krylov_csr_spmm(
-            _VALUE_CODES[data.dtype], lanes, _ptr(indptr), _ptr(indices), _ptr(data), _ptr(X),
-            _ptr(Y), n, k, _stream(X))
+            _VALUE_CODES[data.dtype], RUN_CAPACITY, runs.numel() - 1, _ptr(runs), _ptr(indptr),
+            _ptr(indices), _ptr(data), _ptr(X), _ptr(Y), data.numel(), k, _stream(X))
     _check(lib, err, "csr_matmat")
     _count(LAUNCHES, "csr_matmat")
     return Y
@@ -345,7 +338,7 @@ def _value_dtype(data_dtype):
 
 class _CSR:
     """One CSR matrix on a device: int32 row pointers and columns, values of
-    the operator's value dtype, K11's lanes a row and K10's row partition."""
+    the operator's value dtype, and the row partition of K10 and K11."""
 
     def __init__(self, sp, value_dtype, device):
         import scipy.sparse
@@ -365,22 +358,20 @@ class _CSR:
         self.indptr = torch.from_numpy(csr.indptr.astype(np.int32)).to(device)
         self.indices = torch.from_numpy(csr.indices.astype(np.int32)).to(device)
         self.data = torch.from_numpy(np.ascontiguousarray(csr.data)).to(device, value_dtype)
-        self.lanes = lanes_for(self.nnz, self.shape[0])  # K11
-        self.runs = torch.from_numpy(csr_runs(csr.indptr)).to(device)  # K10
+        self.runs = torch.from_numpy(csr_runs(csr.indptr)).to(device)
 
     def apply(self, x):
         if x.ndim == 1:
             return csr_matvec(self.indptr, self.indices, self.data, x, self.runs)
-        return csr_matmat(self.indptr, self.indices, self.data, x, self.lanes)
+        return csr_matmat(self.indptr, self.indices, self.data, x, self.runs)
 
     def tree_flatten(self):
-        return (self.indptr, self.indices, self.data, self.runs), (self.shape, self.nnz,
-                                                                   self.lanes)
+        return (self.indptr, self.indices, self.data, self.runs), (self.shape, self.nnz)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         self = object.__new__(cls)
-        self.shape, self.nnz, self.lanes = aux
+        self.shape, self.nnz = aux
         self.indptr, self.indices, self.data, self.runs = children
         return self
 

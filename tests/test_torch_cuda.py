@@ -387,12 +387,23 @@ def _k10_cases():
             ("all rows empty", scipy.sparse.csr_matrix((50, 9), dtype=np.float32))]
 
 
+K11_KS = (1, 2, 3, 4, 5, 8, 16, 17, 31, 32, 33, 64)
+
+
+def _shifted(t, shift):
+    """``t`` ``shift`` elements past its allocation's start: off every
+    16-byte boundary for ``shift = 1``."""
+    out = torch.zeros(t.numel() + shift, dtype=t.dtype, device=t.device)[shift:]
+    return out.view(t.shape).copy_(t)
+
+
 def test_k10_k11_match_plain(dev):
-    """K10 at 1e-5 of the largest entry (float32 sums of up to 12001
+    """K10 and K11 at 1e-5 of the largest entry (float32 sums of up to 12001
     products in another order than the plain version's segment sum; bf16
     values are widened exactly, so the same bound holds), repeated bit for
     bit; with the runs prepared and made on the spot, on 16-byte boundaries
-    and off them."""
+    and off them (K11: the columns, the values and X), K11 at every k from
+    one column to two slabs."""
     from krylov_tpu_torch.ops import cuda_spmv as sv
 
     for label, sp in _k10_cases():
@@ -402,10 +413,8 @@ def test_k10_k11_match_plain(dev):
         for vdt in (torch.float32, torch.bfloat16):
             # the columns and values on a 16-byte boundary, and one element off it
             for shift in (0, 1):
-                indices = torch.zeros(sp.nnz + shift, dtype=torch.int32, device=dev)[shift:]
-                indices.copy_(torch.from_numpy(sp.indices.astype(np.int32)))
-                data = torch.zeros(sp.nnz + shift, dtype=vdt, device=dev)[shift:]
-                data.copy_(torch.from_numpy(sp.data.astype(np.float32)))
+                indices = _shifted(torch.from_numpy(sp.indices.astype(np.int32)).to(dev), shift)
+                data = _shifted(torch.from_numpy(sp.data.astype(np.float32)).to(dev, vdt), shift)
                 want = sv.csr_matvec_plain(indptr, indices, data, x)
                 scale = max(float(want.abs().max()), 1e-30)
                 for r in (runs, None):
@@ -413,23 +422,60 @@ def test_k10_k11_match_plain(dev):
                     assert got.dtype == torch.float32 and got.shape == (sp.shape[0],), label
                     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale, msg=label)
                     assert torch.equal(got, sv.csr_matvec(indptr, indices, data, x, r)), label
+                for k in K11_KS:
+                    X = _shifted(_rand((sp.shape[1], k), dev, torch.float32, 32 + k), shift)
+                    want = sv.csr_matvec_plain(indptr, indices, data, X)
+                    scale = max(float(want.abs().max()), 1e-30)
+                    for r in (runs, None) if shift == 0 else (None,):
+                        got = sv.csr_matmat(indptr, indices, data, X, r)
+                        what = f"{label} {vdt} k={k} shift={shift}"
+                        assert got.dtype == torch.float32 and got.shape == (sp.shape[0], k), what
+                        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale,
+                                                   msg=what)
+                        assert torch.equal(got, sv.csr_matmat(indptr, indices, data, X, r)), what
     sp = _irregular()
     indptr = torch.from_numpy(sp.indptr.astype(np.int32)).to(dev)
     indices = torch.from_numpy(sp.indices.astype(np.int32)).to(dev)
-    for vdt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
-        data = torch.from_numpy(sp.data).to(dev, vdt)
-        x = _rand(sp.shape[1], dev, torch.float32, 31)
-        for k in (1, 3, 8, 16, 17):
-            X = _rand((sp.shape[1], k), dev, torch.float32, 32 + k)
-            want = sv.csr_matvec_plain(indptr, indices, data, X)
-            for lanes in (None, 1, 4, 32) if k == 3 else (None,):
-                got = sv.csr_matmat(indptr, indices, data, X, lanes)
-                torch.testing.assert_close(got, want, rtol=0,
-                                           atol=tol * float(want.abs().max()))
+    data = torch.from_numpy(sp.data).to(dev)
+    x = _rand(sp.shape[1], dev, torch.float32, 31)
+    X = _rand((sp.shape[1], 3), dev, torch.float32, 33)
     with pytest.raises(ValueError, match="float32"):
         sv.csr_matvec(indptr, indices, data, x.double())
-    with pytest.raises(ValueError, match="runs"):
-        sv.csr_matvec(indptr, indices, data, x, torch.zeros(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        sv.csr_matmat(indptr, indices, data, X.double())
+    for fn, v in ((sv.csr_matvec, x), (sv.csr_matmat, X)):
+        with pytest.raises(ValueError, match="runs"):
+            fn(indptr, indices, data, v, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 33])
+def test_k11_replays_in_a_cuda_graph(dev, k):
+    """K11 captured into a CUDA graph with the runs prepared, as the
+    ``while_loop`` driver captures it: the replay writes what the eager
+    launch does, bit for bit, and the capture counts one launch."""
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+
+    sp = _irregular()
+    indptr, indices = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                       for a in (sp.indptr, sp.indices))
+    data = torch.from_numpy(sp.data).to(dev)
+    runs = torch.from_numpy(sv.csr_runs(sp.indptr)).to(dev)
+    X = _rand((sp.shape[1], k), dev, torch.float32, 34)
+    eager = sv.csr_matmat(indptr, indices, data, X, runs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sv.csr_matmat(indptr, indices, data, X, runs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    sv.reset_launches()
+    with torch.cuda.graph(graph):
+        Y = sv.csr_matmat(indptr, indices, data, X, runs)
+    assert sv.LAUNCHES["csr_matmat"] == 1
+    Y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(Y, eager)
 
 
 def test_pet_operator_adjoint_and_reorder(dev):

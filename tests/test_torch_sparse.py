@@ -106,12 +106,6 @@ def test_k10_k11_plain_match_reference_kernel(name, k):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
-def test_lanes_for():
-    # about four or more entries a lane: 5 a row -> 1 lane, 27 -> 4, 100 -> 16
-    assert [cuda_spmv.lanes_for(nnz, 100) for nnz in (0, 500, 799, 800, 2700, 10**4, 10**6)] \
-        == [1, 1, 1, 2, 4, 16, 32]
-
-
 # ---------------------------------------------------------------------------
 # K10's row partition (host side) and a product that follows it
 # ---------------------------------------------------------------------------

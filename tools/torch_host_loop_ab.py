@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """The host-stepped ``while_loop`` of the methods whose step depends on its
-step number, this checkout against another, in turns on one NVIDIA GPU.
+step number, or of the solves that run K11, this checkout against another,
+in turns on one NVIDIA GPU.
 
 Run from the root of the repository on a machine with one CUDA device and
 ``nvcc``, with a second checkout's package unpacked at DIR (``git archive
 <commit> krylov_tpu_torch | tar -x -C DIR``):
 
-    python3 tools/torch_host_loop_ab.py --other DIR [--repeats N]
+    python3 tools/torch_host_loop_ab.py --other DIR [--repeats N] [--cells k11]
 
 The solves are ``chip_smoke.counted_solves``'s (phase 13's cells of
 ``gmres`` x3, ``tfqmr``, ``cg_pipelined``, ``cg_block``, ``symmlq``,
-``gcr`` and ``chebyshev``), each on the host-stepped loop
-(``_driver._host_stepped()``).  Both packages live in this one process, the
-other one imported under the name ``krylov_tpu_torch_other`` (the package
-imports itself relatively) with its kernels built from its own sources.  A
-cell is solved once by each as a warm-up, then ``N`` times by each in
+``gcr`` and ``chebyshev``) or, with ``--cells k11``, :func:`k11_solves`'s
+(the blocked right-hand sides of phases 6c, 7c, 9 and 13), each on the
+host-stepped loop (``_driver._host_stepped()``).  Both packages live in
+this one process, the other one imported under the name
+``krylov_tpu_torch_other`` (the package imports itself relatively) with
+its kernels built from its own sources.  A cell is solved once by each as
+a warm-up, then ``N`` times by each in
 turns (other, this, this, other, ...), then profiled once by each.  A line
 a cell gives the median wall and spread of each, the median of the
 differences pair by pair, the device kernels and device-busy time of a
@@ -78,10 +81,39 @@ def device_events(fn):
             {e.key: e.count for e in rows})
 
 
+def k11_solves(dev, kt, st):
+    """The solves with an ``(N, 8)`` right-hand side on the 1M-row CSR,
+    whose every operator product is K11, as ``(name, solve, inputs)``:
+    ``cg`` on the shifted Poisson CSR (phases 6c and 13), ``cg_block`` on it
+    (7c and 13), and ``cg`` + AMG on the unshifted one, K11 on every level
+    and prolongator (9)."""
+    import chip_smoke
+    import torch
+
+    lap = chip_smoke.poisson_csr(chip_smoke.NPG)
+    lap0 = chip_smoke.poisson_csr(chip_smoke.NPG, 4.0)
+    op, op0 = kt.as_operator(lap, dev), kt.as_operator(lap0, dev)
+    assert type(op).__name__ == type(op0).__name__ == "PETOperator"
+    amg = kt.AMGPreconditioner.from_scipy(lap0, dtype=np.float32, fine_operator=op0, device=dev)
+    rng = np.random.default_rng(chip_smoke.SEED + 43)
+    B = torch.from_numpy(rng.standard_normal((lap.shape[0], 8)).astype(np.float32)).to(dev)
+    wl = dict(backend="while_loop")
+    return [
+        ("cg, (N, 8) b (K11), 1M-row CSR, to 1e-5", lambda: kt.cg(
+            op, B, tol=1e-5, maxiter=300, **wl), (B,)),
+        ("cg_block (N, 8) (K11), 1M-row CSR, to 1e-4", lambda: kt.cg_block(
+            op, B, tol=1e-4, maxiter=400, **wl), (B,)),
+        ("cg + AMG, (N, 8) b (K11), unshifted 1M-row CSR, to 1e-4", lambda: kt.cg(
+            op0, B, M=amg, tol=1e-4, maxiter=60, **wl), (B,)),
+    ]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="the other checkout's root")
     ap.add_argument("--repeats", type=int, default=10, help="timed solves of a cell each")
+    ap.add_argument("--cells", choices=("counted", "k11"), default="counted",
+                    help="phase 13's counted methods, or the solves that run K11")
     args = ap.parse_args(argv)
     import torch
 
@@ -99,7 +131,8 @@ def main(argv=None):
     for who, kt in pkgs.items():
         importlib.import_module(f"{kt.__name__}._build").build()
         st = importlib.import_module(f"{kt.__name__}.ops.stencil")
-        cells[who] = chip_smoke.counted_solves(dev, kt, st)
+        make = chip_smoke.counted_solves if args.cells == "counted" else k11_solves
+        cells[who] = make(dev, kt, st)
         host[who] = importlib.import_module(f"{kt.__name__}._driver")._host_stepped
     for i, (name, _, _) in enumerate(cells["this"]):
         solve = {w: cells[w][i][1] for w in pkgs}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the tuning constants of K10 (CSR SpMV), K2 (const stencil matvec)
-and K12 (BSR SpMM) on one NVIDIA GPU, and time a second checkout beside
-this one.
+"""Sweep the tuning constants of K10 (CSR SpMV), K11 (CSR SpMM), K2 (const
+stencil matvec) and K12 (BSR SpMM) on one NVIDIA GPU, and time a second
+checkout beside this one.
 
 Run from the root of the repository on a machine with one CUDA device
 (Hopper) and ``nvcc``:
@@ -9,9 +9,10 @@ Run from the root of the repository on a machine with one CUDA device
     python3 tools/torch_kernel_sweep.py                  # the default build
     python3 tools/torch_kernel_sweep.py --k2 KRYLOV_K2_STAGES=2,4,8 KRYLOV_K2_RUN=32,128
     python3 tools/torch_kernel_sweep.py --k10 KRYLOV_SPMV_LANE_ENTRIES=2,8 --capacity 1024,2048,4096,8192
+    python3 tools/torch_kernel_sweep.py --only k11 --k11 KRYLOV_SPMM_BATCH=2,8 --capacity 1024,2048
     python3 tools/torch_kernel_sweep.py --k12 KRYLOV_BSR_STAGES=2,4 KRYLOV_BSR_WARPS=2,8
     python3 tools/torch_kernel_sweep.py --other DIR      # and the checkout at DIR, in turns
-    python3 tools/torch_kernel_sweep.py --only k12 --other DIR   # one kernel's shapes only
+    python3 tools/torch_kernel_sweep.py --only k11 --other DIR   # one kernel's shapes only
 
 Each ``NAME=v1,v2`` builds one library per value (the other constants at
 their defaults) with ``krylov_tpu_torch._build.build(defines=...)``, all
@@ -123,6 +124,53 @@ def k10_cases(sv, dev):
             ("irregular bf16", op16._csr, x), ("poisson 1024^2 f32", pop._csr, x[:lap.shape[0]])]
 
 
+K11_KS = (1, 4, 8, 16, 17, 32, 33)
+
+
+def k11_cases(sv, dev):
+    """(label, operator-side CSR object, X) for K11: the irregular matrix
+    and the shifted Poisson CSR as PETOperator holds them, at every k of
+    ``K11_KS``, and the Poisson CSR with bf16 values at k = 8 and 16."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    rng = np.random.default_rng(46)
+    irr, lap = chip_smoke.irregular_csr(), chip_smoke.poisson_csr(chip_smoke.NPG)
+    mats = [("irregular", sv.PETOperator.from_scipy(irr, with_rmatvec=False, device=dev)._csr),
+            (f"poisson {chip_smoke.NPG}^2",
+             sv.PETOperator.from_scipy(lap, with_rmatvec=False, device=dev)._csr)]
+    cases = []
+    for label, csr in mats:
+        for k in K11_KS:
+            X = torch.from_numpy(rng.standard_normal((csr.shape[1], k)).astype(np.float32))
+            cases.append((f"{label} f32 k={k}", csr, X.to(dev)))
+    p16 = sv.PETOperator.from_scipy(lap, with_rmatvec=False, data_dtype=torch.bfloat16,
+                                    device=dev)._csr
+    cases += [(f"poisson {chip_smoke.NPG}^2 bf16 k={X.shape[1]}", p16, X) for _, csr, X in cases
+              if csr is mats[1][1] and X.shape[1] in (8, 16)]
+    return cases
+
+
+def measure_k11(sv, dev, capacities, library=False):
+    cases = k11_cases(sv, dev)
+    out = {}
+    if library:  # torch.sparse_csr_tensor @ X at k = 8 and 16: the yardstick
+        out = measure_library([c for c in cases if c[2].shape[1] in (8, 16)])
+    own = getattr(sv, "RUN_CAPACITY", None)
+    for cap in capacities:
+        for label, csr, X in cases:
+            if cap is not None:  # this tree's wrapper: re-cut the runs at this capacity
+                sv.RUN_CAPACITY = cap
+                csr.runs = torch.from_numpy(sv.csr_runs(csr.indptr.cpu().numpy(), cap)).to(dev)
+            want = sv.csr_matvec_plain(csr.indptr, csr.indices, csr.data, X)
+            err = check(f"K11 {label} cap {cap}", csr.apply(X), want)
+            key = label if cap is None else f"{label} cap={cap}"
+            out[key] = dict(both_us(lambda: csr.apply(X)), err=err)
+    if own is not None:
+        sv.RUN_CAPACITY = own
+    return out
+
+
 def check(name, got, want):
     err = float((got.double() - want.double()).abs().max())
     bound = 1e-5 * float(want.double().abs().max())
@@ -133,12 +181,13 @@ def check(name, got, want):
 
 def measure_library(cases):
     """``torch.sparse_csr_tensor @ x`` on the float32 cases: the one PyTorch
-    call computing K10's function (a yardstick; the port never calls it)."""
+    call computing K10's or K11's function (a yardstick; the port never
+    calls it)."""
     out = {}
     for label, csr, x in cases:
         if csr.data.dtype == torch.float32:
             lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
-                                          size=(csr.indptr.numel() - 1, x.numel()))
+                                          size=(csr.indptr.numel() - 1, x.shape[0]))
             try:
                 out[f"library {label}"] = both_us(lambda: lib @ x)
             except RuntimeError:  # the library call does not capture into a graph
@@ -258,6 +307,8 @@ def shapes_only(args):
     res = {}
     if "k10" in args.only:
         res["k10"] = measure_k10(sv, dev, [None])
+    if "k11" in args.only:
+        res["k11"] = measure_k11(sv, dev, [None])
     if "k2" in args.only:
         res["k2"] = measure_k2(cs, st, dev)
     if "k12" in args.only:
@@ -298,13 +349,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2", nargs="*", default=None, metavar="NAME=v1,v2")
     ap.add_argument("--k10", nargs="*", default=None, metavar="NAME=v1,v2")
+    ap.add_argument("--k11", nargs="*", default=None, metavar="NAME=v1,v2")
     ap.add_argument("--k12", nargs="*", default=None, metavar="NAME=v1,v2")
-    ap.add_argument("--only", default="k10,k2,k12",
+    ap.add_argument("--only", default="k10,k11,k2,k12",
                     help="kernels whose default build is timed, here and with --other")
     ap.add_argument("--grid", action="store_true",
                     help="build every combination of the values, not one constant at a time")
     ap.add_argument("--capacity", default=None,
-                    help="K10 run capacities to sweep, comma-separated (default: the wrapper's)")
+                    help="K10 and K11 run capacities to sweep, comma-separated (default: the "
+                         "wrapper's)")
     ap.add_argument("--other", default=None, help="a second checkout to time beside this one")
     ap.add_argument("--shapes-only", action="store_true")
     args = ap.parse_args()
@@ -323,16 +376,19 @@ def main():
 
     card = card_line()
     dev = torch.device("cuda", 0)
-    if args.k2 is None and args.k10 is None and args.k12 is None:
+    if all(v is None for v in (args.k2, args.k10, args.k11, args.k12)):
         # no sweep asked for: the default build of the kernels of --only
         args.k10 = [] if "k10" in args.only else None
+        args.k11 = [] if "k11" in args.only else None
         args.k2 = [] if "k2" in args.only else None
         args.k12 = [] if "k12" in args.only else None
     expand = full_grid if args.grid else variants_of
     k2_variants = expand(args.k2) if args.k2 is not None else []
     k10_variants = expand(args.k10) if args.k10 is not None else []
+    k11_variants = expand(args.k11) if args.k11 is not None else []
     k12_variants = expand(args.k12) if args.k12 is not None else []
-    wanted = sorted(set(k2_variants) | set(k10_variants) | set(k12_variants) | {()})
+    wanted = sorted(set(k2_variants) | set(k10_variants) | set(k11_variants)
+                    | set(k12_variants) | {()})
     built = {}
 
     def build_one(defines):
@@ -351,6 +407,7 @@ def main():
         print(f"build of {defines} failed: {why}", flush=True)
     k2_variants = [d for d in k2_variants if d in built]
     k10_variants = [d for d in k10_variants if d in built]
+    k11_variants = [d for d in k11_variants if d in built]
     k12_variants = [d for d in k12_variants if d in built]
     for defines in sorted(built):
         path, seconds, log = built[defines]
@@ -358,7 +415,8 @@ def main():
         lines = log.splitlines()
         for k, line in enumerate(lines):  # registers, shared memory and spills of the kernels swept
             if "Compiling entry function" in line and any(
-                    name in line for name in ("csr_stream", "tiled", "bsr_spmm_streamed")):
+                    name in line for name in ("csr_stream", "csr_spmm", "tiled",
+                                              "bsr_spmm_streamed")):
                 print("   ", line.split("'")[1][:60], "|", " ".join(
                     q.split(":", 1)[1].strip() for q in lines[k + 1:k + 4] if "Used" in q),
                     flush=True)
@@ -370,6 +428,10 @@ def main():
         use_library(built[defines][0], _build, cs, sv, bs)
         for key, row in measure_k10(sv, dev, caps, library=not defines).items():
             print(f"[{card}] K10 {defines or 'default'} {key}: {row}", flush=True)
+    for defines in k11_variants:
+        use_library(built[defines][0], _build, cs, sv, bs)
+        for key, row in measure_k11(sv, dev, caps, library=not defines).items():
+            print(f"[{card}] K11 {defines or 'default'} {key}: {row}", flush=True)
     for defines in k2_variants:
         use_library(built[defines][0], _build, cs, sv, bs)
         for key, row in measure_k2(cs, st, dev).items():
