@@ -3552,6 +3552,180 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
     return totals
 
 
+KEPT_RUNS = 10  # right-hand sides through each of 14's built solvers, on each route
+
+
+def kept_cell(name, build, rhs, card, mods):
+    """One cell of phase 14: ``KEPT_RUNS`` right-hand sides through the
+    solver ``build()`` returns (``parallel.make_sharded_solver``) on its
+    graph route, which keeps the graph of its first capture and replays it
+    in the later runs, alternating run by run with the same sequence on the
+    host-stepped loop (``_driver._host_stepped()``).  ``rhs(j, prev)``
+    gives run ``j``'s ``(b, x0)``, ``prev`` the route's last iterate.
+    Holds every run bit for bit to the host-stepped one and the later runs'
+    median to the host-stepped median plus the larger spread; prints the
+    memory the solver leaves once it is gone.  Returns the kernel launches
+    of both routes and a summary."""
+    import gc
+
+    from krylov_tpu_torch import _driver
+
+    t_cell = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    run = build()
+    ctxs = {"host-stepped": _driver._host_stepped, "kept": contextlib.nullcontext}
+    walls = {r: [] for r in ctxs}
+    prev = dict.fromkeys(ctxs)
+    launches, first, same, counts = {}, None, [], dict.fromkeys(
+        ("captures", "replays", "kept_runs", "host_steps", "graph_steps", "host_stepped"), 0)
+    for j in range(KEPT_RUNS):
+        got = {}
+        for route in list(ctxs)[::1 if j % 2 == 0 else -1]:  # alternating
+            b, x0 = rhs(j, prev[route])
+            for mod in mods:
+                mod.reset_launches()
+            _driver.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctxs[route]():
+                _, info = run(b, x0)
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            for k, v in all_launches(*mods).items():
+                launches[k] = launches.get(k, 0) + v
+            got[route] = info
+            prev[route] = info.xk
+            if route == "kept":
+                for k in counts:
+                    counts[k] += _driver.COUNTS[k]
+                if j == 0:
+                    first = dict(_driver.LAST_GRAPH, wall_s=walls[route][-1])
+        h, g = got["host-stepped"], got["kept"]
+        same.append(h.numsteps == g.numsteps and h.success == g.success
+                    and np.array_equal(h.resnorms, g.resnorms) and torch.equal(h.xk, g.xk))
+        log(f"    14 {name} run {j}: {g.numsteps} steps, host-stepped "
+            f"{walls['host-stepped'][-1] * 1e3:.3f} ms, kept {walls['kept'][-1] * 1e3:.3f} ms "
+            f"({_driver.LAST_GRAPH.get('kept')}), bit-equal {same[-1]}")
+        del got, h, g, info
+    later = {r: walls[r][1:] for r in walls}
+    med = {r: float(np.median(w)) for r, w in later.items()}
+    spread = {r: float(np.max(w) - np.min(w)) for r, w in later.items()}
+    b, x0 = rhs(KEPT_RUNS, prev["kept"])
+    busy = {}
+    for route, ctx in ctxs.items():
+        with ctx():
+            busy[route] = device_busy(lambda: run(b, x0))[0]
+    del prev, b, x0, run
+    gc.collect()
+    torch.cuda.synchronize()
+    left_mb = (torch.cuda.memory_allocated() - base) / 2**20
+    row = dict(name=name, first_ms=first["wall_s"] * 1e3, kept_as=first.get("kept"),
+               unkept=first.get("unkept"), plan=first.get("plan"),
+               replay_step_us=None if first.get("replay_step_s") is None
+               else first["replay_step_s"] * 1e6, counts=counts, bit_equal=all(same),
+               left_mb=left_mb, **{f"first_{k}_ms": first.get(k, 0.0) * 1e3 for k in (
+                   "host_steps_s", "decide_s", "capture_s", "instantiate_s", "replays_s")})
+    for r in ctxs:
+        row[r] = dict(ms=med[r] * 1e3, spread_ms=spread[r] * 1e3, busy_ms=busy[r] * 1e3,
+                      idle=1 - busy[r] / med[r])
+    log(f"  [{card}] 14 {name}: first run {row['first_ms']:.3f} ms ({row['kept_as']}; plan "
+        f"{row['plan']} after {first.get('host_steps')} host steps, "
+        + ", ".join(f"{k} {row[f'first_{k}_ms']:.3f}" for k in (
+            "host_steps_s", "decide_s", "capture_s", "instantiate_s", "replays_s"))
+        + f" ms; a replayed step {row['replay_step_us']} us" + (
+            f"; not kept: {row['unkept']}" if row["unkept"] else "") + ")")
+    for r in ctxs:
+        log(f"  [{card}] 14 {name} {r}: runs 2-{KEPT_RUNS} median {row[r]['ms']:.3f} ms "
+            f"(spread {row[r]['spread_ms']:.3f}); one profiled run: device busy "
+            f"{row[r]['busy_ms']:.3f} ms, idle share {row[r]['idle']:.3f}")
+    for d in first.get("decisions", ()):
+        log(f"  [{card}] 14 {name} the rule after host step {d[0]}: plan {d[2]}, "
+            + ", ".join(f"{f} {v:.4g}" for f, v in d[1]._asdict().items()))
+    log(f"  [{card}] 14 {name}: the kept route's counts {counts}; every run bit-equal to the "
+        f"host-stepped one {all(same)}; {left_mb:.1f} MB left once the solver is gone; the cell "
+        f"took "
+        f"{time.perf_counter() - t_cell:.1f} s")
+    assert all(same), (name, same)
+    assert med["kept"] <= med["host-stepped"] + max(spread.values()), (name, med, spread)
+    if row["kept_as"] == "captured":
+        assert counts["captures"] == 1 and counts["kept_runs"] == KEPT_RUNS - 1, (name, counts)
+    return launches, row
+
+
+def phase_kept(dev, kt, cs, sv, bs, st, card):
+    """14: the reference's build-once solver: ``KEPT_RUNS`` right-hand sides
+    through one ``make_sharded_solver`` on one NCCL rank at full width,
+    the kept graph against the host-stepped loop (:func:`kept_cell`):
+    MG-CG on ``poisson_2d_const(4096)`` (``multigrid_factory``, manufactured
+    right-hand sides, ``x0`` the last solution), ``cg`` + ``partition_amg``
+    on the unshifted 1024^2 CSR (12a's), ``bicgstab`` with a Jacobi
+    ``M_diag`` on the 1M-row CSR, ``gmres`` (MGS) on the convected one, and
+    generic ``cg`` on ``poisson_2d(4096)``, 100 fixed steps, whose captured
+    step the rule should find no cheaper than the host's.  Returns the
+    launches."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+
+    log(f"phase 14: a solver built once keeps its captured graph across {KEPT_RUNS} right-hand "
+        f"sides (make_sharded_solver on one NCCL rank) [{card}]")
+    t_phase = time.perf_counter()
+    mesh = parallel.make_mesh(device=dev)
+    mods = (cs, sv, bs)
+    totals, summary = {}, []
+    rng = np.random.default_rng(SEED + 140)
+
+    def cell(name, build, rhs):
+        n, row = kept_cell(name, build, rhs, card, mods)
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+        summary.append(row)
+
+    def vec(n, *shape):
+        return torch.from_numpy(rng.standard_normal((n,) + shape).astype(np.float32)).to(dev)
+
+    try:
+        A = st.poisson_2d_const(BIG, device=dev)
+        rhs = [manufactured(A, dev, SEED + 141 + j)[1] for j in range(KEPT_RUNS + 1)]
+        cell(f"MG-CG, poisson_2d_const({BIG}), multigrid_factory, to 1e-6, x0 the last solution",
+             lambda: parallel.make_sharded_solver(
+                 kt.cg, A, mesh=mesh, M_factory=kt.multigrid_factory(), tol=1e-6, maxiter=30),
+             lambda j, prev: (rhs[j], prev))
+        del A, rhs
+        lap0 = poisson_csr(NPG, 4.0)
+        bs_ = [vec(NPG * NPG) for _ in range(KEPT_RUNS + 1)]
+        cell(f"cg + partition_amg, unshifted {NPG}^2 CSR, to 1e-4",
+             lambda: parallel.make_sharded_solver(
+                 kt.cg, parallel.partition_pet(lap0, 1), mesh=mesh, tol=1e-4, maxiter=60,
+                 M_partition=parallel.partition_amg(lap0, 1, dtype=np.float32)),
+             lambda j, prev: (bs_[j], None))
+        lap = poisson_csr(NPG)
+        cell(f"bicgstab M_diag=Jacobi, {NPG * NPG}-row CSR, to 1e-4",
+             lambda: parallel.make_sharded_solver(
+                 kt.bicgstab, parallel.partition_pet(lap, 1), mesh=mesh,
+                 M_diag=(1.0 / lap.diagonal()).astype(np.float32), tol=1e-4, maxiter=400),
+             lambda j, prev: (bs_[j], None))
+        cell(f"gmres mgs, convected {NPG * NPG}-row CSR, to 1e-4",
+             lambda: parallel.make_sharded_solver(
+                 kt.gmres, parallel.partition_pet(convected_csr(NPG), 1), mesh=mesh, tol=1e-4,
+                 maxiter=120),
+             lambda j, prev: (bs_[j], None))
+        del bs_, lap, lap0
+        A_p = st.poisson_2d(BIG, dtype=np.float32, device=dev)
+        grids = [vec(BIG, BIG) for _ in range(KEPT_RUNS + 1)]
+        cell(f"cg, poisson_2d({BIG}), 100 fixed steps",
+             lambda: parallel.make_sharded_solver(kt.cg, A_p, mesh=mesh, tol=0.0, atol=0.0,
+                                                  maxiter=100),
+             lambda j, prev: (grids[j], None))
+        del A_p, grids
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    log("  14 summary: " + json.dumps(summary, default=str))
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -3612,6 +3786,8 @@ def main():
     for k, n in phase_partitions_gloo(dev, kt, sv, st, card).items():
         launches[k] += n
     for k, n in phase_graph_loop(dev, kt, cs, sv, bs, st, card).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in phase_kept(dev, kt, cs, sv, bs, st, card).items():
         launches[k] = launches.get(k, 0) + n
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))

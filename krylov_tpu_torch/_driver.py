@@ -59,6 +59,19 @@ Backends:
     replaying the same graph.  A solve that ends before its capture ran
     the host-stepped loop's launches, and nothing more.
 
+  A solver built once for many solves (``make_sharded_solver``) keeps its
+  graph across runs in a :class:`Kept` slot (:func:`_keeping`): its first
+  run decides after step 3 (:data:`KEPT_FIRST_CHECK`) over that run's steps
+  and one more run's, captures, and keeps the graph with its buffers (the
+  static state, the history, the criterion, the counters); each later run
+  of the same method, state layout, device and ``maxiter`` writes its
+  initial state, first history entry and criterion into them and replays
+  from step 0, with no host step.  A graph is kept only when the step
+  reads no tensor made for one solve outside its state (the screen notes
+  every storage it reads); a built solver whose rule says no capture
+  repays, or whose first replays cost the device more a step than a
+  host-stepped step's wall, runs host-stepped for every run.
+
   A step gets its step number (:mod:`._steps`): on the host-stepped loop
   the host's count, for branches and loops on the host; in a captured step
   the device counter ``k``, with which a method whose step depends on it
@@ -126,9 +139,10 @@ WHILE_LOOP = "while_loop"
 # graph-route solves whose rehearsal step read the host (the rest ran
 # host-stepped), explicit-residual rechecks, and the meetings at which a
 # sharded solve's ranks agreed on a decision (:func:`_sharded`).
+# The runs of a built solver that replayed its kept graph from step 0.
 COUNTS = dict.fromkeys(
     ("host_stepped", "graph_route", "captures", "host_steps", "graph_steps", "replays",
-     "flag_reads", "held_steps", "uncapturable", "rechecks", "meetings"), 0)
+     "flag_reads", "held_steps", "uncapturable", "rechecks", "meetings", "kept_runs"), 0)
 # The last graph-route solve: its decisions (the host step after which
 # each came, the :class:`Costs` it saw and its plan), the plan taken (steps
 # a graph ``U``, replays a flag read ``R``) or None, the steps launched from
@@ -136,10 +150,15 @@ COUNTS = dict.fromkeys(
 # operation of the rehearsal step that read the host (or None), the host
 # seconds of the steps from the host (before the capture, if any), of the
 # decisions, of the capture (without its instantiation), of the
-# instantiation, of the replays and of the whole loop.
+# instantiation, of the replays and of the whole loop.  A built solver's
+# run adds ``kept``: "captured" (this run captured the graph it keeps),
+# "replayed" (it replayed the kept graph), "host" (the rule keeps the solver
+# host-stepped), or None, with ``unkept`` saying why a capture was not kept,
+# and ``replay_step_s``, the device seconds a replayed step took in the
+# capturing run (None on the plain twin).
 LAST_GRAPH = {}
 
-_ROUTES = threading.local()  # .forced: this thread's stack of (route, plan); .ranks
+_ROUTES = threading.local()  # .forced: this thread's stack of (route, plan); .ranks; .kept
 
 
 class Ranks(NamedTuple):
@@ -209,6 +228,72 @@ def _sharded(ranks):
 def _ranks():
     stack = getattr(_ROUTES, "ranks", None)
     return stack[-1] if stack else None
+
+
+class Kept:
+    """What a solver built once for many solves keeps of the graph route
+    between its runs (:func:`_keeping`).  ``roots``: the built solver's own
+    objects (its operator, preconditioner, reductions); the tensors they
+    reach outlive a run, every other tensor a step reads outside its state
+    belongs to one solve."""
+
+    def __init__(self, roots):
+        self.roots = roots
+        self.key = None  # what the kept loop, or the host-stepped decision, holds for
+        self.loop = None  # the kept _GraphLoop, its graph captured
+        self.host = False  # the rule keeps this solver host-stepped for every run
+        self.why = None  # why the last capture was not kept
+
+    def release(self):
+        """Drop the kept graph, its pool and its buffers."""
+        loop, self.loop, self.key, self.host = self.loop, None, None, False
+        if loop is not None:
+            loop.release()
+
+
+@contextlib.contextmanager
+def _keeping(slot):
+    """Within: every ``while_loop`` solve of this thread that takes the
+    graph route keeps its graph in :class:`Kept` ``slot`` and replays it in
+    the next solve of the same key (see the module docstring)."""
+    stack = _ROUTES.__dict__.setdefault("kept", [])
+    stack.append(slot)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _slot():
+    stack = getattr(_ROUTES, "kept", None)
+    return stack[-1] if stack else None
+
+
+def _key(method, state0, maxiter, plain, forced):
+    """What a kept graph is valid for: the method (its step's code; a built
+    solver's keywords are its own), the state's layout and device,
+    ``maxiter``, the route and a forced plan."""
+    step = getattr(method.step, "__wrapped__", method.step)
+    return (getattr(step, "__code__", step), _layout(state0), state0.resnorm.device, maxiter,
+            plain, None if forced is None else forced[:3])
+
+
+def _meet(ranks, values):
+    """The largest of each of ``values`` over ``ranks`` (a :class:`Ranks`
+    of several): one small collective and one host read; ``values`` alone
+    with no ranks."""
+    if ranks is None:
+        return list(values)
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.float64, device=ranks.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=ranks.group)
+    COUNTS["meetings"] += 1
+    return t.tolist()
+
+
+def _several(ranks):
+    return ranks if ranks is not None and len(ranks.ranks) > 1 else None
 
 
 def reset_counts():
@@ -305,7 +390,6 @@ def run(
             return _run_while(
                 state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=callback
             )
-        COUNTS["graph_route"] += 1
         return _run_graph(state0, method, tol=tol, atol=atol, maxiter=maxiter,
                           plain=route == "plain", plan=plan)
     raise ValueError(f"unknown backend {backend!r}")
@@ -390,6 +474,14 @@ FIRST_CHECK = 24
 # no device time says a capture could repay, and only while it is at most
 # this share of the host time the solve still has to go.
 MEASURE_SHARE = 0.01
+# A built solver (:class:`Kept`) decides after this many host steps of its
+# first run: the first step pays first uses (allocations, caches), the two
+# after it give the rule its two walls.  Its rule counts the steps left of
+# that run and one more run of the same length, since building a solver
+# says that it is run again, and it holds a step whenever a capture could
+# repay: the hold costs less than the capture it decides, once for every
+# run.
+KEPT_FIRST_CHECK = 3
 # the sleep's cycles a second: an H100's clock at up to 2 GHz (a slower
 # clock sleeps longer; a sleep too short makes the step look dearer)
 HOLD_CYCLES_PER_S = 2.0e9
@@ -473,11 +565,12 @@ def _criterion(resnorm0, tol, atol):
 
 
 def _history(resnorms):
-    """The history as a host ndarray (bfloat16, which numpy lacks, as
-    float32)."""
+    """The history as a host ndarray of its own (bfloat16, which numpy
+    lacks, as float32): a kept graph writes its buffer again."""
     if resnorms.dtype == torch.bfloat16:
         resnorms = resnorms.float()
-    return resnorms.detach().cpu().numpy()
+    out = resnorms.detach().cpu().numpy()
+    return out.copy() if resnorms.device.type == "cpu" else out
 
 
 def _fire(method, callback, state, k):
@@ -529,15 +622,21 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
     return state, success, k, _history(torch.stack(resnorms))
 
 
-def _outer(state, method: Method, inner, *, tol, atol, maxiter, callback):
+def _outer(state, method: Method, inner, *, tol, atol, maxiter, callback, kept=None):
     """The ``while_loop`` backend's outer loop, once per convergence event
     (the start, a dip below the criterion, an early success, ``maxiter``),
     with the explicit recheck; ``inner(state, k, buf, criterion)`` runs
-    steps until the next event and returns ``(state, k, early)``."""
+    steps until the next event and returns ``(state, k, early)``.
+    ``kept``: the history and criterion buffers of a kept graph, written
+    in place."""
     resnorm0 = state.resnorm
-    buf = resnorm0.new_zeros((maxiter + 1,) + tuple(resnorm0.shape))
+    if kept is None:
+        buf = resnorm0.new_zeros((maxiter + 1,) + tuple(resnorm0.shape))
+        criterion = _criterion(resnorm0, tol, atol)
+    else:
+        buf, criterion = kept
+        criterion.copy_(_criterion(resnorm0, tol, atol))
     buf[0] = resnorm0
-    criterion = _criterion(resnorm0, tol, atol)
     if isinstance(callback, ShardMonitor):
         callback.fire(0, resnorm0)
     early = False
@@ -716,10 +815,12 @@ class _GraphLoop:
     added.  ``plain``: the graph's body with each IF node's flag read on
     the host, nothing captured.  ``forced``: a plan ``(after, steps,
     replays, costs)`` of :func:`_plain_graph` or :func:`_capture_at` in
-    place of the cost rule's, or ``costs`` to feed the rule."""
+    place of the cost rule's, or ``costs`` to feed the rule.  ``kept``: the
+    :class:`Kept` slot of a built solver, whose rule this loop follows and
+    which may keep it after its run."""
 
-    def __init__(self, method, maxiter, plain, forced):
-        self.method, self.maxiter, self.plain = method, maxiter, plain
+    def __init__(self, method, maxiter, plain, forced, kept=None):
+        self.method, self.maxiter, self.plain, self.kept = method, maxiter, plain, kept
         self.forced, self.synthetic = forced, forced[3] if forced else None
         self.fixed = forced is not None and self.synthetic is None  # a forced plan
         self.plan = None  # (U, R), once decided
@@ -732,16 +833,24 @@ class _GraphLoop:
         self.copy_s = self.clone_s = 0.0  # copying the fields a step moves; all fields
         self.settled = False  # the last step kept the state's types and shapes
         self.done = False  # no decision left that could capture
-        self.next_check = FIRST_CHECK  # the host step a decision follows
+        # the host step a decision follows
+        self.next_check = FIRST_CHECK if kept is None else KEPT_FIRST_CHECK
         self.rehearsed = False  # the last host step was a clean rehearsal
         self.uncapturable = None  # the rehearsal's first host read
+        self.unkept = None  # why a built solver may not keep this graph
+        self.host_s = None  # the planned host wall a step, once captured
+        self.replay_s = None  # device s a replayed step took, timed once when kept
+        self.buf = self.criterion = None  # the history and criterion the graph writes
         self.left = maxiter  # the last decision's estimate of the steps left
         self.hold_k = None  # the step count once the held step has run
-        ranks = _ranks()  # a rank alone decides alone
-        self.ranks = ranks if ranks is not None and len(ranks.ranks) > 1 else None
-        self.info = dict(decisions=[], plan=None, host_steps=0, held_steps=0, uncapturable=None,
-                         host_steps_s=0.0, decide_s=0.0, capture_s=0.0, instantiate_s=0.0,
-                         replays_s=0.0)
+        self.ranks = _several(_ranks())  # a rank alone decides alone
+        self.begin()
+
+    def begin(self):
+        """Start a run's bookkeeping (a kept loop's again at each run)."""
+        self.info = dict(decisions=[], plan=self.plan, host_steps=0, held_steps=0,
+                         uncapturable=None, host_steps_s=0.0, decide_s=0.0, capture_s=0.0,
+                         instantiate_s=0.0, replays_s=0.0)
         self.t0, self.steps0 = time.perf_counter(), COUNTS["host_steps"]
 
     # measurement and decision
@@ -820,24 +929,35 @@ class _GraphLoop:
             self.left = _steps_left(cols, crit * (n // len(crit)), self.maxiter - k)
         costs = self._agreed(self._costs(self.left))
         self.left = costs.steps_left
+        if self.kept is not None:
+            # this run's steps left and one more run's (KEPT_FIRST_CHECK)
+            costs = costs._replace(steps_left=2 * costs.steps_left + k)
         plan = _plan(costs)
         self.walls, self.launches = self.walls[-2:], self.launches[-2:]
         self.info["decisions"].append((k, costs, plan))
         if plan is not None and self.held_s is None:
             # a capture would repay if the device took no time: hold the next
             # step to see its device time, if that costs little enough
-            if _sleep_s(costs) <= MEASURE_SHARE * costs.steps_left * costs.host_s:
+            if (self.kept is not None
+                    or _sleep_s(costs) <= MEASURE_SHARE * costs.steps_left * costs.host_s):
                 self.hold_k = self.next_check = k + 1
                 return None
             plan = None
-        elif plan is None and _plan(costs._replace(steps_left=self.maxiter - k)) is None:
-            # not even every step to maxiter repays it: no later decision
-            # would capture, so the rest of the solve is the host loop's
+        elif plan is None and (self.kept is not None or _plan(
+                costs._replace(steps_left=self.maxiter - k)) is None):
+            # not even every step to maxiter repays it (a built solver: not
+            # this run and the next): no later decision would capture, so
+            # the rest of the solve is the host loop's, and every later run
+            # of a built solver too
             self.done = True
+            if self.kept is not None:
+                self.kept.host = True
         # decide again when the step count has doubled, or when the
         # estimate says the solve should have ended
         if plan is None:
             self.next_check = max(2 * k, k + costs.steps_left)
+        else:
+            self.host_s = costs.host_s
         return plan
 
     # the ranks of a sharded solve (see _sharded)
@@ -845,14 +965,7 @@ class _GraphLoop:
     def _meet(self, values):
         """The largest of each of ``values`` over the solve's ranks: one
         small collective and one host read (on a rank alone, the values)."""
-        if self.ranks is None:
-            return list(values)
-        import torch.distributed as dist
-
-        t = torch.tensor(values, dtype=torch.float64, device=self.ranks.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.ranks.group)
-        COUNTS["meetings"] += 1
-        return t.tolist()
+        return _meet(self.ranks, values)
 
     def _agreed(self, c):
         """The :class:`Costs` ``c`` with the steps left and each time the
@@ -862,13 +975,17 @@ class _GraphLoop:
         left, *times = self._meet(c[:6])
         return Costs(int(left), *times, c.even)
 
-    def _agree(self, failed, uncapturable=None):
+    def _agree(self, failed, uncapturable=None, unkept=None):
         """After a rehearsal or a capture: raise on every rank when any
         rank's failed (``failed`` on that rank, an error naming it on the
         others), so that no rank replays alone; note a host read of any
-        rank's rehearsal in ``self.uncapturable``."""
+        rank's rehearsal in ``self.uncapturable``, and a read that keeps
+        any rank from keeping its graph in ``self.unkept``."""
         me = self.ranks.index + 1 if self.ranks is not None else 1
-        f, u = self._meet([me if failed is not None else 0, me if uncapturable else 0])
+        f, u, n = self._meet([me if failed is not None else 0, me if uncapturable else 0,
+                              me if unkept else 0])
+        self.unkept = self.unkept or unkept or (
+            f"a read on rank {self.ranks.ranks[int(n) - 1]}" if n else None)
         if failed is not None:
             raise failed
         if f:
@@ -907,10 +1024,13 @@ class _GraphLoop:
 
         dev = state.resnorm.device
         probe = _own(state)
+        reads = set()
 
         def screen():
-            k = torch.full((), ctl.k, dtype=torch.int64, device=dev)
-            with _graphs.recording(), _graphs.dry():
+            with _graphs.recording(), _graphs.dry(), (
+                    _graphs.storages_read(reads) if self.kept is not None
+                    else contextlib.nullcontext()):
+                k = torch.full((), ctl.k, dtype=torch.int64, device=dev)
                 self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
 
         failed = None
@@ -927,8 +1047,27 @@ class _GraphLoop:
             except Exception as exc:  # noqa: BLE001 - raised again, naming the step
                 failed = _capture_failed(self.method, exc)
                 failed.__cause__ = exc
-        self._agree(failed, seen[0] if seen else None)
+        unkept = None
+        if self.kept is not None and failed is None:
+            unkept = self._foreign(reads, (*probe, criterion))
+        self._agree(failed, seen[0] if seen else None, unkept)
         return out
+
+    def _foreign(self, reads, own):
+        """Why the graph of a built solver may not be kept: the first
+        tensor the screen read (``reads``: storage, dtype, shape) that is
+        not ``own`` (the probe state, the criterion) nor reached from the
+        built solver's own objects, a tensor made for one solve that a
+        later run's replay would read again; None if there is none."""
+        from ._graphs import reachable_storages
+
+        mine = {t.untyped_storage().data_ptr() for t in own if t is not None}
+        built = reachable_storages(self.kept.roots)
+        for ptr, dtype, shape in sorted(reads, key=str):
+            if ptr not in mine and ptr not in built:
+                return (f"{_name(self.method)}: its step reads a {dtype} tensor of shape "
+                        f"{shape} made for one solve, outside its state")
+        return None
 
     def _capture(self, state, k, buf, criterion):
         """The graph of this solve, on buffers of the driver's own, one a
@@ -936,6 +1075,7 @@ class _GraphLoop:
         dev = state.resnorm.device
         steps = self.plan[0]
         self.static = _own(state)
+        self.buf, self.criterion = buf, criterion
         self.k_dev = torch.full((), k, dtype=torch.int64, device=dev)
         self.stop = torch.zeros((), dtype=torch.bool, device=dev)
         from . import _graphs
@@ -955,7 +1095,7 @@ class _GraphLoop:
             # a process group's watchdog thread queries the events of its
             # collectives while this thread captures
             self.graph = _graphs.capture(body, dev, "global" if self.ranks is None
-                                         else "thread_local")
+                                         else "thread_local", own_pool=self.kept is not None)
         except Exception as exc:  # noqa: BLE001 - raised again, naming the step
             raise _capture_failed(self.method, exc) from exc
         self.per_step = per_step
@@ -1018,15 +1158,38 @@ class _GraphLoop:
                 return state, k, early
         steps, per_read = self.plan
         replay = self.graph if self.plain else self.graph.replay
+        if state is not self.static:
+            # a kept graph's next run: its initial state into the static
+            # buffers, the device counter to its step
+            _assign(self.static, state)
+            self.k_dev.fill_(k)
         self.stop.fill_(False)
+        # a built solver's capturing run times its first replays once,
+        # where the rule planned them
+        timing = (self.kept is not None and not self.plain and self.replay_s is None
+                  and self.host_s is not None)
         t0 = time.perf_counter()
         while True:
             n = min(per_read, -(-(self.maxiter - k) // steps))
-            for _ in range(n):
-                replay()
+            events = timing and [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            if events:
+                events[0].record()
+            try:
+                for _ in range(n):
+                    replay()
+            except Exception as exc:  # noqa: BLE001 - raised again, naming the solver
+                raise RuntimeError(f"{_name(self.method)}: a replay of the while_loop graph "
+                                   f"failed ({type(exc).__name__}: {exc})") from exc
+            if events:
+                events[1].record()
             COUNTS["replays"] += n
             COUNTS["flag_reads"] += 1
-            if bool(self.stop):
+            stopped = bool(self.stop)
+            if events:
+                timing = False
+                ran = (int(self.k_dev) - k) if stopped else n * steps
+                self._timed(events[0].elapsed_time(events[1]) * 1e-3, max(ran, 1))
+            if stopped:
                 break
             self._ran(n * steps)  # no step raised the flag: all of them ran
             k += n * steps
@@ -1040,6 +1203,15 @@ class _GraphLoop:
         self._ran(k_end - k + early)  # an early exit's step leaves k as it was
         self.info["replays_s"] += time.perf_counter() - t0
         return self.static, k_end, early
+
+    def _timed(self, seconds, steps):
+        """The device time of a built solver's first replays, ``steps`` of
+        them, the largest over its ranks: a replayed step dearer than the
+        planned host-stepped step's wall keeps the solver host-stepped for
+        every later run."""
+        (self.replay_s,) = self._meet([seconds / steps])
+        if self.replay_s >= self.host_s:
+            self.kept.host = True
 
     def _host_part(self):
         """Note the steps from the host so far and their host seconds."""
@@ -1064,6 +1236,11 @@ def _median(xs):
 
 def _run_graph(state0, method: Method, *, tol, atol, maxiter, plain=False, plan=None):
     t0 = time.perf_counter()
+    slot = _slot()
+    if slot is not None:
+        return _run_kept(slot, state0, method, t0, tol=tol, atol=atol, maxiter=maxiter,
+                         plain=plain, plan=plan)
+    COUNTS["graph_route"] += 1
     loop = _GraphLoop(method, maxiter, plain, plan)
     try:
         return _outer(state0, method, loop, tol=tol, atol=atol, maxiter=maxiter, callback=None)
@@ -1073,3 +1250,53 @@ def _run_graph(state0, method: Method, *, tol, atol, maxiter, plain=False, plan=
         loop.release()
         LAST_GRAPH.clear()
         LAST_GRAPH.update(loop.info, total_s=time.perf_counter() - t0)
+
+
+def _run_kept(slot, state0, method, t0, *, tol, atol, maxiter, plain, plan):
+    """A run of a built solver on the graph route: the kept graph replayed
+    from step 0 when its key holds on every rank, the host-stepped loop
+    when the rule keeps the solver there, else a run that may capture a
+    graph to keep (see the module docstring)."""
+    key = _key(method, state0, maxiter, plain, plan)
+    ranks = _several(_ranks())
+    if slot.key is not None and _meet(ranks, [float(slot.key != key)])[0]:
+        slot.release()  # a key that differs on any rank: every rank starts anew
+    if slot.key is not None and slot.host:
+        COUNTS["host_stepped"] += 1
+        out = _run_while(state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=None)
+        LAST_GRAPH.clear()
+        LAST_GRAPH.update(kept="host", unkept=slot.why, total_s=time.perf_counter() - t0)
+        return out
+    loop, rerun = slot.loop, slot.loop is not None
+    if rerun:
+        loop.method = method  # its hooks; the graph replays the first run's step
+        loop.begin()
+        COUNTS["kept_runs"] += 1
+    else:
+        loop = _GraphLoop(method, maxiter, plain, plan, kept=slot)
+    COUNTS["graph_route"] += 1
+    keep = False
+    try:
+        state, ok, k, hist = _outer(state0, method, loop, tol=tol, atol=atol, maxiter=maxiter,
+                                    callback=None,
+                                    kept=(loop.buf, loop.criterion) if rerun else None)
+        keep = loop.graph is not None and loop.unkept is None and not slot.host
+        if keep and any(_shares(a, b) for a, b in zip(state, loop.static)):
+            state = _own(state)  # the next run overwrites the kept buffers
+        return state, ok, k, hist
+    finally:
+        if loop.graph is None:
+            loop._host_part()
+        if keep:
+            slot.loop, slot.key, slot.why = loop, key, None
+        else:
+            loop.release()
+            slot.loop = None
+            slot.why = loop.unkept
+            # a decision the rule took for every run holds for this key
+            slot.key = key if slot.host else None
+        LAST_GRAPH.clear()
+        LAST_GRAPH.update(loop.info, kept=(
+            "replayed" if rerun and keep else "captured" if keep
+            else "host" if slot.host else None), unkept=loop.unkept,
+            replay_step_s=loop.replay_s, total_s=time.perf_counter() - t0)

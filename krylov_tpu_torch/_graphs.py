@@ -8,10 +8,20 @@ device bool ``flag`` equals ``expect`` at that point of the replay
 (``csrc/graph.cu``): the device reads the flag, the host never does.
 ``guard.loop(counter, limit, fn)`` captures ``fn(counter)`` into a WHILE
 node that runs it, and adds one to the 0-d int64 device ``counter``, while
-``counter < limit``.  Conditional nodes nest.  :data:`PLAIN` is the plain
-version (:func:`host_guard`, :func:`host_loop`): it reads each flag on the
-host and runs ``fn`` or not, so the same body runs step by step on any
-device.  :data:`ONCE` runs each body once and reads nothing.
+``counter < limit``.  Conditional nodes nest.  ``guard.sibling(pred,
+fn)`` captures ``fn()`` in an IF node on ``pred`` that does not nest in
+the IF node it is called from: that node's body ends there, the sibling
+(on ``pred`` and that node's own flag) follows it in the enclosing graph,
+and a second IF node on the first one's flag takes the rest of its body
+(a periodic replacement inside a guarded step: on several NCCL ranks its
+collectives, captured inside the step's IF body after the step's own,
+crashed every rank).  :data:`PLAIN` is the
+plain version (:func:`host_guard`, :func:`host_loop`): it reads each flag
+on the host and runs ``fn`` or not, so the same body runs step by step on
+any device.  :data:`ONCE` runs each body once and reads nothing.  Each
+guard keeps this thread's nesting path (:func:`nesting`: ``("if",
+"while")`` inside a WHILE body inside an IF body); :func:`launch_nesting`
+notes it at each counted launch.
 
 A body is captured on a stream of its own per nesting depth, fixed per
 device, and allocates from the device's kept pool (:func:`_bodies_pool`;
@@ -32,6 +42,7 @@ import functools
 import gc
 import threading
 import time
+import types
 
 import torch
 from torch.utils import _pytree
@@ -46,17 +57,67 @@ _POOLS_HELD = set()
 _POOLS_LOCK = threading.Lock()
 # the last capture's instantiation, host seconds
 LAST = {"instantiate_s": 0.0}
-_RECORD = threading.local()  # .launches: this thread's list while recording; .dry
+# .launches: this thread's list while recording; .dry; .path: the
+# conditional bodies this thread's work is in; .nesting: launch_nesting's list
+_RECORD = threading.local()
 
 
 def count(table, key):
     """One launch of kernel ``key`` into the wrapper's counter ``table``,
     or, while this thread records a captured step, into that record."""
+    noted = getattr(_RECORD, "nesting", None)
+    if noted is not None:
+        noted.append((table, key, nesting()))
     launches = getattr(_RECORD, "launches", None)
     if launches is None:
         table[key] += 1
     else:
         launches.append((table, key))
+
+
+def nesting():
+    """The conditional bodies this thread's work is captured (or, on the
+    plain guards, run) in, outermost first: ``"if"`` or ``"while"`` each."""
+    return tuple(getattr(_RECORD, "path", ()))
+
+
+@contextlib.contextmanager
+def _nested(kind):
+    path = _RECORD.__dict__.setdefault("path", [])
+    path.append(kind)
+    try:
+        yield
+    finally:
+        path.pop()
+
+
+@contextlib.contextmanager
+def _unnested():
+    """Within: this thread's work is one conditional level up (a sibling)."""
+    path = _RECORD.__dict__.setdefault("path", [])
+    kind = path.pop()
+    try:
+        yield
+    finally:
+        path.append(kind)
+
+
+def _splits():
+    """Whether a sibling called now splits the body it is called from: a
+    body of one IF node at the top level."""
+    return nesting() == ("if",)
+
+
+@contextlib.contextmanager
+def launch_nesting():
+    """Within: each launch this thread counts (:func:`count`) is noted in
+    the list yielded as ``(table, key, nesting())``, counted as ever."""
+    prev = getattr(_RECORD, "nesting", None)
+    _RECORD.nesting = noted = []
+    try:
+        yield noted
+    finally:
+        _RECORD.nesting = prev
 
 
 @contextlib.contextmanager
@@ -139,15 +200,26 @@ def _index(device):
 def host_guard(flag, expect, fn):
     """The plain guard: ``fn()`` when ``flag`` reads ``expect`` on the
     host, else None."""
-    return fn() if bool(flag) == expect else None
+    if bool(flag) != expect:
+        return None
+    with _nested("if"):
+        return fn()
 
 
 def host_loop(counter, limit, fn):
     """The plain loop: ``fn(counter)`` and ``counter += 1`` while
     ``counter < limit``, each test read on the host."""
-    while bool(counter < limit):
-        fn(counter)
-        counter.add_(1)
+    with _nested("while"):
+        while bool(counter < limit):
+            fn(counter)
+            counter.add_(1)
+
+
+def host_sibling(pred, fn):
+    """The plain sibling: ``fn()`` when ``pred`` reads true on the host, a
+    level up where a captured sibling would be."""
+    with _unnested() if _splits() else contextlib.nullcontext():
+        host_guard(pred, True, fn)
 
 
 class _Plain:
@@ -156,6 +228,7 @@ class _Plain:
 
     __call__ = staticmethod(host_guard)
     loop = staticmethod(host_loop)
+    sibling = staticmethod(host_sibling)
 
 
 PLAIN = _Plain()
@@ -173,6 +246,10 @@ class _Once:
     def loop(counter, limit, fn):
         fn(counter)
 
+    @staticmethod
+    def sibling(pred, fn):
+        fn()
+
 
 ONCE = _Once()
 
@@ -186,13 +263,14 @@ class _Guards:
     def __init__(self, index):
         self.index = index
         self.depth = 0
+        self.frames = []  # the open IF nodes: (flag, expect, parent stream)
 
-    def _body(self, fn, args, end, what):
+    def _body(self, fn, args, end, what, kind):
         """``fn(*args)`` captured on the body stream of this depth; ``end``
         ends that capture."""
         self.depth += 1
         try:
-            with torch.cuda.stream(_stream(self.index, self.depth)):
+            with torch.cuda.stream(_stream(self.index, self.depth)), _nested(kind):
                 out = fn(*args)
         except BaseException:
             end()
@@ -202,15 +280,42 @@ class _Guards:
         _check(end(), f"the end of {what}")
         return out
 
+    def _if_begin(self, parent, flag, expect, body):
+        _check(_lib().krylov_graph_if_begin(parent.cuda_stream, flag.data_ptr(),
+                                            int(not expect), body.cuda_stream), "an IF node")
+
     def __call__(self, flag, expect, fn):
         _scalar(flag, torch.bool, "a guard's flag")
-        lib = _lib()
         parent = torch.cuda.current_stream(self.index)
         body = _stream(self.index, 1 + self.depth)
-        _check(lib.krylov_graph_if_begin(parent.cuda_stream, flag.data_ptr(), int(not expect),
-                                         body.cuda_stream), "an IF node")
-        return self._body(fn, (), lambda: lib.krylov_graph_if_end(body.cuda_stream),
-                          "an IF node")
+        self._if_begin(parent, flag, expect, body)
+        self.frames.append((flag, expect, parent))
+        try:
+            return self._body(fn, (), lambda: _lib().krylov_graph_if_end(body.cuda_stream),
+                              "an IF node", "if")
+        finally:
+            self.frames.pop()
+
+    def sibling(self, pred, fn):
+        """``fn()`` in an IF node on ``pred``; called in the body of one IF
+        node at the top level, the node beside it (see the module
+        docstring), else nested where it is called."""
+        _scalar(pred, torch.bool, "a guard's flag")
+        if not _splits():
+            return self(pred, True, fn)
+        flag, expect, parent = self.frames[-1]
+        body = torch.cuda.current_stream(self.index)
+        _check(_lib().krylov_graph_if_end(body.cuda_stream), "the end of an IF node")
+        self.depth -= 1
+        try:
+            with torch.cuda.stream(parent), _unnested():
+                # the enclosing node ran (its flag as it expects) and pred holds
+                go = pred & (flag if expect else ~flag)
+                self(go, True, fn)
+        finally:
+            self.depth += 1
+            # the rest of the enclosing node's body, on its flag again
+            self._if_begin(parent, flag, expect, body)
 
     def loop(self, counter, limit, fn):
         _scalar(counter, torch.int64, "a loop's counter")
@@ -224,7 +329,7 @@ class _Guards:
                                             ctypes.byref(handle)), "a WHILE node")
         self._body(fn, (counter,), lambda: lib.krylov_graph_while_end(
             body.cuda_stream, counter.data_ptr(), limit.data_ptr(), handle.value),
-            "a WHILE node")
+            "a WHILE node", "while")
 
 
 # operations that read a device value on the host (a scalar, or a size
@@ -290,6 +395,78 @@ def host_reads(device_type):
     seen = []
     with _HostData(device_type, seen), _HostReads(device_type, seen):
         yield seen
+
+
+class _StoragesRead(TorchDispatchMode):
+    """Adds ``(storage, dtype, shape)`` of each strided tensor an
+    operation of this thread reads to ``reads``, but for tensors that an
+    earlier operation within made."""
+
+    def __init__(self, reads):
+        super().__init__()
+        self.reads, self.made = reads, set()
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in _pytree.tree_leaves((args, kwargs)):
+            if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in self.made:
+                    self.reads.add((ptr, t.dtype, tuple(t.shape)))
+        out = func(*args, **kwargs)
+        for t in _pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+                self.made.add(t.untyped_storage().data_ptr())
+        return out
+
+
+def storages_read(reads):
+    """Within: the storages this thread's operations read, but those made
+    within, are added to the set ``reads`` as ``(storage pointer, dtype,
+    shape)``: what a captured step would read at a fixed address."""
+    return _StoragesRead(reads)
+
+
+_LEAVES = (str, bytes, int, float, complex, bool, type(None), type, types.ModuleType,
+           torch.dtype, torch.device, threading.Thread)
+
+
+def reachable_storages(roots, limit=200_000):
+    """The storage pointers of the strided tensors reached from ``roots``
+    through containers, attributes, bound methods, partials and closures
+    (a built solver's operator, preconditioner and reductions), at most
+    ``limit`` objects walked."""
+    out, seen, todo = set(), set(), list(roots)
+    while todo and len(seen) < limit:
+        o = todo.pop()
+        if id(o) in seen or isinstance(o, _LEAVES):
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            if o.layout == torch.strided:
+                out.add(o.untyped_storage().data_ptr())
+            continue
+        if isinstance(o, dict):
+            todo.extend(o.values())
+        elif isinstance(o, (list, tuple, set, frozenset)):
+            todo.extend(o)
+        elif isinstance(o, functools.partial):
+            todo.extend((o.func, o.args, o.keywords))
+        elif isinstance(o, types.MethodType):
+            todo.extend((o.__self__, o.__func__))
+        elif isinstance(o, types.FunctionType):
+            for cell in o.__closure__ or ():
+                try:
+                    todo.append(cell.cell_contents)
+                except ValueError:  # a cell not yet filled
+                    pass
+            todo.extend(o.__defaults__ or ())
+            todo.extend((o.__kwdefaults__ or {}).values())
+        else:
+            todo.extend(getattr(o, "__dict__", {}).values())
+            for name in getattr(type(o), "__slots__", ()):
+                todo.append(getattr(o, name, None))
+    return out
 
 
 def on_body_stream(fn, device):
@@ -358,8 +535,10 @@ class Captured:
             self._give_back = None
 
 
-def capture(body, device, mode="global"):
+def capture(body, device, mode="global", own_pool=False):
     """``body(guard)`` captured on ``device``; returns a :class:`Captured`.
+    ``own_pool``: allocate from a pool of the graph's own, freed with it
+    (a graph kept across solves), not the device's kept one.
 
     Any exception raised inside ``body`` (an operation the capture refuses,
     such as a read of a device value on the host) ends the capture and is
@@ -372,7 +551,8 @@ def capture(body, device, mode="global"):
     # the graph's own pool takes its capture stream's allocations; the
     # bodies' streams capture into IF nodes under capture sequences of
     # their own, so every allocation of the capture goes to the kept pool
-    bodies, give_back = _bodies_pool(index)
+    bodies, give_back = ((torch.cuda.MemPool(use_on_oom=True), None) if own_pool
+                         else _bodies_pool(index))
     cur = torch.cuda.current_stream(index)
     side = _stream(index, 0)
     side.wait_stream(cur)

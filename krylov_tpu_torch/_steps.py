@@ -13,8 +13,9 @@ its control, in one of two forms:
   ``for``; nothing is read back from the device;
 * :class:`DeviceStep` (a step of the graph route): ``k`` is the driver's
   0-d int64 device counter.  ``pick`` evaluates both branches and selects
-  with ``torch.where``, ``cond`` is an IF node and ``loop`` a WHILE node
-  (:mod:`._graphs`; the CPU twin reads their flags on the host).
+  with ``torch.where``, ``cond`` is an IF node beside the step's guard and
+  ``loop`` a WHILE node (:mod:`._graphs`; the CPU twin reads their flags
+  on the host).
 
 :func:`at`, :func:`put` and :func:`add_at` index with a host int (a view, an
 assignment) or a 0-d tensor (``index_select``, ``index_copy_``,
@@ -174,8 +175,11 @@ class DeviceStep:
     def cond(self, pred, fn):
         """``fn()`` in an IF node on the device bool ``pred``; ``fn``
         writes its results in place (its tensors are unset where the node
-        did not run)."""
-        self.guard(pred, True, self._counted(fn))
+        did not run).  Called in a guarded step's body, the node is the
+        guard's sibling, not nested in it (``guard.sibling``): a body that
+        runs collectives sits one conditional level deep, as the step's
+        own do."""
+        self.guard.sibling(pred, self._counted(fn))
 
     def loop(self, n, fn):
         """``fn(j)`` for ``j`` from 0 while ``j < n`` (a 0-d int64 device

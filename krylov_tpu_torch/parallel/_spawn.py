@@ -482,46 +482,57 @@ def main_job(module, argv):
     return {k: (bool(v.success), int(v.numsteps)) for k, v in out.items() if isinstance(v, Info)}
 
 
-def _rule_costs(host_s):
+def _rule_costs(host_s, device_s=0.0):
     """Synthetic costs for the graph route's rule on this rank: a host
-    step of ``host_s[rank]`` seconds, launches of 1 us, no device time."""
+    step of ``host_s[rank]`` seconds, launches of 1 us, ``device_s`` of
+    device time."""
     import torch.distributed as dist
 
     from .._driver import Costs
 
     mine = float(host_s[dist.get_rank() % len(host_s)])
-    return lambda left: Costs(left, mine, 1e-6, 0.0, 0.0, 0.0)
+    return lambda left: Costs(left, mine, 1e-6, float(device_s), 0.0, 0.0)
 
 
 def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
-              read_rank=None, fail_rank=None, **kwargs):
+              read_rank=None, fail_rank=None, unsplit=False, **kwargs):
     """The solve of :func:`solve_job` (with ``build``,
     :func:`~krylov_tpu_torch.parallel.make_sharded_solver` built once and
-    run on each right-hand side of the list ``b``) on this rank, first on
-    the host-stepped loop, then on ``route``, the graph route's plain twin
+    run on each right-hand side of the list ``b``, an entry ``(b, x0)``
+    with a first iterate) on this rank, first on the host-stepped loop,
+    then on ``route``, the graph route's plain twin
     (:func:`krylov_tpu_torch._driver._plain_graph`):
 
     * ``("plain", after, steps, replays)``: that plan, forced;
-    * ``("rule", host_s)``: the cost rule's plan, decided from step 3 on
-      costs fed per rank (:func:`_rule_costs`);
+    * ``("rule", host_s[, device_s])``: the cost rule's plan, decided from
+      step 3 on costs fed per rank (:func:`_rule_costs`);
     * ``("capture", after, steps, replays)``: that plan forced on the
       card (:func:`krylov_tpu_torch._driver._capture_at`), a CUDA graph.
 
     ``read_rank``: on that rank of the rows axis each ``all_reduce`` reads
     its operand on the host.  ``fail_rank``: that rank's capture raises.
+    ``unsplit``: a guarded step's conds nest in its guard (the structure
+    before ``guard.sibling``), to show what the nesting record catches.
     Returns ``x`` and ``info`` as (host-stepped, route) pairs, each route's
     collectives and kernel launches, the route's driver counts and plan,
-    and the error the route raised (then ``x`` and ``info`` hold the
+    with ``build`` each run's ``kept`` and ``unkept``
+    (``_driver.LAST_GRAPH``),
+    the conditional nesting of each collective the route launched (sorted
+    ``(collective, nesting)`` pairs, :func:`._graphs.launch_nesting`), and
+    the error the route raised (then ``x`` and ``info`` hold the
     host-stepped results only)."""
     import contextlib
     from unittest import mock
 
-    from .. import _driver
+    from .. import _driver, _graphs
+    from . import mesh as pm
     from .mesh import ROWS, Mesh, make_mesh
     from .solve import make_sharded_solver, sharded_solve
 
     mesh = make_mesh(mesh_rows, mesh_rhs)
     patches = contextlib.ExitStack()
+    if unsplit:
+        patches.enter_context(mock.patch.object(_graphs, "_splits", lambda: False))
     if read_rank == mesh.coord[ROWS]:
         reduce = Mesh.all_reduce
 
@@ -530,18 +541,21 @@ def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
             return reduce(self, t, *args, **kw)
 
         patches.enter_context(mock.patch.object(Mesh, "all_reduce", reading))
+    out = {"x": [], "info": [], "collectives": [], "launches": [], "error": None, "kept": []}
     if build:
         solve = make_sharded_solver(solver, A, mesh=mesh, **kwargs)
 
         def run():
-            infos = [solve(bj)[1] for bj in b]
+            infos = []
+            for bj in b:
+                infos.append(solve(*bj)[1] if isinstance(bj, tuple) else solve(bj)[1])
+                out["kept"].append((_driver.LAST_GRAPH.get("kept"),
+                                    _driver.LAST_GRAPH.get("unkept")))
             return [_host(i.xk) for i in infos], [_info(i) for i in infos]
     else:
         def run():
             _, info = sharded_solve(solver, A, b, mesh=mesh, **kwargs)
             return _host(info.xk), _info(info)
-
-    out = {"x": [], "info": [], "collectives": [], "launches": [], "error": None}
 
     def record(x, info):
         out["x"].append(x)
@@ -559,7 +573,7 @@ def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
         elif route[0] == "capture":
             ctx = _driver._capture_at(*route[1:])
         else:
-            ctx = _driver._plain_graph(costs=_rule_costs(route[1]))
+            ctx = _driver._plain_graph(costs=_rule_costs(*route[1:]))
             patches.enter_context(mock.patch.object(_driver, "FIRST_CHECK", 3))
         if fail_rank == mesh.coord[ROWS]:
             def failing(self, *args):
@@ -567,11 +581,14 @@ def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
 
             patches.enter_context(mock.patch.object(_driver._GraphLoop, "_capture", failing))
         _reset()
+        out["kept"].clear()  # the route's runs only
         try:
-            with ctx:
+            with ctx, _graphs.launch_nesting() as noted:
                 record(*run())
         except RuntimeError as exc:
             out["error"] = str(exc)
+        out["nesting"] = sorted({(key, path) for table, key, path in noted
+                                 if table is pm.COUNTS})
     out["driver"] = dict(_driver.COUNTS)
     out["plan"] = _driver.LAST_GRAPH.get("plan")
     out["forbidden"] = _counts()["forbidden"]

@@ -22,6 +22,10 @@ the host-stepped loop (counted in ``_driver.COUNTS["host_stepped"]``): a
 staged mesh (gloo carrying CUDA tensors: every transfer goes through the
 host), and a rows axis of several NCCL ranks unless :func:`nccl_graphs`.
 A ``callback`` (a :class:`ShardMonitor`) keeps it too, as on one device.
+A solver built by :func:`make_sharded_solver` keeps its captured graph
+across its runs, as the reference's jit-once solver keeps its program
+(:class:`krylov_tpu_torch._driver.Kept`; released with the solver); its
+ranks keep, capture anew and replay as one.
 
 The ``M_partition`` protocol.  A partition (:func:`~krylov_tpu_torch.parallel.
 partition_amg`, :func:`~krylov_tpu_torch.parallel.partition_ilu0`,
@@ -39,11 +43,12 @@ runs once a solve, and once for all solves of :func:`make_sharded_solver`.
 
 import inspect
 import os
+import weakref
 
 import numpy as np
 import torch
 
-from .._driver import Ranks, ShardMonitor, _host_stepped, _sharded
+from .._driver import Kept, Ranks, ShardMonitor, _host_stepped, _keeping, _sharded
 from .._info import Info
 from .._operators import DiagonalOperator
 from ..ops.bsr import BSROperator
@@ -179,7 +184,7 @@ def sharded_solve(
     run = _make_general_run(
         solver, A, mesh=mesh, shard_rhs=shard_rhs, M_diag=M_diag, M_factory=M_factory,
         M_partition=M_partition, tol=tol, atol=atol, maxiter=maxiter, callback=callback,
-        rhs_ndim=b.ndim, N=b.shape[0], solver_kwargs=solver_kwargs,
+        rhs_ndim=b.ndim, N=b.shape[0], solver_kwargs=solver_kwargs, keep=False,
     )
     return run(b, x0)
 
@@ -281,10 +286,13 @@ def _gather_cols(mesh, t):
 
 
 # Several NCCL ranks on the graph route: off.  On four H100s with
-# NCCL_GRAPH_MIXING_SUPPORT=0 every case of tools/torch_multigpu_check.py
-# captured its collectives and replayed bit-equal, and sharded cg ran 3.9 to
-# 5.0 times faster a step, but cg_pipelined and cg_block crashed (SIGSEGV)
-# on 2 and 4 ranks; see PERF.md.  The checking tools turn it on.
+# NCCL_GRAPH_MIXING_SUPPORT=0 every case of tools/torch_multigpu_check.py, and
+# cg, cg_pipelined and cg_block past their periodic replacement, replayed
+# bit-equal to the host-stepped loop (the replacement beside the step's IF
+# node, _graphs.sibling; nested inside it, after the step's own collectives,
+# it crashed every rank), but a process whose built solvers still held their
+# graphs when it tore its process group down hung (PERF.md).  The
+# checking tools turn it on.
 NCCL_GRAPHS = False
 
 
@@ -375,16 +383,35 @@ def _general_operator(A, mesh, N):
     return A_op, pad_rows, rows
 
 
+def _kept_runs(run, roots, keep):
+    """``run`` wrapped so that its solves keep their graph in one
+    :class:`~krylov_tpu_torch._driver.Kept` slot (``keep``), released when
+    the wrapper is collected; ``run`` itself for a one-shot solve."""
+    if not keep:
+        return run
+    slot = Kept(roots)
+
+    def kept_run(b, x0=None):
+        with _keeping(slot):
+            return run(b, x0)
+
+    kept_run.__doc__ = run.__doc__
+    weakref.finalize(kept_run, slot.release)
+    return kept_run
+
+
 def _make_general_run(
     solver, A, *, mesh, shard_rhs, M_diag, M_factory, M_partition, tol, atol, maxiter,
-    callback, rhs_ndim, N, solver_kwargs,
+    callback, rhs_ndim, N, solver_kwargs, keep=True,
 ):
     """Build the reusable core of the general (flat-vector) sharded solve.
 
     Everything independent of the right-hand side's values happens here,
     once: padding and partitioning of the operator, the transfer of this
-    rank's slab and preconditioner to its device.  The returned ``run(b,
-    x0=None)`` only permutes, pads and splits the vectors and solves.
+    rank's slab and preconditioner to its device, the mesh's inner
+    product.  The returned ``run(b, x0=None)`` only permutes, pads and
+    splits the vectors and solves; with ``keep`` its solves keep their
+    captured graph from run to run.
     """
     dev = mesh.device
     maxiter = N if maxiter is None else maxiter
@@ -411,6 +438,7 @@ def _make_general_run(
     rhs_split = shard_rhs and rhs_ndim > 1 and n_rhs > 1
     pj = None if perm is None else torch.as_tensor(perm)
     inv = None if perm is None else torch.as_tensor(invert_permutation(perm))
+    inner = psum_inner((rows.stop - rows.start,), mesh)
 
     def run(b, x0=None):
         b = _tensor(b)
@@ -436,8 +464,8 @@ def _make_general_run(
 
         b_l = slab(b)
         with _graph_ranks(mesh):
-            _, info = solver(A_op, b_l, inner=psum_inner(b_l.shape, mesh), x0=slab(x0),
-                             tol=tol, atol=atol, maxiter=maxiter, backend="while_loop", **kw)
+            _, info = solver(A_op, b_l, inner=inner, x0=slab(x0), tol=tol, atol=atol,
+                             maxiter=maxiter, backend="while_loop", **kw)
         xk = mesh.all_gather_rows(info.xk, ROWS)
         xk, success, numsteps, hist = _finish(mesh, xk, info, rhs_split)
         xk = xk[:N]
@@ -446,7 +474,7 @@ def _make_general_run(
         info = Info(success, xk, numsteps, hist, None, None)
         return (xk if success else None), info
 
-    return run
+    return _kept_runs(run, (A_op, kw, inner), keep)
 
 
 def make_sharded_solver(
@@ -471,7 +499,10 @@ def make_sharded_solver(
     ``sharded_solve`` called with the same arguments.  Partitioning and
     padding of the operator and the transfer of this rank's slab and
     preconditioner happen here, once; each ``run`` only splits the vectors
-    and solves.
+    and solves.  On the graph route the solver keeps the graph its first
+    capturing run captured, with its buffers, and each later run replays
+    it from step 0 (the reference compiles its program once); the graph
+    and its memory pool are released when ``run`` is collected.
 
     * ``n_rhs``: the blocked column count the solver is built for (None: a
       single right-hand side).  Grid operators take flat ``(N,)`` or grid
@@ -516,6 +547,7 @@ def _sharded_solve_grid(solver, A, b, *, mesh, x0, tol, atol, maxiter, M_diag=No
     run = _make_grid_run(
         solver, A, mesh=mesh, tol=tol, atol=atol, maxiter=maxiter, M_diag=M_diag,
         M_factory=M_factory, callback=callback, n_rhs=n_rhs, solver_kwargs=solver_kwargs,
+        keep=False,
     )
     return run(b, x0)
 
@@ -563,7 +595,7 @@ def _grid_operator(A, mesh):
 
 
 def _make_grid_run(solver, A, *, mesh, tol, atol, maxiter, M_diag, M_factory, callback,
-                   n_rhs, solver_kwargs):
+                   n_rhs, solver_kwargs, keep=True):
     """Build-once core of the grid-layout sharded solve (see
     :func:`_make_general_run`).  ``n_rhs`` fixes the blocked column count
     (None: a single right-hand side)."""
@@ -613,7 +645,7 @@ def _make_grid_run(solver, A, *, mesh, tol, atol, maxiter, M_diag, M_factory, ca
                     None, None)
         return (xk if info.success else None), info
 
-    return run
+    return _kept_runs(run, (A_op, kw, inner), keep)
 
 
 def _pad_banded(A, pad):

@@ -30,6 +30,10 @@ class BicgstabState(NamedTuple):
     omega: torch.Tensor
     resnorm: torch.Tensor
     early_success: torch.Tensor
+    # the shadow residual and the right-hand side: in the state, so that a
+    # graph kept across solves (make_sharded_solver) reads the solve's own
+    shadow: torch.Tensor
+    b: torch.Tensor
 
 
 def bicgstab(
@@ -76,23 +80,25 @@ def bicgstab(
         omega=scal(1.0),
         resnorm=resnorm0,
         early_success=torch.zeros((), dtype=torch.bool, device=b.device),
+        shadow=r0_shadow,
+        b=b,
     )
 
     def step(s: BicgstabState, criterion) -> BicgstabState:
-        rho = inner(r0_shadow, s.r)
+        rho = inner(s.shadow, s.r)
         beta = rho * s.alpha / nonzero(s.rho * s.omega)
 
         p = s.r + beta * (s.p - s.omega * s.v)
         y = Mr @ (Ml @ p)
         v = A @ y
 
-        alpha = rho / nonzero(inner(r0_shadow, v))
+        alpha = rho / nonzero(inner(s.shadow, v))
         s_vec = s.r - alpha * v
         h = s.x + alpha * y
 
         # mid-iteration convergence probe on the previous iterate (the
         # reference's quirk: x, not h)
-        resnorm_h = _norm(Ml @ (b - A @ s.x))
+        resnorm_h = _norm(Ml @ (s.b - A @ s.x))
         early = torch.all(resnorm_h <= criterion)
 
         Ml_s = Ml @ s_vec
@@ -114,6 +120,8 @@ def bicgstab(
             omega=torch.where(early, s.omega, omega).to(vdtype),
             resnorm=torch.where(early, resnorm_h, _norm(r_new)),
             early_success=early,
+            shadow=s.shadow,
+            b=s.b,
         )
 
     method = Method(

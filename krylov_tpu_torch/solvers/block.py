@@ -38,6 +38,8 @@ class BlockCGState(NamedTuple):
     P: torch.Tensor  # (N, k) search directions
     gamma: torch.Tensor  # (k, k) R^H Z
     resnorm: torch.Tensor  # (k,), or () for a 1-D right-hand side
+    B: torch.Tensor  # the right-hand sides and the first iterate, read by
+    X0: torch.Tensor  # the replacement
 
 
 def _default_block_inner(U, V):
@@ -132,6 +134,7 @@ def cg_block(
         P=Z0.to(vdtype),
         gamma=gamma0,
         resnorm=columns(resnorm0),
+        B=B, X0=X0,
     )
 
     def step(st: BlockCGState, criterion, ctl) -> BlockCGState:
@@ -148,9 +151,11 @@ def cg_block(
         # periodic explicit replacement: the explicit residual and P reset
         # to Z; the conjugacy chain (P against gamma) is where f32 drift
         # lives, so a kept P after refreshing gamma diverges.  Written over
-        # this step's own R, Z, P and gamma.
+        # this step's own R, Z, P and gamma.  B and X0 come from the state:
+        # a graph kept across solves (make_sharded_solver) replays this
+        # step with other ones.
         def replace():
-            R.copy_(residuals(X0 + X))
+            R.copy_(st.B - A @ (st.X0 + X))
             Z.copy_(M @ R)
             P.copy_(Z)
             gamma_new.copy_(block_inner(R, Z))
@@ -159,7 +164,7 @@ def cg_block(
 
         return BlockCGState(
             X=X, R=R, Z=Z, P=P, gamma=gamma_new,
-            resnorm=columns(torch.sqrt(column_norms2(R, gamma_new))),
+            resnorm=columns(torch.sqrt(column_norms2(R, gamma_new))), B=st.B, X0=st.X0,
         )
 
     def xk_of(st: BlockCGState):

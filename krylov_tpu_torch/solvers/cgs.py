@@ -22,6 +22,9 @@ class CgsState(NamedTuple):
     q: torch.Tensor
     rho: torch.Tensor
     resnorm: torch.Tensor
+    # in the state, so that a graph kept across solves (make_sharded_solver)
+    # reads the solve's own shadow vector
+    shadow: torch.Tensor
 
 
 def cgs(
@@ -57,23 +60,25 @@ def cgs(
         q=torch.zeros_like(r0),
         rho=torch.ones(inner_tail(inner, b), dtype=vdtype, device=b.device),
         resnorm=_norm(r0),
+        shadow=rp,
     )
 
     def step(s: CgsState, criterion) -> CgsState:
-        rho = inner(rp, s.r)
+        rho = inner(s.shadow, s.r)
         beta = rho / nonzero(s.rho)
         u = s.r + beta * s.q
         p = u + beta * (s.q + beta * s.p)
 
         v = A @ (M @ p)
-        alpha = rho / nonzero(inner(rp, v))
+        alpha = rho / nonzero(inner(s.shadow, v))
 
         q = u - alpha * v
         u_ = M @ (u + q)
 
         x = s.x + alpha * u_
         r = s.r - alpha * (A @ u_)
-        return CgsState(x=x, r=r, p=p, q=q, rho=rho.to(vdtype), resnorm=_norm(r))
+        return CgsState(x=x, r=r, p=p, q=q, rho=rho.to(vdtype), resnorm=_norm(r),
+                        shadow=s.shadow)
 
     method = Method(
         step=step,

@@ -32,6 +32,9 @@ class GcrState(NamedTuple):
     S: torch.Tensor  # (maxiter, N, *tail) search directions
     V: torch.Tensor  # (maxiter, N, *tail) their A-images, orthonormalized
     resnorm: torch.Tensor
+    # in the state, so that a graph kept across solves (make_sharded_solver)
+    # reads the solve's own right-hand side
+    b: torch.Tensor
 
 
 def gcr(
@@ -67,6 +70,7 @@ def gcr(
         S=torch.zeros((maxiter,) + tuple(b.shape), dtype=vdtype, device=b.device),
         V=torch.zeros((maxiter,) + tuple(b.shape), dtype=vdtype, device=b.device),
         resnorm=_norm(r0),
+        b=b,
     )
 
     def step(st: GcrState, criterion, ctl) -> GcrState:
@@ -87,13 +91,13 @@ def gcr(
         v_new = v_new / safe
         s_new = s_new / safe
 
-        gamma = inner(b, v_new)
+        gamma = inner(st.b, v_new)
         x = st.x + gamma * s_new
         r = st.r - gamma * v_new
         # the bases are written in place: row k is read by later steps only
         put(st.S, k, s_new)
         put(st.V, k, v_new)
-        return GcrState(x=x, r=r, S=st.S, V=st.V, resnorm=_norm(r))
+        return GcrState(x=x, r=r, S=st.S, V=st.V, resnorm=_norm(r), b=st.b)
 
     method = Method(
         step=step,

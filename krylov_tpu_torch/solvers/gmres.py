@@ -319,6 +319,9 @@ class _WhileState(NamedTuple):
     G: torch.Tensor  # (K, 2, 2, *tail) rotation history
     y: torch.Tensor  # (K+1, *tail) rotated projected rhs
     resnorm: torch.Tensor
+    # (width, 1, ...) a CGS chunk's row numbers: in the state, so that a
+    # graph kept across solves (make_sharded_solver) reads no tensor of one
+    lanes: torch.Tensor
 
 
 def _finish(state, success, k, resnorms, xk_of):
@@ -348,13 +351,13 @@ def _gmres_while(
     R0 = torch.zeros((K + 1, K) + tail, dtype=dtype, device=dev)
     y0 = torch.zeros((K + 1,) + tail, dtype=dtype, device=dev)
     y0[0] = norm0
-    state0 = _WhileState(V=V0, P=P0, R=R0, G=_eye2_rotations(K, tail, dtype, dev),
-                         y=y0, resnorm=norm0)
     width = min(CGS_ROWS, K + 1)  # the rows of a CGS chunk
     last = K + 1 - width  # the first row of the basis's last whole chunk
     lanes = torch.arange(width, device=dev).reshape((width,) + (1,) * len(tail))
+    state0 = _WhileState(V=V0, P=P0, R=R0, G=_eye2_rotations(K, tail, dtype, dev),
+                         y=y0, resnorm=norm0, lanes=lanes)
 
-    def chunk(c):
+    def chunk(c, lanes):
         """The first row of CGS chunk ``c`` (rows ``c * width ..``) and the
         mask of the rows that are its own, or None for all of them: a chunk
         that would run past the basis starts at ``last`` instead, over rows
@@ -376,13 +379,13 @@ def _gmres_while(
             # 0..k against Av, then Av less their combination, each by the
             # chunks that hold those rows (rows past k are still zero)
             def coefficients(c):
-                first, own = chunk(c)
+                first, own = chunk(c, s.lanes)
                 alphas = batch_inner(rows(s.V, first, width), Av)
                 add_at(a, first, alphas if own is None else torch.where(own, alphas, 0),
                        n=width)
 
             def combine(c):
-                first, own = chunk(c)
+                first, own = chunk(c, s.lanes)
                 alphas = rows(a, first, width)
                 if own is not None:
                     alphas = torch.where(own, alphas, 0)

@@ -45,6 +45,7 @@ class PipeCGState(NamedTuple):
     gamma: torch.Tensor
     alpha: torch.Tensor
     resnorm: torch.Tensor
+    b: torch.Tensor  # the right-hand side, read by the replacement
 
 
 def cg_pipelined(
@@ -94,6 +95,7 @@ def cg_pipelined(
         gamma=gamma0,
         alpha=torch.ones_like(gamma0),
         resnorm=resnorm0,
+        b=b,
     )
 
     def step(st: PipeCGState, criterion, ctl) -> PipeCGState:
@@ -135,9 +137,11 @@ def cg_pipelined(
         # s = A p, q = M s, z = A q.  Refreshing only the residual chain
         # leaves the direction chain inconsistent and destabilizes the
         # recurrence instead of fixing it.  Written over the recurrence's
-        # vectors, which are this step's own.
+        # vectors, which are this step's own.  The right-hand side comes
+        # from the state: a graph kept across solves (make_sharded_solver)
+        # replays this step with another one.
         def replace():
-            r.copy_(b - A @ x)
+            r.copy_(st.b - A @ x)
             u.copy_(M @ r)
             w.copy_(A @ u)
             s.copy_(A @ p)
@@ -149,7 +153,7 @@ def cg_pipelined(
         return PipeCGState(
             x=x, r=r, u=u, w=w, p=p, s=s, q=q, z=z,
             gamma=gamma, alpha=alpha,
-            resnorm=torch.sqrt(rr_new),
+            resnorm=torch.sqrt(rr_new), b=st.b,
         )
 
     method = Method(

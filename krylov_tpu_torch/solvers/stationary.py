@@ -40,6 +40,11 @@ class StationaryState(NamedTuple):
     x: torch.Tensor
     r: torch.Tensor
     resnorm: torch.Tensor
+    # the right-hand side and the update's own tensor (Jacobi's diagonal;
+    # empty for the others): in the state, so that a graph kept across
+    # solves (make_sharded_solver) reads the solve's own
+    b: torch.Tensor
+    aux: torch.Tensor
 
 
 def _stationary(
@@ -54,10 +59,12 @@ def _stationary(
     callback: Optional[Callable] = None,
     backend: str = EAGER,
     _capturable: bool = False,
+    _aux: Optional[torch.Tensor] = None,
 ):
     # _capturable: the update reads nothing on the host (Richardson,
     # Jacobi); the triangular sweeps' steps, ~23 launches a grid row, stay
-    # on the host-stepped loop
+    # on the host-stepped loop.  _aux: a tensor the state carries, handed
+    # to the update as update(r, aux)
     x0_default = x0 is None
     A, b, x0, N, inner, maxiter = setup(A, b, x0=x0, inner=inner, maxiter=maxiter)
 
@@ -69,12 +76,13 @@ def _stationary(
     if callback is not None:
         callback(x0, r0)
 
-    state0 = StationaryState(x=x0.to(r0.dtype), r=r0, resnorm=_norm(r0))
+    aux = b.new_empty(0) if _aux is None else _aux
+    state0 = StationaryState(x=x0.to(r0.dtype), r=r0, resnorm=_norm(r0), b=b, aux=aux)
 
     def step(s: StationaryState, criterion) -> StationaryState:
-        x = s.x + update(s.r)
-        r = b - A @ x
-        return StationaryState(x=x, r=r, resnorm=_norm(r))
+        x = s.x + (update(s.r) if _aux is None else update(s.r, s.aux))
+        r = s.b - A @ x
+        return StationaryState(x=x, r=r, resnorm=_norm(r), b=s.b, aux=s.aux)
 
     method = Method(
         step=step,
@@ -183,10 +191,10 @@ def jacobi(A, *args, omega: float = 1.0, **kwargs):
     """x_{k+1} = x_k + omega * D^{-1} r."""
     D = _diagonal(A, _solve_device(A, args, kwargs))
 
-    def _update(r):
+    def _update(r, D):
         return omega * r / _bcast(D, r)
 
-    return _stationary(_update, A, *args, _capturable=True, **kwargs)
+    return _stationary(_update, A, *args, _capturable=True, _aux=D, **kwargs)
 
 
 def _is_grid_stencil(A):

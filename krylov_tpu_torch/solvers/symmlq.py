@@ -44,6 +44,9 @@ class SymmlqState(NamedTuple):
     ceta_last: torch.Tensor
     ceta_last2: torch.Tensor
     resnorm: torch.Tensor
+    # the first Lanczos norm: in the state, so that a graph kept across
+    # solves (make_sharded_solver) reads the solve's own
+    beta1: torch.Tensor
 
 
 def symmlq(
@@ -107,6 +110,7 @@ def symmlq(
         ceta_last=scal(0.0),
         ceta_last2=scal(0.0),
         resnorm=resnorm0,
+        beta1=beta1,
     )
 
     def step(s: SymmlqState, criterion, ctl) -> SymmlqState:
@@ -147,7 +151,7 @@ def symmlq(
         s_cur = beta_new / gamma
 
         ceta_cur = ctl.pick(
-            first, lambda: (beta1 / gamma).to(sdtype),
+            first, lambda: (s.beta1 / gamma).to(sdtype),
             lambda: (-(delta * ceta_last + epsilon * ceta_last2) / gamma).to(sdtype))
 
         return SymmlqState(
@@ -169,6 +173,7 @@ def symmlq(
             ceta_last=ceta_last,
             ceta_last2=ceta_last2,
             resnorm=_norm(r),
+            beta1=s.beta1,
         )
 
     def xout_of(s: SymmlqState):

@@ -49,6 +49,10 @@ class TfqmrState(NamedTuple):
     eta: torch.Tensor
     tau: torch.Tensor
     resnorm: torch.Tensor
+    # the shadow vector and the bound's square roots: in the state, so that
+    # a graph kept across solves (make_sharded_solver) reads the solve's own
+    shadow: torch.Tensor
+    roots: torch.Tensor
 
 
 def tfqmr(
@@ -118,6 +122,8 @@ def tfqmr(
         eta=zeros(sdtype),
         tau=tau0,
         resnorm=tau0,
+        shadow=rstar,
+        roots=roots,
     )
 
     def step(s: TfqmrState, criterion, ctl) -> TfqmrState:
@@ -132,13 +138,13 @@ def tfqmr(
         def even_half():
             # this pair's v = A u_even + beta (A u_odd + beta v)
             v = Au + s.beta * s.vtail
-            ip = inner(rstar, v)
+            ip = inner(s.shadow, v)
             alpha = (s.rho / nonzero(ip)).to(sdtype)
             return v, alpha, s.w - alpha * Au, ip.to(sdtype)
 
         def odd_half():
             w = s.w - s.alpha * Au
-            return s.v, s.alpha, w, inner(rstar, w).to(sdtype)
+            return s.v, s.alpha, w, inner(s.shadow, w).to(sdtype)
 
         v, alpha, w, ip = ctl.pick(even, even_half, odd_half)
 
@@ -161,13 +167,13 @@ def tfqmr(
 
         tau = tau.to(rdtype)
         # quasi-residual bound ||r_j|| <= tau_j sqrt(j + 1), after this half-step
-        resnorm = tau * at(roots, j + 1)
+        resnorm = tau * at(s.roots, j + 1)
         return TfqmrState(
             x=x, w=w, u=u, v=v, vtail=vtail, d=d, dM=dM,
             alpha=alpha, beta=beta,
             rho=rho, theta=theta.to(rdtype),
             eta=eta.to(sdtype), tau=tau,
-            resnorm=resnorm,
+            resnorm=resnorm, shadow=s.shadow, roots=s.roots,
         )
 
     method = Method(

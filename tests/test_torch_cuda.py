@@ -1091,21 +1091,85 @@ def test_sharded_capture_on_one_nccl_rank(dev):
     np.testing.assert_array_equal(g.resnorms, h.resnorms)
 
 
-def test_sharded_capture_on_four_nccl_ranks(dev):
-    """Four NCCL ranks, one a GPU, ``cg`` on the grid with a capture
-    forced: with ``parallel.solve.nccl_graphs()`` the ranks capture their
-    collectives with the kernels, else every rank runs the host-stepped
-    loop; either way each is bit-equal to its host-stepped run with the
-    same collectives."""
+def test_a_built_solver_keeps_its_graph_on_one_nccl_rank(dev):
+    """``make_sharded_solver`` on a world of one NCCL rank, ``cg_pipelined``
+    at 256^2 past its replacement with a capture forced: the first run
+    captures the graph the solver keeps, the later two replay it from step
+    0 with no host step, each run bit-equal to its host-stepped run with
+    the same launches, and once the solver is gone its graph, pool and
+    buffers are given back."""
+    import gc
+
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+
+    A = st.poisson_2d(256, dtype=np.float32, device="cpu")
+    rng = np.random.default_rng(7)
+    bs = [torch.from_numpy(rng.standard_normal(A.grid).astype(np.float32)).to(dev)
+          for _ in range(3)]
+    kw = dict(tol=1e-5, maxiter=3 * STEPS, replace_every=STEPS)
+    mesh = parallel.make_mesh(device=dev)
+    try:
+        host = parallel.make_sharded_solver(kt.cg_pipelined, A, mesh=mesh, **kw)
+        cs.reset_launches()
+        with _driver._host_stepped():
+            want = [host(b)[1] for b in bs]
+        n_host = dict(cs.LAUNCHES)
+        with _driver._capture_at(after=3, steps=4, replays=4):
+            host(bs[0])  # a first kept graph: the capture streams' own workspaces
+        del host
+        gc.collect()  # what stays from here on: the inputs and the host-stepped results
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        run = parallel.make_sharded_solver(kt.cg_pipelined, A, mesh=mesh, **kw)
+        cs.reset_launches()
+        _driver.reset_counts()
+        kept = []
+        with _driver._capture_at(after=3, steps=4, replays=4):
+            for b, w in zip(bs, want):
+                _, info = run(b)
+                kept.append(_driver.LAST_GRAPH["kept"])
+                assert info.numsteps == w.numsteps and torch.equal(info.xk, w.xk)
+                np.testing.assert_array_equal(info.resnorms, w.resnorms)
+        torch.cuda.synchronize()
+        c = dict(_driver.COUNTS)
+        assert kept == ["captured", "replayed", "replayed"], kept
+        assert c["captures"] == 1 and c["kept_runs"] == 2 and c["host_steps"] == 3, c
+        assert dict(cs.LAUNCHES) == n_host and n_host["stencil2d_matvec"] > 0
+        del run, info
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() == allocated
+        assert torch.cuda.memory_reserved() == reserved
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("solver", ["cg", "cg_pipelined", "cg_block"])
+def test_sharded_capture_on_four_nccl_ranks(dev, solver):
+    """Four NCCL ranks, one a GPU, on the grid with a capture forced
+    (``cg_pipelined`` and ``cg_block`` past their periodic replacement):
+    with ``parallel.solve.nccl_graphs()`` the ranks capture their
+    collectives with the kernels, none two conditional levels deep, else
+    every rank runs the host-stepped loop; either way each is bit-equal to
+    its host-stepped run with the same collectives."""
     from krylov_tpu_torch.parallel import _spawn, solve
 
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four GPUs")
     A = st.poisson_2d(256, dtype=np.float32, device="cpu")
     b = np.ones(A.grid, np.float32)
+    kw = dict(tol=0.0, atol=0.0, maxiter=STEPS)
+    if solver != "cg":
+        kw.update(maxiter=3 * STEPS, replace_every=STEPS)
+    if solver == "cg_block":
+        b = np.random.default_rng(5).standard_normal(A.grid + (4,)).astype(np.float32)
     with _spawn.SPMDPool(4, backend="nccl", device="cuda", timeout=300.0) as pool:
-        res = pool.run(_spawn.graph_job, kt.cg, A, b, route=("capture", 3, 4, 4), tol=0.0,
-                       atol=0.0, maxiter=STEPS)
+        res = pool.run(_spawn.graph_job, getattr(kt, solver), A, b, route=("capture", 3, 4, 4),
+                       **kw)
     assert res["error"] is None, res["error"]
     (x_h, x_g), (i_h, i_g) = res["x"], res["info"]
     np.testing.assert_array_equal(x_g, x_h)
@@ -1115,6 +1179,8 @@ def test_sharded_capture_on_four_nccl_ranks(dev):
         assert p["launches"][0] == p["launches"][1]
         if solve.nccl_graphs():
             assert p["driver"]["captures"] == 1 and p["driver"]["graph_steps"] > 0, p["driver"]
+            # the host steps before the capture at the top, the captured ones an IF deep
+            assert {path for _, path in p["nesting"]} == {(), ("if",)}, p["nesting"]
         else:
             assert p["driver"]["host_stepped"] == 1 and p["driver"]["captures"] == 0, p["driver"]
 

@@ -764,6 +764,9 @@ class _Once:
     def loop(self, counter, limit, fn):
         fn(counter)
 
+    def sibling(self, pred, fn):
+        fn()
+
 
 class _Ops(TorchDispatchMode):
     """The operations dispatched within but views (on the card, the

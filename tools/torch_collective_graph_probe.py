@@ -8,7 +8,16 @@ Run under ``torchrun``, one rank a GPU.  For one ``--kind``:
   conditional node;
 * ``if``: captured into an IF node's body (``_graphs`` guard), replayed
   once with the flag up (the body runs) and once with it down (skipped);
-* ``while``: captured into a WHILE node's body run three times a replay.
+* ``while``: captured into a WHILE node's body run three times a replay;
+* ``if_if``: captured into an IF node's body inside another IF node's
+  body (a periodic replacement inside a guarded step before
+  ``guard.sibling``), replayed with the inner flag up, then down;
+* ``sibling``: the same through ``guard.sibling``, the structure the
+  driver captures now: the outer body split around an IF node beside it,
+  one level deep;
+* ``if_if_after``, ``sibling_after``: those two with the collectives
+  launched in the outer body too, before the inner IF node (a guarded
+  step's own reductions and halo exchanges before its replacement's).
 
 Each captures one ``all_reduce`` over the world and one halo exchange
 (``Mesh.start_exchange``: a ``batch_isend_irecv`` to both neighbours),
@@ -37,7 +46,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("plain", "if", "while"), required=True)
+    ap.add_argument("--kind", choices=("plain", "if", "while", "if_if", "sibling",
+                                       "if_if_after", "sibling_after"), required=True)
     ap.add_argument("--mode", choices=("global", "thread_local"), default="global",
                     help="the capture's error mode (torch.cuda.CUDAGraph.capture_begin)")
     args = ap.parse_args()
@@ -65,6 +75,10 @@ def main():
     prev = torch.zeros((n,), device=dev)
     nxt = torch.zeros((n,), device=dev)
     flag = torch.ones((), dtype=torch.bool, device=dev)
+    inner = torch.ones((), dtype=torch.bool, device=dev)
+    outer = torch.zeros((), dtype=torch.bool, device=dev)  # the step guard's flag, down
+    before = torch.zeros((n,), device=dev)
+    after = torch.zeros((n,), device=dev)
     counter = torch.zeros((), dtype=torch.int64, device=dev)
     limit = torch.full((), 3, dtype=torch.int64, device=dev)
 
@@ -74,13 +88,27 @@ def main():
         prev.add_(got[0])
         nxt.add_(got[1])
 
+    after_kind = args.kind.endswith("_after")
+
+    def step(guard, nest):
+        # a guarded step: work before, a conditional replacement, work after
+        if after_kind:
+            work()
+        before.add_(1.0)
+        nest(inner, work)
+        after.add_(before)
+
     def body(guard):
         if args.kind == "plain":
             work()
         elif args.kind == "if":
             guard(flag, True, work)
-        else:
+        elif args.kind == "while":
             guard.loop(counter, limit, lambda c: work())
+        elif args.kind.startswith("if_if"):
+            guard(outer, False, lambda: step(guard, lambda p, fn: guard(p, True, fn)))
+        else:
+            guard(outer, False, lambda: step(guard, guard.sibling))
 
     out = {"rank": rank, "captured": False, "replayed": False, "error": None}
     graph = None
@@ -93,8 +121,8 @@ def main():
     dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=agree)
     if int(ok) == 1:
         try:
-            total.zero_(), prev.zero_(), nxt.zero_()
-            reps = 3 if args.kind == "while" else 1
+            total.zero_(), prev.zero_(), nxt.zero_(), before.zero_(), after.zero_()
+            reps = 3 if args.kind == "while" else 2 if after_kind else 1
             counter.zero_()
             graph.replay()
             torch.cuda.synchronize()
@@ -103,11 +131,14 @@ def main():
             want_next = float(rank + 2) if rank + 1 < world else 0.0
             good = (torch.all(total == reps * s) and torch.all(prev == reps * want_prev)
                     and torch.all(nxt == reps * want_next))
-            if args.kind == "if":
-                flag.fill_(False)
-                graph.replay()  # the body is skipped on every rank
+            if args.kind != "plain" and args.kind != "while":
+                (flag if args.kind == "if" else inner).fill_(False)
+                graph.replay()  # the (inner) body is skipped on every rank
                 torch.cuda.synchronize()
-                good = good and torch.all(total == s)
+                good = good and torch.all(total == (reps + after_kind) * s)
+            if args.kind not in ("plain", "if", "while"):
+                # the step's own work ran on both replays, in order
+                good = good and torch.all(before == 2) and torch.all(after == 3)
             out["replayed"] = bool(good)
             if not good:
                 out["error"] = (f"replay: wrong values total {float(total[0])} prev "

@@ -8,7 +8,8 @@ the solves of ``chip_smoke.py`` 11b (``chip_smoke.sharded_cases``: the
 grid operator with ``M_diag`` and the shard monitor, the const stencil
 alone and under ``ChebyshevPreconditioner``, CSR in halo and gather mode,
 PET ``qmr`` and an ``(N, 8)`` b, 6c's block matrix, restarted ``gmres``,
-``make_sharded_solver`` on three right-hand sides) and 12b
+``make_sharded_solver`` on three right-hand sides, one built solver a
+route, which keeps the graph of its first capture) and 12b
 (``chip_smoke.partition_cases``: ``multigrid_factory`` in its three
 couplings and on the Galerkin path, ``partition_amg`` with two sharded
 levels and Chebyshev smoothing, ``partition_ilu0`` under ``qmr``,
@@ -32,6 +33,7 @@ solve, its captures and what kept it on the host.
 
 import argparse
 import contextlib
+import gc
 import os
 import sys
 import time
@@ -112,13 +114,16 @@ def main():
                 mod.reset_launches()
             pm.reset_counts()
             _driver.reset_counts()
+            _driver.LAST_GRAPH.clear()
             t0 = time.perf_counter()
             with ctx():
                 if build:
-                    if id(A) not in solvers:
-                        solvers[id(A)] = parallel.make_sharded_solver(solver, A, mesh=run_mesh,
-                                                                      **kw)
-                    _, info = solvers[id(A)](b)
+                    # one built solver a route: the first right-hand side's run
+                    # captures the graph it keeps, the later ones replay it
+                    if (id(A), route) not in solvers:
+                        solvers[id(A), route] = parallel.make_sharded_solver(
+                            solver, A, mesh=run_mesh, **kw)
+                    _, info = solvers[id(A), route](b)
                 else:
                     _, info = parallel.sharded_solve(solver, A, b, mesh=run_mesh, **kw)
             if dev.type == "cuda":
@@ -143,9 +148,9 @@ def main():
                 "host_steps_s", "capture_s", "instantiate_s", "replays_s")
             ) if _driver.COUNTS["graph_route"] else "-"
             got[route] = (info, launched, dict(pm.COUNTS), dict(_driver.COUNTS),
-                          last.get("uncapturable"), wall, parts)
+                          last.get("uncapturable"), wall, parts, last.get("kept"))
         ref_info, ref_launched, ref_coll = got["host-stepped"][:3]
-        for route, (info, launched, coll, counts, read, wall, _) in got.items():
+        for route, (info, launched, coll, counts, read, wall, *_) in got.items():
             same = (info.numsteps == ref_info.numsteps and info.success == ref_info.success
                     and np.array_equal(info.resnorms, ref_info.resnorms)
                     and torch.equal(info.xk, ref_info.xk))
@@ -155,13 +160,18 @@ def main():
             ref = ref_fn()
             cm.sharded_held(f"{label}", (ref_info.numsteps, ref_info.resnorms), ref,
                             ref_info.xk.cpu().numpy(), ref.xk.cpu().numpy())
-            for route, (info, launched, coll, counts, read, wall, cap) in got.items():
+            for route, (info, launched, coll, counts, read, wall, cap, kept) in got.items():
                 cm.log(f"    {route}: {wall * 1e3:.1f} ms, bit-equal to the host-stepped loop "
                        f"with the same launches and collectives; graph route "
                        f"{counts['graph_route']}, captures {counts['captures']} (ms of host "
                        f"steps / capture / instantiation / replays: {cap}), steps replayed "
                        f"{counts['graph_steps']}, uncapturable {counts['uncapturable']}"
-                       + (f" ({read})" if read else "") + f", meetings {counts['meetings']}")
+                       + (f" ({read})" if read else "") + f", meetings {counts['meetings']}"
+                       + (f", kept graph: {kept}" if build else ""))
+    # the built solvers' kept graphs hold captured collectives: they go
+    # before the process group does
+    solvers.clear()
+    gc.collect()
     dist.barrier()
     if lead:
         cm.log(f"all {len(runs)} sharded solves held on {world} ranks")

@@ -19,8 +19,14 @@ JSON line with the reference's keys (``s_per_iter`` is the median solve's)
 and ``route``, ``captured`` (whether the rule's solves captured),
 ``nccl_graphs`` (``parallel.solve.nccl_graphs()``: several NCCL ranks on
 the graph route, with ``--nccl-graphs`` and ``NCCL_GRAPH_MIXING_SUPPORT=0``),
-``s_per_iter_all`` (every repeat) and ``card`` (``nvidia-smi``'s name and
-power limit).
+``s_per_iter_all`` (every repeat), ``graph_s`` (the last solve's seconds
+of host steps, decisions, capture, instantiation and replays, and its
+plan, from ``_driver.LAST_GRAPH``), ``bit_equal`` (every solve of the
+route bit-equal, iterate and history, to the host-stepped loop's first;
+``--route both`` only) and ``card`` (``nvidia-smi``'s name and power
+limit).  ``--replace-every`` sets ``cg_pipelined``'s and ``cg_block``'s
+periodic residual replacement (it runs inside the captured steps when it
+is below ``--iters``).
 
 ``--device cpu --small`` rehearses it on gloo ranks on the CPU.
 """
@@ -92,12 +98,14 @@ def main(argv=None):
     p.add_argument("--operator", default="grid", choices=["grid", "csr_pet", "bsr"])
     p.add_argument("--route", default="both", choices=["host", "rule", "both"])
     p.add_argument("--repeats", type=int, default=3, help="timed solves of each route")
+    p.add_argument("--replace-every", type=int, default=None,
+                   help="cg_pipelined's and cg_block's replace_every (their default if unset)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--small", action="store_true",
-                   help="rehearsal sizes: 4096 rows a rank, ny 64, 20 steps")
     p.add_argument("--nccl-graphs", action="store_true",
                     help="several NCCL ranks take the graph route (parallel.solve.NCCL_GRAPHS; "
                     "needs NCCL_GRAPH_MIXING_SUPPORT=0), to check it")
+    p.add_argument("--small", action="store_true",
+                   help="rehearsal sizes: 4096 rows a rank, ny 64, 20 steps")
     args = p.parse_args(argv)
     if args.small:
         args.rows_per_device, args.ny, args.iters = 4096, 64, 20
@@ -120,13 +128,20 @@ def main(argv=None):
     solver = getattr(kt, args.solver)
     card = card_line() if mesh.device.type == "cuda" else "cpu"
 
+    kw = {}
+    if args.replace_every is not None and args.solver != "cg":
+        kw["replace_every"] = args.replace_every
+
     def solve():
         return parallel.sharded_solve(solver, A, b, mesh=mesh, tol=0.0, atol=0.0,
-                                      maxiter=args.iters)[1]
+                                      maxiter=args.iters, **kw)[1]
 
     routes = ["host", "rule"] if args.route == "both" else [args.route]
     times = {r: [] for r in routes}
     captured = {r: 0 for r in routes}
+    equal = {r: True for r in routes}
+    parts = {r: None for r in routes}
+    first = None  # the host-stepped loop's first iterate and history
     for rep in range(args.repeats + 1):  # the first of each route warms it
         for r in routes:
             ctx = _driver._host_stepped() if r == "host" else contextlib.nullcontext()
@@ -141,9 +156,20 @@ def main(argv=None):
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             assert int(info.numsteps) == args.iters, (int(info.numsteps), args.iters)
+            got = (info.xk.cpu(), np.asarray(info.resnorms))
+            if r == "host" and first is None:
+                first = got
+            elif first is not None:
+                equal[r] = equal[r] and bool(torch.equal(got[0], first[0])
+                                             and np.array_equal(got[1], first[1]))
             if rep:
                 times[r].append(dt)
                 captured[r] += _driver.COUNTS["captures"]
+                last = _driver.LAST_GRAPH
+                parts[r] = None if r == "host" or not last else dict(
+                    {k: last.get(k) for k in ("host_steps_s", "decide_s", "capture_s",
+                                              "instantiate_s", "replays_s", "host_steps")},
+                    plan=last.get("plan"))
     work = nnz * (args.block_rhs if args.solver == "cg_block" else 1)
     if dist.get_rank() == 0:
         for r in routes:
@@ -157,7 +183,8 @@ def main(argv=None):
                 "nnz_per_s": work / per_iter, "nnz_per_s_per_device": work / per_iter / n_dev,
                 "route": r, "captured": captured[r] > 0,
                 "nccl_graphs": parallel.solve.nccl_graphs(),
-                "s_per_iter_all": [t / args.iters for t in times[r]], "card": card,
+                "s_per_iter_all": [t / args.iters for t in times[r]], "graph_s": parts[r],
+                "bit_equal": equal[r] if first is not None else None, "card": card,
             }), flush=True)
     dist.barrier()
     dist.destroy_process_group()
