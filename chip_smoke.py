@@ -129,11 +129,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    1M-row CSR, ``cg`` with an ``(N, 8)`` b through K11 and K12), each on
    the route its cost rule picks and on ``_driver._host_stepped()``, six
    of them also under a capture forced by ``_driver._capture_at``,
-   alternating, 10 repeats; then nine cells of the methods whose step
+   alternating, 5 repeats; then nine cells of the methods whose step
    depends on its step number (``gmres`` x3 on the convected 1M-row CSR,
    ``tfqmr``, ``cg_pipelined``, ``cg_block`` (K11), ``symmlq``, ``gcr`` on
    the shifted one, ``chebyshev`` on ``poisson_2d_const(1024)`` (K2)), all
-   three routes, 5 repeats: every route bit-equal to the host-stepped
+   three routes, 3 repeats: every route bit-equal to the host-stepped
    loop, with equal launch counts, inputs unchanged, memory back at its
    level, the rule's median no slower than the host-stepped median by
    more than the larger spread, the forced route taking a capture and
@@ -141,6 +141,14 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    busy, idle share, host steps before the capture, capture and
    instantiation ms, flag reads a step, the rule's route minus the host
    loop pair by pair, and the kept pool's size after a forced capture;
+14. a solver built once: ten right-hand sides through each of five
+   ``make_sharded_solver`` solvers on one NCCL rank, the kept graph against
+   the host-stepped loop, every run bit for bit;
+15. a process's first solve: phase 13's ``cg`` + Jacobi cell (1500 steps)
+   in three fresh interpreters on each route, alternating (this script
+   with ``--first-solve``), every rule-route process captured, none
+   importing ``torch._dynamo``, the rule's median first solve no slower
+   than the host-stepped one's;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -3247,8 +3255,8 @@ def phase_partitions_gloo(dev, kt, sv, st, card):
 # phase 13: the device-resident loop (the while_loop graph route)
 # ---------------------------------------------------------------------------
 
-ROUTE_REPEATS = 10  # timed solves of each route a cell, alternating
-COUNTED_REPEATS = 5  # the same for the cells of the methods whose step depends on its number
+ROUTE_REPEATS = 5  # timed solves of each route a cell, alternating
+COUNTED_REPEATS = 3  # the same for the cells of the methods whose step depends on its number
 
 
 def device_busy(fn):
@@ -3726,6 +3734,184 @@ def phase_kept(dev, kt, cs, sv, bs, st, card):
     return totals
 
 
+FIRST_PROCESSES = 3  # 15's fresh processes a route, alternating
+FIRST_SETUP_S = 300.0  # the most 15's processes may take together to import and set up
+FIRST_NAMED = ("torch._dynamo", "torch._inductor", "sympy", "triton")
+FIRST_PARTS = ("host_steps_s", "rehearse_s", "screen_s", "roots_s", "decide_s", "capture_s",
+               "instantiate_s", "replays_s")
+
+
+def first_solve_cells(cell, dev, small=False):
+    """Two solves of ``cell``, each returning its Info, for a fresh process
+    to time: ``cg_jacobi``, phase 13's ``cg`` + Jacobi
+    on the unshifted 1M-row CSR (K10), 1500 steps; ``chebyshev``, phase
+    13's 1000 steps on ``poisson_2d_const(1024)`` (K2); ``built_mgcg`` and
+    ``built_amg``, the runs of phase 14's MG-CG on
+    ``poisson_2d_const(4096)`` and ``cg`` + ``partition_amg`` built solvers
+    (one NCCL rank).  ``small``: sizes for a rehearsal on the CPU."""
+    import krylov_tpu_torch as kt
+    from krylov_tpu_torch import parallel
+    from krylov_tpu_torch.ops import stencil as st
+
+    npg, big = (32, 64) if small else (NPG, BIG)
+    rng = np.random.default_rng(SEED + 130)
+    if cell == "cg_jacobi":
+        lap0 = poisson_csr(npg, 4.0)
+        op0 = kt.as_operator(lap0, dev)
+        jac = kt.DiagonalOperator(torch.from_numpy(1.0 / lap0.diagonal()).to(dev))
+        bs = [torch.from_numpy(rng.standard_normal(npg * npg).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        return [lambda b=b: kt.cg(op0, b, M=jac, tol=1e-4, maxiter=1500,
+                                  backend="while_loop")[1] for b in bs]
+    if cell == "chebyshev":
+        A = st.poisson_2d_const(npg, device=dev)
+        c = 4.0 * np.cos(np.pi / (npg + 1))
+        bs = [torch.from_numpy(rng.standard_normal(A.grid).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        return [lambda b=b: kt.chebyshev(A, b, (4.0 - c, 4.0 + c), inner=inner, tol=0.0,
+                                         atol=0.0, maxiter=1000, backend="while_loop")[1]
+                for b in bs]
+    mesh = parallel.make_mesh(device=dev)
+    if cell == "built_mgcg":
+        A = st.poisson_2d_const(big, device=dev)
+        bs = [manufactured(A, dev, SEED + 141 + j)[1] for j in range(2)]
+        run = parallel.make_sharded_solver(kt.cg, A, mesh=mesh, M_factory=kt.multigrid_factory(),
+                                           tol=1e-6, maxiter=30)
+    else:
+        lap0 = poisson_csr(npg, 4.0)
+        bs = [torch.from_numpy(rng.standard_normal(npg * npg).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        run = parallel.make_sharded_solver(
+            kt.cg, parallel.partition_pet(lap0, 1), mesh=mesh, tol=1e-4, maxiter=60,
+            M_partition=parallel.partition_amg(lap0, 1, dtype=np.float32))
+    return [lambda b=b: run(b)[1] for b in bs]
+
+
+def first_solves(solves, route, dev, first=contextlib.nullcontext):
+    """A fresh process's two ``solves`` (:func:`first_solve_cells`) timed
+    on ``route``: ``"host"`` (``_driver._host_stepped()``) or ``"rule"``
+    (the cost rule's graph route; on the CPU its plain twin,
+    ``_driver._plain_graph(3, 4, 8)``), the first within ``first()``.
+    Returns both walls, the first solve's counts, decisions, holds and
+    split into the graph loop's parts (:data:`FIRST_PARTS`, from
+    ``_driver.LAST_GRAPH``), and the modules it imported, those of
+    :data:`FIRST_NAMED` by name."""
+    from krylov_tpu_torch import _driver
+
+    if route == "host":
+        ctx = _driver._host_stepped
+    elif dev.type == "cuda":
+        ctx = contextlib.nullcontext
+    else:
+        ctx = lambda: _driver._plain_graph(3, 4, 8)  # noqa: E731
+    walls, infos = [], []
+    before = set(sys.modules)
+    for j, solve in enumerate(solves):
+        _driver.reset_counts()
+        _driver.LAST_GRAPH.clear()
+        t0 = time.perf_counter()
+        with ctx(), (first() if j == 0 else contextlib.nullcontext()):
+            infos.append(solve())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if j == 0:
+            new = set(sys.modules) - before
+            last, counts = dict(_driver.LAST_GRAPH), dict(_driver.COUNTS)
+    return dict(first_s=walls[0], second_s=walls[1], numsteps=int(infos[0].numsteps),
+                imported=len(new), named=[m for m in FIRST_NAMED if m in new],
+                captures=counts["captures"], graph_route=counts["graph_route"],
+                kept=last.get("kept"), plan=last.get("plan"), host_steps=last.get("host_steps"),
+                held_steps=counts["held_steps"],
+                decisions=[(k, plan, {f: round(v, 9) for f, v in c._asdict().items()
+                                      if f in ("steps_left", "host_s", "launch_s", "device_s")})
+                           for k, c, plan in last.get("decisions", ())],
+                holds=last.get("holds"), **{k: last.get(k) for k in FIRST_PARTS})
+
+
+def first_solve_child(route, ready):
+    """One process of phase 15 (``chip_smoke.py --first-solve ROUTE
+    READY``): imports the package (timed), sets up the ``cg_jacobi`` cell,
+    makes the file ``READY``, waits for a line on its standard input, then
+    times its two solves on ``route`` (:func:`first_solves`) and prints one
+    JSON line."""
+    t0 = time.perf_counter()
+    import krylov_tpu_torch  # noqa: F401
+
+    import_s = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    solves = first_solve_cells("cg_jacobi", dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    open(ready, "w").close()
+    sys.stdin.readline()
+    print(json.dumps(dict(route=route, import_s=import_s, setup_s=setup_s,
+                          **first_solves(solves, route, dev))), flush=True)
+
+
+def phase_first_solve(card):
+    """15: a fresh process's first solve of phase 13's ``cg`` + Jacobi cell
+    on the unshifted 1M-row CSR (K10, 1500 steps), in
+    :data:`FIRST_PROCESSES` processes on each route, alternating
+    (:func:`first_solve_child`).  They import and set up together; then
+    one at a time, the others waiting, each times its first and second
+    solve and ends.  Every rule-route process must capture, none may
+    import ``torch._dynamo``, and the rule's median first solve must take
+    no more wall than the host-stepped loop's."""
+    import os
+    import tempfile
+
+    log(f"phase 15: a fresh process's first solve, cg + Jacobi on the unshifted {NPG}^2 CSR, "
+        f"1500 steps, host-stepped against the rule's route, {FIRST_PROCESSES} processes "
+        f"each, alternating [{card}]")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    order = [r for i in range(FIRST_PROCESSES) for r in ("host", "rule")[:: 1 - 2 * (i % 2)]]
+    got, procs = {"host": [], "rule": []}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, route in enumerate(order):
+                ready = os.path.join(tmp, f"ready{i}")
+                procs.append((route, ready, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--first-solve", route, ready],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)))
+            deadline = time.monotonic() + FIRST_SETUP_S
+            while not all(os.path.exists(ready) for _, ready, _ in procs):
+                ended = [(route, p.returncode) for route, _, p in procs if p.poll() is not None]
+                assert not ended, f"phase 15: processes ended before their solves: {ended}"
+                assert time.monotonic() < deadline, "phase 15: the set-up outlasted its limit"
+                time.sleep(0.05)
+            log(f"  15: {len(procs)} processes set up in {time.perf_counter() - t_phase:.1f} s")
+            for route, _, p in procs:
+                out, _ = p.communicate("go\n", timeout=120)
+                assert p.returncode == 0, (route, p.returncode)
+                g = json.loads(out.strip().splitlines()[-1])
+                got[route].append(g)
+                log(f"  [{card}] 15 {route}: first solve {g['first_s'] * 1e3:.1f} ms "
+                    f"({g['numsteps']} steps), second {g['second_s'] * 1e3:.1f} ms; the package "
+                    f"imported in {g['import_s']:.2f} s, the cell set up in {g['setup_s']:.2f} "
+                    f"s; the first solve imported {g['imported']} modules, named {g['named']}; "
+                    f"captures {g['captures']}"
+                    + "".join(f", {k[:-2]} {g[k] * 1e3:.1f}" for k in FIRST_PARTS
+                              if g.get(k) is not None))
+        finally:
+            for _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    med = {route: float(np.median([g["first_s"] for g in gs])) for route, gs in got.items()}
+    log(f"  [{card}] 15 median first solve of {FIRST_PROCESSES}: host-stepped "
+        f"{med['host'] * 1e3:.1f} ms, rule {med['rule'] * 1e3:.1f} ms")
+    for g in got["rule"]:
+        assert g["graph_route"] == 1 and g["captures"] >= 1, g
+    for g in got["host"] + got["rule"]:
+        assert "torch._dynamo" not in g["named"], g
+        assert g["numsteps"] == got["host"][0]["numsteps"], g
+    assert med["rule"] <= med["host"], med
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -3789,6 +3975,7 @@ def main():
         launches[k] = launches.get(k, 0) + n
     for k, n in phase_kept(dev, kt, cs, sv, bs, st, card).items():
         launches[k] = launches.get(k, 0) + n
+    phase_first_solve(card)
     times = phase_timing(dev, kt, cs, st, A_div, card)
     times.update(sparse_timing(dev, kt, sv, bs, card))
 
@@ -3824,4 +4011,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--first-solve"]:
+        first_solve_child(*sys.argv[2:4])
+    else:
+        main()

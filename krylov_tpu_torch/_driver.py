@@ -146,11 +146,16 @@ COUNTS = dict.fromkeys(
 # The last graph-route solve: its decisions (the host step after which
 # each came, the :class:`Costs` it saw and its plan), the plan taken (steps
 # a graph ``U``, replays a flag read ``R``) or None, the steps launched from
-# the host (before the capture, if any) and the held ones among them, the
+# the host (before the capture, if any) and the held ones among them (and
+# on the card each hold's host seconds from the sleep's launch to the
+# step's last, the sleep's seconds and the device seconds timed), the
 # operation of the rehearsal step that read the host (or None), the host
 # seconds of the steps from the host (before the capture, if any), of the
 # decisions, of the capture (without its instantiation), of the
-# instantiation, of the replays and of the whole loop.  A built solver's
+# instantiation, of the replays and of the whole loop; of the host steps'
+# seconds, the rehearsal step's (``rehearse_s``), the screen's
+# (``screen_s``) and a built solver's walk of its own objects
+# (``roots_s``).  A built solver's
 # run adds ``kept``: "captured" (this run captured the graph it keeps),
 # "replayed" (it replayed the kept graph), "host" (the rule keeps the solver
 # host-stepped), or None, with ``unkept`` saying why a capture was not kept,
@@ -485,6 +490,15 @@ KEPT_FIRST_CHECK = 3
 # the sleep's cycles a second: an H100's clock at up to 2 GHz (a slower
 # clock sleeps longer; a sleep too short makes the step look dearer)
 HOLD_CYCLES_PER_S = 2.0e9
+# A held step whose launches the host ended after its sleep did may time
+# the device's waits for the host too: its time is then an upper bound (a
+# process's first hold pays first uses inside the sleep: in fresh
+# processes on an H100 the first held step of cg + Jacobi timed 1.4-8.5x
+# what a covered one did, and the rule kept the solve on the host loop).
+# Where that bound still makes a plan it stands; where it refuses one, it
+# is dropped and the next step held behind twice the sleep, up to this
+# many holds a run.
+HOLD_TRIES = 3
 
 
 def _sleep_s(c):
@@ -830,6 +844,7 @@ class _GraphLoop:
         self.sites, self.credited, self.tallies = [], [], None
         self.walls, self.launches = [], []  # host s of the steps before the last decision
         self.held_s = None  # device s of the held step, once held
+        self.held_over = False  # its launches outlasted its sleep: held_s may be high
         self.copy_s = self.clone_s = 0.0  # copying the fields a step moves; all fields
         self.settled = False  # the last step kept the state's types and shapes
         self.done = False  # no decision left that could capture
@@ -848,9 +863,10 @@ class _GraphLoop:
 
     def begin(self):
         """Start a run's bookkeeping (a kept loop's again at each run)."""
-        self.info = dict(decisions=[], plan=self.plan, host_steps=0, held_steps=0,
+        self.info = dict(decisions=[], plan=self.plan, host_steps=0, held_steps=0, holds=[],
                          uncapturable=None, host_steps_s=0.0, decide_s=0.0, capture_s=0.0,
-                         instantiate_s=0.0, replays_s=0.0)
+                         instantiate_s=0.0, replays_s=0.0, rehearse_s=0.0, screen_s=0.0,
+                         roots_s=0.0)
         self.t0, self.steps0 = time.perf_counter(), COUNTS["host_steps"]
 
     # measurement and decision
@@ -865,15 +881,17 @@ class _GraphLoop:
         step after a plan is the capture's rehearsal (:meth:`_rehearse`)."""
         hold = self.hold_k == k + 1
         rehearse = self.plan is not None
-        t_launch = []
+        t_launch, t_slept = [], []
         events = None
         if hold and not self.plain:
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            sleep = int(HOLD_CYCLES_PER_S * _sleep_s(self._costs(self.left)))
+            sleep = int(HOLD_CYCLES_PER_S * _sleep_s(self._costs(self.left))
+                        * 2 ** len(self.info["holds"]))  # doubled after each dropped one
 
         def step(s, crit, ctl):
             if events is not None:
                 torch.cuda._sleep(sleep)
+                t_slept.append(time.perf_counter())
                 events[0].record()
             s2 = self.method.step(s, crit, ctl)
             t_launch.append(time.perf_counter())
@@ -895,8 +913,15 @@ class _GraphLoop:
         if hold:
             COUNTS["held_steps"] += 1
             self.info["held_steps"] += 1
-            self.held_s = (self.synthetic(self.left).device_s if events is None
-                           else events[0].elapsed_time(events[1]) * 1e-3)
+            if events is None:
+                self.held_s = self.synthetic(self.left).device_s
+            else:
+                self.held_s = events[0].elapsed_time(events[1]) * 1e-3
+                # the device ran the step alone only if the host launched it
+                # all before the sleep ended
+                window, slept = t_launch[0] - t_slept[0], sleep / HOLD_CYCLES_PER_S
+                self.held_over = window > slept
+                self.info["holds"].append((window, slept, self.held_s))
         return new, k2, early, stop
 
     def _costs(self, steps_left):
@@ -927,12 +952,18 @@ class _GraphLoop:
             cols = [ends[i: n * (k + 1): n] for i in range(n)]
             crit = ends[n * (k + 1):]
             self.left = _steps_left(cols, crit * (n // len(crit)), self.maxiter - k)
-        costs = self._agreed(self._costs(self.left))
+        costs, over = self._agreed(self._costs(self.left))
         self.left = costs.steps_left
         if self.kept is not None:
             # this run's steps left and one more run's (KEPT_FIRST_CHECK)
             costs = costs._replace(steps_left=2 * costs.steps_left + k)
         plan = _plan(costs)
+        if plan is None and over and self.info["held_steps"] < HOLD_TRIES:
+            # a hold that may have timed the device's waits refused the plan:
+            # the next step is held again
+            self.held_s, self.held_over = None, False
+            costs = costs._replace(device_s=0.0)
+            plan = _plan(costs)
         self.walls, self.launches = self.walls[-2:], self.launches[-2:]
         self.info["decisions"].append((k, costs, plan))
         if plan is not None and self.held_s is None:
@@ -968,12 +999,13 @@ class _GraphLoop:
         return _meet(self.ranks, values)
 
     def _agreed(self, c):
-        """The :class:`Costs` ``c`` with the steps left and each time the
-        largest over the solve's ranks, so that every rank plans alike."""
+        """``(costs, over)``: the :class:`Costs` ``c`` with the steps left
+        and each time the largest over the solve's ranks, and whether any
+        rank's hold outlasted its sleep, so that every rank plans alike."""
         if self.ranks is None:
-            return c
-        left, *times = self._meet(c[:6])
-        return Costs(int(left), *times, c.even)
+            return c, self.held_over
+        left, *times, over = self._meet([*c[:6], float(self.held_over)])
+        return Costs(int(left), *times, c.even), bool(over)
 
     def _agree(self, failed, uncapturable=None, unkept=None):
         """After a rehearsal or a capture: raise on every rank when any
@@ -1034,11 +1066,13 @@ class _GraphLoop:
                 self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
 
         failed = None
+        t0 = time.perf_counter()
         with host_checks_off(), _graphs.host_reads(dev.type) as seen:
             if self.plain:
                 out = step(state, criterion, ctl)
             else:
                 out = _graphs.on_body_stream(lambda: step(state, criterion, ctl), dev)
+            t1 = time.perf_counter()
             try:
                 if self.plain:
                     screen()
@@ -1047,9 +1081,12 @@ class _GraphLoop:
             except Exception as exc:  # noqa: BLE001 - raised again, naming the step
                 failed = _capture_failed(self.method, exc)
                 failed.__cause__ = exc
+        t2 = time.perf_counter()
         unkept = None
         if self.kept is not None and failed is None:
             unkept = self._foreign(reads, (*probe, criterion))
+        self.info.update(rehearse_s=t1 - t0, screen_s=t2 - t1,
+                         roots_s=time.perf_counter() - t2)
         self._agree(failed, seen[0] if seen else None, unkept)
         return out
 

@@ -343,7 +343,19 @@ _HOST_READ_OPS = frozenset((
 _FROM_HOST = (torch.tensor, torch.as_tensor, torch.asarray)
 
 
-class _HostReads(TorchDispatchMode):
+class _Screen(TorchDispatchMode):
+    """A dispatch mode of the graph route's screen.  ``TorchDispatchMode``
+    wraps a subclass's ``__torch_dispatch__`` in ``torch._disable_dynamo``
+    unless the class says otherwise, and that wrapper's first call imports
+    ``torch._dynamo`` (with sympy, some 800 modules and seconds of a
+    process's first graph-route solve).  A screen compiles nothing."""
+
+    @classmethod
+    def _should_skip_dynamo(cls):
+        return False
+
+
+class _HostReads(_Screen):
     """Notes each operation of this thread that a CUDA graph could not
     replay: a read of a value of a tensor on ``device_type`` on the host, a
     boolean-mask index of such a tensor, or an operation that mixes host
@@ -397,7 +409,7 @@ def host_reads(device_type):
         yield seen
 
 
-class _StoragesRead(TorchDispatchMode):
+class _StoragesRead(_Screen):
     """Adds ``(storage, dtype, shape)`` of each strided tensor an
     operation of this thread reads to ``reads``, but for tensors that an
     earlier operation within made."""

@@ -15,7 +15,8 @@ solving its own row slab):
   :func:`partition_amg` (distributed AMG), :func:`partition_ilu0`
   (ILU(0)-Schwarz) and :func:`partition_block_jacobi`,
 * :func:`sharded_solve` / :func:`make_sharded_solver`: any solver, run
-  sharded,
+  sharded; :func:`release_kept`: the built solvers' kept graphs that hold
+  collectives, released ahead of their process group's teardown,
 * :mod:`multihost`: the process group from ``torchrun``'s environment.
 
 The sharded geometric multigrid is :func:`krylov_tpu_torch.multigrid_factory`,
@@ -29,7 +30,7 @@ from .banded import ShardedBandedOperator
 from .bsr import ShardedBSROperator
 from .csr import ShardedCSROperator, partition_csr
 from .grid import ShardedConstStencilOperator, ShardedGridStencilOperator
-from .mesh import RHS, ROWS, make_mesh, psum_inner
+from .mesh import RHS, ROWS, make_mesh, psum_inner, release_kept
 from .pet import PETPartition, ShardedPETOperator, partition_pet
 from .schwarz import ILUSchwarzPartition, partition_ilu0
 from .solve import make_sharded_solver, sharded_solve
@@ -43,6 +44,7 @@ __all__ = [
     "partition_ilu0",
     "make_mesh",
     "psum_inner",
+    "release_kept",
     "ROWS",
     "RHS",
     "ShardedBandedOperator",

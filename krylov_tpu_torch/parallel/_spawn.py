@@ -593,3 +593,75 @@ def graph_job(solver, A, b, *, route, mesh_rows=None, mesh_rhs=1, build=False,
     out["plan"] = _driver.LAST_GRAPH.get("plan")
     out["forbidden"] = _counts()["forbidden"]
     return out
+
+
+def teardown_job(solver, A, b, *, route, how="destroy", **kwargs):
+    """Two solvers built on this rank (:func:`~krylov_tpu_torch.parallel.
+    make_sharded_solver`), each run once on ``route`` (``("plain", after,
+    steps, replays)``, or ``("capture", ...)`` on the card) so that it
+    keeps its graph: one over the world's rows axis, on groups made for
+    this job, and one on this rank alone (``Mesh.of_one``).  The first
+    one's slot is held as a card's NCCL ranks hold theirs (the CPU's plain
+    twin holds no collective: the route holds nothing here).  Then its
+    rows group is destroyed while both solvers are alive: through
+    ``torch.distributed.destroy_process_group`` (``how="destroy"``), or
+    through torch's own function after ``parallel.release_kept`` (``how=
+    "bound"``, a script that bound the name before importing the package).
+
+    Returns ``order``: each kept slot's release (``("release", which,
+    whether it held a graph)``) and the group's teardown
+    (``("destroy", "rows")``) in the order they came; ``held``: whether the
+    route held each slot; ``kept``: for each solver what its run kept and
+    whether its slot holds a graph after the teardown; ``again``: what the
+    one-rank solver's next run did; ``cached``: whether the mesh's group
+    cache still holds the destroyed group."""
+    import inspect
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from .. import _driver
+    from . import mesh as pm
+    from .mesh import ROWS, Mesh, make_mesh
+    from .solve import make_sharded_solver
+
+    # groups of this job's own (a timeout no other mesh uses), so that the
+    # world and the pool's cached groups outlive the teardown
+    mesh = make_mesh(timeout=pm.DEFAULT_TIMEOUT + 1.5)
+    group = mesh.group(ROWS)
+    ctx = (_driver._plain_graph if route[0] == "plain" else _driver._capture_at)
+    solves = {"rows": make_sharded_solver(solver, A, mesh=mesh, **kwargs),
+              "alone": make_sharded_solver(solver, A, mesh=Mesh.of_one(mesh.device), **kwargs)}
+    slots = {which: inspect.getclosurevars(s).nonlocals["slot"] for which, s in solves.items()}
+    names = {id(slot): which for which, slot in slots.items()}
+    order, kept = [], {}
+    for which, solve in solves.items():
+        with ctx(*route[1:]):
+            solve(b)
+        kept[which] = [_driver.LAST_GRAPH.get("kept")]
+    held = {which: slot in pm._HELD for which, slot in slots.items()}
+    if route[0] == "plain":
+        pm.hold(slots["rows"], mesh)
+    release, destroy = _driver.Kept.release, pm._destroy
+
+    def releasing(slot):
+        order.append(("release", names.get(id(slot)), slot.loop is not None))
+        return release(slot)
+
+    def destroying(g=None):
+        order.append(("destroy", "rows" if g is group else repr(g)))
+        return destroy(g)
+
+    with mock.patch.object(_driver.Kept, "release", releasing), \
+            mock.patch.object(pm, "_destroy", destroying):
+        if how == "destroy":
+            dist.destroy_process_group(group)
+        else:
+            pm.release_kept(group)
+            pm._destroy(group)
+    for which, slot in slots.items():
+        kept[which].append(slot.loop is not None)
+    with ctx(*route[1:]):
+        solves["alone"](b)
+    return {"order": order, "held": held, "kept": kept, "again": _driver.LAST_GRAPH.get("kept"),
+            "cached": any(g is group for g in pm._GROUPS.values())}

@@ -31,11 +31,26 @@ a step) no rank launches any: the results have their shapes, not values.
 :func:`krylov_tpu_torch._graphs.count`: a collective captured into a CUDA
 graph is credited once for each replayed step that ran it, as a kernel
 launch is.
+
+A built solver's kept graph (:class:`krylov_tpu_torch._driver.Kept`) may
+hold captured collectives of its rows group (several NCCL ranks on the
+graph route), and NCCL's teardown of a communicator waits until every
+graph that holds its captured work is gone.  Such a slot is held here
+(:func:`hold`) and released by :func:`release_kept`: this module's
+``torch.distributed.destroy_process_group`` (installed in its place at
+import) calls it before a group, or every group before the world, is torn
+down, and so does the interpreter's exit.  A script that bound
+``destroy_process_group`` before importing this package keeps torch's own
+function: it calls :func:`release_kept` (``parallel.release_kept()``)
+before it.
 """
 
+import atexit
 import datetime
+import functools
 import os
 import tempfile
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -59,6 +74,11 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 _GROUPS = {}  # (ranks, timeout) -> group, for the world in _GROUPS_WORLD
 _GROUPS_WORLD = [None]
+
+
+# the kept slots whose graphs hold collectives, each with their group:
+# released before the group goes
+_HELD = weakref.WeakKeyDictionary()
 
 
 def reset_counts():
@@ -306,6 +326,46 @@ class _Exchange:
             else:
                 out.append(got.to(self._mesh.device) if self._mesh.staged else got)
         return tuple(out)
+
+
+def hold(slot, mesh):
+    """Release :class:`~krylov_tpu_torch._driver.Kept` ``slot`` (a built
+    solver's kept graph, whose steps launch collectives along the rows
+    axis) before the rows group of ``mesh`` is torn down."""
+    _HELD[slot] = mesh.group(ROWS)
+
+
+def release_kept(group=None):
+    """Release what this module keeps of ``group``, or of every group,
+    before its teardown: the held kept graphs (the next run of their
+    solvers captures anew; NCCL's destruction of a communicator waits for
+    every graph holding its captured collectives, and a live one hangs
+    it), and the group in the cache of groups (a later mesh makes its
+    own)."""
+    world = group is None or group is dist.group.WORLD
+    for slot, of in list(_HELD.items()):
+        if world or of is group:
+            del _HELD[slot]
+            slot.release()
+    for key, of in list(_GROUPS.items()):
+        if world or of is group:
+            del _GROUPS[key]
+
+
+atexit.register(release_kept)
+_destroy = dist.destroy_process_group
+
+
+@functools.wraps(_destroy)
+def destroy_process_group(group=None):
+    release_kept(group)
+    return _destroy(group)
+
+
+destroy_process_group.releases_kept_graphs = True
+if not getattr(dist.destroy_process_group, "releases_kept_graphs", False):
+    dist.destroy_process_group = destroy_process_group
+    dist.distributed_c10d.destroy_process_group = destroy_process_group
 
 
 def make_mesh(n_rows=None, n_rhs=1, device=None, timeout=DEFAULT_TIMEOUT):

@@ -24,8 +24,10 @@ host), and a rows axis of several NCCL ranks unless :func:`nccl_graphs`.
 A ``callback`` (a :class:`ShardMonitor`) keeps it too, as on one device.
 A solver built by :func:`make_sharded_solver` keeps its captured graph
 across its runs, as the reference's jit-once solver keeps its program
-(:class:`krylov_tpu_torch._driver.Kept`; released with the solver); its
-ranks keep, capture anew and replay as one.
+(:class:`krylov_tpu_torch._driver.Kept`; released with the solver, or,
+where it holds collectives, before its mesh's rows group is torn down,
+:func:`.mesh.release_kept`); its ranks keep, capture anew and replay as
+one.
 
 The ``M_partition`` protocol.  A partition (:func:`~krylov_tpu_torch.parallel.
 partition_amg`, :func:`~krylov_tpu_torch.parallel.partition_ilu0`,
@@ -60,7 +62,7 @@ from .bsr import ShardedBSROperator
 from .csr import ShardedCSROperator, _scipy_csr, partition_csr
 from .grid import ShardedConstStencilOperator, ShardedGridStencilOperator
 from .mesh import (
-    RHS, ROWS, make_mesh, psum_batch_inner, psum_block_inner, psum_fused_inner,
+    RHS, ROWS, hold, make_mesh, psum_batch_inner, psum_block_inner, psum_fused_inner,
     psum_inner,
 )
 from .pet import PETPartition, ShardedPETOperator
@@ -291,8 +293,12 @@ def _gather_cols(mesh, t):
 # bit-equal to the host-stepped loop (the replacement beside the step's IF
 # node, _graphs.sibling; nested inside it, after the step's own collectives,
 # it crashed every rank), but a process whose built solvers still held their
-# graphs when it tore its process group down hung (PERF.md).  The
-# checking tools turn it on.
+# graphs hung in destroy_process_group, whose NCCL teardown waits for every
+# graph holding its captured collectives.  Their kept graphs are now
+# released before their group goes (.mesh.release_kept): the four-GPU check
+# then ended cleanly with them alive.  The switch waits for one four-GPU run
+# that also holds cg, cg_pipelined and cg_block on both routes (PERF.md).
+# The checking tools turn it on.
 NCCL_GRAPHS = False
 
 
@@ -383,21 +389,34 @@ def _general_operator(A, mesh, N):
     return A_op, pad_rows, rows
 
 
-def _kept_runs(run, roots, keep):
+def _kept_runs(run, roots, keep, mesh):
     """``run`` wrapped so that its solves keep their graph in one
     :class:`~krylov_tpu_torch._driver.Kept` slot (``keep``), released when
-    the wrapper is collected; ``run`` itself for a one-shot solve."""
+    the wrapper is collected or, once it holds collectives
+    (:func:`_holds_collectives`), before ``mesh``'s rows group is torn
+    down (:func:`.mesh.hold`); ``run`` itself for a one-shot solve."""
     if not keep:
         return run
     slot = Kept(roots)
 
     def kept_run(b, x0=None):
         with _keeping(slot):
-            return run(b, x0)
+            out = run(b, x0)
+        if _holds_collectives(slot, mesh):
+            hold(slot, mesh)
+        return out
 
     kept_run.__doc__ = run.__doc__
     weakref.finalize(kept_run, slot.release)
     return kept_run
+
+
+def _holds_collectives(slot, mesh):
+    """Whether ``slot``'s kept graph holds collectives of ``mesh``'s rows
+    group: one captured on the card by a rank not alone there (several
+    NCCL ranks with :func:`nccl_graphs`; every other card mesh of several
+    ranks runs host-stepped, and the CPU's plain twin captures nothing)."""
+    return slot.loop is not None and mesh.device.type == "cuda" and not mesh.alone(ROWS)
 
 
 def _make_general_run(
@@ -474,7 +493,7 @@ def _make_general_run(
         info = Info(success, xk, numsteps, hist, None, None)
         return (xk if success else None), info
 
-    return _kept_runs(run, (A_op, kw, inner), keep)
+    return _kept_runs(run, (A_op, kw, inner), keep, mesh)
 
 
 def make_sharded_solver(
@@ -502,7 +521,11 @@ def make_sharded_solver(
     and solves.  On the graph route the solver keeps the graph its first
     capturing run captured, with its buffers, and each later run replays
     it from step 0 (the reference compiles its program once); the graph
-    and its memory pool are released when ``run`` is collected.
+    and its memory pool are released when ``run`` is collected, or, where
+    the graph holds collectives of several NCCL ranks, before their
+    process group is destroyed (:func:`.mesh.release_kept`: a script that
+    bound ``destroy_process_group`` before importing this package calls
+    ``parallel.release_kept()`` before it).
 
     * ``n_rhs``: the blocked column count the solver is built for (None: a
       single right-hand side).  Grid operators take flat ``(N,)`` or grid
@@ -645,7 +668,7 @@ def _make_grid_run(solver, A, *, mesh, tol, atol, maxiter, M_diag, M_factory, ca
                     None, None)
         return (xk if info.success else None), info
 
-    return _kept_runs(run, (A_op, kw, inner), keep)
+    return _kept_runs(run, (A_op, kw, inner), keep, mesh)
 
 
 def _pad_banded(A, pad):

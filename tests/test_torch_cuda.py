@@ -12,6 +12,7 @@ where only the port is installed:
 """
 
 import contextlib
+import time
 
 import numpy as np
 import pytest
@@ -1473,8 +1474,12 @@ def test_the_rule_captures_a_long_solve_and_keeps_a_short_one_on_the_host(dev):
     long = lambda: kt.cg(sp, b, M=dinv, tol=0.0, atol=0.0, maxiter=3000,  # noqa: E731
                          backend="while_loop")
     ref, got, counts, (n_host, n_graph) = _both_routes(long, contextlib.nullcontext())
-    assert counts["captures"] == counts["held_steps"] == 1, counts
-    assert _driver.LAST_GRAPH["host_steps"] == _driver.FIRST_CHECK + 2, _driver.LAST_GRAPH
+    # a hold whose launches outlast its sleep is held again (a first hold
+    # in a process pays first uses within it)
+    held, holds = counts["held_steps"], _driver.LAST_GRAPH["holds"]
+    assert counts["captures"] == 1 and 1 <= held <= _driver.HOLD_TRIES, counts
+    assert all(window > slept for window, slept, _ in holds[:-1]), holds
+    assert _driver.LAST_GRAPH["host_steps"] == _driver.FIRST_CHECK + 1 + held, _driver.LAST_GRAPH
     assert counts["flag_reads"] < got.numsteps / 4, counts
     _assert_bit_equal(got, ref, "cg + jacobi, 3000 steps")
     assert n_graph == n_host
@@ -1487,6 +1492,53 @@ def test_the_rule_captures_a_long_solve_and_keeps_a_short_one_on_the_host(dev):
     assert counts["host_steps"] == counts["flag_reads"] == 2
     _assert_bit_equal(got, ref, "short")
     assert n_graph == n_host and n_host["const_stencil2d_matvec"] == 2
+
+
+@pytest.mark.parametrize("device_ms,held", [(50.0, 2), (0.001, 1)])
+def test_a_hold_whose_launches_outlast_its_sleep_is_held_again(dev, device_ms, held):
+    """The first held step's host launches are made to outlast its sleep
+    (its first event's record waits 3 ms), so its time may count the
+    device's waits: an upper bound.  Read as 50 ms, it refuses the capture
+    and is dropped; the next step is held behind twice the sleep, times
+    the device alone, and the decision after it captures.  Read as 1 us,
+    it still makes the plan and stands: one hold.  Both bit-equal to the
+    host-stepped loop."""
+    from unittest import mock
+
+    sp = _shifted_poisson_f32(128, shift=0.0)
+    b = _rand(sp.shape[0], dev, torch.float32, 42)
+    dinv = kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+    solve = lambda: kt.cg(sp, b, M=dinv, tol=0.0, atol=0.0, maxiter=3000,  # noqa: E731
+                          backend="while_loop")
+    record, elapsed, calls = torch.cuda.Event.record, torch.cuda.Event.elapsed_time, []
+
+    def late(self, *args):
+        if not calls:
+            calls.append("record")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 3e-3:
+                pass
+        return record(self, *args)
+
+    def first_read(self, end):
+        calls.append("elapsed")
+        return device_ms if len(calls) == 2 else elapsed(self, end)
+
+    with _driver._host_stepped():
+        _, ref = solve()
+    _driver.reset_counts()
+    with mock.patch.object(torch.cuda.Event, "record", late), \
+            mock.patch.object(torch.cuda.Event, "elapsed_time", first_read):
+        _, got = solve()
+    counts, last = dict(_driver.COUNTS), _driver.LAST_GRAPH
+    assert counts["held_steps"] == held and counts["captures"] == 1, counts
+    (w0, s0, d0), *more = last["holds"]
+    assert w0 > s0 and d0 == device_ms * 1e-3, last["holds"]
+    if more:
+        ((w1, s1, d1),) = more
+        assert w1 <= s1 and abs(s1 - 2 * s0) < 1e-6, last["holds"]
+        assert last["decisions"][-1][1].device_s == d1
+    _assert_bit_equal(got, ref, f"cg + jacobi, {held} holds")
 
 
 def test_graph_route_keeps_the_callers_inputs_and_frees_its_graph(dev):

@@ -267,3 +267,31 @@ def test_no_collective_sits_in_a_nested_if(pool, name):
         nested = pool.run(_spawn.graph_job, getattr(kt, solver), At, bs[0], route=PLAN,
                           unsplit=True, **kw)
         assert all(("exchange", ("if", "if")) in p["nesting"] for p in nested["per_rank"])
+
+
+# ---------------------------------------------------------------------------
+# a kept graph goes before its mesh's group
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("how", ["destroy", "bound"])
+@pytest.mark.parametrize("name", ["cg", "cg_pipelined"])
+def test_a_kept_slot_is_released_before_its_group_is_torn_down(pool, name, how):
+    """A built solver alive when its mesh's rows group is destroyed has its
+    kept graph released first (NCCL's teardown of a communicator waits for
+    every graph that holds its captured collectives, and hung): through
+    ``torch.distributed.destroy_process_group``, or through torch's own
+    function after ``parallel.release_kept`` (a script that bound the name
+    before importing the package).  The CPU's plain twin holds no
+    collective, so the route holds no slot here (the job holds the rows
+    solver's, as a card's NCCL ranks do); a built solver on a rank alone
+    keeps its graph through the teardown and replays it in its next run,
+    as before."""
+    solver, At, _, bs, kw = _case(name)
+    res = pool.run(_spawn.teardown_job, getattr(kt, solver), At, bs[0], route=PLAN, how=how,
+                   **kw)
+    for p in [res] + res["per_rank"]:
+        assert p["order"] == [("release", "rows", True), ("destroy", "rows")], p["order"]
+        assert p["held"] == {"rows": False, "alone": False}, p["held"]
+        assert p["kept"] == {"rows": ["captured", False], "alone": ["captured", True]}, p["kept"]
+        assert p["again"] == "replayed" and not p["cached"], p

@@ -26,6 +26,14 @@ the same solve on its one device (the f32 band of ``chip_smoke.py``).
 Prints the card line and, for each route, the wall time of each sharded
 solve, its captures and what kept it on the host.
 
+At its end the built solvers are still alive (``--solvers dropped`` drops
+them first), as a user's that keeps them to the end: the library releases
+their kept graphs before the process group goes.  Each rank then prints
+when it has passed the barrier and torn down the group;
+``--hang-dump SECONDS`` arms Python's fault handler to print every
+thread's stack and exit if the end takes longer.  ``--only-built`` runs
+the built solvers' cases alone.
+
     python -m torch.distributed.run --standalone --nproc-per-node 4 tools/torch_multigpu_check.py
 
 ``--device cpu --small`` rehearses it on gloo ranks on the CPU.
@@ -33,6 +41,7 @@ solve, its captures and what kept it on the host.
 
 import argparse
 import contextlib
+import faulthandler
 import gc
 import os
 import sys
@@ -51,6 +60,11 @@ def main():
     ap.add_argument("--nccl-graphs", action="store_true",
                     help="several NCCL ranks take the graph route (parallel.solve.NCCL_GRAPHS; "
                     "needs NCCL_GRAPH_MIXING_SUPPORT=0), to check it")
+    ap.add_argument("--solvers", default="alive", choices=("alive", "dropped"),
+                    help="the built solvers at the process group's teardown")
+    ap.add_argument("--hang-dump", type=float, default=0.0, metavar="SECONDS",
+                    help="print every thread's stack and exit if the end takes longer")
+    ap.add_argument("--only-built", action="store_true", help="the built solvers' cases alone")
     args = ap.parse_args()
     import torch.distributed as dist
 
@@ -81,13 +95,12 @@ def main():
     cases, (A_small, A_small_d, bs, fixed) = cm.sharded_cases(dev, kt, cuda_spmv, st, world)
     rng = np.random.default_rng(cm.SEED + 92)
     B = rng.standard_normal((A_small.shape[0], 2)).astype(np.float32)
-    runs = [(label, kernel, args_, kw, ref) for label, kernel, args_, kw, ref in cases]
-    runs += cm.partition_cases(dev, kt, cuda_spmv, st, world)
+    runs = [] if args.only_built else cases + cm.partition_cases(dev, kt, cuda_spmv, st, world)
     runs += [(f"make_sharded_solver, right-hand side {j}", "stencil2d_matvec",
               (kt.cg, A_small, b), dict(fixed, build=True),
               lambda b=b: cm.single_solve(kt.cg, A_small_d, b, dev, **fixed))
              for j, b in enumerate(bs)]
-    if world == 4:
+    if world == 4 and not args.only_built:
         # split columns leave the grid path for the flat banded one (no K1)
         runs.append(("cg, two columns over a 2 x 2 mesh (shard_rhs)", None,
                      (kt.cg, A_small, B), dict(fixed, mesh_rhs=2, shard_rhs=True),
@@ -168,14 +181,24 @@ def main():
                        f"{counts['graph_steps']}, uncapturable {counts['uncapturable']}"
                        + (f" ({read})" if read else "") + f", meetings {counts['meetings']}"
                        + (f", kept graph: {kept}" if build else ""))
-    # the built solvers' kept graphs hold captured collectives: they go
-    # before the process group does
-    solvers.clear()
-    gc.collect()
+    if args.hang_dump:
+        faulthandler.dump_traceback_later(args.hang_dump, exit=True)
+    if args.solvers == "dropped":
+        solvers.clear()
+        gc.collect()
+    t0 = time.perf_counter()
     dist.barrier()
     if lead:
         cm.log(f"all {len(runs)} sharded solves held on {world} ranks")
+    print(f"rank {rank}: past the barrier in {time.perf_counter() - t0:.3f} s with "
+          f"{len(solvers)} built solvers alive", flush=True)
+    held = len(getattr(pm, "_HELD", ()))  # kept slots the teardown releases first
+    t0 = time.perf_counter()
     dist.destroy_process_group()
+    print(f"rank {rank}: process group destroyed in {time.perf_counter() - t0:.3f} s, "
+          f"{len(solvers)} built solvers alive, {held} kept slots held before it and "
+          f"{len(getattr(pm, '_HELD', ()))} after", flush=True)
+    faulthandler.cancel_dump_traceback_later()
 
 
 if __name__ == "__main__":

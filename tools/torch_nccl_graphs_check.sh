@@ -5,21 +5,25 @@
 #
 #   bash tools/torch_nccl_graphs_check.sh [PARENT_DIR]
 #
-# 1. tools/torch_collective_graph_probe.py for each structure a captured
-#    collective can sit in: plain, if, while, if_if (an IF body inside an
-#    IF body: a guarded step's periodic replacement before guard.sibling),
-#    sibling (the structure the driver captures now), and if_if_after and
-#    sibling_after (the same with collectives in the outer body first);
+# 1. with PROBES=1, tools/torch_collective_graph_probe.py for each
+#    structure a captured collective can sit in: plain, if, while, if_if
+#    (an IF body inside an IF body: a guarded step's periodic replacement
+#    before guard.sibling), sibling (the structure the driver captures
+#    now), and if_if_after and sibling_after (the same with collectives in
+#    the outer body first);
 # 2. with PARENT_DIR (another checkout, e.g. an unpacked `git archive` of
-#    the parent commit): its cg_pipelined and cg_block weak scaling on the
-#    graph route past their replacement, Python's fault handler on, to
-#    show where a crash comes from;
+#    the parent commit): this checkout's tools/torch_multigpu_check.py
+#    over its package, the built solvers' cases alone, with the solvers
+#    alive and then dropped at the process group's teardown, the fault
+#    handler armed to show where the end hangs;
 # 3. this checkout's weak scaling of cg, cg_pipelined and cg_block on
 #    both routes past the replacement (bit_equal in each JSON line);
 # 4. tools/torch_multigpu_check.py --nccl-graphs (every case on three
-#    routes, bit for bit);
+#    routes, bit for bit; the built solvers alive at the end);
 # 5. tests/test_torch_cuda.py -k four_nccl in a copy of this checkout whose
 #    parallel.solve.NCCL_GRAPHS is True.
+#
+# END_ONLY=1 skips steps 3 and 5 (the teardown's evidence alone).
 #
 # Every run has NCCL_GRAPH_MIXING_SUPPORT=0.  Each run's whole log goes to
 # $OUT (default nccl_graphs_logs/); its exit code and JSON lines are printed.
@@ -53,24 +57,31 @@ t0=$(date +%s)
 build . this
 [ -n "$parent" ] && build "$parent" parent
 
-for kind in plain if while if_if sibling if_if_after sibling_after; do
-  spmd "probe_$kind" . tools/torch_collective_graph_probe.py --kind "$kind"
-done
-
-small=(--rows-per-device 1048576 --iters 200 --repeats 2 --nccl-graphs)
-if [ -n "$parent" ]; then
-  for s in cg_pipelined cg_block; do
-    spmd "parent_weak_$s" "$parent" tools/torch_weak_scaling.py --solver "$s" --route rule \
-      "${small[@]}"
+if [ "${PROBES:-0}" = 1 ]; then
+  for kind in plain if while if_if sibling if_if_after sibling_after; do
+    spmd "probe_$kind" . tools/torch_collective_graph_probe.py --kind "$kind"
   done
 fi
-for s in cg cg_pipelined cg_block; do
+
+if [ -n "$parent" ]; then
+  cp tools/torch_multigpu_check.py "$parent/tools/"
+  for solvers in alive dropped; do
+    spmd "parent_end_$solvers" "$parent" tools/torch_multigpu_check.py --nccl-graphs \
+      --only-built --solvers "$solvers" --hang-dump 45
+    grep -a '^rank [0-9]\|Timeout (\|in destroy_process_group\|in barrier\|check.py", line' \
+      "$out/parent_end_$solvers.log" | head -30
+  done
+fi
+
+small=(--rows-per-device 1048576 --iters 200 --repeats 2 --nccl-graphs)
+[ "${END_ONLY:-0}" = 1 ] || for s in cg cg_pipelined cg_block; do
   spmd "weak_$s" . tools/torch_weak_scaling.py --solver "$s" --replace-every 50 "${small[@]}"
 done
 
-spmd multigpu_check . tools/torch_multigpu_check.py --nccl-graphs
-grep -a 'all .* sharded solves held' "$out/multigpu_check.log"
+spmd multigpu_check . tools/torch_multigpu_check.py --nccl-graphs --hang-dump 120
+grep -a 'all .* sharded solves held\|^rank ' "$out/multigpu_check.log"
 
+if [ "${END_ONLY:-0}" = 1 ]; then echo "seconds $(( $(date +%s) - t0 ))"; exit 0; fi
 flipped=_archive/nccl_graphs_on
 rm -rf "$flipped" && mkdir -p "$flipped"
 cp -r krylov_tpu_torch tests chip_smoke.py "$flipped"/
