@@ -149,6 +149,15 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    with ``--first-solve``), every rule-route process captured, none
    importing ``torch._dynamo``, the rule's median first solve no slower
    than the host-stepped one's;
+16. in a process of its own, the compiled loop with callbacks: ``cg`` +
+   Jacobi (1500 steps),
+   ``chebyshev`` (1000 steps) and ``gmres`` with a callback that appends
+   ``torch.linalg.vector_norm(r)`` on the device, ``sharded_solve(cg)`` on
+   one NCCL rank at 4,194,304 rows and phase 14's built MG-CG with a
+   ``ShardMonitor``: the rule's route against the host-stepped loop,
+   medians of 3 alternating (the built solver: runs 2-10), spreads, device
+   busy, every route bit-equal and its ``numsteps + 1`` calls the host
+   loop's;
 5. timings with CUDA events, each printed beside the card's name and power
    limit: every kernel with its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K10 on the irregular
@@ -160,14 +169,18 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    sparse solves with the device's idle share (``torch.profiler``); each
    V-cycle level's share.
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.
+Each phase function prints its wall seconds as it ends, and all of them
+together (``phase seconds: {...}``) before the card's line.  Before the
+last line it prints one JSON object ``{"kernels": [...]}``; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3255,22 +3268,58 @@ def phase_partitions_gloo(dev, kt, sv, st, card):
 # phase 13: the device-resident loop (the while_loop graph route)
 # ---------------------------------------------------------------------------
 
-ROUTE_REPEATS = 5  # timed solves of each route a cell, alternating
-COUNTED_REPEATS = 3  # the same for the cells of the methods whose step depends on its number
+# Timed solves of each route a cell, alternating.  Where the rule keeps a
+# solve on the host loop the two routes run the same launches, and the cell
+# holds host noise against host noise: a launch-bound step's wall varies by
+# a quarter from solve to solve on a shared host (gmres on the convected
+# CSR, H100), and with three solves a route one route's median came out
+# above the other's plus the larger spread.
+ROUTE_REPEATS = 7
 
 
 def device_busy(fn):
     """(device-busy s, kernel events) of one call of ``fn`` by
     ``torch.profiler``'s CUDA events; kernels replayed from a CUDA graph
-    are recorded like launched ones."""
+    are recorded like launched ones.  The host's operations are not
+    recorded: the same kernels and device time on an H100, and phase 13's
+    1500-step ``cg`` + Jacobi cell, three profiled solves, took 25-29 s
+    without them against 39 s with them.
+
+    A process whose profiler has recorded some 400,000 kernel events of
+    graph routes recorded no more of a graph's replays (on an H100; its
+    launched kernels as ever); a caller holds a graph route's events to
+    the host-stepped loop's (:func:`graph_busy`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sum(e.self_device_time_total for e in rows) * 1e-6, sum(e.count for e in rows)
+
+
+def graph_busy(busy):
+    """:func:`device_busy`'s ``{route: (s, events)}`` of one solve, with
+    None for each graph route whose profile recorded less than 0.9 of the
+    host-stepped loop's kernel events: its replays launch every kernel a
+    host step does, so the profiler lost the graph's."""
+    host = busy["host-stepped"][1]
+    return {r: None if r != "host-stepped" and b[1] < 0.9 * host else b
+            for r, b in busy.items()}
+
+
+def busy_text(b, wall):
+    """A route's device busy and idle share over ``wall`` seconds."""
+    if b is None:
+        return "device busy not measured (the profiler lost the graph's kernels)"
+    return (f"device busy {b[0] * 1e3:.3f} ms ({b[1]} kernel events), idle share "
+            f"{1 - b[0] / wall:.3f}")
+
+
+def busy_fields(b, wall):
+    return dict(busy_ms=None if b is None else b[0] * 1e3,
+                idle=None if b is None else 1 - b[0] / wall)
 
 
 def all_launches(cs, sv, bs):
@@ -3401,15 +3450,14 @@ def route_cell(name, solve, inputs, card, mods, forced=None, repeats=None, phase
     for route, ctx in ctxs.items():
         with ctx():
             busy[route] = device_busy(solve)
+    busy = graph_busy(busy)
     summary = dict(name=name, steps=steps, host_peak_mb=host_peak_mb, pool_mb=pool_mb)
     for route in walls:
-        summary[route] = dict(
-            ms=med[route] * 1e3, spread_ms=spread[route] * 1e3, busy_ms=busy[route][0] * 1e3,
-            idle=1 - busy[route][0] / med[route])
+        summary[route] = dict(ms=med[route] * 1e3, spread_ms=spread[route] * 1e3,
+                              **busy_fields(busy[route], med[route]))
         log(f"  [{card}] {phase} {name} {route}: {med[route] * 1e3:.3f} ms (spread "
             f"{spread[route] * 1e3:.3f}), median of {repeats}, alternating; a step "
-            f"{med[route] / steps * 1e6:.1f} us; device busy {busy[route][0] * 1e3:.3f} ms "
-            f"({busy[route][1]} kernel events), idle share {summary[route]['idle']:.3f}")
+            f"{med[route] / steps * 1e6:.1f} us; {busy_text(busy[route], med[route])}")
         if route in parts:
             cap_ms = [(p["capture_s"] + p["instantiate_s"]) * 1e3 for p, _ in parts[route]]
             summary[route].update(
@@ -3495,8 +3543,8 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
     summary = []
     mods = (cs, sv, bs)
 
-    def cell(name, solve, *inputs, forced=None, repeats=None):
-        n, row = route_cell(name, solve, inputs, card, mods, forced, repeats)
+    def cell(name, solve, *inputs, forced=None):
+        n, row = route_cell(name, solve, inputs, card, mods, forced)
         for k, v in n.items():
             totals[k] = totals.get(k, 0) + v
         summary.append(row)
@@ -3554,7 +3602,7 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
         op_b, Bb, tol=1e-5, maxiter=300, backend="while_loop"), Bb)
     del op_b, Bb
     for name, solve, inputs in counted_solves(dev, kt, st):
-        cell(name, solve, *inputs, forced=(3, 4, 8), repeats=COUNTED_REPEATS)
+        cell(name, solve, *inputs, forced=(3, 4, 8))
     log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
     log("  13 summary: " + json.dumps(summary))
     return totals
@@ -3563,7 +3611,7 @@ def phase_graph_loop(dev, kt, cs, sv, bs, st, card):
 KEPT_RUNS = 10  # right-hand sides through each of 14's built solvers, on each route
 
 
-def kept_cell(name, build, rhs, card, mods):
+def kept_cell(name, build, rhs, card, mods, seen=None, phase="14"):
     """One cell of phase 14: ``KEPT_RUNS`` right-hand sides through the
     solver ``build()`` returns (``parallel.make_sharded_solver``) on its
     graph route, which keeps the graph of its first capture and replays it
@@ -3572,8 +3620,10 @@ def kept_cell(name, build, rhs, card, mods):
     gives run ``j``'s ``(b, x0)``, ``prev`` the route's last iterate.
     Holds every run bit for bit to the host-stepped one and the later runs'
     median to the host-stepped median plus the larger spread; prints the
-    memory the solver leaves once it is gone.  Returns the kernel launches
-    of both routes and a summary."""
+    memory the solver leaves once it is gone.  ``seen``: the list the built
+    solver's monitor appends ``(k, resnorm)`` to, whose calls each run must
+    make ``numsteps + 1`` times, the host-stepped run's.  ``phase`` heads
+    its lines.  Returns the kernel launches of both routes and a summary."""
     import gc
 
     from krylov_tpu_torch import _driver
@@ -3587,6 +3637,7 @@ def kept_cell(name, build, rhs, card, mods):
     prev = dict.fromkeys(ctxs)
     launches, first, same, counts = {}, None, [], dict.fromkeys(
         ("captures", "replays", "kept_runs", "host_steps", "graph_steps", "host_stepped"), 0)
+    calls = {}
     for j in range(KEPT_RUNS):
         got = {}
         for route in list(ctxs)[::1 if j % 2 == 0 else -1]:  # alternating
@@ -3594,12 +3645,16 @@ def kept_cell(name, build, rhs, card, mods):
             for mod in mods:
                 mod.reset_launches()
             _driver.reset_counts()
+            if seen is not None:
+                seen.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with ctxs[route]():
                 _, info = run(b, x0)
             torch.cuda.synchronize()
             walls[route].append(time.perf_counter() - t0)
+            if seen is not None:
+                calls[route] = list(seen)
             for k, v in all_launches(*mods).items():
                 launches[k] = launches.get(k, 0) + v
             got[route] = info
@@ -3611,8 +3666,10 @@ def kept_cell(name, build, rhs, card, mods):
                     first = dict(_driver.LAST_GRAPH, wall_s=walls[route][-1])
         h, g = got["host-stepped"], got["kept"]
         same.append(h.numsteps == g.numsteps and h.success == g.success
-                    and np.array_equal(h.resnorms, g.resnorms) and torch.equal(h.xk, g.xk))
-        log(f"    14 {name} run {j}: {g.numsteps} steps, host-stepped "
+                    and np.array_equal(h.resnorms, g.resnorms) and torch.equal(h.xk, g.xk)
+                    and (seen is None or same_monitor(calls["kept"], calls["host-stepped"],
+                                                      g.numsteps)))
+        log(f"    {phase} {name} run {j}: {g.numsteps} steps, host-stepped "
             f"{walls['host-stepped'][-1] * 1e3:.3f} ms, kept {walls['kept'][-1] * 1e3:.3f} ms "
             f"({_driver.LAST_GRAPH.get('kept')}), bit-equal {same[-1]}")
         del got, h, g, info
@@ -3623,7 +3680,8 @@ def kept_cell(name, build, rhs, card, mods):
     busy = {}
     for route, ctx in ctxs.items():
         with ctx():
-            busy[route] = device_busy(lambda: run(b, x0))[0]
+            busy[route] = device_busy(lambda: run(b, x0))
+    busy = graph_busy(busy)
     del prev, b, x0, run
     gc.collect()
     torch.cuda.synchronize()
@@ -3635,25 +3693,23 @@ def kept_cell(name, build, rhs, card, mods):
                left_mb=left_mb, **{f"first_{k}_ms": first.get(k, 0.0) * 1e3 for k in (
                    "host_steps_s", "decide_s", "capture_s", "instantiate_s", "replays_s")})
     for r in ctxs:
-        row[r] = dict(ms=med[r] * 1e3, spread_ms=spread[r] * 1e3, busy_ms=busy[r] * 1e3,
-                      idle=1 - busy[r] / med[r])
-    log(f"  [{card}] 14 {name}: first run {row['first_ms']:.3f} ms ({row['kept_as']}; plan "
+        row[r] = dict(ms=med[r] * 1e3, spread_ms=spread[r] * 1e3, **busy_fields(busy[r], med[r]))
+    log(f"  [{card}] {phase} {name}: first run {row['first_ms']:.3f} ms ({row['kept_as']}; plan "
         f"{row['plan']} after {first.get('host_steps')} host steps, "
         + ", ".join(f"{k} {row[f'first_{k}_ms']:.3f}" for k in (
             "host_steps_s", "decide_s", "capture_s", "instantiate_s", "replays_s"))
         + f" ms; a replayed step {row['replay_step_us']} us" + (
             f"; not kept: {row['unkept']}" if row["unkept"] else "") + ")")
     for r in ctxs:
-        log(f"  [{card}] 14 {name} {r}: runs 2-{KEPT_RUNS} median {row[r]['ms']:.3f} ms "
-            f"(spread {row[r]['spread_ms']:.3f}); one profiled run: device busy "
-            f"{row[r]['busy_ms']:.3f} ms, idle share {row[r]['idle']:.3f}")
+        log(f"  [{card}] {phase} {name} {r}: runs 2-{KEPT_RUNS} median {row[r]['ms']:.3f} ms "
+            f"(spread {row[r]['spread_ms']:.3f}); one profiled run: "
+            f"{busy_text(busy[r], med[r])}")
     for d in first.get("decisions", ()):
-        log(f"  [{card}] 14 {name} the rule after host step {d[0]}: plan {d[2]}, "
+        log(f"  [{card}] {phase} {name} the rule after host step {d[0]}: plan {d[2]}, "
             + ", ".join(f"{f} {v:.4g}" for f, v in d[1]._asdict().items()))
-    log(f"  [{card}] 14 {name}: the kept route's counts {counts}; every run bit-equal to the "
-        f"host-stepped one {all(same)}; {left_mb:.1f} MB left once the solver is gone; the cell "
-        f"took "
-        f"{time.perf_counter() - t_cell:.1f} s")
+    log(f"  [{card}] {phase} {name}: the kept route's counts {counts}; every run bit-equal to "
+        f"the host-stepped one {all(same)}; {left_mb:.1f} MB left once the solver is gone; the "
+        f"cell took {time.perf_counter() - t_cell:.1f} s")
     assert all(same), (name, same)
     assert med["kept"] <= med["host-stepped"] + max(spread.values()), (name, med, spread)
     if row["kept_as"] == "captured":
@@ -3912,6 +3968,246 @@ def phase_first_solve(card):
     log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+PHASE_S = {}  # each phase function's wall seconds, in the order run
+
+
+def timed_phase(fn, *args):
+    """``fn(*args)``, its wall seconds printed and kept in :data:`PHASE_S`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__] = round(time.perf_counter() - t0, 1)
+    log(f"  {fn.__name__}: {PHASE_S[fn.__name__]:.1f} s wall")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the compiled loop with callbacks
+# ---------------------------------------------------------------------------
+
+CALLBACK_REPEATS = ROUTE_REPEATS  # timed solves of each route a cell of 16, alternating
+CALLBACK_SHARDED_ROWS = 4194304  # 16's sharded cg: the weak-scaling rows of one rank
+CALLBACK_SHARDED_STEPS = 300  # its fixed steps
+
+
+def same_monitor(got, want, numsteps):
+    """Whether a monitor's calls ``got`` are ``want``'s: ``numsteps + 1``
+    of them, ``(k, resnorm)`` with ``k`` from 0 in order, the same values."""
+    return (len(got) == len(want) == numsteps + 1
+            and [k for k, _ in got] == [k for k, _ in want] == list(range(numsteps + 1))
+            and all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want)))
+
+
+def callback_cell(name, solve, card, mods, monitor=False):
+    """One cell of phase 16: ``solve(callback)`` (a ``while_loop`` solve,
+    returning ``(x, info)``) on the route the cost rule picks and on the
+    host-stepped loop, each run with a callback of its own: one that appends
+    ``torch.linalg.vector_norm(r)`` on the device and reads nothing on the
+    host, or with ``monitor`` a ``ShardMonitor``'s ``fn(k, resnorm)`` that
+    appends its arguments.  ``CALLBACK_REPEATS`` solves of each route,
+    alternating; the first pair held bit for bit (history, steps, success,
+    iterate, launches) and its calls, ``numsteps + 1`` of each route, equal
+    in order.  Holds the rule's median to the host-stepped median plus the
+    larger spread.  Returns the rule's launches and a summary."""
+    from krylov_tpu_torch import _driver
+
+    t_cell = time.perf_counter()
+    ctxs = {"host-stepped": _driver._host_stepped, "rule": contextlib.nullcontext}
+    walls = {r: [] for r in ctxs}
+    parts, got = [], {}
+
+    def recorder():
+        calls = []
+        if monitor:
+            return (lambda k, rn: calls.append((k, rn))), calls
+        return (lambda x, r: calls.append(torch.linalg.vector_norm(r))), calls
+
+    for rep in range(CALLBACK_REPEATS):
+        for route in list(ctxs)[::1 if rep % 2 == 0 else -1]:  # alternating
+            callback, calls = recorder()
+            for mod in mods:
+                mod.reset_launches()
+            _driver.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctxs[route]():
+                _, info = solve(callback)
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            if route == "rule":
+                parts.append((dict(_driver.LAST_GRAPH), dict(_driver.COUNTS)))
+            if rep == 0:
+                got[route] = (info, calls, all_launches(*mods))
+            del info
+    (h, h_calls, n_host), (g, g_calls, n_rule) = got["host-stepped"], got["rule"]
+    same = (h.numsteps == g.numsteps and h.success == g.success
+            and np.array_equal(h.resnorms, g.resnorms) and torch.equal(h.xk, g.xk))
+    if monitor:
+        calls_same = same_monitor(g_calls, h_calls, g.numsteps)
+    else:
+        calls_same = (len(g_calls) == len(h_calls) == g.numsteps + 1
+                      and torch.equal(torch.stack(g_calls), torch.stack(h_calls)))
+    steps = g.numsteps
+    del got, h, g, h_calls, g_calls
+    busy = {}
+    for route, ctx in ctxs.items():
+        with ctx():
+            busy[route] = device_busy(lambda: solve(recorder()[0]))
+    busy = graph_busy(busy)
+    med = {r: float(np.median(w)) for r, w in walls.items()}
+    spread = {r: float(np.max(w) - np.min(w)) for r, w in walls.items()}
+    last, counts = parts[-1]
+    row = dict(name=name, steps=steps, monitor=monitor, bit_equal=same, calls_equal=calls_same,
+               captures=[c["captures"] for _, c in parts], plan=last.get("plan"),
+               host_steps=last.get("host_steps"), fire_ms=last.get("fire_s", 0.0) * 1e3,
+               ring_mb=last.get("ring_mb", 0.0),
+               flag_reads_a_step=counts["flag_reads"] / max(steps, 1))
+    for r in ctxs:
+        row[r] = dict(ms=med[r] * 1e3, spread_ms=spread[r] * 1e3,
+                      us_a_step=med[r] / max(steps, 1) * 1e6, **busy_fields(busy[r], med[r]))
+        log(f"  [{card}] 16 {name} {r}: {med[r] * 1e3:.3f} ms (spread {spread[r] * 1e3:.3f}), "
+            f"median of {CALLBACK_REPEATS}, alternating; a step {row[r]['us_a_step']:.1f} us; "
+            f"{busy_text(busy[r], med[r])}")
+    for k, costs, plan in last.get("decisions", ()):
+        log(f"  [{card}] 16 {name} the rule after host step {k}: plan {plan}, "
+            + ", ".join(f"{f} {v:.4g}" for f, v in costs._asdict().items()))
+    log(f"  [{card}] 16 {name}: {steps} steps; the rule's captures {row['captures']}, plan "
+        f"{row['plan']} after {row['host_steps']} host steps, a ring of {row['ring_mb']:.1f} "
+        f"MiB, callbacks of replayed steps fired "
+        f"in {row['fire_ms']:.3f} ms, flag reads a step {row['flag_reads_a_step']:.3f}; "
+        f"bit-equal {same}, calls equal {calls_same} ({steps + 1} each); launches the host "
+        f"loop's {n_rule == n_host}; the cell took {time.perf_counter() - t_cell:.1f} s")
+    assert same and calls_same and n_rule == n_host, (name, same, calls_same)
+    assert med["rule"] <= med["host-stepped"] + max(spread.values()), (name, med, spread)
+    return n_rule, row
+
+
+def phase_callbacks(dev, kt, cs, sv, bs, st, card):
+    """16: the reference's compiled loop with callbacks, at full width: a
+    ``while_loop`` solve with a callback takes the graph route under the
+    cost rule, its callback fired in order from the host after each read of
+    the stop flag (:func:`callback_cell`, the rule's route against the
+    host-stepped loop, each with its callback): ``cg`` + Jacobi on the
+    unshifted 1M-row CSR (K10, 1500 steps), ``chebyshev`` on
+    ``poisson_2d_const(1024)`` (K2, 1000 steps) and ``gmres`` (MGS, its
+    ``x`` in the padded device form) on the convected 1M-row CSR (K10), each
+    with a callback that appends ``torch.linalg.vector_norm(r)`` on the
+    device; then on one NCCL rank with a ``ShardMonitor`` (``callback(k,
+    rn)``): ``sharded_solve(cg)`` on ``poisson_2d`` of 4,194,304 rows (K1,
+    ``CALLBACK_SHARDED_STEPS`` fixed steps) and phase 14's built MG-CG at
+    ``BIG^2`` (K2, K8; runs 2-10 of ``KEPT_RUNS``).  Every kernel of the
+    path must launch here.  Returns the launches."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch import parallel
+
+    log(f"phase 16: the compiled loop with callbacks: the rule's route against the host-stepped "
+        f"loop, each with its callback [{card}]")
+    t_phase = time.perf_counter()
+    mods = (cs, sv, bs)
+    totals, summary = {}, []
+
+    def add(n, row):
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+        summary.append(row)
+
+    wl = dict(backend="while_loop")
+    lap0, conv = poisson_csr(NPG, 4.0), convected_csr(NPG)
+    op0, op_c = kt.as_operator(lap0, dev), kt.as_operator(conv, dev)
+    assert type(op0).__name__ == type(op_c).__name__ == "PETOperator"
+    rng = np.random.default_rng(SEED + 160)
+    b = torch.from_numpy(rng.standard_normal(NPG * NPG).astype(np.float32)).to(dev)
+    jac = kt.DiagonalOperator(torch.from_numpy(1.0 / lap0.diagonal()).to(dev))
+    add(*callback_cell("cg M=Jacobi, unshifted 1M-row CSR, 1500 steps", lambda cb: kt.cg(
+        op0, b, M=jac, tol=1e-4, maxiter=1500, callback=cb, **wl), card, mods))
+    A = st.poisson_2d_const(NPG, device=dev)
+    bg = b.reshape(A.grid)
+    c = 4.0 * np.cos(np.pi / (NPG + 1))  # the spectrum: 4 -+ 4 cos(pi / (n + 1))
+    add(*callback_cell("chebyshev, poisson_2d_const(1024) (K2), 1000 steps",
+                       lambda cb: kt.chebyshev(A, bg, (4.0 - c, 4.0 + c), inner=inner, tol=0.0,
+                                               atol=0.0, maxiter=1000, callback=cb, **wl),
+                       card, mods))
+    add(*callback_cell("gmres mgs, convected 1M-row CSR, to 1e-4", lambda cb: kt.gmres(
+        op_c, b, ortho="mgs", tol=1e-4, maxiter=120, callback=cb, **wl), card, mods))
+    del op0, op_c, jac, A, bg, lap0, conv
+    mesh = parallel.make_mesh(device=dev)
+    try:
+        nx = CALLBACK_SHARDED_ROWS // BIG  # the weak-scaling grid of one rank: 1024 x 4096
+        A_s = st.poisson_2d(nx, BIG, dtype=np.float32, device=dev)
+        b_s = torch.from_numpy(rng.standard_normal(A_s.grid).astype(np.float32)).to(dev)
+        add(*callback_cell(
+            f"sharded_solve(cg), one NCCL rank, poisson_2d({nx}, {BIG}), "
+            f"{CALLBACK_SHARDED_STEPS} steps, ShardMonitor",
+            lambda cb: parallel.sharded_solve(kt.cg, A_s, b_s, mesh=mesh, tol=0.0, atol=0.0,
+                                              maxiter=CALLBACK_SHARDED_STEPS, callback=cb),
+            card, mods, monitor=True))
+        del A_s, b_s
+        A = st.poisson_2d_const(BIG, device=dev)
+        rhs = [manufactured(A, dev, SEED + 161 + j)[1] for j in range(KEPT_RUNS + 1)]
+        seen = []
+        add(*kept_cell(
+            f"MG-CG, poisson_2d_const({BIG}), multigrid_factory, to 1e-6, x0 the last "
+            "solution, ShardMonitor",
+            lambda: parallel.make_sharded_solver(
+                kt.cg, A, mesh=mesh, M_factory=kt.multigrid_factory(), tol=1e-6, maxiter=30,
+                callback=lambda k, rn: seen.append((k, rn))),
+            lambda j, prev: (rhs[j], prev), card, mods, seen=seen, phase="16"))
+        del A, rhs
+    finally:
+        dist.destroy_process_group()
+    for kernel in ("csr_matvec", "const_stencil2d_matvec", "jacobi_sweep_const",
+                   "stencil2d_matvec"):
+        assert totals.get(kernel, 0) > 0, f"phase 16 launched no {kernel}"
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    log("  16 summary: " + json.dumps(summary, default=str))
+    return totals
+
+
+CALLBACKS_S = 600.0  # the most 16's process may take
+
+
+def phase_callbacks_apart(card):
+    """16 in a fresh process (this script with ``--callbacks``), its lines
+    passed on as they come: phases 11a-14 profile some 400,000 kernel
+    events of graph routes, after which this process's profiler recorded
+    no more of a graph's replays (:func:`device_busy`).  Returns the
+    launches it counted."""
+    log(f"phase 16 runs in a process of its own [{card}]")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--callbacks"],
+                            stdout=subprocess.PIPE, text=True)
+    timer = threading.Timer(CALLBACKS_S, proc.kill)
+    timer.start()
+    try:
+        last = None
+        for line in proc.stdout:
+            last = line
+            print(line, end="", flush=True)
+        proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0 and last is not None, f"phase 16 ended with {proc.returncode}"
+    return json.loads(last)["launches"]
+
+
+def callbacks_child():
+    """The process of phase 16 (``chip_smoke.py --callbacks``): the phase,
+    then one JSON line of the launches it counted."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
+    import krylov_tpu_torch as kt
+    from krylov_tpu_torch.ops import cuda_bsr as bs
+    from krylov_tpu_torch.ops import cuda_spmv as sv
+    from krylov_tpu_torch.ops import cuda_stencil as cs
+    from krylov_tpu_torch.ops import stencil as st
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    totals = phase_callbacks(torch.device("cuda", 0), kt, cs, sv, bs, st, card_line())
+    print(json.dumps({"launches": totals}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -3934,50 +4230,52 @@ def main():
         if "registers" in line or "spill" in line:
             log("   ", line.strip())
 
-    errs, A_div = phase_kernels(dev, cs, st)
-    errs.update(phase_kernels_const(dev, cs, st, A_div))
-    phase_golden(dev, kt)
-    phase_entry(dev, kt, st)
-    launches = phase_main(dev, kt, cs, st, A_div)
-    for more in (phase_const_cg(dev, kt, cs, st), phase_mg(dev, kt, cs, st)):
+    errs, A_div = timed_phase(phase_kernels, dev, cs, st)
+    errs.update(timed_phase(phase_kernels_const, dev, cs, st, A_div))
+    timed_phase(phase_golden, dev, kt)
+    timed_phase(phase_entry, dev, kt, st)
+    launches = timed_phase(phase_main, dev, kt, cs, st, A_div)
+    for more in (timed_phase(phase_const_cg, dev, kt, cs, st),
+                 timed_phase(phase_mg, dev, kt, cs, st)):
         for k in launches:
             launches[k] += more[k]
-    errs.update(phase_sparse_kernels(dev, sv, bs))
-    n_spmv, _ = phase_sparse_solves(dev, kt, sv)
-    n_blocked, blocked_errs = phase_sparse_blocked(dev, kt, sv, bs)
+    errs.update(timed_phase(phase_sparse_kernels, dev, sv, bs))
+    n_spmv, _ = timed_phase(phase_sparse_solves, dev, kt, sv)
+    n_blocked, blocked_errs = timed_phase(phase_sparse_blocked, dev, kt, sv, bs)
     launches.update(csr_matvec=n_spmv, **n_blocked)
     for name, err in blocked_errs.items():
         errs[name] = max(errs[name], err)
-    errs.update(phase_jacobi_kernels(dev, cs, st, A_div))
-    for k, n in phase_jacobi_cg(dev, kt, cs, st, A_div).items():
+    errs.update(timed_phase(phase_jacobi_kernels, dev, cs, st, A_div))
+    for k, n in timed_phase(phase_jacobi_cg, dev, kt, cs, st, A_div).items():
         launches[k] += n
-    n_family, _ = phase_family(dev, kt, sv)
+    n_family, _ = timed_phase(phase_family, dev, kt, sv)
     for k in ("csr_matvec", "csr_matmat"):
         launches[k] += n_family[k]
-    phase_device_rule(kt, cs, sv, st)
-    for k, n in phase_stationary(dev, kt, cs, sv, st, card).items():
+    timed_phase(phase_device_rule, kt, cs, sv, st)
+    for k, n in timed_phase(phase_stationary, dev, kt, cs, sv, st, card).items():
         launches[k] += n
-    n_prec, prec_errs = phase_preconditioners(dev, kt, sv, card)
+    n_prec, prec_errs = timed_phase(phase_preconditioners, dev, kt, sv, card)
     for k, n in n_prec.items():
         launches[k] += n
         errs[k] = max(errs[k], prec_errs[k])
-    for k, n in phase_diffable(dev, kt, cs, sv, bs, st, A_div, card).items():
+    for k, n in timed_phase(phase_diffable, dev, kt, cs, sv, bs, st, A_div, card).items():
         launches[k] += n
-    for k, n in phase_distributed_one(dev, kt, cs, sv, bs, st, card).items():
+    for k, n in timed_phase(phase_distributed_one, dev, kt, cs, sv, bs, st, card).items():
         launches[k] = launches.get(k, 0) + n
-    for k, n in phase_distributed_gloo(dev, kt, sv, st, card).items():
+    for k, n in timed_phase(phase_distributed_gloo, dev, kt, sv, st, card).items():
         launches[k] += n
-    for k, n in phase_partitions_one(dev, kt, cs, sv, st, card).items():
+    for k, n in timed_phase(phase_partitions_one, dev, kt, cs, sv, st, card).items():
         launches[k] += n
-    for k, n in phase_partitions_gloo(dev, kt, sv, st, card).items():
+    for k, n in timed_phase(phase_partitions_gloo, dev, kt, sv, st, card).items():
         launches[k] += n
-    for k, n in phase_graph_loop(dev, kt, cs, sv, bs, st, card).items():
+    for phase in (phase_graph_loop, phase_kept):
+        for k, n in timed_phase(phase, dev, kt, cs, sv, bs, st, card).items():
+            launches[k] = launches.get(k, 0) + n
+    for k, n in timed_phase(phase_callbacks_apart, card).items():
         launches[k] = launches.get(k, 0) + n
-    for k, n in phase_kept(dev, kt, cs, sv, bs, st, card).items():
-        launches[k] = launches.get(k, 0) + n
-    phase_first_solve(card)
-    times = phase_timing(dev, kt, cs, st, A_div, card)
-    times.update(sparse_timing(dev, kt, sv, bs, card))
+    timed_phase(phase_first_solve, card)
+    times = timed_phase(phase_timing, dev, kt, cs, st, A_div, card)
+    times.update(timed_phase(sparse_timing, dev, kt, sv, bs, card))
 
     stencil, spmv, bsr = (f"krylov_tpu_torch/csrc/{f}" for f in ("stencil.cu", "spmv.cu",
                                                                   "bsr.cu"))
@@ -4003,6 +4301,7 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": where,
             "launches": launches[name], "max_abs_err": errs[name], **times[name],
         })
+    log("phase seconds: " + json.dumps(PHASE_S))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4013,5 +4312,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--first-solve"]:
         first_solve_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--callbacks"]:
+        callbacks_child()
     else:
         main()

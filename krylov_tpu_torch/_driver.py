@@ -24,12 +24,11 @@ Backends:
   history tensor on the solve's device.  Two routes:
 
   - the **host-stepped loop**: the host launches each step and reads one
-    stop flag a step.  It runs every solve on the CPU, with a callback (a
-    :class:`ShardMonitor` too), with state that requires a gradient, of a
-    ``Method`` that is not ``capturable`` (the triangular sweeps
-    ``gauss_seidel``, ``sor`` and ``ssor``; ``fgmres`` runs a host loop of
-    its own, as the reference's eager-only form does), and a sharded solve
-    whose transfers are staged through the host;
+    stop flag a step.  It runs every solve on the CPU, with state that
+    requires a gradient, of a ``Method`` that is not ``capturable`` (the
+    triangular sweeps ``gauss_seidel``, ``sor`` and ``ssor``; ``fgmres``
+    runs a host loop of its own, as the reference's eager-only form does),
+    and a sharded solve whose transfers are staged through the host;
   - the **graph route**, every other solve on a CUDA device.  It starts as
     the host-stepped loop, launching the same kernels.  After step 24
     (:data:`FIRST_CHECK`), and again when the step count has
@@ -58,6 +57,23 @@ Backends:
     replays, then reads the flag once.  A failed recheck goes back to
     replaying the same graph.  A solve that ends before its capture ran
     the host-stepped loop's launches, and nothing more.
+
+  A callback fires ``numsteps + 1`` times on both routes, in step order,
+  with the host-stepped loop's values, and never while a step is captured,
+  rehearsed or screened.  A host step fires it as the host-stepped loop
+  does.  A guarded step evaluates ``method.callback_args`` on the device
+  counter and copies them into slot ``k mod D`` of a ring of the driver's
+  own (an early success's into a spare slot); after each read of the stop
+  flag the host fires the user's callback for each step that ran, on
+  clones of its slot, once the next ``R`` replays are queued, so the device
+  runs them meanwhile (the ring holds two batches, ``D = 2 U R``).  A
+  :class:`ShardMonitor` needs no ring: the host reads the history rows of
+  the steps that ran with the stop flag, in one copy, before a recheck can
+  overwrite them (and a slot that keeps the recurrence value an early
+  success overwrites).  The rule counts the ring's copies a step, and
+  holds the ring to :data:`RING_STATE_SHARE` times the state's bytes; the
+  callback's host time a step, timed on the host steps, counts only in
+  whether a held step is worth its share (:class:`Costs`).
 
   A solver built once for many solves (``make_sharded_solver``) keeps its
   graph across runs in a :class:`Kept` slot (:func:`_keeping`): its first
@@ -274,13 +290,16 @@ def _slot():
     return stack[-1] if stack else None
 
 
-def _key(method, state0, maxiter, plain, forced):
+def _key(method, state0, maxiter, plain, forced, callback=None):
     """What a kept graph is valid for: the method (its step's code; a built
     solver's keywords are its own), the state's layout and device,
-    ``maxiter``, the route and a forced plan."""
+    ``maxiter``, the route, a forced plan and the kind of callback (a ring's
+    graph writes one, a monitor's an early success's slot)."""
     step = getattr(method.step, "__wrapped__", method.step)
+    kind = (None if callback is None else "monitor" if isinstance(callback, ShardMonitor)
+            else "ring" if method.callback_args is not None else None)
     return (getattr(step, "__code__", step), _layout(state0), state0.resnorm.device, maxiter,
-            plain, None if forced is None else forced[:3])
+            plain, None if forced is None else forced[:3], kind)
 
 
 def _meet(ranks, values):
@@ -318,7 +337,10 @@ class ShardMonitor:
     already reduced over the ranks.  The explicit-residual double check
     may later overwrite history entries; the hook saw the recurrence
     value, as the reference's callback does.  ``fn`` is called
-    ``numsteps + 1`` times.  ``group=None`` fires on every process.
+    ``numsteps + 1`` times, in step order, on both routes of
+    ``while_loop``: the graph route reads the rows of the steps its
+    replays ran with the stop flag and calls ``fn`` from the host.
+    ``group=None`` fires on every process.
     """
 
     def __init__(self, fn, group=None):
@@ -396,7 +418,7 @@ def run(
                 state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=callback
             )
         return _run_graph(state0, method, tol=tol, atol=atol, maxiter=maxiter,
-                          plain=route == "plain", plan=plan)
+                          callback=callback, plain=route == "plain", plan=plan)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -418,10 +440,11 @@ def _route(state0, method, callback):
     for the host-stepped loop, ``("cuda", plan)`` for the graph route
     (``plan`` a forced ``(after, steps, replays)``, or None for the cost
     rule), ``("plain", plan)`` for its plain twin under
-    :func:`_plain_graph`."""
+    :func:`_plain_graph`.  A callback takes the route a solve without one
+    would: the cost rule weighs what it costs (:class:`Costs`)."""
     stack = getattr(_ROUTES, "forced", None)
     force, plan = stack[-1] if stack else (None, None)
-    if force == "host" or callback is not None or not method.capturable:
+    if force == "host" or not method.capturable:
         return "host", None
     fields = tuple(state0) if isinstance(state0, tuple) and hasattr(state0, "_fields") else ()
     if not fields or not all(isinstance(t, torch.Tensor) for t in fields):
@@ -499,6 +522,15 @@ HOLD_CYCLES_PER_S = 2.0e9
 # is dropped and the next step held behind twice the sleep, up to this
 # many holds a run.
 HOLD_TRIES = 3
+# The callback ring's two batches of a read's U * R steps' callback
+# arguments hold at most this many times the bytes of the solve's state
+# (its spare slot, one step's arguments, comes on top).  Two vectors of
+# arguments against a state of four (cg + Jacobi: x, r against x, r, p, z)
+# still fill U * R = 4 steps a read, enough for the host to fire a batch's
+# callbacks while the next batch replays; wider arguments take fewer
+# replays a read, and arguments wider than the state no capture
+# (:func:`_plan`).
+RING_STATE_SHARE = 4
 
 
 def _sleep_s(c):
@@ -516,28 +548,43 @@ class Costs(NamedTuple):
     copy_s: float  # device time of copying back the fields a step moves
     clone_s: float  # device time of cloning the whole state
     even: bool = False  # Method.even_steps
+    # a callback's: the device time of a step's copies of its arguments
+    # into the ring and out of it (a clone a call), its host time a step
+    # (outside host_s), and the bytes of a step's arguments; the bytes of
+    # the solve's state
+    ring_s: float = 0.0
+    callback_s: float = 0.0
+    arg_bytes: int = 0
+    state_bytes: int = 0
 
 
 def _plan(c: Costs):
     """``(U, R)``, steps a graph and replays a read of the stop flag, when
     capturing now repays :data:`PAYBACK` times its cost over the steps
     still to go, else None.  A captured step costs its device time, its
-    guard and a ``U``-th of a replay's copies back; the capture costs its
-    base, the Python of its ``U`` steps and a clone of the state; the step
-    before the capture still runs from the host."""
+    guard, a ``U``-th of a replay's copies back and its callback's ring
+    copies; the capture costs its base, the Python of its ``U`` steps and a
+    clone of the state; the step before the capture still runs from the
+    host.  A callback's host time does not count: the host-stepped loop
+    pays it a step, and the graph route pays it while the next batch
+    replays, so it never makes the graph route the dearer one.  A callback
+    ring of ``2 U R`` steps' arguments holds at most
+    :data:`RING_STATE_SHARE` times the state's bytes."""
+    fit = (RING_STATE_SHARE * c.state_bytes // (2 * c.arg_bytes) if c.arg_bytes
+           else STEPS_PER_READ)
     best = None
     for U in GRAPH_STEPS:
-        if c.even and U % 2:
+        if (c.even and U % 2) or U > fit:
             continue
         cost = CAPTURE_BASE_S + U * c.launch_s * CAPTURE_PER_LAUNCH + c.clone_s
-        per_step = c.device_s + GUARD_S + c.copy_s / U
+        per_step = c.device_s + GUARD_S + c.copy_s / U + c.ring_s
         saving = (c.steps_left - 1) * (c.host_s - per_step)
         if saving >= PAYBACK * cost and (best is None or saving - cost > best[0]):
             best = (saving - cost, U)
     if best is None:
         return None
     U = best[1]
-    return U, max(1, min(STEPS_PER_READ, c.steps_left) // U)
+    return U, max(1, min(STEPS_PER_READ, c.steps_left, fit) // U)
 
 
 def _steps_left(cols, crit, left):
@@ -589,11 +636,14 @@ def _history(resnorms):
 
 def _fire(method, callback, state, k):
     """The callback of step ``k`` (a :class:`ShardMonitor` gets ``(k,
-    resnorm)``)."""
+    resnorm)``); returns the arguments a callback took, or None."""
     if isinstance(callback, ShardMonitor):
         callback.fire(k, state.resnorm)
     elif callback is not None and method.callback_args is not None:
-        callback(*method.callback_args(state, k))
+        args = method.callback_args(state, k)
+        callback(*args)
+        return args
+    return None
 
 
 def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
@@ -671,10 +721,11 @@ def _outer(state, method: Method, inner, *, tol, atol, maxiter, callback, kept=N
     return state, ok, k, _history(buf[: k + 1])
 
 
-def _step_once(method, step, state, k, buf, criterion, callback):
+def _step_once(method, step, state, k, buf, criterion, callback, noted=None):
     """One step launched from the host (``step``: ``method.step`` or a
     wrapper of it) and its one read of the stop flag: ``(state, k, early,
-    stop)``."""
+    stop)``.  ``noted``: a list that takes the callback's host seconds and
+    arguments, where it fired."""
     state = step(state, criterion, HostStep(k))
     COUNTS["host_steps"] += 1
     COUNTS["flag_reads"] += 1
@@ -691,7 +742,10 @@ def _step_once(method, step, state, k, buf, criterion, callback):
             stop = False
     else:
         stop = bool(below)
-    _fire(method, callback, state, k + 1)
+    t = time.perf_counter()
+    args = _fire(method, callback, state, k + 1)
+    if noted is not None and callback is not None:
+        noted.append((time.perf_counter() - t, args))
     k += 1
     buf[k] = state.resnorm
     return state, k, False, stop
@@ -753,15 +807,35 @@ def _copy_s(fields):
                for t in fields)
 
 
+def _to_ring(ring, args, k, early):
+    """Copy a step's callback arguments ``args`` into slot ``k mod D`` of
+    the ring ``(buffers, spare)`` (``D + 1`` slots a buffer), or into the
+    spare slot ``D`` where the device bool ``early`` holds: an early success
+    leaves ``k`` as it was, and step ``k``'s slot may not be fired yet."""
+    buffers, spare = ring
+    slot = torch.remainder(k, buffers[0].shape[0] - 1)
+    if early is not None:
+        slot = torch.where(early, spare, slot)
+    for r, a in zip(buffers, args, strict=True):
+        if (a.dtype, tuple(a.shape)) != (r.dtype, tuple(r.shape[1:])):
+            raise RuntimeError(f"a callback argument changed its type or shape: "
+                               f"{(r.dtype, tuple(r.shape[1:]))} -> {(a.dtype, tuple(a.shape))}")
+        r.index_copy_(0, slot.reshape(1), a.unsqueeze(0))
+
+
 def _graph_body(method, static, criterion, buf, k, stop, maxiter, steps, per_step,
-                sites=None, tallies=None):
+                sites=None, tallies=None, ring=None, saved=None):
     """One replay of the graph route as ``body(guard)``: ``steps`` steps
     from the state in ``static``, each run by ``guard`` only while the
     device flag ``stop`` is down; the step that raises it, or the last
     one, copies its state back into ``static``.  When ``per_step`` is a
     list, each step's kernel launches are recorded into it, not counted,
     but for those of a counted step's conds and loops: ``sites`` takes
-    them, and ``tallies`` counts their runs (:class:`._steps.DeviceStep`)."""
+    them, and ``tallies`` counts their runs (:class:`._steps.DeviceStep`).
+    ``ring``: a callback's ring, into which each step copies its
+    ``method.callback_args`` (:func:`_to_ring`); ``saved``: a slot that
+    takes history entry ``k`` before a step writes it, the recurrence value
+    an early success overwrites."""
     from . import _graphs
 
     has_early = hasattr(static, "early_success")
@@ -783,7 +857,12 @@ def _graph_body(method, static, criterion, buf, k, stop, maxiter, steps, per_ste
                                    f"-> {_layout(s2)}")
             # k += 1, unless a mid-iteration exit overwrites entry k
             k.add_(~s2.early_success if has_early else 1)
+            if saved is not None:
+                saved.copy_(buf.index_select(0, k.reshape(1)).squeeze(0))
             buf.index_copy_(0, k.reshape(1), s2.resnorm.to(buf.dtype).unsqueeze(0))
+            if ring is not None:
+                _to_ring(ring, method.callback_args(s2, k), k,
+                         s2.early_success if has_early else None)
             torch.logical_or(torch.all(s2.resnorm <= criterion), k >= maxiter, out=stop)
             if has_early:
                 stop.logical_or_(s2.early_success)
@@ -831,10 +910,18 @@ class _GraphLoop:
     replays, costs)`` of :func:`_plain_graph` or :func:`_capture_at` in
     place of the cost rule's, or ``costs`` to feed the rule.  ``kept``: the
     :class:`Kept` slot of a built solver, whose rule this loop follows and
-    which may keep it after its run."""
+    which may keep it after its run.  ``callback``: the solve's callback or
+    :class:`ShardMonitor`, fired for every step that ran (see the module
+    docstring)."""
 
-    def __init__(self, method, maxiter, plain, forced, kept=None):
+    def __init__(self, method, maxiter, plain, forced, kept=None, callback=None):
         self.method, self.maxiter, self.plain, self.kept = method, maxiter, plain, kept
+        self.callback = callback
+        self.cb_times = []  # host s of the callbacks of the noted host steps
+        self.ring_s, self.arg_bytes = 0.0, 0  # a step's ring copies; its arguments' bytes
+        self.state_bytes = 0  # the bytes of the state's fields
+        self.arg_layout = None  # the callback arguments' (dtype, shape), from the screen
+        self.ring = self.spare = self.saved = None  # the ring, its spare slot; the early slot
         self.forced, self.synthetic = forced, forced[3] if forced else None
         self.fixed = forced is not None and self.synthetic is None  # a forced plan
         self.plan = None  # (U, R), once decided
@@ -866,8 +953,24 @@ class _GraphLoop:
         self.info = dict(decisions=[], plan=self.plan, host_steps=0, held_steps=0, holds=[],
                          uncapturable=None, host_steps_s=0.0, decide_s=0.0, capture_s=0.0,
                          instantiate_s=0.0, replays_s=0.0, rehearse_s=0.0, screen_s=0.0,
-                         roots_s=0.0)
+                         roots_s=0.0, fire_s=0.0, ring_mb=self.ring_mb)
         self.t0, self.steps0 = time.perf_counter(), COUNTS["host_steps"]
+
+    @property
+    def ringed(self):
+        """Whether the graph's steps copy a callback's arguments to a ring."""
+        return (self.callback is not None and not isinstance(self.callback, ShardMonitor)
+                and self.method.callback_args is not None)
+
+    @property
+    def ring_mb(self):
+        """The ring's device MiB (0 without one)."""
+        return sum(r.numel() * r.element_size() for r in self.ring or ()) / 2**20
+
+    @property
+    def monitored(self):
+        """Whether the host reads the history rows for an active monitor."""
+        return isinstance(self.callback, ShardMonitor) and self.callback.active
 
     # measurement and decision
 
@@ -901,15 +1004,25 @@ class _GraphLoop:
 
         if rehearse:
             step = functools.partial(self._rehearse, step)
+        noted = []
         t0 = time.perf_counter()
-        new, k2, early, stop = _step_once(self.method, step, state, k, buf, criterion, None)
+        new, k2, early, stop = _step_once(self.method, step, state, k, buf, criterion,
+                                          self.callback, noted)
         t1 = time.perf_counter()
+        fired, args = noted[0] if noted else (0.0, None)
+        if noted:
+            self.cb_times.append(fired)
+        if args is not None:
+            args = [a for a in args if isinstance(a, torch.Tensor)]
+            self.ring_s = 2 * _copy_s(args)  # into the ring, and a clone out of it
+            self.arg_bytes = sum(a.numel() * a.element_size() for a in args)
         if not (rehearse or hold):
-            self.walls.append(t1 - t0)
+            self.walls.append(t1 - t0 - fired)
             self.launches.append(t_launch[0] - t0)
         self.settled = _layout(new) == _layout(state)
         self.copy_s = _copy_s(a for a, b in zip(new, state) if a.data_ptr() != b.data_ptr())
         self.clone_s = _copy_s(new)
+        self.state_bytes = sum(t.numel() * t.element_size() for t in new)
         if hold:
             COUNTS["held_steps"] += 1
             self.info["held_steps"] += 1
@@ -931,7 +1044,9 @@ class _GraphLoop:
             c = self.synthetic(steps_left)
         else:
             c = Costs(steps_left, min(self.walls[-2:]), _median(self.launches[-2:]), 0.0,
-                      self.copy_s, self.clone_s, self.method.even_steps)
+                      self.copy_s, self.clone_s, self.method.even_steps, self.ring_s,
+                      _median(self.cb_times[-2:]) if self.cb_times else 0.0, self.arg_bytes,
+                      self.state_bytes)
         return c._replace(device_s=0.0 if self.held_s is None else self.held_s)
 
     def _decide(self, k, buf, criterion):
@@ -965,12 +1080,13 @@ class _GraphLoop:
             costs = costs._replace(device_s=0.0)
             plan = _plan(costs)
         self.walls, self.launches = self.walls[-2:], self.launches[-2:]
+        self.cb_times = self.cb_times[-2:]
         self.info["decisions"].append((k, costs, plan))
         if plan is not None and self.held_s is None:
             # a capture would repay if the device took no time: hold the next
             # step to see its device time, if that costs little enough
-            if (self.kept is not None
-                    or _sleep_s(costs) <= MEASURE_SHARE * costs.steps_left * costs.host_s):
+            if (self.kept is not None or _sleep_s(costs) <= MEASURE_SHARE * costs.steps_left
+                    * (costs.host_s + costs.callback_s)):
                 self.hold_k = self.next_check = k + 1
                 return None
             plan = None
@@ -1001,11 +1117,15 @@ class _GraphLoop:
     def _agreed(self, c):
         """``(costs, over)``: the :class:`Costs` ``c`` with the steps left
         and each time the largest over the solve's ranks, and whether any
-        rank's hold outlasted its sleep, so that every rank plans alike."""
+        rank's hold outlasted its sleep, so that every rank plans alike (the
+        state's bytes the least over the ranks)."""
         if self.ranks is None:
             return c, self.held_over
-        left, *times, over = self._meet([*c[:6], float(self.held_over)])
-        return Costs(int(left), *times, c.even), bool(over)
+        left, *times, ring_s, callback_s, arg_bytes, state_bytes, over = self._meet(
+            [*c[:6], c.ring_s, c.callback_s, c.arg_bytes, -c.state_bytes,
+             float(self.held_over)])
+        return Costs(int(left), *times, c.even, ring_s, callback_s, int(arg_bytes),
+                     -int(state_bytes)), bool(over)
 
     def _agree(self, failed, uncapturable=None, unkept=None):
         """After a rehearsal or a capture: raise on every rank when any
@@ -1049,8 +1169,11 @@ class _GraphLoop:
         (:data:`._graphs.ONCE`: what a conditional body holds is screened
         whether or not this step would run it), its launches not counted,
         its collectives not launched (:func:`._graphs.dry`) and its results
-        dropped.  An exception there raises as a failed capture would, on
-        every rank of a sharded solve, which then agree (:meth:`_agree`)."""
+        dropped but for the layout of the callback arguments a ring takes
+        (``method.callback_args`` in its device form, screened too; the
+        user's callback is not called).  An exception there raises as a
+        failed capture would, on every rank of a sharded solve, which then
+        agree (:meth:`_agree`)."""
         from . import _graphs
         from ._inner import host_checks_off
 
@@ -1063,7 +1186,13 @@ class _GraphLoop:
                     _graphs.storages_read(reads) if self.kept is not None
                     else contextlib.nullcontext()):
                 k = torch.full((), ctl.k, dtype=torch.int64, device=dev)
-                self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
+                out = self.method.step(probe, criterion, DeviceStep(k, _graphs.ONCE))
+                if self.ringed:
+                    args = self.method.callback_args(out, k + 1)
+                    bad = [type(a).__name__ for a in args if not isinstance(a, torch.Tensor)]
+                    if bad:
+                        raise TypeError(f"a callback argument is a {bad[0]}, not a tensor")
+                    self.arg_layout = [(a.dtype, tuple(a.shape)) for a in args]
 
         failed = None
         t0 = time.perf_counter()
@@ -1115,18 +1244,30 @@ class _GraphLoop:
         self.buf, self.criterion = buf, criterion
         self.k_dev = torch.full((), k, dtype=torch.int64, device=dev)
         self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        ring = None
+        if self.ringed:
+            # two batches of a read's steps, and the spare slot
+            D = 2 * steps * self.plan[1]
+            self.ring = [torch.empty((D + 1,) + shape, dtype=dtype, device=dev)
+                         for dtype, shape in self.arg_layout]
+            self.spare = torch.full((), D, dtype=torch.int64, device=dev)
+            ring = (self.ring, self.spare)
+            self.info["ring_mb"] = self.ring_mb
+        if self.monitored and hasattr(state, "early_success"):
+            self.saved = torch.zeros_like(buf[0])
         from . import _graphs
 
         if self.plain:
             body = _graph_body(self.method, self.static, criterion, buf, self.k_dev, self.stop,
-                               self.maxiter, steps, None)
+                               self.maxiter, steps, None, ring=ring, saved=self.saved)
             self.graph = lambda: body(_graphs.PLAIN)
             COUNTS["captures"] += 1
             return self.static
         per_step = []
         self.tallies = torch.zeros(_steps.MAX_SITES, dtype=torch.int64, device=dev)
         body = _graph_body(self.method, self.static, criterion, buf, self.k_dev, self.stop,
-                           self.maxiter, steps, per_step, self.sites, self.tallies)
+                           self.maxiter, steps, per_step, self.sites, self.tallies, ring,
+                           self.saved)
         t0 = time.perf_counter()
         try:
             # a process group's watchdog thread queries the events of its
@@ -1180,7 +1321,7 @@ class _GraphLoop:
                 break
             if not self._measures(k):  # the host-stepped loop's step
                 state, k, early, stop = _step_once(self.method, self.method.step, state, k,
-                                                   buf, criterion, None)
+                                                   buf, criterion, self.callback)
             else:
                 rehearse = self.plan is not None
                 state, k, early, stop = self._noted_step(state, k, buf, criterion)
@@ -1206,6 +1347,7 @@ class _GraphLoop:
         timing = (self.kept is not None and not self.plain and self.replay_s is None
                   and self.host_s is not None)
         t0 = time.perf_counter()
+        pending = None  # the callbacks of the last batch of replays, still to fire
         while True:
             n = min(per_read, -(-(self.maxiter - k) // steps))
             events = timing and [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1219,15 +1361,18 @@ class _GraphLoop:
                                    f"failed ({type(exc).__name__}: {exc})") from exc
             if events:
                 events[1].record()
+            if pending is not None:
+                self._fire(*pending)  # while this batch replays
             COUNTS["replays"] += n
             COUNTS["flag_reads"] += 1
-            stopped = bool(self.stop)
+            stopped, rows, saved = self._read(k, n * steps)
             if events:
                 timing = False
                 ran = (int(self.k_dev) - k) if stopped else n * steps
                 self._timed(events[0].elapsed_time(events[1]) * 1e-3, max(ran, 1))
             if stopped:
                 break
+            pending = (k, k + n * steps, rows)
             self._ran(n * steps)  # no step raised the flag: all of them ran
             k += n * steps
         if self.sites:
@@ -1238,8 +1383,46 @@ class _GraphLoop:
             k_end = int(self.k_dev)
         early = hasattr(self.static, "early_success") and bool(self.static.early_success)
         self._ran(k_end - k + early)  # an early exit's step leaves k as it was
+        if early and rows is not None and k_end > k:
+            # step k_end's recurrence value, which the early step overwrote
+            rows[k_end - k - 1] = saved
+        self._fire(k, k_end, rows)
         self.info["replays_s"] += time.perf_counter() - t0
         return self.static, k_end, early
+
+    def _read(self, k, m):
+        """``(stopped, rows, saved)``: the stop flag after replays from step
+        ``k`` of at most ``m`` steps; for an active :class:`ShardMonitor`,
+        in the same copy to the host, the history rows of those steps (a
+        host array a step) and the early success's slot, else None."""
+        if not self.monitored:
+            return bool(self.stop), None, None
+        hi = min(k + m, self.maxiter)
+        shape = tuple(self.buf.shape[1:])
+        parts = [self.stop.reshape(1).to(self.buf.dtype), self.buf[k + 1: hi + 1].reshape(-1)]
+        if self.saved is not None:
+            parts.append(self.saved.reshape(-1))
+        host = _history(torch.cat(parts))
+        n = (hi - k) * int(np.prod(shape, dtype=np.int64))
+        rows = list(host[1: 1 + n].reshape((hi - k,) + shape))
+        saved = host[1 + n:].reshape(shape) if self.saved is not None else None
+        return bool(host[0]), rows, saved
+
+    def _fire(self, first, last, rows):
+        """The callbacks of steps ``first + 1 .. last``, which replays ran:
+        a monitor's from ``rows`` (:meth:`_read`), a callback's on clones of
+        its ring slots (no later replay writes them)."""
+        if last <= first or self.callback is None:
+            return
+        t0 = time.perf_counter()
+        if rows is not None:
+            for j in range(first + 1, last + 1):
+                self.callback.fn(j, np.array(rows[j - first - 1]))
+        elif self.ring is not None:
+            D = self.ring[0].shape[0] - 1
+            for j in range(first + 1, last + 1):
+                self.callback(*(r[j % D].clone() for r in self.ring))
+        self.info["fire_s"] += time.perf_counter() - t0
 
     def _timed(self, seconds, steps):
         """The device time of a built solver's first replays, ``steps`` of
@@ -1260,7 +1443,7 @@ class _GraphLoop:
         in the driver's buffers, outside it."""
         if self.graph is not None and not self.plain:
             self.graph.release()
-        self.graph = None
+        self.graph = self.ring = self.spare = self.saved = None
 
 
 def _median(xs):
@@ -1271,16 +1454,18 @@ def _median(xs):
     return 0.5 * (xs[(n - 1) // 2] + xs[n // 2])
 
 
-def _run_graph(state0, method: Method, *, tol, atol, maxiter, plain=False, plan=None):
+def _run_graph(state0, method: Method, *, tol, atol, maxiter, callback=None, plain=False,
+               plan=None):
     t0 = time.perf_counter()
     slot = _slot()
     if slot is not None:
         return _run_kept(slot, state0, method, t0, tol=tol, atol=atol, maxiter=maxiter,
-                         plain=plain, plan=plan)
+                         callback=callback, plain=plain, plan=plan)
     COUNTS["graph_route"] += 1
-    loop = _GraphLoop(method, maxiter, plain, plan)
+    loop = _GraphLoop(method, maxiter, plain, plan, callback=callback)
     try:
-        return _outer(state0, method, loop, tol=tol, atol=atol, maxiter=maxiter, callback=None)
+        return _outer(state0, method, loop, tol=tol, atol=atol, maxiter=maxiter,
+                      callback=callback)
     finally:
         if loop.graph is None:
             loop._host_part()
@@ -1289,33 +1474,34 @@ def _run_graph(state0, method: Method, *, tol, atol, maxiter, plain=False, plan=
         LAST_GRAPH.update(loop.info, total_s=time.perf_counter() - t0)
 
 
-def _run_kept(slot, state0, method, t0, *, tol, atol, maxiter, plain, plan):
+def _run_kept(slot, state0, method, t0, *, tol, atol, maxiter, callback, plain, plan):
     """A run of a built solver on the graph route: the kept graph replayed
     from step 0 when its key holds on every rank, the host-stepped loop
     when the rule keeps the solver there, else a run that may capture a
     graph to keep (see the module docstring)."""
-    key = _key(method, state0, maxiter, plain, plan)
+    key = _key(method, state0, maxiter, plain, plan, callback)
     ranks = _several(_ranks())
     if slot.key is not None and _meet(ranks, [float(slot.key != key)])[0]:
         slot.release()  # a key that differs on any rank: every rank starts anew
     if slot.key is not None and slot.host:
         COUNTS["host_stepped"] += 1
-        out = _run_while(state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=None)
+        out = _run_while(state0, method, tol=tol, atol=atol, maxiter=maxiter, callback=callback)
         LAST_GRAPH.clear()
         LAST_GRAPH.update(kept="host", unkept=slot.why, total_s=time.perf_counter() - t0)
         return out
     loop, rerun = slot.loop, slot.loop is not None
     if rerun:
-        loop.method = method  # its hooks; the graph replays the first run's step
+        # its hooks and callback; the graph replays the first run's step
+        loop.method, loop.callback = method, callback
         loop.begin()
         COUNTS["kept_runs"] += 1
     else:
-        loop = _GraphLoop(method, maxiter, plain, plan, kept=slot)
+        loop = _GraphLoop(method, maxiter, plain, plan, kept=slot, callback=callback)
     COUNTS["graph_route"] += 1
     keep = False
     try:
         state, ok, k, hist = _outer(state0, method, loop, tol=tol, atol=atol, maxiter=maxiter,
-                                    callback=None,
+                                    callback=callback,
                                     kept=(loop.buf, loop.criterion) if rerun else None)
         keep = loop.graph is not None and loop.unkept is None and not slot.host
         if keep and any(_shares(a, b) for a, b in zip(state, loop.static)):

@@ -21,7 +21,10 @@ collective, so it captures as one device does.  Two explicit rules keep
 the host-stepped loop (counted in ``_driver.COUNTS["host_stepped"]``): a
 staged mesh (gloo carrying CUDA tensors: every transfer goes through the
 host), and a rows axis of several NCCL ranks unless :func:`nccl_graphs`.
-A ``callback`` (a :class:`ShardMonitor`) keeps it too, as on one device.
+A ``callback`` (a :class:`ShardMonitor`) takes the route a solve without
+one takes: the graph route fires it on rank 0 of the rows axis from the
+history rows it reads with the stop flag, as the reference fires it from
+inside its compiled loop, and adds no collective.
 A solver built by :func:`make_sharded_solver` keeps its captured graph
 across its runs, as the reference's jit-once solver keeps its program
 (:class:`krylov_tpu_torch._driver.Kept`; released with the solver, or,
@@ -287,34 +290,29 @@ def _gather_cols(mesh, t):
     return mesh.all_gather_rows(t.movedim(1, 0).contiguous(), RHS).movedim(0, 1)
 
 
-# Several NCCL ranks on the graph route: off.  On four H100s with
-# NCCL_GRAPH_MIXING_SUPPORT=0 every case of tools/torch_multigpu_check.py, and
-# cg, cg_pipelined and cg_block past their periodic replacement, replayed
-# bit-equal to the host-stepped loop (the replacement beside the step's IF
-# node, _graphs.sibling; nested inside it, after the step's own collectives,
-# it crashed every rank), but a process whose built solvers still held their
-# graphs hung in destroy_process_group, whose NCCL teardown waits for every
-# graph holding its captured collectives.  Their kept graphs are now
-# released before their group goes (.mesh.release_kept): the four-GPU check
-# then ended cleanly with them alive.  The switch waits for one four-GPU run
-# that also holds cg, cg_pipelined and cg_block on both routes (PERF.md).
-# The checking tools turn it on.
-NCCL_GRAPHS = False
-
-
+# Several NCCL ranks on the graph route.  On four H100s with
+# NCCL_GRAPH_MIXING_SUPPORT=0 one run of tools/torch_nccl_graphs_check.sh held
+# every case of tools/torch_multigpu_check.py (a ShardMonitor's too) with the
+# built solvers alive at the teardown, and cg, cg_pipelined and cg_block past
+# their periodic replacement bit-equal on both routes (PERF.md).  Nested
+# inside a step's IF node, after the step's own collectives, a replacement
+# crashed every rank: it sits beside the node (_graphs.sibling).  NCCL's
+# teardown waits for every graph holding captured collectives: built
+# solvers' kept graphs are released before their group goes
+# (.mesh.release_kept).
 def nccl_graphs():
     """Whether the ranks of a rows axis of several NCCL ranks take the graph
     route, their collectives captured into the graph's conditional bodies
-    with the kernels: with :data:`NCCL_GRAPHS`, and only where NCCL records
-    captured work without the event nodes of its support for mixing graph
-    and eager launches, which a conditional body refuses
-    (``NCCL_GRAPH_MIXING_SUPPORT=0`` in the environment;
+    with the kernels: only where NCCL records captured work without the
+    event nodes of its support for mixing graph and eager launches, which
+    a conditional body refuses (``NCCL_GRAPH_MIXING_SUPPORT=0`` in the
+    environment, the route's one switch;
     ``tools/torch_collective_graph_probe.py``).  NCCL then asks that no
     eager collective follow a graph launch still running: the driver reads
     the stop flag, which waits for the replays, before its next one.  Gloo
     ranks on the CPU take the route's plain twin (the tests); a rank alone
     launches no collective and captures as one device does."""
-    return NCCL_GRAPHS and os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") == "0"
+    return os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") == "0"
 
 
 def _graph_ranks(mesh):

@@ -312,6 +312,21 @@ def _solution(s, kk, x0, Mr):
     return x0 + Mr @ yk
 
 
+def _padded_solution(s, k, x0, Mr):
+    """``x0 + Mr V y`` with the ``K x K`` system padded beyond step ``k``
+    (an int, or the graph route's 0-d device counter): a unit diagonal and
+    a zero right-hand side there decouple exactly, so no size depends on
+    ``k`` and nothing is read on the host (the reference's device form, a
+    callback's ``x`` on both routes of ``while_loop``)."""
+    K = s.R.shape[1]
+    tail = (1,) * (s.y.ndim - 1)
+    active = torch.arange(K, device=s.R.device) < k
+    fix = torch.diag((~active).to(s.R.dtype)).reshape((K, K) + tail)
+    yv = torch.where(active.reshape((K,) + tail), s.y[:K], torch.zeros_like(s.y[:K]))
+    yy = multi_solve_triangular(s.R[:K] + fix, yv)
+    return x0 + Mr @ torch.einsum("k...,kn...->n...", yy, s.V[:K])
+
+
 class _WhileState(NamedTuple):
     V: torch.Tensor  # (K+1, N, *tail) M-preconditioned basis
     P: torch.Tensor  # (K+1, N, *tail) dual basis, V = M P (empty if M = I: V)
@@ -420,7 +435,7 @@ def _gmres_while(
         return _solution(s, k, x0, Mr)
 
     method = Method(step=step, xk=xk_of, explicit_resnorm=residual_norm,
-                    callback_args=lambda s, k: (xk_of(s, k), s.resnorm),
+                    callback_args=lambda s, k: (_padded_solution(s, k, x0, Mr), s.resnorm),
                     capturable=True, counted=True)
     state, success, k, resnorms = run(state0, method, tol=tol, atol=atol,
                                       maxiter=maxiter, callback=callback,
@@ -510,7 +525,7 @@ def _gmres_while_householder(
         return _solution(s, k, x0, Mr)
 
     method = Method(step=step, xk=xk_of, explicit_resnorm=residual_norm,
-                    callback_args=lambda s, k: (xk_of(s, k), s.resnorm),
+                    callback_args=lambda s, k: (_padded_solution(s, k, x0, Mr), s.resnorm),
                     capturable=True, counted=True)
     state, success, k, resnorms = run(state0, method, tol=tol, atol=atol,
                                       maxiter=maxiter, callback=callback,

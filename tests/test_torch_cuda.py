@@ -1643,30 +1643,136 @@ def test_graph_route_raises_when_a_capture_fails(dev):
 
 
 def test_graph_route_is_decided_before_any_capture(dev):
-    """A callback, a ``ShardMonitor`` and a state that requires a gradient
-    run the host-stepped loop, ``fgmres`` its own host loop; nothing is
-    captured, even when forced."""
+    """A state that requires a gradient runs the host-stepped loop,
+    ``fgmres`` its own host loop; nothing is captured, even when forced.  A
+    callback and a ``ShardMonitor`` take the graph route, and capture."""
     A = st.poisson_2d_const(64, 64, device=dev)
     b = torch.ones(64 * 64, device=dev)
     Ad = torch.eye(64, device=dev) * 3.0 + torch.diag(torch.ones(63, device=dev), 1)
     Ad = Ad + Ad.T
     bd = torch.ones(64, device=dev, requires_grad=True)
     calls = []
+    _driver.reset_counts()
+    with _driver._capture_at():
+        kt.cg(Ad, bd, tol=1e-6, maxiter=50, backend="while_loop")
+    assert _driver.COUNTS["host_stepped"] == 1, _driver.COUNTS
+    assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
     for solve in (
         lambda: kt.cg(A, b, tol=1e-6, maxiter=50, callback=lambda *a: calls.append(1),
                       backend="while_loop"),
         lambda: kt.cg(A, b, tol=1e-6, maxiter=50, callback=_driver.ShardMonitor(
             lambda k, r: calls.append(k)), backend="while_loop"),
-        lambda: kt.cg(Ad, bd, tol=1e-6, maxiter=50, backend="while_loop"),
     ):
         _driver.reset_counts()
         with _driver._capture_at():
             solve()
-        assert _driver.COUNTS["host_stepped"] == 1, _driver.COUNTS
-        assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
+        assert _driver.COUNTS["host_stepped"] == 0, _driver.COUNTS
+        assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 1
     _driver.reset_counts()
     with _driver._capture_at():
         kt.fgmres(A, b, tol=1e-6, maxiter=20)
     assert _driver.COUNTS["graph_route"] == _driver.COUNTS["captures"] == 0
     assert calls
+
+
+def _callback_cases(dev):
+    """``{label: solve(callback)}``: solves of ``_graph_cases`` that take a
+    callback (K10 on the shifted Poisson CSR, K2 for ``chebyshev``)."""
+    sp, lap = _shifted_poisson_f32(128), _shifted_poisson_f32(128, shift=0.0)
+    b = _rand(sp.shape[0], dev, torch.float32, 42)
+    dinv = kt.DiagonalOperator(torch.from_numpy(1.0 / sp.diagonal()).to(dev))
+    dinv0 = kt.DiagonalOperator(torch.from_numpy(1.0 / lap.diagonal()).to(dev))
+    Ac = st.poisson_2d_const(96, 64, device=dev)
+    bc = Ac @ _rand(Ac.grid, dev, torch.float32, 41)
+    lo, hi = kt.utils.estimate_spectrum(Ac)
+    wl = dict(backend="while_loop")
+    return {
+        "cg + jacobi": lambda cb: kt.cg(lap, b, M=dinv0, tol=1e-4, maxiter=1500, callback=cb,
+                                        **wl),
+        "bicgstab": lambda cb: kt.bicgstab(sp, b, Ml=dinv, tol=1e-4, maxiter=200, callback=cb,
+                                           **wl),
+        "minres": lambda cb: kt.minres(sp, b, tol=1e-4, maxiter=200, callback=cb, **wl),
+        "tfqmr": lambda cb: kt.tfqmr(sp, b, M=dinv, tol=1e-4, maxiter=400, callback=cb, **wl),
+        "chebyshev": lambda cb: kt.chebyshev(Ac, bc, (lo, hi), inner=lambda u, v: torch.sum(
+            u * v), tol=1e-5, maxiter=400, callback=cb, **wl),
+        **{f"gmres {o}": lambda cb, o=o: kt.gmres(sp, b, ortho=o, tol=1e-4, maxiter=120,
+                                                  callback=cb, **wl)
+           for o in ("mgs", "cgs", "householder")},
+    }
+
+
+def _called(solve, route, monitor=False):
+    """``(info, calls, kept, counts)``: ``solve(callback)`` under
+    ``route``, the calls' arguments cloned when they came (a monitor's
+    ``(k, resnorm)``) and the tensors themselves."""
+    calls, kept = [], []
+
+    def callback(*args):
+        calls.append([a.clone() for a in args])
+        kept.append(args)
+
+    _driver.reset_counts()
+    with route:
+        _, info = solve(_driver.ShardMonitor(lambda k, rn: calls.append((k, rn))) if monitor
+                        else callback)
+    torch.cuda.synchronize()
+    return info, calls, kept, dict(_driver.COUNTS)
+
+
+@pytest.mark.parametrize("label", ["cg + jacobi", "bicgstab", "minres", "tfqmr", "chebyshev",
+                                   "gmres mgs", "gmres cgs", "gmres householder"])
+def test_a_captured_callback_solve_is_bit_equal_to_the_host_loop(dev, label):
+    """A capture forced after step 3 (graphs of 4 steps, 2 replays a read)
+    with a callback: one capture, no host read in the rehearsal (gmres's
+    ``x`` in its padded device form), ``numsteps + 1`` calls in order,
+    each ``torch.equal`` to the host-stepped loop's, the tensors kept
+    unchanged by later replays; a ``ShardMonitor``'s ``(k, resnorm)`` the
+    host loop's too."""
+    solve = _callback_cases(dev)[label]
+    ref, ref_calls, _, _ = _called(solve, _driver._host_stepped())
+    got, calls, kept, counts = _called(solve, _driver._capture_at(after=3, steps=4,
+                                                                  replays=2))
+    assert counts["captures"] == 1 and counts["uncapturable"] == 0, (
+        counts, _driver.LAST_GRAPH.get("uncapturable"))
+    _assert_bit_equal(got, ref, label)
+    assert len(calls) == got.numsteps + 1 == len(ref_calls)
+    for j, (g, h, k) in enumerate(zip(calls, ref_calls, kept)):
+        assert all(torch.equal(a, c) for a, c in zip(g, h, strict=True)), (label, j)
+        assert all(torch.equal(a, c) for a, c in zip(g, k, strict=True)), (label, j)
+    _, ref_seen, _, _ = _called(solve, _driver._host_stepped(), monitor=True)
+    _, seen, _, counts = _called(solve, _driver._capture_at(after=3, steps=4, replays=2),
+                                 monitor=True)
+    assert counts["captures"] == 1 and [k for k, _ in seen] == [k for k, _ in ref_seen]
+    for (k, a), (_, c) in zip(seen, ref_seen):
+        np.testing.assert_array_equal(a, c, err_msg=f"{label} {k}")
+
+
+def test_a_callback_that_launches_device_ops_adds_no_flag_read(dev):
+    """A callback that appends ``torch.linalg.vector_norm(r)`` on the
+    device, and a ``ShardMonitor``, on a captured ``cg`` + Jacobi solve:
+    the stop flag is read as often as without a callback (the monitor's
+    rows come with the flag), the norms are the host loop's, and every
+    replayed batch's callbacks fire after the next batch is queued."""
+    solve = _callback_cases(dev)["cg + jacobi"]
+    route = lambda: _driver._capture_at(after=3, steps=4, replays=8)  # noqa: E731
+    _driver.reset_counts()
+    with route():
+        _, plain = solve(None)
+    torch.cuda.synchronize()
+    bare = dict(_driver.COUNTS)
+    norms = {}
+    for name, ctx in (("host", _driver._host_stepped), ("graph", route)):
+        norms[name] = []
+        _driver.reset_counts()
+        with ctx():
+            _, info = solve(lambda x, r: norms[name].append(torch.linalg.vector_norm(r)))
+        torch.cuda.synchronize()
+    counts = dict(_driver.COUNTS)
+    assert counts["captures"] == bare["captures"] == 1
+    assert counts["flag_reads"] == bare["flag_reads"] < info.numsteps / 4, (counts, bare)
+    assert torch.equal(torch.stack(norms["graph"]), torch.stack(norms["host"]))
+    assert _driver.LAST_GRAPH["fire_s"] > 0.0
+    _, _, _, monitored = _called(solve, route(), monitor=True)
+    assert monitored["flag_reads"] == bare["flag_reads"], (monitored, bare)
+    _assert_bit_equal(info, plain, "cg + jacobi")
 

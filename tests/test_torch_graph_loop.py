@@ -653,24 +653,25 @@ def test_cpu_solves_take_the_host_stepped_loop():
 
 
 def test_the_route_is_decided_before_any_step():
-    """Under the twin's switch, a callback, a ``ShardMonitor``, a method
-    that is not capturable (a triangular sweep) and a state that requires
-    a gradient still run the host-stepped loop, and ``fgmres`` its own host
-    loop, as the reference's eager-only form does; the solvers
-    whose step depends on its step number (``return_arnoldi``, ``tfqmr``,
-    ``symmlq``, ``cg_pipelined``, ``gcr``, ``chebyshev``) take the graph
-    route; ``_host_stepped()`` overrides the switch."""
+    """Under the twin's switch, a method that is not capturable (a
+    triangular sweep) and a state that requires a gradient still run the
+    host-stepped loop, and ``fgmres`` its own host loop, as the reference's
+    eager-only form does; a callback and a ``ShardMonitor`` take the graph
+    route a solve without one takes, as do the solvers whose step depends
+    on its step number (``return_arnoldi``, ``tfqmr``, ``symmlq``,
+    ``cg_pipelined``, ``gcr``, ``chebyshev``); ``_host_stepped()``
+    overrides the switch."""
     A, b = _spd(20, 10.0, 7)
     At, bt = torch.from_numpy(A), torch.from_numpy(b)
     calls = []
     host = [
-        lambda: kt.cg(A, b, callback=lambda *a: calls.append(1), backend="while_loop"),
-        lambda: kt.cg(A, b, callback=_driver.ShardMonitor(lambda k, r: calls.append(k)),
-                      backend="while_loop"),
         lambda: kt.cg(At, bt.clone().requires_grad_(), backend="while_loop"),
         lambda: kt.gauss_seidel(A, b, maxiter=5, backend="while_loop"),
     ]
     graph = [
+        lambda: kt.cg(A, b, callback=lambda *a: calls.append(1), backend="while_loop"),
+        lambda: kt.cg(A, b, callback=_driver.ShardMonitor(lambda k, r: calls.append(k)),
+                      backend="while_loop"),
         lambda: kt.cg(A, b, backend="while_loop"),
         lambda: kt.cg(A, b, return_arnoldi=True, backend="while_loop"),
         lambda: kt.tfqmr(A, b, backend="while_loop"),
@@ -698,15 +699,18 @@ def test_the_route_is_decided_before_any_step():
     with _driver._capture_at():
         assert _driver._route(s0, method, None) == ("host", None)
     assert _driver._route(s0, method._replace(capturable=False), None) == ("host", None)
-    assert _driver._route(s0, method, print) == ("host", None)
+    assert _driver._route(s0, method, print) == ("host", None)  # the CPU, as without one
+    with _driver._plain_graph():
+        assert _driver._route(s0, method, print)[0] == "plain"  # a callback takes the route
 
 
 def test_a_one_rank_sharded_solve_takes_the_host_stepped_loop():
     """``sharded_solve`` on a world of one gloo rank takes the graph route
     (its plain twin here) where a single-device solve would, launching no
-    collective; it takes the host-stepped loop with a ``ShardMonitor``
-    callback, and on a staged mesh (gloo carrying CUDA tensors), whose
-    every transfer goes through the host."""
+    collective, with a ``ShardMonitor`` callback too, which fires
+    ``numsteps + 1`` times; it takes the host-stepped loop on a staged
+    mesh (gloo carrying CUDA tensors), whose every transfer goes through
+    the host."""
     import torch.distributed as dist
 
     from krylov_tpu_torch import parallel
@@ -721,13 +725,17 @@ def test_a_one_rank_sharded_solve_takes_the_host_stepped_loop():
             pm.reset_counts()
             c = _counts_of(lambda: parallel.sharded_solve(kt.cg, A, b, mesh=mesh, tol=1e-8))
             assert not any(pm.COUNTS.values()), pm.COUNTS
-            monitored = _counts_of(lambda: parallel.sharded_solve(
-                kt.cg, A, b, mesh=mesh, tol=1e-8, callback=lambda k, rn: None))
+            seen = []
+            monitored = _counts_of(lambda: seen.append(parallel.sharded_solve(
+                kt.cg, A, b, mesh=mesh, tol=1e-8, callback=lambda k, rn: seen.append(k))))
     finally:
         dist.destroy_process_group()
     assert c["graph_route"] == c["captures"] == 1 and c["host_stepped"] == 0, c
     assert c["meetings"] == 0, c  # a rank alone meets no one
-    assert monitored["host_stepped"] == 1 and monitored["graph_route"] == 0, monitored
+    assert monitored["graph_route"] == monitored["captures"] == 1, monitored
+    assert monitored["host_stepped"] == 0 and monitored["meetings"] == 0, monitored
+    *ks, (_, info) = seen
+    assert ks == list(range(info.numsteps + 1))
     method = _driver.Method(step=None, xk=None, capturable=True)
     s0 = _S(torch.zeros(()), torch.ones(()), torch.tensor(False))
     staged = pm.Mesh.of_one("cpu")

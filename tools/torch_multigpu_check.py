@@ -9,7 +9,9 @@ grid operator with ``M_diag`` and the shard monitor, the const stencil
 alone and under ``ChebyshevPreconditioner``, CSR in halo and gather mode,
 PET ``qmr`` and an ``(N, 8)`` b, 6c's block matrix, restarted ``gmres``,
 ``make_sharded_solver`` on three right-hand sides, one built solver a
-route, which keeps the graph of its first capture) and 12b
+route, which keeps the graph of its first capture; ``cg`` with a
+``ShardMonitor`` once and through a built solver on two right-hand sides,
+rank 0 of the rows axis alone firing it, ``numsteps + 1`` times) and 12b
 (``chip_smoke.partition_cases``: ``multigrid_factory`` in its three
 couplings and on the Galerkin path, ``partition_amg`` with two sharded
 levels and Chebyshev smoothing, ``partition_ilu0`` under ``qmr``,
@@ -57,9 +59,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--small", action="store_true", help="rehearsal sizes")
-    ap.add_argument("--nccl-graphs", action="store_true",
-                    help="several NCCL ranks take the graph route (parallel.solve.NCCL_GRAPHS; "
-                    "needs NCCL_GRAPH_MIXING_SUPPORT=0), to check it")
     ap.add_argument("--solvers", default="alive", choices=("alive", "dropped"),
                     help="the built solvers at the process group's teardown")
     ap.add_argument("--hang-dump", type=float, default=0.0, metavar="SECONDS",
@@ -82,7 +81,6 @@ def main():
     if args.small:
         cm.GLOO_N, cm.GLOO_NPG, cm.NBLK = 64, 64, 64
     parallel.multihost.initialize()
-    parallel.solve.NCCL_GRAPHS = args.nccl_graphs
     rank, world = dist.get_rank(), dist.get_world_size()
     mesh = parallel.multihost.global_mesh()
     dev = mesh.device
@@ -100,6 +98,13 @@ def main():
               (kt.cg, A_small, b), dict(fixed, build=True),
               lambda b=b: cm.single_solve(kt.cg, A_small_d, b, dev, **fixed))
              for j, b in enumerate(bs)]
+    # cg with a ShardMonitor, one-shot and built once: on the graph route
+    # rank 0 of the rows axis fires it from the history it reads with the
+    # stop flag
+    runs += [(f"cg, poisson_2d, monitored, {how}", "stencil2d_matvec", (kt.cg, A_small, b),
+              dict(fixed, record=True, build=how == "built"),
+              lambda b=b: cm.single_solve(kt.cg, A_small_d, b, dev, **fixed))
+             for how, b in (("one-shot", bs[0]), ("built", bs[1]), ("built", bs[2]))]
     if world == 4 and not args.only_built:
         # split columns leave the grid path for the flat banded one (no K1)
         runs.append(("cg, two columns over a 2 x 2 mesh (shard_rhs)", None,
@@ -133,10 +138,11 @@ def main():
                 if build:
                     # one built solver a route: the first right-hand side's run
                     # captures the graph it keeps, the later ones replay it
-                    if (id(A), route) not in solvers:
-                        solvers[id(A), route] = parallel.make_sharded_solver(
-                            solver, A, mesh=run_mesh, **kw)
-                    _, info = solvers[id(A), route](b)
+                    key = (id(A), route, "callback" in kw)
+                    if key not in solvers:
+                        solvers[key] = parallel.make_sharded_solver(solver, A, mesh=run_mesh,
+                                                                    **kw)
+                    _, info = solvers[key](b)
                 else:
                     _, info = parallel.sharded_solve(solver, A, b, mesh=run_mesh, **kw)
             if dev.type == "cuda":

@@ -18,12 +18,16 @@
 #    handler armed to show where the end hangs;
 # 3. this checkout's weak scaling of cg, cg_pipelined and cg_block on
 #    both routes past the replacement (bit_equal in each JSON line);
-# 4. tools/torch_multigpu_check.py --nccl-graphs (every case on three
-#    routes, bit for bit; the built solvers alive at the end);
-# 5. tests/test_torch_cuda.py -k four_nccl in a copy of this checkout whose
-#    parallel.solve.NCCL_GRAPHS is True.
+# 4. tools/torch_multigpu_check.py (every case on three routes, bit for
+#    bit; the built solvers alive at the end);
+# 5. tests/test_torch_cuda.py -k four_nccl.
 #
 # END_ONLY=1 skips steps 3 and 5 (the teardown's evidence alone).
+#
+# WEAK_AB=1 with PARENT_DIR runs only a control of step 3 on one machine:
+# the weak scaling of cg in the parent, this checkout, this checkout, the
+# parent, then cg_pipelined and cg_block in the parent and this checkout
+# (the parent's tool with --nccl-graphs where it has that switch).
 #
 # Every run has NCCL_GRAPH_MIXING_SUPPORT=0.  Each run's whole log goes to
 # $OUT (default nccl_graphs_logs/); its exit code and JSON lines are printed.
@@ -63,31 +67,45 @@ if [ "${PROBES:-0}" = 1 ]; then
   done
 fi
 
+small=(--rows-per-device 1048576 --iters 200 --repeats 2)
+if [ -n "$parent" ] && [ "${WEAK_AB:-0}" = 1 ]; then
+  pflag=()
+  grep -q -- '--nccl-graphs' "$parent/tools/torch_weak_scaling.py" && pflag=(--nccl-graphs)
+  for run in cg:parent cg:this cg:this2 cg:parent2 cg_pipelined:parent cg_pipelined:this \
+      cg_block:parent cg_block:this; do
+    s=${run%%:*} side=${run#*:}
+    if [ "${side%2}" = parent ]; then
+      spmd "ab_${side}_$s" "$parent" tools/torch_weak_scaling.py --solver "$s" \
+        --replace-every 50 "${small[@]}" "${pflag[@]}"
+    else
+      spmd "ab_${side}_$s" . tools/torch_weak_scaling.py --solver "$s" --replace-every 50 \
+        "${small[@]}"
+    fi
+  done
+  echo "seconds $(( $(date +%s) - t0 ))"
+  exit 0
+fi
+
 if [ -n "$parent" ]; then
   cp tools/torch_multigpu_check.py "$parent/tools/"
   for solvers in alive dropped; do
-    spmd "parent_end_$solvers" "$parent" tools/torch_multigpu_check.py --nccl-graphs \
-      --only-built --solvers "$solvers" --hang-dump 45
+    spmd "parent_end_$solvers" "$parent" tools/torch_multigpu_check.py --only-built \
+      --solvers "$solvers" --hang-dump 45
     grep -a '^rank [0-9]\|Timeout (\|in destroy_process_group\|in barrier\|check.py", line' \
       "$out/parent_end_$solvers.log" | head -30
   done
 fi
 
-small=(--rows-per-device 1048576 --iters 200 --repeats 2 --nccl-graphs)
 [ "${END_ONLY:-0}" = 1 ] || for s in cg cg_pipelined cg_block; do
   spmd "weak_$s" . tools/torch_weak_scaling.py --solver "$s" --replace-every 50 "${small[@]}"
 done
 
-spmd multigpu_check . tools/torch_multigpu_check.py --nccl-graphs --hang-dump 120
+spmd multigpu_check . tools/torch_multigpu_check.py --hang-dump 120
 grep -a 'all .* sharded solves held\|^rank ' "$out/multigpu_check.log"
 
 if [ "${END_ONLY:-0}" = 1 ]; then echo "seconds $(( $(date +%s) - t0 ))"; exit 0; fi
-flipped=_archive/nccl_graphs_on
-rm -rf "$flipped" && mkdir -p "$flipped"
-cp -r krylov_tpu_torch tests chip_smoke.py "$flipped"/
-sed -i 's/^NCCL_GRAPHS = False/NCCL_GRAPHS = True/' "$flipped/krylov_tpu_torch/parallel/solve.py"
-(cd "$flipped" && timeout -k 10 400 python3 -m pytest --noconftest -q -p no:cacheprovider \
-  tests/test_torch_cuda.py -k four_nccl) > "$out/pytest_four_nccl.log" 2>&1
-echo "pytest four_nccl (NCCL_GRAPHS on) rc=$?"
+timeout -k 10 400 python3 -m pytest --noconftest -q -p no:cacheprovider \
+  tests/test_torch_cuda.py -k four_nccl > "$out/pytest_four_nccl.log" 2>&1
+echo "pytest four_nccl rc=$?"
 tail -3 "$out/pytest_four_nccl.log"
 echo "seconds $(( $(date +%s) - t0 ))"

@@ -18,7 +18,7 @@ rule, which captures each solve anew).  Rank 0 prints, for each route, one
 JSON line with the reference's keys (``s_per_iter`` is the median solve's)
 and ``route``, ``captured`` (whether the rule's solves captured),
 ``nccl_graphs`` (``parallel.solve.nccl_graphs()``: several NCCL ranks on
-the graph route, with ``--nccl-graphs`` and ``NCCL_GRAPH_MIXING_SUPPORT=0``),
+the graph route, which needs ``NCCL_GRAPH_MIXING_SUPPORT=0``),
 ``s_per_iter_all`` (every repeat), ``graph_s`` (the last solve's seconds
 of host steps, decisions, capture, instantiation and replays, and its
 plan, from ``_driver.LAST_GRAPH``), ``bit_equal`` (every solve of the
@@ -101,9 +101,6 @@ def main(argv=None):
     p.add_argument("--replace-every", type=int, default=None,
                    help="cg_pipelined's and cg_block's replace_every (their default if unset)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--nccl-graphs", action="store_true",
-                    help="several NCCL ranks take the graph route (parallel.solve.NCCL_GRAPHS; "
-                    "needs NCCL_GRAPH_MIXING_SUPPORT=0), to check it")
     p.add_argument("--small", action="store_true",
                    help="rehearsal sizes: 4096 rows a rank, ny 64, 20 steps")
     args = p.parse_args(argv)
@@ -121,7 +118,6 @@ def main(argv=None):
     elif not torch.cuda.is_available():
         raise SystemExit("torch_weak_scaling: needs CUDA devices (or --device cpu)")
     parallel.multihost.initialize()
-    parallel.solve.NCCL_GRAPHS = args.nccl_graphs
     mesh = parallel.multihost.global_mesh()
     n_dev = mesh.shape[parallel.ROWS]
     A, b, N, nnz = problem(args, n_dev, kt, parallel, st)
