@@ -60,14 +60,24 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    shifted Poisson CSR with 6b's checks (the adjoint products counted); (d)
    the device rule: with no device argument, inputs land on the card;
 8. the stationary path: ``richardson`` and ``jacobi`` at 4096^2 (K1 every
-   step) against a float64 host iteration; ``gauss_seidel``, ``sor`` and
-   ``ssor`` on ``poisson_2d(1024)`` through the grid sweeps and
-   ``gauss_seidel`` on a 1M-row unstructured matrix through the
-   level-scheduled sweeps (K10 every step), against scipy's sequential
-   triangular solves in float64; ``cg`` on ``poisson_2d_const`` with
-   ``ChebyshevPreconditioner`` over ``estimate_spectrum``'s interval at
-   4096^2 (K2 eight times an application) and with ``SSORSmoother`` at
-   256^2, to 1e-6 beside plain ``cg``; what a grid sweep costs;
+   step) against a float64 host iteration; ``gauss_seidel`` (both
+   triangles), ``sor`` and ``ssor`` at 4096^2, 10 steps, on the rule's
+   route and under a forced capture against the host-stepped loop
+   (``route_cell``, ``SWEEP_REPEATS`` solves a route; at 10 steps the rule
+   decides nothing and runs the host loop; S1 a sweep); (8b) S1, the grid
+   sweep, and S2, the
+   level-scheduled sweep, against their plain loops, with one launch a
+   sweep (a run of narrow levels), µs a grid row or level, the byte bound
+   and ``torch.triangular_solve`` on the triangle as a sparse CSR tensor:
+   S1 at 4096^2 and 1024^2 (both triangles, a 9-point stencil with wrapped
+   columns and a batch of 3), S2 on ILU(0) at 256^2 and 1024^2 and on a
+   1M-row unstructured factor with wide levels; ``gauss_seidel``, ``sor``
+   and ``ssor`` on ``poisson_2d(1024)`` and ``gauss_seidel`` on the
+   unstructured matrix (K10 every step, S2 a sweep), against scipy's
+   sequential triangular solves in float64; ``cg`` on ``poisson_2d_const``
+   with ``ChebyshevPreconditioner`` over ``estimate_spectrum``'s interval
+   at 4096^2 (K2 eight times an application) and with ``SSORSmoother`` at
+   1024^2, to 1e-6 beside plain ``cg``;
 9. the sparse preconditioners: (a-c) the reference bench's ``cg_amg`` cell,
    ``cg`` + ``AMGPreconditioner`` on the unshifted 1M-row Poisson CSR with
    the solve's ``PETOperator`` as the fine level (set-up cold and warm, the
@@ -115,8 +125,11 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    Poisson CSR (the ``cg_amg`` cell: K10 on the PET fine level, the
    prolongator slab, its explicit adjoint and the tail) against its
    ``as_global()`` twin and the single-device ``AMGPreconditioner``, bit for
-   bit twice, and ``partition_block_jacobi`` under ``cg`` and
-   ``partition_ilu0`` under ``bicgstab`` at 256^2 against their twins; each
+   bit twice, ``partition_block_jacobi`` under ``cg`` and
+   ``partition_ilu0`` under ``bicgstab`` at 256^2 against their twins, and
+   ``qmr`` + ``partition_ilu0`` (S2 four times a step) 10 steps on the
+   rule's route (the host loop at 10 steps) and under a forced capture
+   against the host-stepped loop; each
    with wall ms, iterations, launches per application, collectives per
    step and host set-up seconds; (b) four gloo ranks on the card: the three
    couplings of ``multigrid_factory``, the Galerkin cycle, ``partition_amg``
@@ -1900,13 +1913,18 @@ def phase_device_rule(kt, cs, sv, st):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the stationary path (richardson, jacobi, the triangular sweeps,
-# SSORSmoother, estimate_spectrum and ChebyshevPreconditioner)
+# phase 8: the stationary path (richardson, jacobi, the triangular sweeps on
+# S1 and S2, SSORSmoother, estimate_spectrum and ChebyshevPreconditioner)
 
-STAT_STEPS = 20  # steps of richardson and jacobi at BIG^2
-SWEEP_STEPS = 3  # steps of the sweep solvers at MID^2
+STAT_STEPS = 10  # steps of richardson and jacobi at BIG^2
+SWEEP_STEPS = 3  # steps of the sweep solvers at MID^2 against scipy's sequential solves
+ROUTE_SWEEP_STEPS = 10  # steps of the sweep solvers at BIG^2, the rule against the host loop
+# timed solves a route of those cells: a step is device-bound (idle share
+# 0.02-0.04 on an H100), its wall varies by 1-3 % from solve to solve
+SWEEP_REPEATS = 3
 NLEVEL = 1 << 20  # rows of the unstructured matrix of the level-scheduled route
-SSOR_N = 256  # grid side of SSOR-preconditioned cg: a sweep is ~25 launches a grid row
+SSOR_N = 1024  # grid side of SSOR-preconditioned cg
+ILU_SIDES = (256, 1024)  # grid sides of the timed ILU(0) applications
 
 
 def poisson_dia(n):
@@ -1964,16 +1982,249 @@ def held(what, info, ref, rtol=TRAJ_RTOL):
     assert np.isfinite(got).all() and rel.max() <= rtol, what
 
 
+def once_ms(fn):
+    """``(fn(), its device time in ms)`` of one call, by CUDA events (the
+    plain loops, host-bound, take seconds a call at full width)."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def grid_tri_csr(A, lower, omega=1.0):
+    """The triangle ``D/omega + L`` (or ``+ U``) of a grid stencil as a
+    sparse CSR tensor on its device: the library call's operand.  Entries
+    whose neighbour leaves the grid are dropped (the stencils here have
+    zero coefficients there)."""
+    M, ny = A.grid
+    bands = sorted(
+        (dr * ny + dc, d, dr, dc) for d, (dr, dc) in enumerate(zip(A.row_offsets, A.col_offsets))
+        if (dr, dc) == (0, 0) or ((dr, dc) < (0, 0) if lower else (dr, dc) > (0, 0)))
+    dev = A.coeffs2d.device
+    i = torch.arange(M, device=dev)[:, None]
+    j = torch.arange(ny, device=dev)[None, :]
+    cols, vals, valid = [], [], []
+    for _, d, dr, dc in bands:  # ascending column within each row
+        ok = (i + dr >= 0) & (i + dr < M) & (j + dc >= 0) & (j + dc < ny)
+        valid.append(ok.expand(M, ny))
+        cols.append(((i + dr) * ny + (j + dc)).expand(M, ny))
+        v = A.coeffs2d[d]
+        vals.append(v / omega if (dr, dc) == (0, 0) else v)
+    valid = torch.stack(valid, -1)
+    indices = torch.stack(cols, -1)[valid].to(torch.int32)
+    values = torch.stack(vals, -1)[valid]
+    crow = torch.zeros(M * ny + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(valid.reshape(M * ny, -1).sum(1), 0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), indices, values, (M * ny, M * ny))
+
+
+def scipy_csr_tensor(sp, dev):
+    """A scipy CSR matrix as a sparse CSR tensor on ``dev``."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(sp.indptr.astype(np.int32)), torch.from_numpy(sp.indices.astype(np.int32)),
+        torch.from_numpy(sp.data), sp.shape).to(dev)
+
+
+def library_solve_ms(tri, b, upper):
+    """``torch.triangular_solve`` with a sparse CSR triangle (cuSPARSE) on
+    ``b``: its device time in ms and its result, or (None, None) where this
+    torch has no such call on the card."""
+    try:
+        x = torch.triangular_solve(b.reshape(b.shape[0], -1), tri, upper=upper).solution
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"    torch.triangular_solve on a sparse CSR triangle: not on this card's torch "
+            f"({str(exc).splitlines()[0][:120]})")
+        return None, None
+    ms = time_ms(lambda: torch.triangular_solve(b.reshape(b.shape[0], -1), tri, upper=upper), 1)
+    return ms, x.reshape(b.shape)
+
+
+def level_bytes(sched, k, itemsize):
+    """The bytes S2 must move for a factor: each slot's row, entry offset,
+    diagonal, ``b`` and ``x`` once, each entry's column and value once."""
+    nslots = sum(sched.sizes)
+    nent = int(sched.tensors["slot_ptr"][-1])
+    return nslots * (8 + itemsize + 2 * k * itemsize) + nent * (4 + itemsize)
+
+
+def busy_line(card, what, fn):
+    """One call of ``fn``: its wall and, from :func:`device_busy` (the
+    device's activity alone), its device busy, idle share and kernels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, events = device_busy(fn)
+    log(f"  [{card}] {what}: wall {wall * 1e3:.2f} ms, " + (
+        busy_text((busy, events), wall) if events else
+        "device busy not measured (the profiler recorded no kernel of the call)"))
+
+
+def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
+    """8b: S1 and S2 against their plain versions on the card, timed, with
+    their library call (cuSPARSE through ``torch.triangular_solve``);
+    ``sp_un`` the unstructured matrix of the level-scheduled route.
+    Returns ``(errs, times)`` for the ``kernels`` line."""
+    from krylov_tpu_torch.ops.triangular import (GridLowerSweep, GridUpperSweep,
+                                                 make_triangular_solve)
+
+    import scipy.sparse
+
+    errs = {"grid_sweep": 0.0, "level_sweep": 0.0}
+    times = {}
+    rng = np.random.default_rng(SEED + 63)
+    log(f"  8b: S1, the grid sweep, against its plain loop on the card")
+    A = st.poisson_2d(BIG, dtype=np.float32, device=dev)
+    b = torch.from_numpy(rng.standard_normal((BIG, BIG)).astype(np.float32)).to(dev)
+    for lower in (True, False):
+        sweep = (GridLowerSweep if lower else GridUpperSweep)(
+            A.coeffs2d, A.row_offsets, A.col_offsets)
+        if dev.type == "cuda":  # no doubling plane, no flipped copy for the kernel
+            assert getattr(sweep, "a_steps", None) is None and sweep.plan is not None
+        ct.reset_launches()
+        got = sweep(b)
+        torch.cuda.synchronize()
+        assert ct.LAUNCHES["grid_sweep"] == 1, ct.LAUNCHES
+        ms = time_ms(lambda: sweep(b), 5)
+        name = f"S1 {'lower' if lower else 'upper'}, poisson_2d({BIG}) f32"
+        want, plain_ms = once_ms(lambda: sweep.plain(b))
+        errs["grid_sweep"] = max(errs["grid_sweep"], check_close(
+            name, got, want, atol=1e-5 * float(want.abs().max())))
+        del want
+        assert torch.equal(sweep(b), got), "S1 repeats bit for bit"
+        nbytes = 5 * BIG * BIG * 4  # b, a, d, the row band's plane, x
+        tri = grid_tri_csr(A, lower)
+        lib_ms, lib_x = library_solve_ms(tri, b.reshape(-1), upper=not lower)
+        if lib_x is not None:
+            log(f"    the library call's max abs difference to S1: "
+                f"{max_err(lib_x.reshape(BIG, BIG), got):.3e}")
+        del tri, lib_x
+        row = timed(ms, plain_ms, nbytes, 0.0, lib_ms)
+        log(f"  [{card}] {name}: {ms * 1e3:.1f} us a sweep, 1 launch, chain {BIG} rows, "
+            f"{ms * 1e3 / BIG:.3f} us a row; byte bound {row['bound_ms'] * 1e3:.1f} us "
+            f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {row['bound_ms'] / ms * 100:.1f} % of it); "
+            f"plain loop {plain_ms:.1f} ms; library "
+            + ("not measured" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"))
+        if lower:
+            times["grid_sweep"] = row
+        del sweep, got
+    # a batch of 3 and a 9-point stencil with wrapped dc != 0 bands, at MID
+    rng9 = np.random.default_rng(SEED + 64)
+    nine = [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
+    c9 = rng9.standard_normal((9, MID, MID)).astype(np.float32)
+    c9[4] = 8.0 + rng9.random((MID, MID))
+    c9 = torch.from_numpy(c9).to(dev)
+    b3 = torch.from_numpy(rng9.standard_normal((3, MID, MID)).astype(np.float32)).to(dev)
+    for cls in (GridLowerSweep, GridUpperSweep):
+        sweep = cls(c9, tuple(r for r, _ in nine), tuple(c for _, c in nine), omega=1.3)
+        got, want = sweep(b3), sweep.plain(b3)
+        errs["grid_sweep"] = max(errs["grid_sweep"], check_close(
+            f"S1 {cls.__name__}, 9-point random at {MID}^2, omega 1.3, a batch of 3", got, want,
+            atol=1e-5 * float(want.abs().max())))
+        ms = time_ms(lambda: sweep(b3), 3)
+        log(f"  [{card}] S1 {cls.__name__} 9-point at {MID}^2, 3 right-hand sides: "
+            f"{ms * 1e3:.1f} us a sweep ({ms * 1e3 / MID:.3f} us a row)")
+    del c9, b3, sweep, got, want
+    # S1 at MID on the 5-point Laplacian: the chain of 1024 rows, both triangles
+    A1 = st.poisson_2d(MID, dtype=np.float32, device=dev)
+    b1 = torch.from_numpy(rng.standard_normal((MID, MID)).astype(np.float32)).to(dev)
+    for cls in (GridLowerSweep, GridUpperSweep):
+        s1 = cls(A1.coeffs2d, A1.row_offsets, A1.col_offsets)
+        ms = time_ms(lambda: s1(b1), 10)
+        want, plain_ms = once_ms(lambda: s1.plain(b1))
+        errs["grid_sweep"] = max(errs["grid_sweep"], check_close(
+            f"S1 {cls.__name__}, poisson_2d({MID}) f32", s1(b1), want,
+            atol=1e-5 * float(want.abs().max())))
+        lib_ms, _ = library_solve_ms(grid_tri_csr(A1, cls is GridLowerSweep), b1.reshape(-1),
+                                     upper=cls is GridUpperSweep)
+        log(f"  [{card}] S1 {cls.__name__}, poisson_2d({MID}) f32: {ms * 1e3:.1f} us a sweep, "
+            f"{ms * 1e3 / MID:.3f} us a row; plain loop {plain_ms:.1f} ms; library "
+            + ("not measured" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"))
+    del A1, b1, s1, A, b
+
+    log(f"  8b: S2, the level-scheduled sweep, against its plain loop on the card")
+    for g in ILU_SIDES:
+        sp = grid_csr(g, 0.5, 0.4)
+        M = kt.ILUPreconditioner.from_scipy(sp, device=dev)
+        r = torch.from_numpy(rng.standard_normal(g * g).astype(np.float32)).to(dev)
+        plain_app = 0.0
+        for label, sweep in (("L", M._l), ("U", M._u)):
+            sched = sweep.schedule
+            ct.reset_launches()
+            got = sweep(r)
+            torch.cuda.synchronize()
+            assert ct.LAUNCHES["level_sweep"] == len(sched.launches), ct.LAUNCHES
+            if g <= 1024:  # levels of at most 1024 rows: one run, one launch
+                assert len(sched.launches) == 1, sched.launches
+            want, plain_ms = once_ms(lambda: sweep.plain(r))
+            plain_app += plain_ms
+            errs["level_sweep"] = max(errs["level_sweep"], check_close(
+                f"S2 ILU(0) {label} at {g}^2 ({sweep.nlevels} levels)", got, want,
+                atol=1e-5 * float(want.abs().max())))
+            ms = time_ms(lambda: sweep(r), 10)
+            row = timed(ms, plain_ms, level_bytes(sched, 1, 4), 0.0)
+            log(f"  [{card}] S2 ILU(0) {label} at {g}^2: {ms * 1e3:.1f} us a sweep, "
+                f"{len(sched.launches)} launch(es), chain {sweep.nlevels} levels, "
+                f"{ms * 1e3 / sweep.nlevels:.3f} us a level; byte bound "
+                f"{row['bound_ms'] * 1e3:.2f} us; plain loop {plain_ms:.1f} ms")
+        app_ms = time_ms(lambda: M @ r, 10)
+        log(f"  [{card}] one ILU(0) application at {g}^2 (two sweeps, "
+            f"{sum(M.nlevels)} levels): {app_ms:.3f} ms; the two plain loops {plain_app:.1f} ms")
+        busy_line(card, f"one ILU(0) application at {g}^2", lambda: M @ r)
+        del M, sp, r
+    sp = sp_un
+    sweep = make_triangular_solve(scipy.sparse.tril(sp).tocsr(), lower=True, device=dev)
+    sched = sweep.schedule
+    r = torch.from_numpy(rng.standard_normal(NLEVEL).astype(np.float32)).to(dev)
+    ct.reset_launches()
+    got = sweep(r)
+    torch.cuda.synchronize()
+    assert ct.LAUNCHES["level_sweep"] == len(sched.launches) > 1, sched.launches
+    assert any(kind == "wide" for kind, _, _ in sched.launches), sched.launches
+    want, plain_ms = once_ms(lambda: sweep.plain(r))
+    errs["level_sweep"] = max(errs["level_sweep"], check_close(
+        f"S2 unstructured L, {NLEVEL} rows ({sweep.nlevels} levels, launches "
+        f"{[(k, l0, l1) for k, l0, l1 in sched.launches]})", got, want,
+        atol=1e-5 * float(want.abs().max())))
+    R3 = torch.from_numpy(rng.standard_normal((NLEVEL, 3)).astype(np.float32)).to(dev)
+    errs["level_sweep"] = max(errs["level_sweep"], check_close(
+        "S2 unstructured L, an (n, 3) block", sweep(R3), sweep.plain(R3),
+        atol=1e-5 * float(R3.abs().max())))
+    ms = time_ms(lambda: sweep(r), 10)
+    tri = scipy_csr_tensor(scipy.sparse.tril(sp).tocsr(), dev)
+    lib_ms, lib_x = library_solve_ms(tri, r, upper=False)
+    if lib_x is not None:
+        log(f"    the library call's max abs difference to S2: {max_err(lib_x, got):.3e}")
+    row = timed(ms, plain_ms, level_bytes(sched, 1, 4), 0.0, lib_ms)
+    times["level_sweep"] = row
+    log(f"  [{card}] S2 unstructured L, {NLEVEL} rows, {sp.nnz} nnz: {ms * 1e3:.1f} us a sweep, "
+        f"{len(sched.launches)} launches, chain {sweep.nlevels} levels "
+        f"({ms * 1e3 / sweep.nlevels:.2f} us a level), widest {max(sched.sizes)} rows; byte "
+        f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_ms'] / ms * 100:.1f} % of it); plain "
+        f"loop {plain_ms:.1f} ms; library "
+        + ("not measured" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"))
+    return errs, times
+
+
 def phase_stationary(dev, kt, cs, sv, st, card):
-    """Phase 8.  Returns the launches of K1, K2 and K10 on these paths."""
+    """Phase 8.  Returns ``(launches, errs, times)``: the launches of K1,
+    K2, K10, S1 and S2 on these paths, and S1's and S2's errors against
+    their plain versions and their timing records."""
     import scipy.sparse
     import scipy.sparse.linalg as spla
 
+    from krylov_tpu_torch.ops import cuda_bsr as bs
+    from krylov_tpu_torch.ops import cuda_triangular as ct
     from krylov_tpu_torch.ops.cuda_spmv import PETOperator
-    from krylov_tpu_torch.ops.triangular import GridLowerSweep
 
     log(f"phase 8: the stationary path; richardson and jacobi on poisson_2d({BIG}) f32")
-    totals = {"stencil2d_matvec": 0, "const_stencil2d_matvec": 0, "csr_matvec": 0}
+    t_phase = time.perf_counter()
+    totals = {"stencil2d_matvec": 0, "const_stencil2d_matvec": 0, "csr_matvec": 0,
+              "grid_sweep": 0, "level_sweep": 0}
     rng = np.random.default_rng(SEED + 61)
     kw = dict(tol=1e-30, backend="while_loop")
 
@@ -2002,7 +2253,28 @@ def phase_stationary(dev, kt, cs, sv, st, card):
             f"largest: " + "; ".join(
                 f"{key[:32]} x{count:.0f} {us / 1e3:.2f} ms"
                 for key, us, count in sorted(rows, key=lambda q: -q[1])[:3]))
-    del A, A64, b, b64
+    del A64, b64
+
+    log(f"  the sweep solvers at {BIG}^2, {ROUTE_SWEEP_STEPS} steps each: the rule's route "
+        f"and a forced capture against the host-stepped loop (S1 a sweep)")
+    for name, okw, sweeps in (("gauss_seidel", {}, 1), ("gauss_seidel", dict(lower=False), 1),
+                              ("sor", dict(omega=1.3), 1), ("ssor", dict(omega=1.3), 2)):
+        label = f"{name} {okw}, poisson_2d({BIG}), {ROUTE_SWEEP_STEPS} steps"
+        n, _ = route_cell(
+            label, lambda name=name, okw=okw: getattr(kt, name)(
+                A, b, maxiter=ROUTE_SWEEP_STEPS, **okw, **kw),
+            (b,), card, (cs, sv, bs, ct), forced=(3, 2, 2), repeats=SWEEP_REPEATS, phase="8")
+        assert n["grid_sweep"] == sweeps * ROUTE_SWEEP_STEPS, (label, n)
+        assert n["stencil2d_matvec"] == ROUTE_SWEEP_STEPS, (label, n)
+        for k in ("stencil2d_matvec", "grid_sweep"):
+            totals[k] += n[k]
+    del A, b
+
+    log(f"  richardson, jacobi and the sweep solvers on both routes took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    sp_un = unstructured_spd(NLEVEL)
+    errs, times = phase_sweep_kernels(dev, kt, ct, st, card, sp_un)
+    log(f"  8b: {time.perf_counter() - t_phase:.1f} s into phase 8")
 
     log(f"  the grid sweeps on poisson_2d({MID}) f32: gauss_seidel, sor, ssor, {SWEEP_STEPS} "
         f"steps each, against scipy's spsolve_triangular in float64")
@@ -2023,54 +2295,53 @@ def phase_stationary(dev, kt, cs, sv, st, card):
             up, diag * spla.spsolve_triangular(lo, r, lower=True), lower=False)
 
     low, upp, low13 = tri(True), tri(False), tri(True, 1.3)
-    for name, okw, update in (
-        ("gauss_seidel", {}, lambda r: spla.spsolve_triangular(low, r, lower=True)),
+    for name, okw, update, sweeps in (
+        ("gauss_seidel", {}, lambda r: spla.spsolve_triangular(low, r, lower=True), 1),
         ("gauss_seidel", dict(lower=False),
-         lambda r: spla.spsolve_triangular(upp, r, lower=False)),
-        ("sor", dict(omega=1.3), lambda r: spla.spsolve_triangular(low13, r, lower=True)),
-        ("ssor", dict(omega=1.3), ssor_update(1.3)),
+         lambda r: spla.spsolve_triangular(upp, r, lower=False), 1),
+        ("sor", dict(omega=1.3), lambda r: spla.spsolve_triangular(low13, r, lower=True), 1),
+        ("ssor", dict(omega=1.3), ssor_update(1.3), 2),
     ):
         cs.reset_launches()
+        ct.reset_launches()
         t0 = time.perf_counter()
         sol, info = getattr(kt, name)(A, b, maxiter=SWEEP_STEPS, **okw, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n1 = cs.LAUNCHES["stencil2d_matvec"]
+        n1, ns = cs.LAUNCHES["stencil2d_matvec"], ct.LAUNCHES["grid_sweep"]
         assert info.numsteps == n1 == SWEEP_STEPS and info.xk.device == dev, (name, n1)
+        assert ns == sweeps * SWEEP_STEPS, (name, ns)
         totals["stencil2d_matvec"] += n1
-        held(f"{name} {okw} ({wall / SWEEP_STEPS:.2f} s a step)", info,
+        totals["grid_sweep"] += ns
+        held(f"{name} {okw} ({wall / SWEEP_STEPS * 1e3:.1f} ms a step, S1 launches {ns})", info,
              host_stationary(sp, b64, update, SWEEP_STEPS))
-    sweep = GridLowerSweep(A.coeffs2d, A.row_offsets, A.col_offsets)
-    r2 = b.reshape(MID, MID)
-    wall, busy, rows = profiled(lambda: sweep(r2))
-    nlaunch = sum(q[2] for q in rows)
-    log(f"  [{card}] one grid sweep at {MID}^2 (a Python loop over {MID} grid rows, "
-        f"{len(sweep.a_steps)} doubling steps a row): {wall * 1e3:.1f} ms, {nlaunch:.0f} kernel "
-        f"launches ({wall / nlaunch * 1e6:.1f} us of wall each), device busy {busy * 1e3:.1f} ms, "
-        f"idle share {1 - busy / wall:.3f}")
-    del A, sp, sweep
+    del A, sp
 
-    log(f"  the level-scheduled sweeps: gauss_seidel on an unstructured {NLEVEL}-row CSR")
-    sp = unstructured_spd(NLEVEL)
+    log(f"  the level-scheduled sweeps: gauss_seidel on an unstructured {NLEVEL}-row CSR (S2) "
+        f"({time.perf_counter() - t_phase:.1f} s into phase 8)")
+    sp = sp_un
     b = torch.from_numpy(rng.standard_normal(NLEVEL).astype(np.float32)).to(dev)
     assert isinstance(kt.as_operator(sp, dev), PETOperator)
     sv.reset_launches()
+    ct.reset_launches()
     t0 = time.perf_counter()
     sol, info = kt.gauss_seidel(sp, b, tol=1e-4, maxiter=12, backend="while_loop")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n10 = sv.LAUNCHES["csr_matvec"]
+    n10, ns = sv.LAUNCHES["csr_matvec"], ct.LAUNCHES["level_sweep"]
     assert info.success and sol.device == dev and n10 == info.numsteps, (info.numsteps, n10)
+    assert ns >= info.numsteps and ns % info.numsteps == 0, (ns, info.numsteps)
     totals["csr_matvec"] += n10
+    totals["level_sweep"] += ns
     low = scipy.sparse.tril(sp.astype(np.float64)).tocsr()
-    held(f"gauss_seidel, {sp.nnz} nnz, K10 launches {n10}, {wall:.2f} s with the level pass",
-         info, host_stationary(sp.astype(np.float64), b.double().cpu().numpy(),
-                               lambda r: spla.spsolve_triangular(low, r, lower=True),
-                               info.numsteps))
-    del sp, low
+    held(f"gauss_seidel, {sp.nnz} nnz, K10 launches {n10}, S2 launches {ns}, {wall:.2f} s with "
+         "the level pass", info,
+         host_stationary(sp.astype(np.float64), b.double().cpu().numpy(),
+                         lambda r: spla.spsolve_triangular(low, r, lower=True), info.numsteps))
+    del sp, sp_un, low
 
     log(f"  preconditioned cg on poisson_2d_const to 1e-6, b = A x*: Chebyshev (degree 8) "
-        f"at {BIG}^2, SSOR at {SSOR_N}^2")
+        f"at {BIG}^2, SSOR at {SSOR_N}^2 ({time.perf_counter() - t_phase:.1f} s into phase 8)")
     for n, with_ssor in ((BIG, False), (SSOR_N, True)):
         A = st.poisson_2d_const(n, device=dev)
         xs, b = manufactured(A, dev, SEED + 62)
@@ -2089,28 +2360,33 @@ def phase_stationary(dev, kt, cs, sv, st, card):
                 st.poisson_2d(n, dtype=np.float32, device=dev), omega=1.8), 0))
         for label, M, per_apply in cases:
             cs.reset_launches()
+            ct.reset_launches()
             t0 = time.perf_counter()
             x, info = kt.cg(A, b, M=M, inner=inner, tol=1e-6, maxiter=20000,
                             backend="while_loop")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n2 = cs.LAUNCHES["const_stencil2d_matvec"]
+            n2, ns = cs.LAUNCHES["const_stencil2d_matvec"], ct.LAUNCHES["grid_sweep"]
             totals["const_stencil2d_matvec"] += n2
+            totals["grid_sweep"] += ns
             fwd = float(torch.linalg.norm(info.xk - xs) / torch.linalg.norm(xs))
             log(f"  [{card}] cg {label} at {n}^2: success {info.success}, {info.numsteps} "
                 f"iterations, {wall * 1e3:.1f} ms, forward error {fwd:.3e}, K2 launches {n2} "
-                f"(all tiled: {cs.K2_PATHS['tiled'] == n2})")
+                f"(all tiled: {cs.K2_PATHS['tiled'] == n2}), S1 launches {ns}")
             # the explicit residual passed 1e-6 (success); the forward error is
             # bounded by the condition number times that, 7e6 at 4096^2
             assert info.success and fwd <= 0.1, label
             # an application before the loop and one a step, the step's own
             # product, and the explicit residual of the last check
             assert n2 >= (info.numsteps + 1) * per_apply + info.numsteps, (label, n2)
+            if with_ssor and M is not None and per_apply == 0:
+                # two sweeps an application, one before the loop and one a step
+                assert ns >= 2 * (info.numsteps + 1) and ns % 2 == 0, (label, ns)
             if M is None:
                 plain_steps = info.numsteps
             else:
                 assert info.numsteps < plain_steps, label
-    return totals
+    return totals, errs, times
 
 
 # ---------------------------------------------------------------------------
@@ -2341,7 +2617,7 @@ def phase_ilu(dev, kt, sv, card, launches):
         assert _native.NATIVE_PATHS[helper]["numpy"] == 0, f"{helper} fell back to numpy"
     want = kt.ILUPreconditioner.from_scipy(conv, device="cpu") @ b.cpu()
     rel_close("ILU(0) application on the card vs the CPU", Mconv @ b, want.to(dev), 1e-4)
-    idle_line(card, f"one ILU(0) application ({sum(Mconv.nlevels)} levels)", lambda: Mconv @ b)
+    busy_line(card, f"one ILU(0) application ({sum(Mconv.nlevels)} levels)", lambda: Mconv @ b)
     for label, sp, solver, key, M, maxiter in (
         ("bicgstab Ml=ILU(0)", conv, kt.bicgstab, "Ml", Mconv, 200),
         ("gmres Ml=ILU(0)", conv, kt.gmres, "Ml", Mconv, 120),
@@ -3185,6 +3461,23 @@ def phase_partitions_one(dev, kt, cs, sv, st, card):
                 f"float64 host residual {res:.3e}")
             assert info.success and abs(info.numsteps - twin.numsteps) <= 1 and rel <= TRAJ_RTOL
             assert n.get("csr_matvec", 0) > 0, n
+
+        # qmr + ILU(0)-Schwarz with its adjoint sweeps, 10 steps: four S2
+        # launches a step (the factors and their adjoints, a run each)
+        from krylov_tpu_torch.ops import cuda_bsr as bs
+        from krylov_tpu_torch.ops import cuda_triangular as ct
+
+        conv = grid_csr(g, 0.5, 0.4)
+        ilu = parallel.partition_ilu0(conv, 1, with_rmatvec=True)
+        pet = parallel.partition_pet(conv, 1)
+        n, _ = route_cell(
+            f"qmr + partition_ilu0(with_rmatvec=True), convected {g}^2, one rank, 10 steps",
+            lambda: parallel.sharded_solve(kt.qmr, pet, b, mesh=mesh, tol=0.0, atol=0.0,
+                                           maxiter=10, M_partition=ilu),
+            (b,), card, (cs, sv, bs, ct), forced=(3, 2, 2), phase="12a")
+        assert n["level_sweep"] >= 4 * 10, n
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     return launches
@@ -3322,10 +3615,12 @@ def busy_fields(b, wall):
                 idle=None if b is None else 1 - b[0] / wall)
 
 
-def all_launches(cs, sv, bs):
-    """Every kernel wrapper's launch counts, K2's and K12's paths too."""
+def all_launches(cs, sv, bs, ct=None):
+    """Every kernel wrapper's launch counts, K2's and K12's paths too, and
+    S1's and S2's with ``ct`` (``ops.cuda_triangular``)."""
     return {**cs.LAUNCHES, **{f"K2 {k}": v for k, v in cs.K2_PATHS.items()}, **sv.LAUNCHES,
-            **bs.LAUNCHES, **{f"K12 {k}": v for k, v in bs.K12_PATHS.items()}}
+            **bs.LAUNCHES, **{f"K12 {k}": v for k, v in bs.K12_PATHS.items()},
+            **({} if ct is None else ct.LAUNCHES)}
 
 
 def route_counted(solve, mods, ctx):
@@ -4252,8 +4547,10 @@ def main():
     for k in ("csr_matvec", "csr_matmat"):
         launches[k] += n_family[k]
     timed_phase(phase_device_rule, kt, cs, sv, st)
-    for k, n in timed_phase(phase_stationary, dev, kt, cs, sv, st, card).items():
-        launches[k] += n
+    n_stat, sweep_errs, sweep_times = timed_phase(phase_stationary, dev, kt, cs, sv, st, card)
+    for k, n in n_stat.items():
+        launches[k] = launches.get(k, 0) + n
+    errs.update(sweep_errs)
     n_prec, prec_errs = timed_phase(phase_preconditioners, dev, kt, sv, card)
     for k, n in n_prec.items():
         launches[k] += n
@@ -4265,7 +4562,7 @@ def main():
     for k, n in timed_phase(phase_distributed_gloo, dev, kt, sv, st, card).items():
         launches[k] += n
     for k, n in timed_phase(phase_partitions_one, dev, kt, cs, sv, st, card).items():
-        launches[k] += n
+        launches[k] = launches.get(k, 0) + n
     for k, n in timed_phase(phase_partitions_gloo, dev, kt, sv, st, card).items():
         launches[k] += n
     for phase in (phase_graph_loop, phase_kept):
@@ -4277,8 +4574,9 @@ def main():
     times = timed_phase(phase_timing, dev, kt, cs, st, A_div, card)
     times.update(timed_phase(sparse_timing, dev, kt, sv, bs, card))
 
-    stencil, spmv, bsr = (f"krylov_tpu_torch/csrc/{f}" for f in ("stencil.cu", "spmv.cu",
-                                                                  "bsr.cu"))
+    stencil, spmv, bsr, tri = (f"krylov_tpu_torch/csrc/{f}" for f in (
+        "stencil.cu", "spmv.cu", "bsr.cu", "triangular.cu"))
+    times.update(sweep_times)
     replaces = {
         "stencil2d_matvec": (stencil, "krylov_tpu/ops/pallas_stencil.py:144"),
         "const_stencil2d_matvec": (stencil, "krylov_tpu/ops/pallas_stencil.py:300"),
@@ -4292,6 +4590,9 @@ def main():
         "csr_matvec": (spmv, "krylov_tpu/ops/pallas_spmv.py:861"),
         "csr_matmat": (spmv, "krylov_tpu/ops/pallas_spmv.py:690"),
         "bsr_spmm": (bsr, "krylov_tpu/ops/pallas_bsr.py:58"),
+        # S1 and S2 have no Pallas ancestor: the reference's XLA loops they stand for
+        "grid_sweep": (tri, "krylov_tpu/ops/triangular.py:41"),
+        "level_sweep": (tri, "krylov_tpu/ops/triangular.py:270"),
     }
     unlaunched = [name for name in replaces if launches[name] == 0]
     assert not unlaunched, f"kernels no main path launched: {unlaunched}"

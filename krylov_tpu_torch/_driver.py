@@ -25,10 +25,11 @@ Backends:
 
   - the **host-stepped loop**: the host launches each step and reads one
     stop flag a step.  It runs every solve on the CPU, with state that
-    requires a gradient, of a ``Method`` that is not ``capturable`` (the
-    triangular sweeps ``gauss_seidel``, ``sor`` and ``ssor``; ``fgmres``
-    runs a host loop of its own, as the reference's eager-only form does),
-    and a sharded solve whose transfers are staged through the host;
+    requires a gradient, of a ``Method`` that is not ``capturable`` (every
+    solver's is, the triangular sweeps of ``gauss_seidel``, ``sor`` and
+    ``ssor`` included; ``fgmres`` runs a host loop of its own, as the
+    reference's eager-only form does), and a sharded solve whose transfers
+    are staged through the host;
   - the **graph route**, every other solve on a CUDA device.  It starts as
     the host-stepped loop, launching the same kernels.  After step 24
     (:data:`FIRST_CHECK`), and again when the step count has

@@ -2,18 +2,21 @@
 dense ones batched over trailing right-hand-side dimensions, the grid
 sweeps of a stencil's triangle, and level-scheduled sparse ones.
 
-The reference has no TPU kernel here and the port no CUDA one: every step
-is plain PyTorch on the tensors' own device.  scipy is imported inside the
-functions that decompose a factor on the host; the dependency levels come
-from the native set-up helper (:mod:`._native`) where it is built, else
-from a numpy pass.
+The reference has no TPU kernel here; it runs the sweeps as XLA loops.  On
+a CUDA device the grid sweeps launch S1 and the level-scheduled sweeps S2,
+hand-written kernels (:mod:`.cuda_triangular`, ``csrc/triangular.cu``), one
+launch a sweep (a few for a factor with wide levels); on the CPU they run
+their plain versions, the Python loops of this module (``plain``).  scipy
+is imported inside the functions that decompose a factor on the host; the
+dependency levels come from the native set-up helper (:mod:`._native`)
+where it is built, else from a numpy pass.
 """
 
 import numpy as np
 import torch
 
 from .. import _device
-from . import _native
+from . import _native, cuda_triangular
 from .sparse import _segment_sum
 
 
@@ -46,43 +49,46 @@ class GridLowerSweep:
     of a grid stencil, prepared once and applied to many right-hand sides
     (the plan behind :func:`grid_lower_sweep`).
 
-    Grid rows are inherently sequential: a Python loop walks them, each row
-    reading the ``h`` solved rows above it.  Within a row the first-order
-    recurrence ``x[j] = a[j] x[j-1] + c[j]`` (``a = -l/d``, ``c = rhs/d``)
-    is solved in ``ceil(log2 ny)`` doubling steps: step ``s`` replaces
-    ``(a, c)[j]`` by ``(a[j] a[j-s], c[j] + a[j] c[j-s])``.  The ``a`` side
-    depends on the coefficients alone, so it is computed here for all rows
-    at once (``ceil(log2 ny)`` planes of the grid's size) and a row's sweep
-    costs two launches a step.  The order of operations differs from a
-    work-efficient scan's, so results agree with the reference's to
-    rounding, not bit for bit.
+    On a CUDA device a call is one launch of S1
+    (:func:`.cuda_triangular.grid_sweep`), prepared here as its
+    :class:`~.cuda_triangular.GridPlan` (``plan``).  On the CPU it runs the
+    plain version, :meth:`plain`: grid rows are inherently sequential, so a
+    Python loop walks them, each row reading the ``h`` solved rows above it.
+    Within a row the first-order recurrence ``x[j] = a[j] x[j-1] + c[j]``
+    (``a = -l/d``, ``c = rhs/d``) is solved in ``ceil(log2 ny)`` doubling
+    steps: step ``s`` replaces ``(a, c)[j]`` by ``(a[j] a[j-s], c[j] + a[j]
+    c[j-s])``.  The ``a`` side depends on the coefficients alone, so it is
+    computed for all rows at once (``ceil(log2 ny)`` planes of the grid's
+    size, built on the CPU at set-up and elsewhere only at a first
+    :meth:`plain` call) and a row's sweep costs two launches a step.  The
+    orders of operations differ from each other's and from a work-efficient
+    scan's, so results agree with the reference's to rounding, not bit for
+    bit.
     """
 
     def __init__(self, coeffs2d, row_offsets, col_offsets, omega=1.0, dtype=None):
         ndiag, M, ny = coeffs2d.shape
         dtype = coeffs2d.dtype if dtype is None else dtype
-        diag = None
-        sub = None  # within-row (0, -1) band
-        row_bands = []  # (dr < 0, dc, plane)
-        for d in range(ndiag):
-            dr, dc = row_offsets[d], col_offsets[d]
-            if dr == 0 and dc == 0:
-                diag = coeffs2d[d]
-            elif dr == 0 and dc == -1:
-                sub = coeffs2d[d]
-            elif dr == 0 and dc < -1:
-                raise NotImplementedError(
-                    "grid_lower_sweep supports within-row coupling of order 1"
-                )
-            elif dr < 0:
-                row_bands.append((dr, dc, coeffs2d[d].to(dtype)))
-            # dr > 0 or dc > 0: upper triangle, ignored
-        if diag is None:
-            raise ValueError("stencil has no diagonal band")
-        diag = (diag / omega).to(dtype)
         self.grid = (M, ny)
         self.dtype = dtype
-        self.row_bands = row_bands
+        self.plan = None
+        self._plain_args = (coeffs2d, row_offsets, col_offsets, omega)
+        self.a_steps = None
+        if coeffs2d.device.type == "cpu":
+            self._build_plain()
+        else:
+            self.plan = cuda_triangular.grid_plan(coeffs2d, row_offsets, col_offsets, omega,
+                                                  dtype, upper=False)
+
+    def _build_plain(self):
+        coeffs2d, row_offsets, col_offsets, omega = self._plain_args
+        ny = coeffs2d.shape[2]
+        dtype = self.dtype
+        diag_d, sub_d, bands = cuda_triangular.grid_bands(row_offsets, col_offsets, upper=False)
+        sub = None if sub_d is None else coeffs2d[sub_d]  # within-row (0, -1) band
+        diag = (coeffs2d[diag_d] / omega).to(dtype)
+        # (dr < 0, dc, plane) of the rows above
+        self.row_bands = [(-back, dc, coeffs2d[d].to(dtype)) for d, back, dc in bands]
         self.dsafe = torch.where(diag != 0, diag, 1.0)
         a = torch.zeros_like(diag)
         if sub is not None:
@@ -103,6 +109,12 @@ class GridLowerSweep:
     def __call__(self, b2):
         """``b2``: ``(M, ny)`` or a batch ``(..., M, ny)``; returns the same
         shape in the promoted type of the plan and ``b2``."""
+        return cuda_triangular.grid_sweep(self.plan, b2, self.plain)
+
+    def plain(self, b2):
+        """The plain version, on the plan's device."""
+        if self.a_steps is None:
+            self._build_plain()
         M, ny = self.grid
         b2 = b2.to(torch.promote_types(self.dtype, b2.dtype))
         fused = b2.dtype == self.dtype  # addcmul takes one dtype
@@ -131,20 +143,41 @@ class GridLowerSweep:
 class GridUpperSweep:
     """Backward substitution for the upper triangle of a grid stencil.
 
-    Reversing both grid axes maps the upper triangle onto a lower one (band
-    ``(dr, dc)`` becomes ``(-dr, -dc)`` with its coefficient plane flipped),
-    so this is a :class:`GridLowerSweep` of the flipped planes.
+    On a CUDA device one launch of S1, which walks the rows from the last
+    and each row from its right end, with no flipped copies.  The plain
+    version reverses both grid axes, which maps the upper triangle onto a
+    lower one (band ``(dr, dc)`` becomes ``(-dr, -dc)`` with its coefficient
+    plane flipped): a :class:`GridLowerSweep` of the flipped planes.
     """
 
     def __init__(self, coeffs2d, row_offsets, col_offsets, omega=1.0, dtype=None):
+        self.grid = tuple(coeffs2d.shape[1:])
+        self.dtype = coeffs2d.dtype if dtype is None else dtype
+        self.plan = None
+        self._lower = None
+        self._plain_args = (coeffs2d, row_offsets, col_offsets, omega)
+        if coeffs2d.device.type == "cpu":
+            self._build_plain()
+        else:
+            self.plan = cuda_triangular.grid_plan(coeffs2d, row_offsets, col_offsets, omega,
+                                                  self.dtype, upper=True)
+
+    def _build_plain(self):
+        coeffs2d, row_offsets, col_offsets, omega = self._plain_args
         self._lower = GridLowerSweep(
             torch.flip(coeffs2d, dims=(-2, -1)),
             tuple(-r for r in row_offsets), tuple(-c for c in col_offsets),
-            omega=omega, dtype=dtype,
+            omega=omega, dtype=self.dtype,
         )
 
     def __call__(self, b2):
-        return torch.flip(self._lower(torch.flip(b2, dims=(-2, -1))), dims=(-2, -1))
+        return cuda_triangular.grid_sweep(self.plan, b2, self.plain)
+
+    def plain(self, b2):
+        """The plain version, on the plan's device."""
+        if self._lower is None:
+            self._build_plain()
+        return torch.flip(self._lower.plain(torch.flip(b2, dims=(-2, -1))), dims=(-2, -1))
 
 
 def grid_lower_sweep(coeffs2d, row_offsets, col_offsets, b2, omega=1.0):
@@ -263,8 +296,10 @@ def make_triangular_solve(sp_tri, lower=True, max_levels=4096, unroll_threshold=
     reference does: shallow factors (<= ``unroll_threshold`` levels) get
     :class:`LevelScheduledTriangularSolve` (each level at its own size),
     deeper ones :class:`StackedTriangularSweep` (levels padded to one
-    shape).  Both run one stage per level in a Python loop here.  The
-    arrays go to ``device`` (the default device when None)."""
+    shape).  On a CUDA device both launch S2 (a launch for each run of
+    narrow levels and each wide level); on the CPU both run a stage per
+    level in a Python loop.  The arrays go to ``device`` (the default device
+    when None)."""
     n, levels = level_arrays(sp_tri, lower=lower, max_levels=max_levels)
     if len(levels) <= unroll_threshold:
         return LevelScheduledTriangularSolve(
@@ -328,26 +363,46 @@ class StackedTriangularSweep:
 
     Same mathematics as :class:`LevelScheduledTriangularSolve`; the levels
     come padded (:func:`stacked_level_arrays`), so every stage has the same
-    shape: ``rows, diag (nlev, mr)``, ``dat, col, lrow (nlev, mn)``.  Each
-    level's entries are summed per row by ``_segment_sum`` in their stored
-    order (``lrow`` is sorted within a level), so a solve repeats bit for
-    bit on either device.
+    shape: ``rows, diag (nlev, mr)``, ``dat, col, lrow (nlev, mn)``.  On a
+    CUDA device a call launches S2 on the real rows and entries
+    (``schedule``, a :class:`~.cuda_triangular.LevelSchedule` made here on
+    the host; padding does no work).  The plain version, :meth:`plain`,
+    sums each level's entries per row by ``_segment_sum`` in their stored
+    order (``lrow`` is sorted within a level); S2 sums them in the same
+    order, one row at a time.  A solve repeats bit for bit on either device.
     """
 
     def __init__(self, rows, diag, dat, col, lrow, n_local):
         self.rows, self.diag = rows.long(), diag
         self.dat, self.col, self.lrow = dat, col.long(), lrow.long()
         self.n_local = int(n_local)
-        mr = self.rows.shape[1]
-        # offsets of the mr real segments and the dummy one, per level
-        self._offsets = torch.stack([_level_offsets(lr, mr + 1) for lr in self.lrow]) \
-            if self.lrow.shape[0] else self.lrow.new_zeros((0, mr + 2))
+        # the plain version's segment offsets: made here on the CPU, at its
+        # first call elsewhere (a launch a level, which a sharded solve's
+        # set-up on the card would pay every call)
+        self._offsets = self._level_offsets() if rows.device.type == "cpu" else None
+        host = [t.cpu().numpy() for t in (self.rows, self.diag, self.dat, self.col, self.lrow)]
+        self.schedule = cuda_triangular.LevelSchedule(
+            cuda_triangular.stacked_levels(*host, self.n_local), self.n_local,
+            dat.device, dat.dtype)
 
     @property
     def nlevels(self):
         return self.rows.shape[0]
 
     def __call__(self, b):
+        return cuda_triangular.level_sweep(self.schedule, b, self.plain)
+
+    def _level_offsets(self):
+        """Offsets of the ``mr`` real segments and the dummy one, per level."""
+        mr = self.rows.shape[1]
+        if not self.lrow.shape[0]:
+            return self.lrow.new_zeros((0, mr + 2))
+        return torch.stack([_level_offsets(lr, mr + 1) for lr in self.lrow])
+
+    def plain(self, b):
+        """The plain version, on the arrays' device."""
+        if self._offsets is None:
+            self._offsets = self._level_offsets()
         dt = torch.promote_types(b.dtype, self.dat.dtype)
         b_ext = torch.cat([b.to(dt), b.new_zeros((1,) + tuple(b.shape[1:]), dtype=dt)])
         x = torch.zeros_like(b_ext)
@@ -373,7 +428,9 @@ class LevelScheduledTriangularSolve:
         x[rows_l] = (b[rows_l] - segment_sum(data_l * x[cols_l])) / diag_l
 
     a gather, a product and a per-row sum in the entries' stored order
-    (``_segment_sum``, no atomics: a solve repeats bit for bit).
+    (``_segment_sum``, no atomics: a solve repeats bit for bit) in the
+    plain version, :meth:`plain`; on a CUDA device a call launches S2
+    (``schedule``, made here on the host), which sums in the same order.
     Unstructured FEM/graph matrices typically have tens of levels; deep
     dependency chains (pure banded) should use the grid sweeps instead, and
     construction refuses above ``max_levels``.  The arrays go to ``device``
@@ -388,14 +445,30 @@ class LevelScheduledTriangularSolve:
         self.lower = lower
         self.nlevels = len(levels)
         self.dtype = torch.from_numpy(np.zeros(0, levels[0][2].dtype if levels else float)).dtype
+        # the plain version's arrays: uploaded here on the CPU, at its first
+        # call elsewhere (on the card S2 reads its own copy, ``schedule``)
+        self._host, self._levels = (levels, device), None
+        if device.type == "cpu":
+            self._upload()
+        self.schedule = cuda_triangular.LevelSchedule(levels, n, device, self.dtype)
+
+    def _upload(self):
+        levels, device = self._host
         self._levels = []
         for rows, d, dat, col, lrow in levels:
             rows, d, dat, col, lrow = (
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (rows, d, dat, col, lrow))
             self._levels.append((rows, d, dat, col, _level_offsets(lrow, rows.numel())))
+        self._host = None
 
     def __call__(self, b):
+        return cuda_triangular.level_sweep(self.schedule, b, self.plain)
+
+    def plain(self, b):
+        """The plain version, on the arrays' device."""
+        if self._levels is None:
+            self._upload()
         b = b.to(torch.promote_types(b.dtype, self.dtype))
         x = torch.zeros_like(b)  # this call's own buffer: written in place
         for rows, d, dat, col, offsets in self._levels:

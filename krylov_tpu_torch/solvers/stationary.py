@@ -7,18 +7,23 @@ residual re-check: the recurrence is the explicit residual here.
 Triangular sweeps, by operator type:
 
 * :class:`~krylov_tpu_torch.ops.stencil.GridStencilOperator`: the grid
-  sweeps of ``ops/triangular.py`` (a loop over grid rows, the within-row
-  recurrence by doubling steps), no dense matrix at any size; a multi-RHS
-  ``(N, k)`` residual is swept as one batch;
+  sweeps of ``ops/triangular.py`` (on the card one launch of S1 a sweep; on
+  the CPU a loop over grid rows, the within-row recurrence by doubling
+  steps), no dense matrix at any size; a multi-RHS ``(N, k)`` residual is
+  swept as one batch;
 * scipy matrices and :class:`~krylov_tpu_torch.ops.sparse.CSROperator`
-  above ``_DENSE_SWEEP_MAX`` rows: the level-scheduled sweep, one
-  data-parallel stage per dependency level.  The triangle is taken from the
-  matrix as it was passed in, before ``as_operator`` routes it;
+  above ``_DENSE_SWEEP_MAX`` rows: the level-scheduled sweep (on the card
+  S2, a launch for each run of narrow levels and each wide level; on the
+  CPU one data-parallel stage per dependency level).  The triangle is taken
+  from the matrix as it was passed in, before ``as_operator`` routes it;
 * everything else: a dense ``torch.linalg.solve_triangular``, which reads
   only the requested triangle.
 
-Everything a sweep holds lives on the solve's device: the right-hand
-side's when it is a tensor, else the operator's, else the default device.
+No route reads a device value on the host, so every method here is
+capturable: on a CUDA device a ``while_loop`` solve takes the graph route
+under the driver's cost rule.  Everything a sweep holds lives on the
+solve's device: the right-hand side's when it is a tensor, else the
+operator's, else the default device.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -58,13 +63,12 @@ def _stationary(
     maxiter: Optional[int] = None,
     callback: Optional[Callable] = None,
     backend: str = EAGER,
-    _capturable: bool = False,
     _aux: Optional[torch.Tensor] = None,
 ):
-    # _capturable: the update reads nothing on the host (Richardson,
-    # Jacobi); the triangular sweeps' steps, ~23 launches a grid row, stay
-    # on the host-stepped loop.  _aux: a tensor the state carries, handed
-    # to the update as update(r, aux)
+    # Every update reads nothing on the host (Richardson, Jacobi, and the
+    # sweeps: S1, S2 or a dense solve_triangular), so the method is
+    # capturable.  _aux: a tensor the state carries, handed to the update
+    # as update(r, aux)
     x0_default = x0 is None
     A, b, x0, N, inner, maxiter = setup(A, b, x0=x0, inner=inner, maxiter=maxiter)
 
@@ -89,7 +93,7 @@ def _stationary(
         xk=lambda s: s.x,
         explicit_resnorm=None,  # stationary methods skip the double-check
         callback_args=lambda s: (s.x, s.r),
-        capturable=_capturable,
+        capturable=True,
     )
     state, success, k, resnorms = run(
         state0, method, tol=tol, atol=atol, maxiter=maxiter,
@@ -184,7 +188,7 @@ def _bcast(d, r):
 
 def richardson(*args, omega: float = 1.0, **kwargs):
     """x_{k+1} = x_k + omega * r."""
-    return _stationary(lambda r: omega * r, *args, _capturable=True, **kwargs)
+    return _stationary(lambda r: omega * r, *args, **kwargs)
 
 
 def jacobi(A, *args, omega: float = 1.0, **kwargs):
@@ -194,7 +198,7 @@ def jacobi(A, *args, omega: float = 1.0, **kwargs):
     def _update(r, D):
         return omega * r / _bcast(D, r)
 
-    return _stationary(_update, A, *args, _capturable=True, _aux=D, **kwargs)
+    return _stationary(_update, A, *args, _aux=D, **kwargs)
 
 
 def _is_grid_stencil(A):

@@ -612,6 +612,144 @@ def test_stationary_path_on_the_card(dev):
     assert (Mc @ b).device == dev and cs.LAUNCHES["stencil2d_matvec"] == 4
 
 
+def _sweep_cases():
+    """Grid stencils for S1: a 5-point Laplacian on a ragged grid, the
+    lognormal 5-point field, and a 9-point stencil with random coefficients
+    (``dc != 0`` bands, their wrapped columns nonzero: the reference's
+    ``jnp.roll`` wraps them) and a zero on the diagonal (the ``d == 0``
+    guards)."""
+    rng = np.random.default_rng(50)
+    nine = [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
+    c9 = rng.standard_normal((9, 37, 45))
+    c9[4] = 8.0 + rng.random((37, 45))
+    c9[4, 3, 5] = 0.0
+    return [(st.poisson_2d(19, 37, dtype=np.float64, device="cpu").coeffs2d,
+             (-1, 0, 0, 0, 1), (0, -1, 0, 1, 0)),
+            (st.diffusion_2d(np.exp(rng.standard_normal((33, 50))), device="cpu").coeffs2d,
+             None, None),
+            (torch.from_numpy(c9), tuple(r for r, _ in nine), tuple(c for _, c in nine))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12),
+                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("upper", [False, True])
+def test_s1_grid_sweep_matches_plain(dev, dtype, tol, upper):
+    """S1 against the plain loop on the same card, one launch a sweep: a
+    single grid and a batch of 3, each right-hand side's result the one a
+    sweep of its own gives; no doubling plane built for the kernel."""
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+    from krylov_tpu_torch.ops.triangular import GridLowerSweep, GridUpperSweep
+
+    diff = st.diffusion_2d(np.exp(np.random.default_rng(50).standard_normal((33, 50))),
+                           device="cpu")
+    for coeffs, ro, co in _sweep_cases():
+        if ro is None:
+            ro, co = diff.row_offsets, diff.col_offsets
+        c = coeffs.to(dev, dtype)
+        sweep = (GridUpperSweep if upper else GridLowerSweep)(c, ro, co, omega=1.3)
+        assert sweep.plan is not None and getattr(sweep, "a_steps", None) is None
+        M, ny = c.shape[1:]
+        for shape in ((M, ny), (3, M, ny)):
+            b = _rand(shape, dev, torch.float64, 51).to(dtype)
+            ct.reset_launches()
+            got = sweep(b)
+            assert ct.LAUNCHES["grid_sweep"] == 1 and got.dtype == dtype
+            want = sweep.plain(b)
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=tol * float(want.abs().max()))
+            assert torch.equal(sweep(b), got)  # a fixed order: bit for bit again
+            if len(shape) == 3:
+                assert torch.equal(got[1], sweep(b[1]))
+
+
+def test_s1_wide_rows_read_the_solved_rows_from_device_memory(dev):
+    """A row of 30000 complex128 values (h + 1 rows past the shared-memory
+    ring) against the plain loop."""
+    from krylov_tpu_torch.ops.triangular import GridLowerSweep
+
+    A = st.poisson_2d(6, 30000, dtype=np.float64, device="cpu")
+    c = A.coeffs2d.to(dev, torch.complex128)
+    sweep = GridLowerSweep(c, A.row_offsets, A.col_offsets, omega=1.1)
+    b = _rand((6, 30000), dev, torch.float64, 52).to(torch.complex128)
+    want = sweep.plain(b)
+    torch.testing.assert_close(sweep(b), want, rtol=0, atol=1e-12 * float(want.abs().max()))
+
+
+def _unstructured_spd(n, k=4, seed=53):
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(1, n), k)
+    cols = (rng.random(rows.shape[0]) * rows).astype(np.int64)
+    A = scipy.sparse.coo_matrix((0.2 * rng.standard_normal(rows.shape[0]), (rows, cols)),
+                                shape=(n, n))
+    A = (A + A.T).tocsr()
+    A.setdiag(4.0 + rng.random(n))
+    A.sum_duplicates()
+    return A
+
+
+def test_s2_level_sweep_matches_plain(dev):
+    """S2 against the plain loops on the same card: the ILU(0) factors of a
+    grid Laplacian (one run each, one launch), a deep factor on the stacked
+    form, and an unstructured factor with levels wider than NARROW_ROWS
+    (their launches of their own); vectors and (n, 3) blocks, f32 and f64."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+    from krylov_tpu_torch.ops.triangular import make_triangular_solve
+
+    ilu = kt.ILUPreconditioner.from_scipy(_grid_poisson_f32(128).astype(np.float64),
+                                          device=dev)
+    sp = _unstructured_spd(200000)
+    sweeps = [ilu._l, ilu._u,
+              make_triangular_solve(scipy.sparse.tril(sp.astype(np.float32)).tocsr(), lower=True,
+                                    device=dev),
+              make_triangular_solve(scipy.sparse.triu(sp).tocsr(), lower=False, device=dev,
+                                    unroll_threshold=0)]
+    assert len(sweeps[0].schedule.launches) == len(sweeps[1].schedule.launches) == 1
+    assert any(kind == "wide" for kind, _, _ in sweeps[2].schedule.launches)
+    for sweep in sweeps:
+        n = sweep.schedule.n
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            for shape in ((n,), (n, 3)):
+                b = _rand(shape, dev, torch.float64, 54).to(dtype)
+                ct.reset_launches()
+                got = sweep(b)
+                assert ct.LAUNCHES["level_sweep"] == len(sweep.schedule.launches)
+                want = sweep.plain(b)
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=tol * float(want.abs().max()))
+                assert torch.equal(sweep(b), got)
+
+
+def test_sweep_kernels_refuse_what_they_cannot_run(dev):
+    """A gradient, a dtype without a kernel, a CPU b with a plan on the card."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.triangular import (GridLowerSweep, LevelScheduledTriangularSolve,
+                                                 StackedTriangularSweep)
+
+    A = st.poisson_2d(8, 12, dtype=np.float32, device=dev)
+    sweep = GridLowerSweep(A.coeffs2d, A.row_offsets, A.col_offsets)
+    b = torch.ones(8, 12, device=dev, requires_grad=True)
+    with pytest.raises(TypeError, match="no gradient"):
+        sweep(b)
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        GridLowerSweep(A.coeffs2d.bfloat16(), A.row_offsets, A.col_offsets)
+    with pytest.raises(ValueError):
+        sweep(torch.ones(8, 12))
+    lvl = LevelScheduledTriangularSolve(
+        scipy.sparse.tril(_grid_poisson_f32(8)).tocsr(), device=dev)
+    with pytest.raises(TypeError, match="no gradient"):
+        lvl(torch.ones(64, device=dev, requires_grad=True))
+    ilu = kt.ILUPreconditioner.from_scipy(_grid_poisson_f32(8), device=dev)
+    L = ilu._l
+    half = StackedTriangularSweep(L.rows, L.diag.half(), L.dat.half(), L.col, L.lrow, L.n_local)
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        half(torch.ones(64, device=dev, dtype=torch.float16))
+
+
 def _shifted_poisson_f32(g, shift=0.5):
     import scipy.sparse
 
@@ -1278,6 +1416,7 @@ def _graph_cases(dev):
     spd = scipy.sparse.csr_matrix(np.kron(np.eye(16), blk @ blk.T + 64 * np.eye(64)))
     Bb = torch.ones((spd.shape[0], 4), device=dev, dtype=torch.float64)
     grid = _grid_poisson_f32(64)  # a true grid: ILU(0)'s levels are its wavefront
+    grid128 = _grid_poisson_f32(128)
     pet16 = PETOperator.from_scipy(sp, data_dtype=torch.bfloat16, with_rmatvec=False,
                                    device=dev)
     wl = dict(backend="while_loop")
@@ -1354,6 +1493,30 @@ def _graph_cases(dev):
         "gmres householder": lambda: kt.gmres(sp, b, ortho="householder", tol=1e-4,
                                               maxiter=120, **wl),
         "gmres restart": lambda: kt.gmres(lap, b, restart=12, tol=1e-4, maxiter=60, **wl),
+        # the triangular sweeps: S1 on the grid, S2 on a true grid's CSR
+        # (16,384 rows, above the dense cutoff), a dense solve_triangular
+        "gauss_seidel, grid": lambda: kt.gauss_seidel(A, bg.reshape(-1), tol=1e-30,
+                                                      maxiter=12, **wl),
+        "gauss_seidel upper, grid": lambda: kt.gauss_seidel(A, bg.reshape(-1), lower=False,
+                                                            tol=1e-30, maxiter=12, **wl),
+        "sor, grid": lambda: kt.sor(A, bg.reshape(-1), omega=1.3, tol=1e-30, maxiter=12, **wl),
+        "ssor, grid": lambda: kt.ssor(A, bg.reshape(-1), omega=1.3, tol=1e-30, maxiter=12,
+                                      **wl),
+        "gauss_seidel, level": lambda: kt.gauss_seidel(grid128, b, tol=1e-30, maxiter=12,
+                                                       **wl),
+        "ssor, level": lambda: kt.ssor(grid128, b, omega=1.3, tol=1e-30, maxiter=12, **wl),
+        "gauss_seidel, dense": lambda: kt.gauss_seidel(grid, b[:grid.shape[0]], tol=1e-30,
+                                                       maxiter=12, **wl),
+        "cg + ssor": lambda: kt.cg(A, bg.reshape(-1), M=kt.SSORSmoother(A, omega=1.5),
+                                   tol=1e-5, maxiter=200, **wl),
+        "bicgstab + ilu": lambda: kt.bicgstab(grid, b[:grid.shape[0]],
+                                              Ml=kt.ILUPreconditioner.from_scipy(
+                                                  grid, device=dev), tol=1e-5, maxiter=100,
+                                              **wl),
+        # the 16,384-row grid: its adjoint is K10's (PET); CSROperator's
+        # index_add_ adjoint sums in no fixed order on the card
+        "qmr + ilu": lambda: kt.qmr(grid128, b, Ml=kt.ILUPreconditioner.from_scipy(
+            grid128, with_rmatvec=True, device=dev), tol=1e-5, maxiter=100, **wl),
     }
 
 
@@ -1372,17 +1535,17 @@ def _grid_poisson_f32(g, shift=0.5):
 
 def _launches():
     """Every kernel wrapper's launch counts, the K2 and K12 paths included."""
-    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv, cuda_triangular
 
     return {**cs.LAUNCHES, **{f"K2 {k}": v for k, v in cs.K2_PATHS.items()},
-            **cuda_spmv.LAUNCHES, **cuda_bsr.LAUNCHES,
+            **cuda_spmv.LAUNCHES, **cuda_bsr.LAUNCHES, **cuda_triangular.LAUNCHES,
             **{f"K12 {k}": v for k, v in cuda_bsr.K12_PATHS.items()}}
 
 
 def _reset_launches():
-    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv
+    from krylov_tpu_torch.ops import cuda_bsr, cuda_spmv, cuda_triangular
 
-    for mod in (cs, cuda_spmv, cuda_bsr):
+    for mod in (cs, cuda_spmv, cuda_bsr, cuda_triangular):
         mod.reset_launches()
 
 
@@ -1412,7 +1575,9 @@ _GRAPH_LABELS = (
     "cg, bf16 values", "cg, complex64", "cg, complex128", "minres, complex64",
     "minres, complex128", "cgr", "chebyshev", "symmlq, 60 steps", "tfqmr",
     "cg, return_arnoldi", "cg_pipelined", "cg_block", "gcr", "gmres mgs", "gmres mgs2, M",
-    "gmres cgs", "gmres householder", "gmres restart")
+    "gmres cgs", "gmres householder", "gmres restart", "gauss_seidel, grid",
+    "gauss_seidel upper, grid", "sor, grid", "ssor, grid", "gauss_seidel, level",
+    "ssor, level", "gauss_seidel, dense", "cg + ssor", "bicgstab + ilu", "qmr + ilu")
 
 
 def _assert_bit_equal(got, ref, label):

@@ -652,23 +652,45 @@ def test_cpu_solves_take_the_host_stepped_loop():
     assert c["host_stepped"] == c["graph_route"] == 0 and c["host_steps"] > 0
 
 
+class _Rich(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    resnorm: torch.Tensor
+
+
+def _uncapturable_run(A, b):
+    """Richardson's iteration through ``_driver.run`` as a ``Method`` that
+    is not capturable."""
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    s0 = _Rich(torch.zeros_like(bt), bt.clone(), torch.linalg.norm(bt))
+
+    def step(s, criterion):
+        x = s.x + 0.05 * s.r
+        r = bt - At @ x
+        return _Rich(x, r, torch.linalg.norm(r))
+
+    method = _driver.Method(step=step, xk=lambda s: s.x, capturable=False)
+    return _driver.run(s0, method, tol=1e-5, atol=0.0, maxiter=5, backend="while_loop")
+
+
 def test_the_route_is_decided_before_any_step():
-    """Under the twin's switch, a method that is not capturable (a
-    triangular sweep) and a state that requires a gradient still run the
-    host-stepped loop, and ``fgmres`` its own host loop, as the reference's
-    eager-only form does; a callback and a ``ShardMonitor`` take the graph
-    route a solve without one takes, as do the solvers whose step depends
-    on its step number (``return_arnoldi``, ``tfqmr``, ``symmlq``,
-    ``cg_pipelined``, ``gcr``, ``chebyshev``); ``_host_stepped()``
-    overrides the switch."""
+    """Under the twin's switch, a ``Method`` that is not capturable and a
+    state that requires a gradient still run the host-stepped loop, and
+    ``fgmres`` its own host loop, as the reference's eager-only form does;
+    a callback and a ``ShardMonitor`` take the graph route a solve without
+    one takes, as do the solvers whose step depends on its step number
+    (``return_arnoldi``, ``tfqmr``, ``symmlq``, ``cg_pipelined``, ``gcr``,
+    ``chebyshev``) and the triangular sweeps (``gauss_seidel``);
+    ``_host_stepped()`` overrides the switch."""
     A, b = _spd(20, 10.0, 7)
     At, bt = torch.from_numpy(A), torch.from_numpy(b)
     calls = []
     host = [
         lambda: kt.cg(At, bt.clone().requires_grad_(), backend="while_loop"),
-        lambda: kt.gauss_seidel(A, b, maxiter=5, backend="while_loop"),
+        lambda: _uncapturable_run(A, b),
     ]
     graph = [
+        lambda: kt.gauss_seidel(A, b, maxiter=5, backend="while_loop"),
         lambda: kt.cg(A, b, callback=lambda *a: calls.append(1), backend="while_loop"),
         lambda: kt.cg(A, b, callback=_driver.ShardMonitor(lambda k, r: calls.append(k)),
                       backend="while_loop"),
