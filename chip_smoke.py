@@ -70,8 +70,9 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    sweep (a run of narrow levels), µs a grid row or level, the byte bound
    and ``torch.triangular_solve`` on the triangle as a sparse CSR tensor:
    S1 at 4096^2 and 1024^2 (both triangles, a 9-point stencil with wrapped
-   columns and a batch of 3), S2 on ILU(0) at 256^2 and 1024^2 and on a
-   1M-row unstructured factor with wide levels; ``gauss_seidel``, ``sor``
+   columns and a batch of 3; each line with the cluster S1 took), S2 on
+   ILU(0) at 256^2 and 1024^2 and on a 1M-row unstructured factor with
+   wide levels (each line with its runs' windows W); ``gauss_seidel``, ``sor``
    and ``ssor`` on ``poisson_2d(1024)`` and ``gauss_seidel`` on the
    unstructured matrix (K10 every step, S2 a sweep), against scipy's
    sequential triangular solves in float64; ``cg`` on ``poisson_2d_const``
@@ -2050,6 +2051,41 @@ def level_bytes(sched, k, itemsize):
     return nslots * (8 + itemsize + 2 * k * itemsize) + nent * (4 + itemsize)
 
 
+def s1_shape(ct, sweep):
+    """The launch shape S1 takes for ``sweep``'s plan: cluster, threads and
+    where its ring lies."""
+    info = ct.grid_sweep_info(sweep.plan) if sweep.plan is not None else None
+    if info is None:
+        return "plain loop"
+    return (f"cluster of {info['cluster']} CTAs x {info['threads']} threads "
+            f"({'ring in shared memory' if info['in_smem'] else 'rows in device memory'}, "
+            f"rows in by {info['fetch']})")
+
+
+def s2_shape(sched, k=1, itemsize=4):
+    """Each run's window W (levels of x in shared memory) for k right-hand
+    sides."""
+    if sched.tensors is None:
+        return "plain loop"
+    return f"runs' windows W {sched.windows(k, itemsize)}"
+
+
+def level_tri_csr(sweep, dev):
+    """A level-scheduled factor (its levels' rows, diagonal and entries)
+    as a sparse CSR tensor on ``dev``: the library call's operand."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+
+    levels = ct.stacked_levels(*(t.cpu().numpy() for t in (
+        sweep.rows, sweep.diag, sweep.dat, sweep.col, sweep.lrow)), sweep.n_local)
+    n = sweep.n_local
+    r = np.concatenate([np.concatenate([lv[0], lv[0][lv[4]]]) for lv in levels])
+    c = np.concatenate([np.concatenate([lv[0], lv[3]]) for lv in levels])
+    v = np.concatenate([np.concatenate([lv[1], lv[2]]) for lv in levels])
+    return scipy_csr_tensor(scipy.sparse.csr_matrix((v, (r, c)), shape=(n, n)), dev)
+
+
 def busy_line(card, what, fn):
     """One call of ``fn``: its wall and, from :func:`device_busy` (the
     device's activity alone), its device busy, idle share and kernels."""
@@ -2104,7 +2140,8 @@ def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
                 f"{max_err(lib_x.reshape(BIG, BIG), got):.3e}")
         del tri, lib_x
         row = timed(ms, plain_ms, nbytes, 0.0, lib_ms)
-        log(f"  [{card}] {name}: {ms * 1e3:.1f} us a sweep, 1 launch, chain {BIG} rows, "
+        log(f"  [{card}] {name}: {ms * 1e3:.1f} us a sweep, 1 launch, {s1_shape(ct, sweep)}, "
+            f"chain {BIG} rows, "
             f"{ms * 1e3 / BIG:.3f} us a row; byte bound {row['bound_ms'] * 1e3:.1f} us "
             f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {row['bound_ms'] / ms * 100:.1f} % of it); "
             f"plain loop {plain_ms:.1f} ms; library "
@@ -2126,8 +2163,8 @@ def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
             f"S1 {cls.__name__}, 9-point random at {MID}^2, omega 1.3, a batch of 3", got, want,
             atol=1e-5 * float(want.abs().max())))
         ms = time_ms(lambda: sweep(b3), 3)
-        log(f"  [{card}] S1 {cls.__name__} 9-point at {MID}^2, 3 right-hand sides: "
-            f"{ms * 1e3:.1f} us a sweep ({ms * 1e3 / MID:.3f} us a row)")
+        log(f"  [{card}] S1 {cls.__name__} 9-point at {MID}^2, 3 right-hand sides, "
+            f"{s1_shape(ct, sweep)}: {ms * 1e3:.1f} us a sweep ({ms * 1e3 / MID:.3f} us a row)")
     del c9, b3, sweep, got, want
     # S1 at MID on the 5-point Laplacian: the chain of 1024 rows, both triangles
     A1 = st.poisson_2d(MID, dtype=np.float32, device=dev)
@@ -2141,7 +2178,8 @@ def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
             atol=1e-5 * float(want.abs().max())))
         lib_ms, _ = library_solve_ms(grid_tri_csr(A1, cls is GridLowerSweep), b1.reshape(-1),
                                      upper=cls is GridUpperSweep)
-        log(f"  [{card}] S1 {cls.__name__}, poisson_2d({MID}) f32: {ms * 1e3:.1f} us a sweep, "
+        log(f"  [{card}] S1 {cls.__name__}, poisson_2d({MID}) f32, {s1_shape(ct, s1)}: "
+            f"{ms * 1e3:.1f} us a sweep, "
             f"{ms * 1e3 / MID:.3f} us a row; plain loop {plain_ms:.1f} ms; library "
             + ("not measured" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"))
     del A1, b1, s1, A, b
@@ -2166,11 +2204,19 @@ def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
                 f"S2 ILU(0) {label} at {g}^2 ({sweep.nlevels} levels)", got, want,
                 atol=1e-5 * float(want.abs().max())))
             ms = time_ms(lambda: sweep(r), 10)
-            row = timed(ms, plain_ms, level_bytes(sched, 1, 4), 0.0)
+            lib_ms = None
+            if g == ILU_SIDES[-1] and label == "L":  # the library call at the largest grid
+                lib_ms, lib_x = library_solve_ms(level_tri_csr(sweep, dev), r, upper=False)
+                if lib_x is not None:
+                    log(f"    the library call's max abs difference to S2: "
+                        f"{max_err(lib_x, got):.3e}")
+                del lib_x
+            row = timed(ms, plain_ms, level_bytes(sched, 1, 4), 0.0, lib_ms)
             log(f"  [{card}] S2 ILU(0) {label} at {g}^2: {ms * 1e3:.1f} us a sweep, "
-                f"{len(sched.launches)} launch(es), chain {sweep.nlevels} levels, "
-                f"{ms * 1e3 / sweep.nlevels:.3f} us a level; byte bound "
-                f"{row['bound_ms'] * 1e3:.2f} us; plain loop {plain_ms:.1f} ms")
+                f"{len(sched.launches)} launch(es), {s2_shape(sched)}, chain {sweep.nlevels} "
+                f"levels, {ms * 1e3 / sweep.nlevels:.3f} us a level; byte bound "
+                f"{row['bound_ms'] * 1e3:.2f} us; plain loop {plain_ms:.1f} ms; library "
+                + ("not measured" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"))
         app_ms = time_ms(lambda: M @ r, 10)
         log(f"  [{card}] one ILU(0) application at {g}^2 (two sweeps, "
             f"{sum(M.nlevels)} levels): {app_ms:.3f} ms; the two plain loops {plain_app:.1f} ms")
@@ -2202,7 +2248,7 @@ def phase_sweep_kernels(dev, kt, ct, st, card, sp_un):
     row = timed(ms, plain_ms, level_bytes(sched, 1, 4), 0.0, lib_ms)
     times["level_sweep"] = row
     log(f"  [{card}] S2 unstructured L, {NLEVEL} rows, {sp.nnz} nnz: {ms * 1e3:.1f} us a sweep, "
-        f"{len(sched.launches)} launches, chain {sweep.nlevels} levels "
+        f"{len(sched.launches)} launches, {s2_shape(sched)}, chain {sweep.nlevels} levels "
         f"({ms * 1e3 / sweep.nlevels:.2f} us a level), widest {max(sched.sizes)} rows; byte "
         f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_ms'] / ms * 100:.1f} % of it); plain "
         f"loop {plain_ms:.1f} ms; library "

@@ -17,9 +17,10 @@
 // one launch (a few for a factor with wide levels).
 //
 // There are no atomics: every sum is taken in an order fixed by the operands'
-// layout, so a sweep repeats bit for bit.  The order differs from the plain
-// versions' (a doubling scan across a grid row; products summed by
-// segment_reduce), so results agree with them to rounding.
+// layout and the launch's shape, so a sweep repeats bit for bit.  The order
+// differs from the plain versions' (a doubling scan across a grid row;
+// products summed by segment_reduce), so results agree with them to
+// rounding.
 //
 // ---------------------------------------------------------------------------
 // S1: the grid sweep.  (D/omega + L) x = b on a grid stencil's lower
@@ -28,38 +29,45 @@
 //
 // Bound on this card: the chain of M dependent grid rows, not the bytes
 // (b, the coefficient planes and x once each: 5 planes for a 5-point
-// stencil, ~100 us at 4096^2 f32 against milliseconds of chain).  One SM
-// takes a whole row: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 8,
-// tools/torch_sweeps.py) a 5-point float32 sweep takes 2.0 us a row at
-// 1024^2 and 4.3 at 4096^2, that SM's issue of a row's 4096 columns.
+// stencil, ~100 us at 4096^2 f32 against milliseconds of chain).  A row is
+// an affine recurrence x_j = a_j x_{j-1} + c_j across its columns, a scan of
+// affine maps; the time a row takes is the latency of that scan.
 //
-// Design: one CTA a right-hand side walks the rows in sweep order (row 0 up
-// for the lower triangle, row M - 1 down for the upper one).  A thread owns
-// `per` consecutive positions of the row in scan order (columns left to
-// right for the lower triangle, right to left for the upper one).  For each
-// row:
-//  A. neighbouring threads on neighbouring columns (every load and store of
-//     device memory coalesced) form rhs = b - sum_q plane_q * x[row -
-//     back_q, (j + dc_q) mod ny] (the reference's jnp.roll wrap-around; rows
-//     before the first read as zero) from a ring of the last h solved rows
-//     in shared memory, then c = rhs / d, and leave c and a in shared
-//     memory; each thread composes its positions' affine maps
-//     x_j = a_j x_{j-1} + c_j into one (A, C).  A row's b, d, a and first
-//     band do not depend on x: each thread loads those of its first columns
-//     for the next row into registers while it solves this one, so the
-//     chain of rows does not wait for device memory;
-//  B. a block scan of the threads' maps (shuffles within each warp, warp 0
-//     over the warps' totals) gives each thread the x entering its chunk;
-//  C. each thread runs its chunk's recurrence from that value into the
-//     ring; then the row goes to device memory, coalesced again.
-// The rows in shared memory carry a padding element after every 32 values,
-// so a warp's reads of its threads' chunks fall on distinct banks.  The
-// d == 0 guards (a = 0, divisor 1) and the zero a at the row's first
+// Design: a right-hand side is one thread-block cluster of C CTAs (the
+// wrapper picks C by the row's width; up to 16, the non-portable size, where
+// the occupancy API says it schedules).  CTA k owns the strip of w =
+// ceil(ny / C) consecutive positions k w .. (k + 1) w - 1 in scan order
+// (columns left to right for the lower triangle, right to left for the
+// upper one, whose rows are walked from the last); it has nt worker
+// threads and a publishing warp.  For each row:
+//  1. the workers form c = (b - sum_q plane_q x[row - back_q, (j + dc_q) mod
+//     ny]) / d and a for the strip (the reference's jnp.roll wrap-around;
+//     rows before the first read as zero), the solved rows from the CTA's
+//     ring of the last h + 1 strip rows in shared memory; a band with dc !=
+//     0 reads the owner's ring through distributed shared memory.  A row's
+//     b, d, a and first row bands do not depend on x: each worker copies
+//     its positions' two rows ahead into shared memory (cp.async), so the
+//     chain does not wait for device memory;
+//  2. each warp scans its lanes' maps (shuffles); after a block barrier the
+//     publishing warp scans the warps' totals and publishes the strip's map
+//     (A_k, C_k), double-buffered by row parity;
+//  3. one cluster barrier: the publishing warp's arrival releases the map,
+//     the workers' are relaxed, so that no store in flight holds it (a
+//     releasing arrival waits for the thread's loads and stores in flight;
+//     tools/torch_sweeps.py --handoff);
+//  4. the publishing warp reads the maps of the strips before its own
+//     across the cluster, one a lane, scans them across lanes into the x
+//     entering its strip, and gives each warp the x entering its positions;
+//     after a block barrier each worker's x is one fused multiply-add;
+//  5. the strip's row goes into the ring and to device memory.
+// A 5-point stencil (every row band dc = 0) reads only values its own thread
+// wrote, so it pays one cluster barrier a row; a band with dc != 0 adds a
+// second after step 5; a cluster of one pays none.  Where a CTA's strip is
+// wider than its workers, each owns a segment of consecutive positions
+// whose c values wait in shared memory.  When h + 1 strip rows do not fit
+// in KRYLOV_SWEEP_SMEM bytes (a very wide row), the solved rows are read
+// from device memory and c waits in the output row.  The d == 0 guards and the zero a at the row's first
 // position are in the planes `a` and `d` the wrapper prepares once.
-// When h + 2 rows do not fit in KRYLOV_SWEEP_SMEM bytes of shared memory (a
-// wide row), each thread reads its own chunk's inputs, the solved rows in
-// device memory, and its c values wait in the output row itself.  Four
-// block barriers a row (three for a wide one).
 // ---------------------------------------------------------------------------
 //
 // S2: the level-scheduled sweep.  x[rows_l] = (b[rows_l] - sum data * x[col])
@@ -76,34 +84,43 @@
 // threads with a block barrier between levels; a wider level is a launch of
 // its own over many CTAs.  A thread takes one (slot, column) item of a
 // level at a time; the row, its diagonal, its b and the first
-// KRYLOV_LEVEL_ENTRIES of its entries do not depend on x, so a run loads the
-// next level's first item of each thread before it finishes this level's.
-// Each row sums its entries in their stored order.  Measured on an H100
-// 80GB HBM3 at 700 W (chip_smoke.py phase 8, tools/torch_sweeps.py): ILU(0)
-// at 256^2 and 1024^2, one run a factor, 1.0 and 1.9 us a level: the
-// level's rows read b and write x at scattered addresses (a grid's
-// wavefront is a diagonal), all through one SM.
+// KRYLOV_LEVEL_ENTRIES of its entries do not depend on x, so a run loads
+// them ahead of the chain: a thread's first item of level l + 2 its slot's
+// head (row, entry range, diagonal), of level l + 1 its b and entries, while
+// it finishes level l.
+// A run may keep the solutions of its last W + 1 levels in a ring in
+// shared memory: the host writes a second copy of the columns in which an
+// entry whose column lies 1 to W levels back in its run holds its place in
+// the window instead (negative), and the kernel reads x there instead of
+// from device memory (for ILU(0) on a 5-point grid, W = 1: every entry).
+// W is the run's farthest such reach, up to a cap, where W + 1 levels of
+// its widest level at k right-hand sides fit in shared memory; any other
+// run is the kernel without the window, which reads every x from device
+// memory.  Each row sums its entries in their stored order.  (Streaming each level's
+// structure ahead by bulk copies, with b gathered and x leaving by bulk
+// copies, measured slower on this card: PERF.md section 6.)
 // ---------------------------------------------------------------------------
 
 #include "krylov_common.cuh"
 
-#define KRYLOV_SWEEP_THREADS 1024
-// fewest positions a thread owns: a row of 1024 takes 512 threads, fewer
-// warps for the block scan than a thread a position (2.38 against 2.65 us a
-// row at 1024^2, 2.72 with 4 positions; tools/torch_sweeps.py --variants)
-#ifndef KRYLOV_SWEEP_PER_MIN
-#define KRYLOV_SWEEP_PER_MIN 2
-#endif
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 #define KRYLOV_SWEEP_MAX_BANDS 16
-// shared memory for the ring of solved rows and the row's c and a values
+#define KRYLOV_SWEEP_MAX_CLUSTER 16
+// shared memory for the ring of solved strip rows (and a segment's c values)
 #ifndef KRYLOV_SWEEP_SMEM
 #define KRYLOV_SWEEP_SMEM (200 * 1024)
 #endif
+// row bands whose coefficients are loaded a row ahead (a 9-point stencil's 3)
+#define KRYLOV_SWEEP_PRE 3
 #define KRYLOV_LEVEL_THREADS 1024
 #define KRYLOV_LEVEL_WIDE_THREADS 256
 #ifndef KRYLOV_LEVEL_ENTRIES
 #define KRYLOV_LEVEL_ENTRIES 4
 #endif
+#define KRYLOV_LEVEL_SMEM (220 * 1024)
 
 namespace {
 
@@ -130,6 +147,18 @@ __device__ __forceinline__ T shfl_up(T v, int d) {
 template <typename R>
 __device__ __forceinline__ cplx<R> shfl_up(cplx<R> v, int d) {
   return cplx<R>(__shfl_up_sync(0xffffffffu, v.re, d), __shfl_up_sync(0xffffffffu, v.im, d));
+}
+
+// The largest dynamic shared memory `kernel` may take, raised only when a
+// launch needs more (the attribute is a ceiling; setting it is a runtime
+// call that a launch need not pay again).  *have: what this kernel has now.
+template <typename K>
+__host__ cudaError_t allow_smem(K kernel, size_t bytes, int* have) {
+  if ((int)bytes <= *have) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *have = (int)bytes;
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -160,186 +189,420 @@ __device__ __forceinline__ void warp_scan_maps(T& A, T& C, int lane) {
   }
 }
 
-// A row in shared memory, one padding element after every 32: a thread's
-// consecutive positions (stride `per` across a warp) fall on distinct banks.
+// A strip row in shared memory, one padding element after every 32: a
+// segment's consecutive positions (stride `seg` across a warp) fall on
+// distinct banks.
 __device__ __forceinline__ int padded(int j) { return j + (j >> 5); }
-__host__ __device__ inline int padded_row(int ny) { return ny + (ny >> 5) + 1; }
+__host__ __device__ inline int padded_row(int w) { return w + (w >> 5) + 1; }
+
+// The cluster barrier: every thread of every CTA of the cluster arrives,
+// then waits (acquiring what the releasing arrivals wrote before).  An
+// arrival that releases orders the thread's earlier accesses, shared and
+// global, and so waits for its loads and stores in flight; a relaxed one
+// orders nothing (tools/torch_sweeps.py --handoff).  A cluster of one is a
+// block barrier.
+__device__ __forceinline__ void cluster_barrier(int C, bool release = true) {
+  if (C == 1) {
+    __syncthreads();
+    return;
+  }
+  if (release) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  } else {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 template <typename T>
-__global__ void __launch_bounds__(KRYLOV_SWEEP_THREADS)
-grid_sweep_kernel(const T* __restrict__ coeffs, const T* __restrict__ a,
+__device__ __forceinline__ T shfl_idx(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> shfl_idx(cplx<R> v, int src) {
+  return cplx<R>(__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// one element of device memory into shared memory, asynchronously (the
+// thread's later cp.async.wait_group makes it visible to the thread itself)
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(smem_addr(dst)), "l"((unsigned long long)src), "n"((int)sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` (0, 1 or 2) of this thread's newest groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// The inputs of a row that do not depend on x: b, d, a and the first
+// KRYLOV_SWEEP_PRE row bands' coefficients.
+#define KRYLOV_SWEEP_NQ (3 + KRYLOV_SWEEP_PRE)
+
+// How a strip's next rows reach it (one position a worker): FETCH_REGS one row ahead into
+// registers; FETCH_ASYNC two rows ahead by each worker's cp.async into a
+// ring of 3 rows in shared memory (no load of device memory in flight at a
+// barrier, which would wait for it: tools/torch_sweeps.py --handoff).
+enum { FETCH_REGS = 0, FETCH_ASYNC = 1 };
+
+// blockDim.x = nt + 32: nt workers, then the publishing warp.  !SEG: worker
+// t owns position t of its CTA's strip; the ring and the stages hold strip
+// rows of `rs` values in position order.  SEG: worker t owns the `seg`
+// consecutive positions t * seg ..., the ring in position order with a
+// padding element every 32.
+template <typename T, bool SEG>
+__global__ void __launch_bounds__(1024)
+grid_strip_kernel(const T* __restrict__ coeffs, const T* __restrict__ a,
                   const T* __restrict__ d, const T* __restrict__ b, T* __restrict__ x, int M,
-                  int ny, int upper, int h, int per, int in_smem, SweepBands bands) {
+                  int ny, int upper, int h, int w, int seg, int in_smem, int fetch_mode,
+                  int halo, SweepBands bands) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char sweep_smem[];
-  __shared__ __align__(16) unsigned char warp_maps[2 * 32 * sizeof(T)];
-  T* warp_a = reinterpret_cast<T*>(warp_maps);  // each warp's map, then their scan
-  T* warp_c = warp_a + 32;
-  const int hh = h > 0 ? h : 1;
-  const int pr = padded_row(ny);
-  T* ring = reinterpret_cast<T*>(sweep_smem);  // hh solved rows, slot s % hh
-  T* cbuf = ring + (size_t)hh * pr;            // this row's c, by column
-  T* abuf = cbuf + pr;                         // this row's a, by column
-  const size_t plane_n = (size_t)M * ny;
-  b += blockIdx.x * plane_n;
-  x += blockIdx.x * plane_n;
+  __shared__ __align__(16) unsigned char maps[(3 * 32 + 4) * sizeof(T)];
+  T* s_wa = reinterpret_cast<T*>(maps);  // the warps' maps
+  T* s_wc = s_wa + 32;
+  T* s_xin = s_wc + 32;  // the x entering each warp's positions
+  T* s_ta = s_xin + 32;  // the strip's map, by row parity (read across the cluster)
+  T* s_tc = s_ta + 2;
+  const int hh = h + 1;
+  const int rs = SEG ? padded_row(w) : w;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int nt = blockDim.x - 32;  // workers
+  const bool comm = tid >= nt;     // the publishing warp
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nt >> 5;
-  const int p0 = min(tid * per, ny);
-  const int p1 = min(p0 + per, ny);
-  // rhs = b - sum_q plane_q * x[solved row, wrapped column], band 0's
-  // coefficient given, the solved rows from the ring
-  auto row_rhs = [&](T r, T c0, int s, int slot, size_t row, int j) {
-    for (int q = 0; q < bands.nb; ++q) {
-      const int back = bands.back[q];
-      if (s < back) continue;  // rows before the first read as zero
-      int jj = j + bands.dc[q];  // |dc| < ny: one wrap at most
-      jj = jj < 0 ? jj + ny : (jj >= ny ? jj - ny : jj);
-      const int from = slot - back < 0 ? slot - back + hh : slot - back;
-      const T c = q == 0 ? c0 : coeffs[bands.plane[q] * plane_n + row + j];
-      r = r - c * ring[(size_t)from * pr + padded(jj)];
-    }
-    return r;
+  T* ring = reinterpret_cast<T*>(sweep_smem);  // hh solved strip rows, slot s % hh
+  T* cbuf = ring + (size_t)hh * rs;            // a segment's c values (SEG)
+  T* stage = cbuf;                             // 3 rows of inputs, NQ planes a row (!SEG)
+  const size_t plane_n = (size_t)M * ny;
+  const size_t rhs = blockIdx.x / C;
+  b += rhs * plane_n;
+  x += rhs * plane_n;
+  const int p0 = rank * w;                      // the strip's first position
+  const int wn = max(min(p0 + w, ny) - p0, 0);  // its positions in this grid
+  auto column = [&](int lp) { return upper ? ny - 1 - (p0 + lp) : p0 + lp; };
+  // where strip position lp lies in a ring row
+  auto rix = [&](int lp) { return SEG ? padded(lp) : lp; };
+  // x[row - back_q, (j + dc_q) mod ny] of band q, for the position lp of
+  // column j in row s (i the grid row), s >= back_q
+  auto solved = [&](int q, int s, int i, int j, int lp) -> T {
+    const int back = bands.back[q];
+    int jj = j + bands.dc[q];  // |dc| < ny: one wrap at most
+    jj = jj < 0 ? jj + ny : (jj >= ny ? jj - ny : jj);
+    if (!in_smem) return x[(size_t)(upper ? i + back : i - back) * ny + jj];
+    int from = s % hh - back;
+    from = from < 0 ? from + hh : from;
+    if (bands.dc[q] == 0) return ring[(size_t)from * rs + rix(lp)];
+    const int pp = upper ? ny - 1 - jj : jj;
+    const int owner = pp / w;
+    const T* rr = owner == rank ? ring : cluster.map_shared_rank(ring, owner);
+    return rr[(size_t)from * rs + rix(pp - owner * w)];
   };
-  // the next row's b, d, a and band 0's coefficient at this thread's first
-  // U columns, loaded while this row is solved (U values of each in 16
-  // registers: a row of 4096 float32 columns in 1024 threads)
-  constexpr int U = sizeof(T) <= 4 ? 4 : (sizeof(T) <= 8 ? 2 : 1);
-  T nb_b[U], nb_d[U], nb_a[U], nb_c[U];
-  auto fetch = [&](size_t rr) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = tid + u * nt;
-      if (j < ny) {
-        nb_b[u] = b[rr + j];
-        nb_d[u] = d[rr + j];
-        nb_a[u] = a[rr + j];
-        nb_c[u] = bands.nb > 0 ? coeffs[bands.plane[0] * plane_n + rr + j] : T(0);
+  // the publishing warp, a row's maps: the warps' maps scanned (lane e
+  // keeps the exclusive prefix of map e in pa, pc), the strip's map
+  // published; then, once every strip's is, the x entering each warp: lane
+  // r holds strip r's map, the strips before this one scanned across lanes
+  T pa = T(1), pc = T(0);
+  auto block_maps = [&](int par) {
+    T wa = lane < nwarps ? s_wa[lane] : T(1);
+    T wc = lane < nwarps ? s_wc[lane] : T(0);
+    for (int o = 1; o < nwarps; o <<= 1) {
+      const T qa = shfl_up(wa, o);
+      const T qc = shfl_up(wc, o);
+      if (lane >= o) {
+        wc = wa * qc + wc;
+        wa = wa * qa;
       }
     }
+    pa = shfl_up(wa, 1);
+    pc = shfl_up(wc, 1);
+    if (lane == 0) {
+      pa = T(1);
+      pc = T(0);
+    }
+    if (lane == nwarps - 1) {
+      s_ta[par] = wa;
+      s_tc[par] = wc;
+    }
   };
-  if (in_smem) fetch((size_t)(upper ? M - 1 : 0) * ny);
-
-  for (int s = 0; s < M; ++s) {
-    const int i = upper ? M - 1 - s : s;
-    const size_t row = (size_t)i * ny;
-    const int slot = s % hh;  // this row's slot of the ring
-    if (in_smem) {
-      // A1: c and a of every column, neighbouring threads on neighbouring
-      // columns, the solved rows from the ring; the first U columns of each
-      // thread from the registers loaded during the row before
-      T cb[U], cd[U], ca[U], cc[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        cb[u] = nb_b[u];
-        cd[u] = nb_d[u];
-        ca[u] = nb_a[u];
-        cc[u] = nb_c[u];
+  auto entries = [&](int par) {
+    T X = T(0);
+    if (rank > 0) {
+      T ra = T(1), rc = T(0);
+      if (lane < rank) {
+        ra = *cluster.map_shared_rank(&s_ta[par], lane);
+        rc = *cluster.map_shared_rank(&s_tc[par], lane);
       }
-      if (s + 1 < M) fetch((size_t)(upper ? i - 1 : i + 1) * ny);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = tid + u * nt;
-        if (j < ny) {
-          const T r = row_rhs(cb[u], cc[u], s, slot, row, j);
-          cbuf[padded(j)] = tri_div(r, cd[u]);
-          abuf[padded(j)] = ca[u];
+      for (int o = 1; o < KRYLOV_SWEEP_MAX_CLUSTER; o <<= 1) {
+        const T qa = shfl_up(ra, o);
+        const T qc = shfl_up(rc, o);
+        if (lane >= o) {
+          rc = ra * qc + rc;
+          ra = ra * qa;
         }
       }
-      for (int j = tid + U * nt; j < ny; j += nt) {
-        const T c0 = bands.nb > 0 ? coeffs[bands.plane[0] * plane_n + row + j] : T(0);
-        const T r = row_rhs(b[row + j], c0, s, slot, row, j);
-        cbuf[padded(j)] = tri_div(r, d[row + j]);
-        abuf[padded(j)] = a[row + j];
+      X = shfl_idx(rc, rank - 1);
+    }
+    if (lane < nwarps) s_xin[lane] = pa * X + pc;
+  };
+
+  if constexpr (!SEG) {
+    const int nq = 3 + min(bands.nb, KRYLOV_SWEEP_PRE);  // planes a row's inputs take
+    const int lp = tid;                                  // this worker's position
+    cluster_barrier(C);  // every CTA of the cluster runs before any reads another's shared memory
+    // the planes of a row's inputs: b, d, a and the first row bands' coefficients
+    auto plane = [&](int q) -> const T* {
+      return q == 0 ? b : q == 1 ? d : q == 2 ? a : coeffs + bands.plane[q - 3] * plane_n;
+    };
+    T nb_v[KRYLOV_SWEEP_NQ];
+    // this worker's position of grid row ii: into the stage slot (async) or registers
+    auto fetch = [&](int ii, int slot) {
+      if (lp < wn) {
+        const size_t at = (size_t)ii * ny + column(lp);
+#pragma unroll
+        for (int q = 0; q < KRYLOV_SWEEP_NQ; ++q) {
+          if (q < nq) {
+            if (fetch_mode == FETCH_ASYNC) {
+              cp_async_elem(stage + (size_t)(slot * KRYLOV_SWEEP_NQ + q) * rs + lp,
+                            plane(q) + at);
+            } else {
+              nb_v[q] = plane(q)[at];
+            }
+          }
+        }
+      }
+    };
+    if (!comm) {
+      fetch(upper ? M - 1 : 0, 0);
+      if (fetch_mode == FETCH_ASYNC) {
+        cp_async_commit();
+        if (M > 1) fetch(upper ? M - 2 : 1, 1);
+        cp_async_commit();
+      }
+    }
+    for (int s = 0; s < M; ++s) {
+      const int i = upper ? M - 1 - s : s;
+      const size_t row = (size_t)i * ny;
+      const int par = s & 1;
+      T A = T(1), Cc = T(0);
+      if (!comm) {
+        // 1. c and a of this worker's position
+        if (fetch_mode == FETCH_ASYNC) {
+          cp_async_wait(1);  // row s's inputs have landed (row s + 1's may not)
+#pragma unroll
+          for (int q = 0; q < KRYLOV_SWEEP_NQ; ++q) {
+            if (q < nq && lp < wn) {
+              nb_v[q] = stage[(size_t)((s % 3) * KRYLOV_SWEEP_NQ + q) * rs + lp];
+            }
+          }
+        }
+        if (lp < wn) {
+          const int j = column(lp);
+          T r = nb_v[0];
+#pragma unroll
+          for (int q = 0; q < KRYLOV_SWEEP_PRE; ++q) {
+            if (q < bands.nb && s >= bands.back[q]) r = r - nb_v[3 + q] * solved(q, s, i, j, lp);
+          }
+          for (int q = KRYLOV_SWEEP_PRE; q < bands.nb; ++q) {
+            if (s >= bands.back[q]) {
+              r = r - coeffs[bands.plane[q] * plane_n + row + j] * solved(q, s, i, j, lp);
+            }
+          }
+          Cc = tri_div(r, nb_v[1]);
+          A = nb_v[2];
+        }
+        if (fetch_mode == FETCH_ASYNC) {
+          if (s + 2 < M) fetch(upper ? i - 2 : i + 2, (s + 2) % 3);
+          cp_async_commit();
+        } else if (fetch_mode == FETCH_REGS && s + 1 < M) {
+          fetch(upper ? i - 1 : i + 1, 0);
+        }
+        // 2. the lanes scanned, the warps' totals to the publishing warp
+        warp_scan_maps(A, Cc, lane);
+        if (lane == 31) {
+          s_wa[warp] = A;
+          s_wc[warp] = Cc;
+        }
       }
       __syncthreads();
-    }
-    // A2: the composite of this thread's positions' maps (without the ring
-    // in shared memory, c is formed here and waits in the output row)
-    T A = T(1), C = T(0);
-    for (int p = p0; p < p1; ++p) {
-      const int j = upper ? ny - 1 - p : p;
-      T c, aj;
-      if (in_smem) {
-        c = cbuf[padded(j)];
-        aj = abuf[padded(j)];
-      } else {
-        T r = b[row + j];
-        for (int q = 0; q < bands.nb; ++q) {
-          const int back = bands.back[q];
-          if (s < back) continue;
-          int jj = j + bands.dc[q];
-          jj = jj < 0 ? jj + ny : (jj >= ny ? jj - ny : jj);
-          r = r - coeffs[bands.plane[q] * plane_n + row + j] *
-                      x[(size_t)(upper ? i + back : i - back) * ny + jj];
+      // 3. the strips' maps published across the cluster: the publishing
+      // warp's arrival releases them, the workers' are relaxed (their
+      // copies and stores in flight need not land first)
+      if (comm) block_maps(par);
+      if (C > 1) cluster_barrier(C, comm);
+      // 4. the x entering each warp, then the position's x
+      if (comm) entries(par);
+      __syncthreads();
+      if (!comm) {
+        const T xv = A * s_xin[warp] + Cc;
+        // 5. into the ring and to device memory
+        if (lp < wn) {
+          if (in_smem) ring[(size_t)(s % hh) * rs + lp] = xv;
+          x[row + column(lp)] = xv;
         }
-        c = tri_div(r, d[row + j]);
-        aj = a[row + j];
-        x[row + j] = c;
       }
-      A = aj * A;
-      C = aj * C + c;
-    }
-    // B: the x entering this thread's chunk
-    warp_scan_maps(A, C, lane);
-    if (lane == 31) {
-      warp_a[warp] = A;
-      warp_c[warp] = C;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      T wa = lane < nwarps ? warp_a[lane] : T(1);
-      T wc = lane < nwarps ? warp_c[lane] : T(0);
-      warp_scan_maps(wa, wc, lane);
-      warp_a[lane] = wa;
-      warp_c[lane] = wc;
-    }
-    __syncthreads();
-    const T xw = warp > 0 ? warp_c[warp - 1] : T(0);
-    const T pa = shfl_up(A, 1);
-    const T pc = shfl_up(C, 1);
-    T xv = lane > 0 ? pa * xw + pc : xw;
-    // C: the chunk's recurrence, into the ring (or the output row)
-    T* out = in_smem ? ring + (size_t)slot * pr : nullptr;
-    for (int p = p0; p < p1; ++p) {
-      const int j = upper ? ny - 1 - p : p;
-      if (in_smem) {
-        xv = abuf[padded(j)] * xv + cbuf[padded(j)];
-        out[padded(j)] = xv;
-      } else {
-        xv = a[row + j] * xv + x[row + j];
-        x[row + j] = xv;
+      if (halo) {  // the neighbours read this row's halo from the ring (or x)
+        if (!in_smem) __threadfence();
+        cluster_barrier(C);
       }
     }
-    __syncthreads();
-    if (in_smem) {
-      // D: the row to device memory, neighbouring threads on neighbouring columns
-      for (int j = tid; j < ny; j += nt) x[row + j] = out[padded(j)];
+    if (fetch_mode == FETCH_ASYNC && !comm) cp_async_wait(0);
+  } else {
+    cluster_barrier(C);  // every CTA of the cluster runs before any reads another's shared memory
+    const int q0 = min(tid * seg, wn);
+    const int q1 = comm ? q0 : min(q0 + seg, wn);
+    for (int s = 0; s < M; ++s) {
+      const int i = upper ? M - 1 - s : s;
+      const size_t row = (size_t)i * ny;
+      const int par = s & 1;
+      T A = T(1), Cc = T(0);
+      if (!comm) {
+        // 1. c of this worker's segment (into cbuf, or the output row), its map
+        for (int lp = q0; lp < q1; ++lp) {
+          const int j = column(lp);
+          T r = b[row + j];
+          for (int q = 0; q < bands.nb; ++q) {
+            if (s >= bands.back[q]) {
+              r = r - coeffs[bands.plane[q] * plane_n + row + j] * solved(q, s, i, j, lp);
+            }
+          }
+          const T c = tri_div(r, d[row + j]);
+          const T aj = a[row + j];
+          if (in_smem) {
+            cbuf[padded(lp)] = c;
+          } else {
+            x[row + j] = c;
+          }
+          A = aj * A;
+          Cc = aj * Cc + c;
+        }
+        // 2.
+        warp_scan_maps(A, Cc, lane);
+        if (lane == 31) {
+          s_wa[warp] = A;
+          s_wc[warp] = Cc;
+        }
+      }
+      __syncthreads();
+      // 3.
+      if (comm) block_maps(par);
+      if (C > 1) cluster_barrier(C, comm);
+      // 4. x entering this worker's segment, then its recurrence
+      if (comm) entries(par);
+      __syncthreads();
+      if (!comm) {
+        const T xw = s_xin[warp];
+        const T pa = shfl_up(A, 1);
+        const T pc = shfl_up(Cc, 1);
+        T xv = lane > 0 ? pa * xw + pc : xw;
+        for (int lp = q0; lp < q1; ++lp) {
+          const int j = column(lp);
+          xv = a[row + j] * xv + (in_smem ? cbuf[padded(lp)] : x[row + j]);
+          // 5.
+          if (in_smem) ring[(size_t)(s % hh) * rs + padded(lp)] = xv;
+          x[row + j] = xv;
+        }
+      }
+      if (halo) {
+        if (!in_smem) __threadfence();
+        cluster_barrier(C);
+      }
     }
   }
+  cluster_barrier(C);  // no CTA leaves while another may still read its shared memory
+}
+
+template <typename T>
+struct StripCall {
+  const T* coeffs;
+  const T* a;
+  const T* d;
+  const T* b;
+  T* x;
+  int M, ny, upper, h, halo;
+  SweepBands bands;
+};
+
+// Launch (or, with `active`, ask the occupancy API about) the cluster
+// launch of one strip kernel: nrhs clusters of C CTAs of nt workers and the
+// publishing warp.  info (when given): positions a worker (1, or 0 for a
+// segment of seg), seg, in_smem, dynamic shared memory bytes, the fetch mode.
+template <typename T, bool SEG>
+int strip_launch(const StripCall<T>& g, int nrhs, int C, int nt, int w, int seg, int* active,
+                 int* info, cudaStream_t s) {
+  const int rs = SEG ? padded_row(w) : w;
+  const size_t ring = (size_t)(g.h + 1) * rs * sizeof(T);
+  const size_t extra = SEG ? (size_t)rs * sizeof(T) : (size_t)3 * KRYLOV_SWEEP_NQ * rs * sizeof(T);
+  const int in_smem = ring + (SEG ? extra : 0) <= KRYLOV_SWEEP_SMEM;
+  const int fetch_mode =
+      SEG || !in_smem || ring + extra > KRYLOV_SWEEP_SMEM ? FETCH_REGS : FETCH_ASYNC;
+  const int smem = in_smem ? (int)(ring + (SEG || fetch_mode != FETCH_REGS ? extra : 0)) : 0;
+  if (info) {
+    info[0] = SEG ? 0 : 1;
+    info[1] = seg;
+    info[2] = in_smem;
+    info[3] = smem;
+    info[4] = fetch_mode;
+  }
+  const auto kernel = grid_strip_kernel<T, SEG>;
+  static int have_smem = 0;
+  static bool nonportable = false;
+  cudaError_t err = allow_smem(kernel, (size_t)smem, &have_smem);
+  if (err != cudaSuccess) return (int)err;
+  if (C > 8 && !nonportable) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    nonportable = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nrhs * C), 1, 1);
+  cfg.blockDim = dim3((unsigned)(nt + 32), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active) return (int)cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, g.coeffs, g.a, g.d, g.b, g.x, g.M, g.ny, g.upper, g.h, w,
+                           seg, in_smem, fetch_mode, g.halo, g.bands);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_grid_sweep(const void* coeffs, const void* a, const void* d, const void* b, void* x,
-                      int nrhs, int M, int ny, int upper, int h, const SweepBands& bands,
-                      cudaStream_t s) {
-  int per = (ny + KRYLOV_SWEEP_THREADS - 1) / KRYLOV_SWEEP_THREADS;
-  if (per < KRYLOV_SWEEP_PER_MIN) per = KRYLOV_SWEEP_PER_MIN;
-  int threads = (ny + per - 1) / per;
-  threads = (threads + 31) / 32 * 32;
-  const size_t want = (size_t)((h > 0 ? h : 1) + 2) * padded_row(ny) * sizeof(T);
-  const int in_smem = want <= KRYLOV_SWEEP_SMEM;
-  const int smem = in_smem ? (int)want : 0;
-  const auto kernel = grid_sweep_kernel<T>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<nrhs, threads, smem, s>>>(static_cast<const T*>(coeffs), static_cast<const T*>(a),
-                                     static_cast<const T*>(d), static_cast<const T*>(b),
-                                     static_cast<T*>(x), M, ny, upper, h, per, in_smem, bands);
-  return (int)cudaGetLastError();
+                      int nrhs, int M, int ny, int upper, int h, const SweepBands& bands, int C,
+                      int nt, int* active, int* info, cudaStream_t s) {
+  StripCall<T> g{static_cast<const T*>(coeffs), static_cast<const T*>(a),
+                 static_cast<const T*>(d), static_cast<const T*>(b), static_cast<T*>(x),
+                 M, ny, upper, h, 0, bands};
+  for (int q = 0; q < bands.nb; ++q) g.halo |= bands.dc[q] != 0;
+  const int w = (ny + C - 1) / C;
+  const int need = (w + nt - 1) / nt;  // positions a worker
+  if (need <= 1) return strip_launch<T, false>(g, nrhs, C, nt, w, 1, active, info, s);
+  return strip_launch<T, true>(g, nrhs, C, nt, w, need, active, info, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,7 +615,8 @@ struct LevelArgs {
   const int* __restrict__ slot_row;   // the row of each slot
   const int* __restrict__ slot_ptr;   // nslots + 1 entry offsets
   const T* __restrict__ slot_diag;
-  const int* __restrict__ ent_col;
+  const int* __restrict__ ent_col;    // each entry's column
+  const int* __restrict__ ent_win;    // or, where a run's window holds it, -1 - (back << 16 | place)
   const T* __restrict__ ent_val;
   const T* __restrict__ b;
   T* __restrict__ x;
@@ -368,71 +632,145 @@ struct LevelItem {
   T val[KRYLOV_LEVEL_ENTRIES];
 };
 
+// A slot's head: what its item's other loads need first.
 template <typename T>
-__device__ __forceinline__ void level_load(const LevelArgs<T>& a, long long item,
-                                           LevelItem<T>& it) {
-  const int slot = (int)(item / a.k);
-  it.c = (int)(item % a.k);
-  it.row = a.slot_row[slot];
-  it.e0 = a.slot_ptr[slot];
-  it.e1 = a.slot_ptr[slot + 1];
-  it.diag = a.slot_diag[slot];
+struct LevelHead {
+  int row, e0, e1;
+  T diag;
+};
+
+template <typename T>
+__device__ __forceinline__ void level_head(const LevelArgs<T>& a, int slot, LevelHead<T>& h) {
+  h.row = a.slot_row[slot];
+  h.e0 = a.slot_ptr[slot];
+  h.e1 = a.slot_ptr[slot + 1];
+  h.diag = a.slot_diag[slot];
+}
+
+// the item of a slot whose head is h, column c: its b and first entries,
+// their columns from `cols`
+template <typename T>
+__device__ __forceinline__ void level_body(const LevelArgs<T>& a, const int* cols,
+                                           const LevelHead<T>& h, int c, LevelItem<T>& it) {
+  it.c = c;
+  it.row = h.row;
+  it.e0 = h.e0;
+  it.e1 = h.e1;
+  it.diag = h.diag;
   it.rhs = a.b[(size_t)it.row * a.k + it.c];
 #pragma unroll
   for (int q = 0; q < KRYLOV_LEVEL_ENTRIES; ++q) {
     if (it.e0 + q < it.e1) {
-      it.col[q] = a.ent_col[it.e0 + q];
+      it.col[q] = cols[it.e0 + q];
       it.val[q] = a.ent_val[it.e0 + q];
     }
   }
 }
 
 template <typename T>
-__device__ __forceinline__ void level_finish(const LevelArgs<T>& a, const LevelItem<T>& it) {
+__device__ __forceinline__ void level_load(const LevelArgs<T>& a, const int* cols, int slot,
+                                           int c, LevelItem<T>& it) {
+  LevelHead<T> h;
+  level_head(a, slot, h);
+  level_body(a, cols, h, c, it);
+}
+
+// x of an entry: a column, or (WIN) a place in the window (the last W + 1
+// levels, R rows x k each, in turn: this level at ring slot ls, the level
+// `back` before at ls - back mod W + 1)
+template <typename T, bool WIN>
+__device__ __forceinline__ T level_x(const LevelArgs<T>& a, int col, int c, int ls, int W, int R,
+                                     const T* ring) {
+  if constexpr (WIN) {
+    if (col < 0) {
+      const int p = -1 - col;
+      int from = ls - (p >> 16);
+      from = from < 0 ? from + W + 1 : from;
+      return ring[((size_t)from * R + (p & 0xffff)) * a.k + c];
+    }
+  }
+  return a.x[(size_t)col * a.k + c];
+}
+
+// the item's x to device memory and (WIN) to its place in the window: t,
+// the item's number within its level (its slot's place x k + column)
+template <typename T, bool WIN>
+__device__ __forceinline__ void level_finish(const LevelArgs<T>& a, const int* cols,
+                                             const LevelItem<T>& it, int t, int ls, int W,
+                                             int R, T* ring) {
   T acc = T(0);
 #pragma unroll
   for (int q = 0; q < KRYLOV_LEVEL_ENTRIES; ++q) {
-    if (it.e0 + q < it.e1) acc = acc + it.val[q] * a.x[(size_t)it.col[q] * a.k + it.c];
+    if (it.e0 + q < it.e1) {
+      acc = acc + it.val[q] * level_x<T, WIN>(a, it.col[q], it.c, ls, W, R, ring);
+    }
   }
   for (int e = it.e0 + KRYLOV_LEVEL_ENTRIES; e < it.e1; ++e) {
-    acc = acc + a.ent_val[e] * a.x[(size_t)a.ent_col[e] * a.k + it.c];
+    acc = acc + a.ent_val[e] * level_x<T, WIN>(a, cols[e], it.c, ls, W, R, ring);
   }
-  a.x[(size_t)it.row * a.k + it.c] = tri_div(it.rhs - acc, it.diag);
+  const T xr = tri_div(it.rhs - acc, it.diag);
+  a.x[(size_t)it.row * a.k + it.c] = xr;
+  if constexpr (WIN) ring[(size_t)ls * R * a.k + t] = xr;
 }
 
-// Levels l0 .. l1 - 1, one CTA, a block barrier between levels.
-template <typename T>
+// Levels l0 .. l1 - 1, one CTA, a block barrier between levels.  A level's
+// items are slot x k + column in turn, thread tid's first the item tid (slot
+// tid / k, column tid % k, divided once).  That first item is loaded in a
+// pipeline, so that no load waits on the chain: while level l is finished,
+// level l + 1's b and entries are loaded from its slot's head, read while
+// level l - 1 was, and level l + 2's head, from the slot offsets read a
+// level before.  WIN: a window of the last W + 1 levels' x (R rows x k
+// each) in dynamic shared memory, the columns from ent_win; else every x
+// from device memory.
+template <typename T, bool WIN>
 __global__ void __launch_bounds__(KRYLOV_LEVEL_THREADS)
-level_run_kernel(LevelArgs<T> a, int l0, int l1) {
+level_run_kernel(LevelArgs<T> a, int l0, int l1, int W, int R) {
+  extern __shared__ __align__(16) unsigned char level_smem[];
+  T* ring = reinterpret_cast<T*>(level_smem);
+  const int* cols = WIN ? a.ent_win : a.ent_col;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int tq = tid / a.k, tr = tid % a.k;
+  // levels l .. l + 3 start at slots s0 .. s3 (a level past the run is empty)
   int s0 = a.level_ptr[l0];
   int s1 = a.level_ptr[l0 + 1];
-  LevelItem<T> cur;
-  bool has = tid < (long long)(s1 - s0) * a.k;
-  if (has) level_load(a, (long long)s0 * a.k + tid, cur);
+  int s2 = l0 + 1 < l1 ? a.level_ptr[l0 + 2] : s1;
+  int s3 = l0 + 2 < l1 ? a.level_ptr[l0 + 3] : s2;
+  LevelItem<T> cur;  // level l's
+  bool has = tq < s1 - s0;
+  if (has) level_load(a, cols, s0 + tq, tr, cur);
+  LevelHead<T> head;  // level l + 1's
+  bool has_head = tq < s2 - s1;
+  if (has_head) level_head(a, s1 + tq, head);
+  int ls = 0;  // this level's ring slot (WIN): levels take slots in turn
   for (int l = l0; l < l1; ++l) {
-    const bool more = l + 1 < l1;
-    const int s2 = more ? a.level_ptr[l + 2] : s1;
+    const int s4 = l + 3 < l1 ? a.level_ptr[l + 4] : s3;
+    LevelHead<T> head2;  // level l + 2's
+    const bool has_head2 = tq < s3 - s2;
+    if (has_head2) level_head(a, s2 + tq, head2);
     LevelItem<T> nxt;
-    const bool has_next = more && tid < (long long)(s2 - s1) * a.k;
-    if (has_next) level_load(a, (long long)s1 * a.k + tid, nxt);
-    if (has) level_finish(a, cur);
-    const long long items = (long long)(s1 - s0) * a.k;
-    for (long long t = tid + nt; t < items; t += nt) {
+    if (has_head) level_body(a, cols, head, tr, nxt);
+    if (has) level_finish<T, WIN>(a, cols, cur, tid, ls, W, R, ring);
+    const int items = (s1 - s0) * a.k;
+    for (int t = tid + nt; t < items; t += nt) {
       LevelItem<T> it;
-      level_load(a, (long long)s0 * a.k + t, it);
-      level_finish(a, it);
+      level_load(a, cols, s0 + t / a.k, t % a.k, it);
+      level_finish<T, WIN>(a, cols, it, t, ls, W, R, ring);
     }
     __syncthreads();
+    if constexpr (WIN) ls = ls == W ? 0 : ls + 1;
     cur = nxt;
-    has = has_next;
+    has = has_head;
+    head = head2;
+    has_head = has_head2;
     s0 = s1;
     s1 = s2;
+    s2 = s3;
+    s3 = s4;
   }
 }
 
-// The slots s0 .. s1 - 1 of one wide level, over many CTAs.
+// The slots s0 .. s1 - 1 of one wide level, over many CTAs (no window).
 template <typename T>
 __global__ void __launch_bounds__(KRYLOV_LEVEL_WIDE_THREADS)
 level_wide_kernel(LevelArgs<T> a, int s0, int s1) {
@@ -440,19 +778,35 @@ level_wide_kernel(LevelArgs<T> a, int s0, int s1) {
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < items; t += step) {
     LevelItem<T> it;
-    level_load(a, (long long)s0 * a.k + t, it);
-    level_finish(a, it);
+    level_load(a, a.ent_col, s0 + (int)(t / a.k), (int)(t % a.k), it);
+    level_finish<T, false>(a, a.ent_col, it, 0, 0, 0, 1, static_cast<T*>(nullptr));
   }
 }
 
-// sched: nlaunch rows of (kind, l0, l1, s0, s1); kind 0 a run of levels
-// l0 .. l1 - 1, kind 1 the wide level of slots s0 .. s1 - 1.
+// sched: nlaunch rows of KRYLOV_LEVEL_ROW ints: (kind, l0, l1, s0, s1, W,
+// R); kind 0 a run of levels l0 .. l1 - 1 with a window of W levels of R
+// rows, kind 1 the wide level of slots s0 .. s1 - 1.
+#define KRYLOV_LEVEL_ROW 7
+
 template <typename T>
 int launch_level_sweep(const LevelArgs<T>& a, const int* sched, int nlaunch, cudaStream_t s) {
   for (int q = 0; q < nlaunch; ++q) {
-    const int* r = sched + 5 * q;
+    const int* r = sched + KRYLOV_LEVEL_ROW * q;
     if (r[0] == 0) {
-      level_run_kernel<T><<<1, KRYLOV_LEVEL_THREADS, 0, s>>>(a, r[1], r[2]);
+      const int W = r[5], R = r[6];
+      if (R < 1 || (long long)R * a.k > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      if (W == 0) {
+        level_run_kernel<T, false><<<1, KRYLOV_LEVEL_THREADS, 0, s>>>(a, r[1], r[2], 0, 1);
+      } else {
+        const size_t smem = (size_t)(W + 1) * R * a.k * sizeof(T);
+        if (smem > KRYLOV_LEVEL_SMEM || W < 0 || W > 0xffff || R > 0x10000) {
+          return (int)cudaErrorInvalidValue;
+        }
+        static int have_smem = 0;
+        const cudaError_t err = allow_smem(level_run_kernel<T, true>, smem, &have_smem);
+        if (err != cudaSuccess) return (int)err;
+        level_run_kernel<T, true><<<1, KRYLOV_LEVEL_THREADS, smem, s>>>(a, r[1], r[2], W, R);
+      }
     } else {
       const long long items = (long long)(r[4] - r[3]) * a.k;
       long long blocks = (items + KRYLOV_LEVEL_WIDE_THREADS - 1) / KRYLOV_LEVEL_WIDE_THREADS;
@@ -467,17 +821,16 @@ int launch_level_sweep(const LevelArgs<T>& a, const int* sched, int nlaunch, cud
 }
 
 template <typename T>
-int level_sweep_as(const void* level_ptr, const void* slot_row, const void* slot_ptr,
-                   const void* slot_diag, const void* ent_col, const void* ent_val,
-                   const void* b, void* x, int k, const int* sched, int nlaunch,
-                   cudaStream_t s) {
+int level_sweep_as(const void* const* p, const void* b, void* x, int k, const int* sched,
+                   int nlaunch, cudaStream_t s) {
   LevelArgs<T> a;
-  a.level_ptr = static_cast<const int*>(level_ptr);
-  a.slot_row = static_cast<const int*>(slot_row);
-  a.slot_ptr = static_cast<const int*>(slot_ptr);
-  a.slot_diag = static_cast<const T*>(slot_diag);
-  a.ent_col = static_cast<const int*>(ent_col);
-  a.ent_val = static_cast<const T*>(ent_val);
+  a.level_ptr = static_cast<const int*>(p[0]);
+  a.slot_row = static_cast<const int*>(p[1]);
+  a.slot_ptr = static_cast<const int*>(p[2]);
+  a.slot_diag = static_cast<const T*>(p[3]);
+  a.ent_col = static_cast<const int*>(p[4]);
+  a.ent_win = static_cast<const int*>(p[5]);
+  a.ent_val = static_cast<const T*>(p[6]);
   a.b = static_cast<const T*>(b);
   a.x = static_cast<T*>(x);
   a.k = k;
@@ -489,14 +842,22 @@ int level_sweep_as(const void* level_ptr, const void* slot_row, const void* slot
 extern "C" {
 
 int krylov_level_threads() { return KRYLOV_LEVEL_THREADS; }
+int krylov_level_smem() { return KRYLOV_LEVEL_SMEM; }
 
 // S1.  tt: dtype code of every operand; coeffs (ndiag, M, ny), a and d
 // (M, ny), b and x (nrhs, M, ny); nb row bands (plane, back, dc) of the
-// solved side, h = the largest back (0 without row bands).
+// solved side, h = the largest back (0 without row bands); a cluster of C
+// CTAs of nt workers (and a publishing warp) a right-hand side.  With
+// `active` nothing launches: *active is the number of such clusters the
+// card can hold at once (0: it cannot schedule one), and info (5 ints) the
+// kernel's positions a worker (1, or 0: a segment), seg, in_smem, shared
+// memory and fetch mode (0 registers, 1 cp.async).
 int krylov_grid_sweep(int tt, const void* coeffs, const void* a, const void* d, const void* b,
                       void* x, int nrhs, int M, int ny, int upper, int h, int nb,
-                      const int* planes, const int* backs, const int* dcs, void* stream) {
-  if (nrhs < 1 || M < 1 || ny < 1 || nb < 0 || nb > KRYLOV_SWEEP_MAX_BANDS || h < 0) {
+                      const int* planes, const int* backs, const int* dcs, int C, int nt,
+                      int* active, int* info, void* stream) {
+  if (nrhs < 1 || M < 1 || ny < 1 || nb < 0 || nb > KRYLOV_SWEEP_MAX_BANDS || h < 0 || C < 1 ||
+      C > KRYLOV_SWEEP_MAX_CLUSTER || nt < 32 || nt > 992 || nt % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   SweepBands bands;
@@ -509,26 +870,26 @@ int krylov_grid_sweep(int tt, const void* coeffs, const void* a, const void* d, 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tt) {
-    case KRYLOV_F32: return launch_grid_sweep<float>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, s);
-    case KRYLOV_F64: return launch_grid_sweep<double>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, s);
-    case KRYLOV_C64: return launch_grid_sweep<c64>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, s);
-    case KRYLOV_C128: return launch_grid_sweep<c128>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, s);
+    case KRYLOV_F32: return launch_grid_sweep<float>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, C, nt, active, info, s);
+    case KRYLOV_F64: return launch_grid_sweep<double>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, C, nt, active, info, s);
+    case KRYLOV_C64: return launch_grid_sweep<c64>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, C, nt, active, info, s);
+    case KRYLOV_C128: return launch_grid_sweep<c128>(coeffs, a, d, b, x, nrhs, M, ny, upper, h, bands, C, nt, active, info, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// S2.  tt: dtype code of slot_diag, ent_val, b and x; b and x (n, k).
-int krylov_level_sweep(int tt, const void* level_ptr, const void* slot_row, const void* slot_ptr,
-                       const void* slot_diag, const void* ent_col, const void* ent_val,
-                       const void* b, void* x, int k, const int* sched, int nlaunch,
-                       void* stream) {
+// S2.  tt: dtype code of slot_diag, ent_val, b and x; b and x (n, k); p:
+// level_ptr, slot_row, slot_ptr, slot_diag, ent_col, ent_win, ent_val;
+// sched: nlaunch rows of KRYLOV_LEVEL_ROW ints.
+int krylov_level_sweep(int tt, const void* const* p, const void* b, void* x, int k,
+                       const int* sched, int nlaunch, void* stream) {
   if (k < 1 || nlaunch < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tt) {
-    case KRYLOV_F32: return level_sweep_as<float>(level_ptr, slot_row, slot_ptr, slot_diag, ent_col, ent_val, b, x, k, sched, nlaunch, s);
-    case KRYLOV_F64: return level_sweep_as<double>(level_ptr, slot_row, slot_ptr, slot_diag, ent_col, ent_val, b, x, k, sched, nlaunch, s);
-    case KRYLOV_C64: return level_sweep_as<c64>(level_ptr, slot_row, slot_ptr, slot_diag, ent_col, ent_val, b, x, k, sched, nlaunch, s);
-    case KRYLOV_C128: return level_sweep_as<c128>(level_ptr, slot_row, slot_ptr, slot_diag, ent_col, ent_val, b, x, k, sched, nlaunch, s);
+    case KRYLOV_F32: return level_sweep_as<float>(p, b, x, k, sched, nlaunch, s);
+    case KRYLOV_F64: return level_sweep_as<double>(p, b, x, k, sched, nlaunch, s);
+    case KRYLOV_C64: return level_sweep_as<c64>(p, b, x, k, sched, nlaunch, s);
+    case KRYLOV_C128: return level_sweep_as<c128>(p, b, x, k, sched, nlaunch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

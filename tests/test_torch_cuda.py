@@ -630,49 +630,138 @@ def _sweep_cases():
             (torch.from_numpy(c9), tuple(r for r, _ in nine), tuple(c for _, c in nine))]
 
 
+def _s1_clusters(sweep):
+    """``(plan, info)`` for every cluster size from 1 to SWEEP_CLUSTER_MAX of
+    ``sweep``'s plan (threads as the plan picks them for that size), with
+    what the occupancy API says of it."""
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+
+    out = []
+    for C in range(1, ct.SWEEP_CLUSTER_MAX + 1):
+        plan = sweep.plan._replace(cluster=C, threads=ct.sweep_shape(sweep.grid[1], C)[1])
+        out.append((plan, ct.grid_sweep_info(plan)))
+    return out
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12),
                                        (torch.complex64, 1e-5)])
 @pytest.mark.parametrize("upper", [False, True])
 def test_s1_grid_sweep_matches_plain(dev, dtype, tol, upper):
-    """S1 against the plain loop on the same card, one launch a sweep: a
-    single grid and a batch of 3, each right-hand side's result the one a
-    sweep of its own gives; no doubling plane built for the kernel."""
+    """S1 against the plain loop and against its order's model
+    (``strip_sweep_model``) on the same card, one launch a sweep, for every
+    cluster size the occupancy API schedules (1 to 16 CTAs; rows of 5
+    columns below most of them): a single grid and a batch of 3, each right-
+    hand side's result the one a sweep of its own gives, two calls bit-equal;
+    no doubling plane built for the kernel.  A cluster the API refuses
+    raises, at the plan and at the launch."""
     from krylov_tpu_torch.ops import cuda_triangular as ct
     from krylov_tpu_torch.ops.triangular import GridLowerSweep, GridUpperSweep
 
     diff = st.diffusion_2d(np.exp(np.random.default_rng(50).standard_normal((33, 50))),
                            device="cpu")
-    for coeffs, ro, co in _sweep_cases():
+    narrow = st.poisson_2d(9, 5, dtype=np.float64, device="cpu")
+    cases = _sweep_cases() + [(narrow.coeffs2d, narrow.row_offsets, narrow.col_offsets)]
+    for coeffs, ro, co in cases:
         if ro is None:
             ro, co = diff.row_offsets, diff.col_offsets
         c = coeffs.to(dev, dtype)
         sweep = (GridUpperSweep if upper else GridLowerSweep)(c, ro, co, omega=1.3)
         assert sweep.plan is not None and getattr(sweep, "a_steps", None) is None
+        assert (sweep.plan.cluster, sweep.plan.threads) == ct.sweep_shape(sweep.grid[1])
         M, ny = c.shape[1:]
+        ran = 0
         for shape in ((M, ny), (3, M, ny)):
             b = _rand(shape, dev, torch.float64, 51).to(dtype)
-            ct.reset_launches()
-            got = sweep(b)
-            assert ct.LAUNCHES["grid_sweep"] == 1 and got.dtype == dtype
             want = sweep.plain(b)
-            torch.testing.assert_close(got, want, rtol=0,
-                                       atol=tol * float(want.abs().max()))
-            assert torch.equal(sweep(b), got)  # a fixed order: bit for bit again
-            if len(shape) == 3:
-                assert torch.equal(got[1], sweep(b[1]))
+            for plan, info in _s1_clusters(sweep):
+                sweep.plan = plan
+                if info["active"] < 1:
+                    with pytest.raises(RuntimeError, match="grid_sweep"):
+                        sweep(b)
+                    with pytest.raises(ValueError, match="schedules no cluster"):
+                        ct.grid_plan(c, ro, co, 1.3, dtype, upper, cluster=plan.cluster)
+                    continue
+                ct.reset_launches()
+                got = sweep(b)
+                assert ct.LAUNCHES["grid_sweep"] == 1 and got.dtype == dtype
+                atol = tol * float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=0, atol=atol)
+                torch.testing.assert_close(got, ct.strip_sweep_model(plan, b), rtol=0, atol=atol)
+                assert torch.equal(sweep(b), got)  # a fixed order: bit for bit again
+                if len(shape) == 3:
+                    assert torch.equal(got[1], sweep(b[1]))
+                ran += 1
+        assert ran >= 2 * 8  # the portable sizes schedule at least
 
 
 def test_s1_wide_rows_read_the_solved_rows_from_device_memory(dev):
-    """A row of 30000 complex128 values (h + 1 rows past the shared-memory
-    ring) against the plain loop."""
-    from krylov_tpu_torch.ops.triangular import GridLowerSweep
+    """Rows of 30000 complex128 values: on a cluster of one (h + 1 rows
+    past the shared-memory ring: solved rows and c in device memory, a
+    segment of positions a thread) and on the plan's cluster (strips whose
+    rings fit); a 9-point stencil on two CTAs reads its halo and wrap from
+    device memory.  Each against the plain loop, two calls bit-equal."""
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+    from krylov_tpu_torch.ops.triangular import GridLowerSweep, GridUpperSweep
 
     A = st.poisson_2d(6, 30000, dtype=np.float64, device="cpu")
-    c = A.coeffs2d.to(dev, torch.complex128)
-    sweep = GridLowerSweep(c, A.row_offsets, A.col_offsets, omega=1.1)
+    rng = np.random.default_rng(52)
+    nine = [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
+    c9 = rng.standard_normal((9, 6, 30000))
+    c9[4] = 8.0 + rng.random((6, 30000))
     b = _rand((6, 30000), dev, torch.float64, 52).to(torch.complex128)
-    want = sweep.plain(b)
-    torch.testing.assert_close(sweep(b), want, rtol=0, atol=1e-12 * float(want.abs().max()))
+    for cls, coeffs, ro, co, C, in_smem in (
+            (GridLowerSweep, A.coeffs2d, A.row_offsets, A.col_offsets, 1, False),
+            (GridUpperSweep, A.coeffs2d, A.row_offsets, A.col_offsets, None, True),
+            (GridLowerSweep, torch.from_numpy(c9), tuple(r for r, _ in nine),
+             tuple(q for _, q in nine), 2, False)):
+        sweep = cls(coeffs.to(dev, torch.complex128), ro, co, omega=1.1)
+        if C is not None:
+            sweep.plan = ct.grid_plan(coeffs.to(dev, torch.complex128), ro, co, 1.1,
+                                      torch.complex128, cls is GridUpperSweep, cluster=C)
+        info = ct.grid_sweep_info(sweep.plan)
+        assert info["in_smem"] == in_smem and info["per"] == 0, info
+        got = sweep(b)
+        want = sweep.plain(b)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12 * float(want.abs().max()))
+        assert torch.equal(sweep(b), got)
+
+
+def test_s1_strips_wider_than_their_threads_take_segments(dev):
+    """Rows of 12000 float32 columns: strips wider than SWEEP_THREADS_MAX
+    workers (the plan's cluster, and a cluster of 8) give each worker a
+    segment of consecutive positions.  Lower and upper, a 5-point and a
+    9-point stencil with wrapped columns, against the plain loop and
+    ``strip_sweep_model``, two calls bit-equal."""
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+    from krylov_tpu_torch.ops.triangular import GridLowerSweep, GridUpperSweep
+
+    ny = 12000
+    A = st.poisson_2d(8, ny, dtype=np.float32, device="cpu")
+    rng = np.random.default_rng(56)
+    nine = [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
+    c9 = rng.standard_normal((9, 8, ny)).astype(np.float32)
+    c9[4] = 8.0 + rng.random((8, ny))
+    b = _rand((8, ny), dev, torch.float64, 56).to(torch.float32)
+    for coeffs, ro, co in ((A.coeffs2d, A.row_offsets, A.col_offsets),
+                           (torch.from_numpy(c9), tuple(r for r, _ in nine),
+                            tuple(q for _, q in nine))):
+        c = coeffs.to(dev, torch.float32)
+        for cls in (GridLowerSweep, GridUpperSweep):
+            sweep = cls(c, ro, co, omega=1.3)
+            for C in (None, 8):
+                if C is not None:
+                    sweep.plan = ct.grid_plan(c, ro, co, 1.3, torch.float32,
+                                              cls is GridUpperSweep, cluster=C)
+                info = ct.grid_sweep_info(sweep.plan)
+                w = -(-ny // sweep.plan.cluster)
+                assert info["per"] == 0 and info["seg"] == -(-w // sweep.plan.threads) >= 2, info
+                got = sweep(b)
+                want = sweep.plain(b)
+                atol = 1e-5 * float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=0, atol=atol)
+                torch.testing.assert_close(got, ct.strip_sweep_model(sweep.plan, b), rtol=0,
+                                           atol=atol)
+                assert torch.equal(sweep(b), got)
 
 
 def _unstructured_spd(n, k=4, seed=53):
@@ -690,37 +779,74 @@ def _unstructured_spd(n, k=4, seed=53):
 
 
 def test_s2_level_sweep_matches_plain(dev):
-    """S2 against the plain loops on the same card: the ILU(0) factors of a
-    grid Laplacian (one run each, one launch), a deep factor on the stacked
-    form, and an unstructured factor with levels wider than NARROW_ROWS
-    (their launches of their own); vectors and (n, 3) blocks, f32 and f64."""
+    """S2 against the plain loops and against its streams' model
+    (``level_sweep_model``) on the same card: the ILU(0) factors of a grid
+    Laplacian (one run each, one launch, a window of one level), a deep
+    factor on the stacked form, and an unstructured factor with levels wider
+    than NARROW_ROWS (their launches of their own) and entries past the
+    window; vectors and (n, 3) blocks, f32 and f64, two calls bit-equal."""
     import scipy.sparse
 
     from krylov_tpu_torch.ops import cuda_triangular as ct
-    from krylov_tpu_torch.ops.triangular import make_triangular_solve
+    from krylov_tpu_torch.ops.triangular import level_arrays, make_triangular_solve
 
     ilu = kt.ILUPreconditioner.from_scipy(_grid_poisson_f32(128).astype(np.float64),
                                           device=dev)
     sp = _unstructured_spd(200000)
+    tris = [scipy.sparse.tril(sp.astype(np.float32)).tocsr(), scipy.sparse.triu(sp).tocsr()]
     sweeps = [ilu._l, ilu._u,
-              make_triangular_solve(scipy.sparse.tril(sp.astype(np.float32)).tocsr(), lower=True,
-                                    device=dev),
-              make_triangular_solve(scipy.sparse.triu(sp).tocsr(), lower=False, device=dev,
-                                    unroll_threshold=0)]
+              make_triangular_solve(tris[0], lower=True, device=dev),
+              make_triangular_solve(tris[1], lower=False, device=dev, unroll_threshold=0)]
+    levels = [ct.stacked_levels(*(t.cpu().numpy() for t in (s.rows, s.diag, s.dat, s.col, s.lrow)),
+                                s.n_local) for s in sweeps[:2]]
+    levels += [level_arrays(t, lower=lo, max_levels=4096)[1] for t, lo in zip(tris, (True, False))]
     assert len(sweeps[0].schedule.launches) == len(sweeps[1].schedule.launches) == 1
     assert any(kind == "wide" for kind, _, _ in sweeps[2].schedule.launches)
-    for sweep in sweeps:
-        n = sweep.schedule.n
+    for sweep in sweeps[:2]:
+        assert sweep.schedule.windows(1, 8) == [1]
+    for sweep, lv in zip(sweeps, levels):
+        sched = sweep.schedule
+        n = sched.n
+        slots = sched.slots(lv)
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
             for shape in ((n,), (n, 3)):
                 b = _rand(shape, dev, torch.float64, 54).to(dtype)
                 ct.reset_launches()
                 got = sweep(b)
-                assert ct.LAUNCHES["level_sweep"] == len(sweep.schedule.launches)
+                assert ct.LAUNCHES["level_sweep"] == len(sched.launches)
                 want = sweep.plain(b)
-                torch.testing.assert_close(got, want, rtol=0,
-                                           atol=tol * float(want.abs().max()))
+                atol = tol * float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=0, atol=atol)
+                k = 1 if len(shape) == 1 else shape[1]
+                windows = sched.windows(k, torch.promote_types(sched.dtype, dtype).itemsize)
+                model = ct.level_sweep_model(sched, slots, b.cpu(), windows)
+                torch.testing.assert_close(got.cpu(), model.to(got.dtype), rtol=0, atol=atol)
                 assert torch.equal(sweep(b), got)
+
+
+def test_s2_window_past_shared_memory_and_a_refused_launch(dev, monkeypatch):
+    """ILU(0) at 1024^2 with an (n, 8) float64 block: its window of one
+    level (two levels of 1024 rows x 8 columns of 8 bytes, 128 KiB) fits; at
+    (n, 16) it does not, so the run reads every x from device memory (W =
+    0); both match the plain loop, bit-equal twice.  A run asked for more
+    shared memory than the kernel allows raises."""
+    from krylov_tpu_torch.ops import cuda_triangular as ct
+
+    ilu = kt.ILUPreconditioner.from_scipy(_grid_poisson_f32(1024).astype(np.float64), device=dev)
+    sweep = ilu._l
+    assert sweep.schedule.windows(8, 8) == [1] and sweep.schedule.windows(16, 8) == [0]
+    for k in (8, 16):
+        b = _rand((1024 * 1024, k), dev, torch.float64, 55)
+        got = sweep(b)
+        want = sweep.plain(b)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12 * float(want.abs().max()))
+        assert torch.equal(sweep(b), got)
+    monkeypatch.setattr(ct, "LEVEL_SMEM", 1 << 20)
+    sweep.schedule._tables.clear()
+    assert sweep.schedule.windows(16, 8) == [1]
+    with pytest.raises(RuntimeError, match="level_sweep"):
+        sweep(b)
+    sweep.schedule._tables.clear()
 
 
 def test_sweep_kernels_refuse_what_they_cannot_run(dev):
