@@ -49,7 +49,13 @@ Phases, in order; any failure raises, so the exit code is nonzero:
    ``PETOperator`` (K10), against their ``CSROperator`` twins on the card,
    repeated bitwise, and at 256^2 against a float64 CPU run; (c) CG with
    an ``(N, 8)`` right-hand side on the Poisson CSR (K11) and on a
-   block-structured SPD matrix routed to ``BSROperator`` (K12);
+   block-structured SPD matrix routed to ``BSROperator`` (K12); (d) the
+   adjoints in one order: ``bicg``, ``qmr``, ``cgnr`` and ``lsqr`` on the
+   float64 Poisson CSR (its column-grouped copy) and on (c)'s block
+   matrix (K12 on the block transpose), twice and under a forced capture
+   against the host-stepped loop, bit for bit; K12 on the transpose
+   against its plain version; one ``rmatvec`` of each timed beside the
+   ``index_add_`` scatter it replaced, with the copy's bytes;
 7. fused Jacobi-preconditioned CG and the rest of the solver family: (a)
    K6 and K7 against their plain versions (4096^2, a ragged grid, 9 and 25
    bands); (b) ``cg_stencil(M="jacobi", fused=True)`` at 4096^2 on a smooth
@@ -1477,6 +1483,114 @@ def phase_sparse_blocked(dev, kt, sv, bs):
         torch.cuda.synchronize()
         errs[key] = rel_close(f"{key} on the 6c operator and B, k=8", got, want, 1e-5)
     return out, errs
+
+
+ADJ_STEPS = 20  # fixed steps of each 6d solve
+
+
+def old_csr_adjoint(op, x):
+    """The scatter-add ``CSROperator.rmatvec`` took before its adjoint had
+    one order (float atomics on the card): kept here only to time it."""
+    prod = op.data.conj() * x.index_select(0, op.row_ids)
+    return torch.zeros(op.shape[1], dtype=prod.dtype, device=x.device).index_add_(
+        0, op.indices, prod)
+
+
+def old_bsr_adjoint(op, x):
+    """The scatter-add ``BSROperator.rmatvec`` took before: kept here only
+    to time it."""
+    nbrows, max_blocks = op.cols.shape
+    _, R, C = op.data.shape
+    k = x.shape[1]
+    xb = x.reshape(nbrows, R, k).repeat_interleave(max_blocks, dim=0)
+    prod = torch.einsum("brc,brk->bck", op.data.conj(), xb)
+    out = torch.zeros((op.shape[1] // C, C, k), dtype=prod.dtype, device=x.device)
+    return out.index_add_(0, op.cols.reshape(-1).long(), prod).reshape(op.shape[1], k)
+
+
+def phase_adjoint_order(dev, kt, bs, card):
+    """6d: the adjoint products in one fixed order.  ``bicg``, ``qmr``,
+    ``cgnr`` and ``lsqr``, ADJ_STEPS fixed steps, on the float64 shifted
+    Poisson CSR at NPG^2 (a ``CSROperator``: its column-grouped copy) and
+    on 6c's block matrix (a ``BSROperator``: K12 on the block transpose),
+    each twice and then under a forced capture against the host-stepped
+    loop, bit for bit; K12 on the transpose held to its plain version; one
+    ``rmatvec`` of each timed in a replayed CUDA graph beside the scatter
+    it replaced, with the bytes of the copy.  Returns K12's launches in the
+    solves and the transpose check's error."""
+    from krylov_tpu_torch import _driver
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    log(f"phase 6d: adjoints in one order, {ADJ_STEPS} steps of bicg, qmr, cgnr, lsqr")
+    rng = np.random.default_rng(SEED + 44)
+    csr = CSROperator.from_scipy(poisson_csr(NPG).astype(np.float64), device=dev)
+    bsr = kt.as_operator(block_spd_csr(), dev)
+    assert type(bsr).__name__ == "BSROperator", type(bsr)
+    cases = {f"f64 CSR {NPG}^2": (csr, torch.from_numpy(
+                 rng.standard_normal(csr.shape[0])).to(dev)),
+             f"6c's BSR, {NBLK} x 3 blocks of 32x32 f32": (bsr, torch.from_numpy(
+                 rng.standard_normal(bsr.shape[0]).astype(np.float32)).to(dev))}
+    bs.reset_launches()
+    for what, (op, b) in cases.items():
+        for name in ("bicg", "qmr", "cgnr", "lsqr"):
+            def solve():
+                return getattr(kt, name)(op, b, tol=0.0, atol=0.0, maxiter=ADJ_STEPS,
+                                         backend="while_loop")[1]
+
+            runs = [solve(), solve()]
+            with _driver._host_stepped():
+                runs.append(solve())
+            _driver.reset_counts()
+            with _driver._capture_at():
+                runs.append(solve())
+            captures = _driver.COUNTS["captures"]
+            torch.cuda.synchronize()
+            same = [np.array_equal(r.resnorms, runs[0].resnorms) and torch.equal(r.xk, runs[0].xk)
+                    and r.numsteps == runs[0].numsteps for r in runs[1:]]
+            log(f"  {name} on {what}: {runs[0].numsteps} steps, resnorm ratio "
+                f"{np.max(runs[0].resnorms[-1] / runs[0].resnorms[0]):.3e}; second call bit-equal "
+                f"{same[0]}; forced capture ({captures}) bit-equal to the host-stepped loop "
+                f"{same[2] and same[1]}")
+            assert np.isfinite(runs[0].resnorms).all() and bool(torch.isfinite(runs[0].xk).all())
+            assert all(same) and captures == 1, f"{name} on {what} does not repeat bit for bit"
+    torch.cuda.synchronize()
+    n_k12 = bs.LAUNCHES["bsr_spmm"]
+    log(f"  K12 launches in 6d's solves: {n_k12}; adjoint routes {bs.ADJOINT_PATHS}")
+    assert bs.ADJOINT_PATHS["k12"] > 0 and bs.ADJOINT_PATHS["segment"] == 0
+    assert n_k12 >= 2 * 8 * ADJ_STEPS, "the BSR solves did not run K12 forward and adjoint"
+
+    # K12 on the transpose against its plain version, k = 8
+    X = torch.from_numpy(rng.standard_normal((bsr.shape[0], 8)).astype(np.float32)).to(dev)
+    adj = bsr._adjoint
+    got = bsr.rmatvec(X)
+    err = rel_close("K12 on 6c's block transpose, k=8", got, bs.bsr_spmm_plain(
+        adj.data, adj.cols, X), TOL[torch.float32])
+    assert adj.route == "k12" and adj.held is None and torch.equal(got, bsr.rmatvec(X))
+
+    # the copies' bytes and one product timed, old route beside new
+    x = torch.from_numpy(rng.standard_normal(csr.shape[0])).to(dev)
+    c = csr._adjoint
+    copy_bytes = sum(t.numel() * t.element_size() for t in (c.data, c.indices, c.indptr,
+                                                             c.row_ids))
+    old, new = graph_ms(lambda: old_csr_adjoint(csr, x)), graph_ms(lambda: csr.rmatvec(x))
+    # the copy's sum alone, as the port takes it (one column, a thread a
+    # segment) and as a vector (segment_reduce's vector form: CUB, a block
+    # a segment)
+    prod = c.data * x.index_select(0, c.indices)
+    column = graph_ms(lambda: torch.segment_reduce(prod[:, None], "sum", offsets=c.indptr,
+                                                   axis=0))
+    vector = graph_ms(lambda: torch.segment_reduce(prod, "sum", offsets=c.indptr, axis=0))
+    log(f"  [{card}] f64 CSR {NPG}^2 rmatvec ({csr.nnz} nnz), in a CUDA graph: column-grouped "
+        f"copy {new * 1e3:.1f} us (its segment sum {column * 1e3:.1f} us; as a vector "
+        f"{vector * 1e3:.1f} us), index_add_ scatter {old * 1e3:.1f} us; the copy "
+        f"{copy_bytes} bytes ({copy_bytes / 2**20:.1f} MiB)")
+    old, new = graph_ms(lambda: old_bsr_adjoint(bsr, X)), graph_ms(lambda: bsr.rmatvec(X))
+    plain = graph_ms(lambda: bs.bsr_spmm_plain(adj.data, adj.cols, X))
+    log(f"  [{card}] 6c's BSR rmatvec, k=8, in a CUDA graph: K12 on the transpose "
+        f"{new * 1e3:.1f} us (plain einsum on it {plain * 1e3:.1f} us), index_add_ scatter "
+        f"{old * 1e3:.1f} us; the transpose {adj.nbytes} bytes ({adj.nbytes / 2**20:.1f} MiB, "
+        f"{adj.cols.numel()} block slots, {bsr.data.shape[0]} stored by the operator)")
+    return n_k12, err
 
 
 def sparse_timing(dev, kt, sv, bs, card):
@@ -4586,6 +4700,9 @@ def main():
     launches.update(csr_matvec=n_spmv, **n_blocked)
     for name, err in blocked_errs.items():
         errs[name] = max(errs[name], err)
+    n_adjoint, adjoint_err = timed_phase(phase_adjoint_order, dev, kt, bs, card)
+    launches["bsr_spmm"] += n_adjoint
+    errs["bsr_spmm"] = max(errs["bsr_spmm"], adjoint_err)
     errs.update(timed_phase(phase_jacobi_kernels, dev, cs, st, A_div))
     for k, n in timed_phase(phase_jacobi_cg, dev, kt, cs, st, A_div).items():
         launches[k] += n

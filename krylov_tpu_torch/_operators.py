@@ -135,6 +135,13 @@ class Product:
 
     matvec = __matmul__
 
+    def ensure_adjoint(self):
+        """Build each factor's adjoint that is built on demand, now."""
+        for op in self.operators:
+            if hasattr(op, "ensure_adjoint"):
+                op.ensure_adjoint()
+        return self
+
     def rmatvec(self, x):
         out = x
         for op in self.operators:

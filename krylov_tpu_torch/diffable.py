@@ -102,8 +102,12 @@ class _Solve(torch.autograd.Function):
         x = x.detach()  # the saved output carries this node: no gradient to it
         params = [t if o is None else o for t, o in zip(saved, ctx.others)]
         A = as_operator(spec.make_op(*params), x.device)
-        # the adjoint system A^H lambda = g, with the forward's arguments
-        A_adj = A if getattr(A, "hermitian", False) else _Adjoint(A)
+        # the adjoint system A^H lambda = g, with the forward's arguments;
+        # its matvec is A.rmatvec, whose copy is built before the solve
+        hermitian = getattr(A, "hermitian", False)
+        if not hermitian and hasattr(A, "ensure_adjoint"):
+            A.ensure_adjoint()
+        A_adj = A if hermitian else _Adjoint(A)
         _, info = spec.adjoint_solver(A_adj, g, **spec.kwargs)
         lam = info.xk
         grads = [None] * len(params)

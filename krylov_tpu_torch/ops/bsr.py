@@ -4,7 +4,9 @@ BSR in ELL-padded form: every block row stores the same number of blocks,
 zero blocks (pointing at block column 0) pad short rows and contribute
 exact zeros.  The multi-RHS matvec is kernel K12
 (:func:`krylov_tpu_torch.ops.cuda_bsr.bsr_spmm`) on a CUDA device, for every
-``R``, ``C`` and ``k``, and its plain einsum on the CPU.
+``R``, ``C`` and ``k``, and its plain einsum on the CPU; the adjoint is K12
+again, on the block transpose (:class:`~krylov_tpu_torch.ops.cuda_bsr.
+BsrTranspose`).
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ class BSROperator:
         self.data = data
         self.cols = cols
         self.shape = tuple(int(s) for s in shape)
+        self._adjoint = None  # the block transpose, once built
 
     @classmethod
     def from_scipy(cls, A, blocksize=None, device=None):
@@ -74,13 +77,35 @@ class BSROperator:
 
     matvec = __matmul__
 
+    def _transpose(self):
+        return cuda_bsr.BsrTranspose(self.data, self.cols, self.shape[1] // self.blocksize[1])
+
+    def ensure_adjoint(self):
+        """Build the block transpose of ``A^H`` now (once; it reads the
+        device, so outside any CUDA-graph capture) and keep it on the
+        operator for :meth:`rmatvec`."""
+        if self._adjoint is None:
+            with torch.no_grad():
+                self._adjoint = self._transpose()
+        return self
+
     def rmatvec(self, x):
-        """``A^H x``: the conjugate-transposed block products scattered into
-        block columns (plain torch, as the reference's XLA form)."""
-        x2 = x[:, None] if x.ndim == 1 else x
-        out = cuda_bsr.bsr_spmm_adjoint_plain(self.data, self.cols, x2,
-                                              self.shape[1] // self.blocksize[1])
-        return out[:, 0] if x.ndim == 1 else out
+        """``A^H x`` through the block transpose :meth:`ensure_adjoint`
+        keeps, in one fixed order on every device: K12 on the transpose as
+        ELL-padded BSR, at most twice the blocks the operator stores; where
+        a dense block column would pad it past that, a column-sorted
+        segment sum of the block products (``cuda_bsr.ADJOINT_PATHS``
+        counts the routes; the transpose's ``route`` says which a matrix
+        takes).  Where autograd tracks ``data``, a transpose is built for
+        the call, so the product stays differentiable."""
+        if x.ndim not in (1, 2) or x.shape[0] != self.shape[0]:
+            raise ValueError(f"x of shape {tuple(x.shape)} does not match the adjoint of the "
+                             f"operator's {self.shape}")
+        adj = (self._transpose() if torch.is_grad_enabled() and self.data.requires_grad
+               else self.ensure_adjoint()._adjoint)
+        if x.ndim == 1:
+            return adj(x[:, None])[:, 0]
+        return adj(x)
 
     def diagonal(self):
         R, C = self.blocksize

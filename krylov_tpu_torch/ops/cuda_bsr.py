@@ -18,10 +18,16 @@ to the kernel's entry of ``K12_PATHS``.  A launch captured into the
 ``while_loop`` driver's CUDA graph counts once for each step that a replay
 runs (:func:`krylov_tpu_torch._graphs.count`).
 
+The adjoint ``A^H G`` (:class:`BsrTranspose`) is K12 again, on the block
+transpose of ``A^H`` built once as ELL-padded BSR; where a dense block
+column would blow up that padding, a column-sorted segment sum of the
+block products in plain torch.  Both sum in one fixed order on every
+device; ``ADJOINT_PATHS`` counts the products each route takes.
+
 Gradients (:class:`_BsrSpmm`, on both devices): the data gradient is plain
 torch, block by block, as the reference's XLA autodiff; the ``X``
-gradient is the plain transposed product on the CPU, and on the card it
-is refused (a solve differentiates through ``b`` with
+gradient is the adjoint above on the CPU, and on the card it is refused
+(a solve differentiates through ``b`` with
 :func:`krylov_tpu_torch.diffable.solve`, which needs none).
 """
 
@@ -33,6 +39,7 @@ from torch.autograd.function import once_differentiable
 
 from .._graphs import count as _count
 from .cuda_stencil import _CODES, _as_grad, _check, _on_cpu, _ptr, _require, _stream, _wants_grad
+from .sparse import _segment_sum
 
 LAUNCHES = {"bsr_spmm": 0}
 
@@ -46,10 +53,16 @@ K12_ROW_BYTES = 128
 # block data through a ring in shared memory) and "general" (a warp per
 # output row and column tile)
 K12_PATHS = {"streamed": 0, "general": 0}
+# adjoint products by route (BsrTranspose): "k12", K12 on the block
+# transpose; "segment", a column-sorted segment sum of the block products
+ADJOINT_PATHS = {"k12": 0, "segment": 0}
+# the most blocks the transpose's ELL padding may hold, over the blocks the
+# operator stores, before a product takes the segment route
+ADJOINT_PAD_RATIO = 2
 
 
 def reset_launches():
-    for counts in (LAUNCHES, K12_PATHS):
+    for counts in (LAUNCHES, K12_PATHS, ADJOINT_PATHS):
         for name in counts:
             counts[name] = 0
 
@@ -109,19 +122,84 @@ def bsr_spmm_data_grad(g, cols, x, R, C):
     return torch.einsum("brk,bck->brc", gb, xg.conj())
 
 
-def bsr_spmm_adjoint_plain(data, cols, g, nbcols):
-    """``A^H G`` for the ELL-padded BSR ``(data, cols)`` with ``nbcols``
-    block columns: the conjugate-transposed block products scattered into
-    block columns (``BSROperator.rmatvec``'s contraction)."""
-    nbrows, max_blocks = cols.shape
-    _, R, C = data.shape
-    k = g.shape[1]
-    dt = torch.promote_types(data.dtype, g.dtype)
-    gb = g.to(dt).reshape(nbrows, R, k).repeat_interleave(max_blocks, dim=0)
-    prod = torch.einsum("brc,brk->bck", data.to(dt).conj(), gb)
-    out = torch.zeros((nbcols, C, k), dtype=dt, device=g.device)
-    out.index_add_(0, cols.reshape(-1).long(), prod)
-    return out.reshape(nbcols * C, k)
+class BsrTranspose:
+    """``A^H`` of the ELL-padded BSR ``(data, cols)`` with ``nbcols`` block
+    columns, built once on the data's device (it reads the device: outside
+    any CUDA-graph capture); calling it on ``G (nbrows * R, k)`` gives
+    ``A^H G (nbcols * C, k)``.
+
+    The stored blocks, without the operator's ELL pads (zero blocks at
+    block column 0), are sorted by block column, each column's in ascending
+    block row, and conjugate-transposed to ``(C, R)``.  Where the block
+    columns that hold a block, ``width`` blocks each at most, fit in
+    :data:`ADJOINT_PAD_RATIO` times the blocks the operator stores
+    (``route == "k12"``), they become the block rows of an ELL-padded BSR
+    (pads at block column 0 with zero blocks, as ``from_scipy`` pads) and
+    a product is one K12 launch (:func:`bsr_spmm`), its rows copied into
+    the output's block columns where some column holds no block.  Else (a
+    dense block column, or no block at all: ``route == "segment"``) a
+    product is the gathered block products summed per column by
+    ``segment_reduce``, plain torch.
+    K12 sums a block row's slots in one order and ``segment_reduce`` each
+    segment in one order, so either product repeats bit for bit."""
+
+    def __init__(self, data, cols, nbcols):
+        nbrows, max_blocks = cols.shape
+        _, R, C = data.shape
+        dev = data.device
+        self.nbcols, self.blocksize = int(nbcols), (R, C)
+        bcol = cols.reshape(-1).long()
+        pad = (bcol == 0) & ~(data != 0).reshape(bcol.numel(), -1).any(dim=1)
+        src = torch.nonzero(~pad).reshape(-1)
+        src = src.index_select(0, torch.argsort(bcol.index_select(0, src), stable=True))
+        col = bcol.index_select(0, src)
+        self.brow = torch.div(src, max_blocks, rounding_mode="floor")
+        blocks = data.index_select(0, src).transpose(1, 2)
+        blocks = blocks.conj_physical() if blocks.is_complex() else blocks
+        counts = torch.bincount(col, minlength=self.nbcols)
+        held = torch.nonzero(counts).reshape(-1)
+        width = int(counts.max()) if src.numel() else 0
+        self.route = ("k12" if 0 < held.numel() * width <= ADJOINT_PAD_RATIO * data.shape[0]
+                      else "segment")
+        if self.route == "segment":
+            self.data = blocks.contiguous()
+            self.indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                                     torch.cumsum(counts, 0)])
+            return
+        # the transpose's block row of each held block column, and each
+        # block's slot in it
+        row_of = torch.cumsum(counts != 0, 0) - 1
+        starts = torch.cumsum(counts, 0) - counts
+        slot = torch.arange(src.numel(), device=dev) - starts.index_select(0, col)
+        pos = row_of.index_select(0, col) * width + slot
+        nt = held.numel() * width
+        self.data = torch.zeros((nt, C, R), dtype=data.dtype, device=dev).index_copy(
+            0, pos, blocks)
+        self.cols = torch.zeros(nt, dtype=torch.int32, device=dev).index_copy(
+            0, pos, self.brow.int()).reshape(-1, width)
+        # the output's block columns, where some hold no block
+        self.held = None if held.numel() == self.nbcols else held
+
+    @property
+    def nbytes(self):
+        """The device bytes the transpose keeps."""
+        return sum(t.numel() * t.element_size() for t in vars(self).values()
+                   if isinstance(t, torch.Tensor))
+
+    def __call__(self, g):
+        _count(ADJOINT_PATHS, self.route)
+        R, C = self.blocksize
+        k = g.shape[1]
+        if self.route == "segment":
+            dt = torch.promote_types(self.data.dtype, g.dtype)
+            gb = g.to(dt).reshape(-1, R, k).index_select(0, self.brow)
+            prod = torch.einsum("bcr,brk->bck", self.data.to(dt), gb)
+            return _segment_sum(prod, self.indptr).reshape(self.nbcols * C, k)
+        y = bsr_spmm(self.data, self.cols, g)
+        if self.held is None:
+            return y
+        out = torch.zeros((self.nbcols, C, k), dtype=y.dtype, device=y.device)
+        return out.index_copy_(0, self.held, y.reshape(-1, C, k)).reshape(self.nbcols * C, k)
 
 
 class _BsrSpmm(torch.autograd.Function):
@@ -142,7 +220,7 @@ class _BsrSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             d_data = _as_grad(bsr_spmm_data_grad(g, cols, x, R, C), data)
         if ctx.needs_input_grad[2]:
-            d_x = _as_grad(bsr_spmm_adjoint_plain(data, cols, g, x.shape[0] // C), x)
+            d_x = _as_grad(BsrTranspose(data, cols, x.shape[0] // C)(g), x)
         return d_data, None, d_x
 
 

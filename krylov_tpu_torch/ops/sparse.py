@@ -1,8 +1,9 @@
 """Portable sparse operators (counterpart of ``krylov_tpu.ops.sparse``).
 
 * :class:`CSROperator` — general sparsity in plain torch, any dtype: the
-  matvec is a gather and a segment sum per row, the adjoint a gather by
-  ``row_ids`` and a scatter-add into columns.  On a CUDA device large real
+  matvec is a gather and a segment sum per row, the adjoint the same on a
+  column-grouped copy built once, so both sum in one fixed order on every
+  device (no scatter, no float atomics).  On a CUDA device large real
   float32 matrices go to :class:`~krylov_tpu_torch.ops.cuda_spmv.PETOperator`
   instead (``as_operator``'s routing, as the reference's).
 * :class:`DiaOperator` — diagonal storage: a sum of shifted scaled reads.
@@ -18,11 +19,17 @@ from .. import _device
 
 
 def _segment_sum(prod, indptr):
-    """Sum of ``prod``'s rows per CSR row, in order (complex via its real
-    view, which ``segment_reduce`` takes)."""
+    """Sum of ``prod``'s rows per CSR row, each row's entries in ascending
+    order (complex via its real view, which ``segment_reduce`` takes).  A
+    vector is summed as one column: on a CUDA device ``segment_reduce``
+    gives each segment of a vector a thread block (CUB's segmented
+    reduction), each of a column a thread, which on short rows is many
+    times faster (``chip_smoke.py`` phase 6d times both)."""
     if prod.is_complex():
         out = torch.segment_reduce(torch.view_as_real(prod), "sum", offsets=indptr, axis=0)
         return torch.view_as_complex(out.contiguous())
+    if prod.ndim == 1:
+        return torch.segment_reduce(prod[:, None], "sum", offsets=indptr, axis=0)[:, 0]
     return torch.segment_reduce(prod, "sum", offsets=indptr, axis=0)
 
 
@@ -39,7 +46,7 @@ class CSROperator:
     map ``row_ids (nnz,)``:
 
         A  @ x = segment_sum(data * x[indices], indptr)
-        A^H @ x = scatter_add(conj(data) * x[row_ids], indices)
+        A^H @ x = the same on A^H's column-grouped copy (:meth:`rmatvec`)
     """
 
     def __init__(self, data, indices, indptr, shape, row_ids=None):
@@ -52,6 +59,7 @@ class CSROperator:
             row_ids = torch.repeat_interleave(
                 torch.arange(self.shape[0], device=data.device), counts)
         self.row_ids = row_ids.long()
+        self._adjoint = None  # A^H's column-grouped copy, once built
 
     @classmethod
     def from_scipy(cls, A, device=None):
@@ -104,18 +112,31 @@ class CSROperator:
 
     matvec = __matmul__
 
+    def ensure_adjoint(self):
+        """Build ``A^H``'s column-grouped copy now (once; it reads the
+        device, so outside any CUDA-graph capture) and keep it on the
+        operator for :meth:`rmatvec`."""
+        if self._adjoint is None:
+            with torch.no_grad():
+                self._adjoint = self.adjoint()
+        return self
+
     def rmatvec(self, x):
-        data, x = self._cast(x)
-        prod = data.conj().reshape((-1,) + (1,) * (x.ndim - 1)) * x.index_select(0, self.row_ids)
-        out = torch.zeros((self.shape[1],) + tuple(x.shape[1:]), dtype=prod.dtype,
-                          device=x.device)
-        return out.index_add_(0, self.indices, prod)
+        """``A^H x``: the matvec of the copy :meth:`ensure_adjoint` keeps, a
+        gather and a segment sum over each column's entries in ascending
+        row order, so it repeats bit for bit on every device.  The copy
+        takes ``nnz`` values, two ``nnz`` int64 index arrays and ``shape[1]
+        + 1`` int64 pointers.  Where autograd tracks ``data``, a copy is
+        built for the call, so the product stays differentiable."""
+        if torch.is_grad_enabled() and self.data.requires_grad:
+            return self.adjoint() @ x
+        return self.ensure_adjoint()._adjoint @ x
 
     def adjoint(self):
-        """``A^H`` as a CSR operator of its own, regrouped by column on the
-        device (each column's entries in ascending row order): its matvec is
-        :meth:`rmatvec` without the scatter-add, so on a CUDA device it
-        repeats bit for bit."""
+        """``A^H`` as a CSR operator of its own, ``shape[1]`` rows, regrouped
+        by column on the device (each column's entries in ascending row
+        order; an empty column is an empty row, an exact 0), complex data
+        conjugated: its matvec is ``A^H x`` in one fixed order."""
         order = torch.argsort(self.indices, stable=True)
         cols = self.indices.index_select(0, order)
         data = self.data.index_select(0, order)

@@ -278,8 +278,9 @@ def run_spmd(job, world_size, *args, backend="gloo", device="cpu", timeout=120.0
 def _counts():
     """What this rank launched since the counters were last reset: kernel
     launches, collective launches and host-staged transfers, the
-    ``while_loop`` routes its solves took, and the modules of the packages
-    the port must never import."""
+    ``while_loop`` routes its solves took, the routes of its BSR adjoint
+    products, and the modules of the packages the port must never
+    import."""
     from .. import _driver
     from ..ops import cuda_bsr, cuda_spmv, cuda_stencil
     from . import mesh
@@ -290,6 +291,7 @@ def _counts():
         "collectives": dict(mesh.COUNTS),
         "staged": dict(mesh.STAGED),
         "routes": {k: _driver.COUNTS[k] for k in ("host_stepped", "graph_route", "captures")},
+        "adjoint_paths": {k: v for k, v in cuda_bsr.ADJOINT_PATHS.items() if v},
         "forbidden": sorted(m for m in sys.modules if m.split(".")[0] in _FORBIDDEN),
     }
 

@@ -50,6 +50,12 @@ class ShardedBSROperator:
 
     matvec = __matmul__
 
+    def ensure_adjoint(self):
+        """Build the local slab's block transpose now (once, outside any
+        CUDA-graph capture)."""
+        self._local.ensure_adjoint()
+        return self
+
     def rmatvec(self, x):
         return self.mesh.reduce_scatter_rows(self._local.rmatvec(x), self.axis)
 

@@ -18,7 +18,7 @@ the sparsity pattern:
 import numpy as np
 import torch
 
-from ..ops.sparse import CSROperator
+from ..ops.sparse import CSROperator, _segment_sum
 from .mesh import ROWS
 
 
@@ -189,6 +189,12 @@ class ShardedCSROperator:
 
     matvec = __matmul__
 
+    def ensure_adjoint(self):
+        """Build the local CSR's column-grouped adjoint now (once, outside
+        any CUDA-graph capture)."""
+        self._csr.ensure_adjoint()
+        return self
+
     def rmatvec(self, x):
         y_src = self._csr.rmatvec(x)  # contributions to every column read
         if self.mode == "gather":
@@ -212,5 +218,4 @@ class ShardedCSROperator:
         else:
             diag_col = self.row + self.mesh.coord[self.axis] * self.n_local
         on_diag = self.col == diag_col
-        out = torch.zeros(self.n_local, dtype=self.dtype, device=self.device)
-        return out.index_add_(0, self.row, torch.where(on_diag, self.data, 0))
+        return _segment_sum(torch.where(on_diag, self.data, 0), self._csr.indptr)

@@ -1004,6 +1004,124 @@ def test_twosided_solves_count_the_adjoint_launches(dev):
         assert np.linalg.norm(r) <= 2e-4 * float(torch.linalg.norm(b))
 
 
+def _adjoint_operators(dev):
+    """A nonsymmetric float64 CSR matrix (the 64 x 64 grid with convection:
+    a ``CSROperator``, its adjoint the column-grouped copy) and a
+    nonsymmetric float64 block-tridiagonal one of 32 x 32 blocks (a
+    ``BSROperator``, its adjoint K12 on the block transpose), each with a
+    right-hand side."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.bsr import BSROperator
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    grid = _grid_poisson_f32(64).astype(np.float64)
+    csr = (grid + scipy.sparse.diags([-0.3, 0.3], [-1, 1], shape=grid.shape)).tocsr()
+    rng = np.random.default_rng(44)
+    nb, R = 64, 32
+    rows = np.concatenate([np.arange(nb), np.arange(nb - 1), np.arange(1, nb)])
+    cols = np.concatenate([np.arange(nb), np.arange(1, nb), np.arange(nb - 1)])
+    blocks = 0.05 * rng.standard_normal((rows.size, R, R))
+    blocks[:nb] += 3.0 * np.eye(R)
+    order = np.lexsort((cols, rows))
+    bsr = scipy.sparse.bsr_matrix((blocks[order], cols[order],
+                                   np.searchsorted(rows[order], np.arange(nb + 1))),
+                                  shape=(nb * R, nb * R)).tocsr()
+    return {
+        "csr": (CSROperator.from_scipy(csr, device=dev), _rand(csr.shape[0], dev,
+                                                                torch.float64, 45)),
+        "bsr": (BSROperator.from_scipy(bsr, blocksize=(R, R), device=dev),
+                _rand(bsr.shape[0], dev, torch.float64, 46)),
+    }
+
+
+@pytest.mark.parametrize("fmt", ["csr", "bsr"])
+def test_two_sided_solves_repeat_bitwise_on_both_adjoints(dev, fmt):
+    """``qmr``, ``bicg``, ``cgnr`` and ``lsqr`` on a float64 CSR and a BSR
+    matrix: two calls bit-equal, and a forced capture bit-equal to the
+    host-stepped loop with its launches (the BSR adjoint K12 on the
+    transpose, a launch a product)."""
+    from krylov_tpu_torch.ops import cuda_bsr as cb
+
+    op, b = _adjoint_operators(dev)[fmt]
+    for name in ("qmr", "bicg", "cgnr", "lsqr"):
+        solve = lambda: getattr(kt, name)(op, b, tol=1e-10, maxiter=200,  # noqa: E731
+                                          backend="while_loop")
+        _, first = solve()
+        _, again = solve()
+        assert first.success and first.numsteps > 3, name
+        _assert_bit_equal(again, first, name)
+        cb.reset_launches()
+        ref, got, counts, (n_host, n_graph) = _both_routes(
+            solve, _driver._capture_at(after=3, steps=4, replays=2))
+        assert counts["captures"] == 1 and counts["uncapturable"] == 0, (name, counts)
+        _assert_bit_equal(got, ref, name)
+        _assert_bit_equal(ref, first, name)
+        assert n_graph == n_host, name
+        if fmt == "bsr":
+            assert cb.ADJOINT_PATHS["k12"] > 0 and cb.ADJOINT_PATHS["segment"] == 0
+            assert n_host["bsr_spmm"] >= 2 * ref.numsteps, (name, n_host)
+    assert op._adjoint is not None
+
+
+def test_bsr_adjoint_runs_k12_on_the_transpose(dev):
+    """``BSROperator.rmatvec`` launches K12 on the block transpose, held to
+    the plain version on the same transpose (float32 at 1e-5, float64 at
+    1e-12 of the largest entry) and to the CPU's product, repeated bit for
+    bit; a dense block column takes the segment route, bit for bit too."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops import cuda_bsr as cb
+    from krylov_tpu_torch.ops.bsr import BSROperator
+
+    op64, _ = _adjoint_operators(dev)["bsr"]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        op = BSROperator(op64.data.to(dtype), op64.cols, op64.shape)
+        X = _rand((op.shape[0], 8), dev, dtype, 47)
+        cb.reset_launches()
+        got = op.rmatvec(X)
+        adj = op._adjoint
+        assert adj.route == "k12" and adj.held is None
+        assert cb.LAUNCHES["bsr_spmm"] == 1 and cb.ADJOINT_PATHS == {"k12": 1, "segment": 0}
+        want = cb.bsr_spmm_plain(adj.data, adj.cols, X)
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+        cpu = BSROperator(op.data.cpu(), op.cols.cpu(), op.shape).rmatvec(X.cpu())
+        torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=tol * float(cpu.abs().max()))
+        assert torch.equal(got, op.rmatvec(X)) and cb.LAUNCHES["bsr_spmm"] == 2
+    dense = np.eye(24 * 4) + scipy.sparse.random(24 * 4, 4, density=0.9, random_state=3,
+                                                 format="csr").toarray() @ np.eye(4, 24 * 4)
+    sp = scipy.sparse.csr_matrix(dense)
+    op = BSROperator.from_scipy(sp, blocksize=(4, 4), device=dev)
+    x = _rand(sp.shape[0], dev, torch.float64, 48)
+    got = op.rmatvec(x)
+    assert op._adjoint.route == "segment"
+    np.testing.assert_allclose(got.cpu().numpy(), dense.T @ x.cpu().numpy(), rtol=0,
+                               atol=1e-12 * np.abs(dense.T @ x.cpu().numpy()).max())
+    assert torch.equal(got, op.rmatvec(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_csr_adjoint_repeats_bitwise(dev, dtype):
+    """``CSROperator.rmatvec`` through the column-grouped copy on a
+    rectangular matrix with an empty column: bit for bit from call to
+    call, an exact 0 in the empty column, the CPU's product to 1e-12."""
+    import scipy.sparse
+
+    from krylov_tpu_torch.ops.sparse import CSROperator
+
+    sp = scipy.sparse.random(3000, 2000, density=0.01, random_state=4, format="lil")
+    sp[:, 7] = 0.0
+    sp = sp.tocsr().astype(np.complex128 if dtype.is_complex else np.float64)
+    if dtype.is_complex:
+        sp.data = sp.data * (1 + 0.5j)
+    op = CSROperator.from_scipy(sp, device=dev)
+    x = (_crand if dtype.is_complex else _rand)((3000, 3), dev, dtype, 49)
+    got = op.rmatvec(x)
+    assert torch.equal(got, op.rmatvec(x)) and torch.all(got[7] == 0)
+    want = CSROperator.from_scipy(sp, device="cpu").rmatvec(x.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-12 * float(want.abs().max()))
+
+
 def test_inputs_without_a_device_land_on_the_card(dev):
     """Nothing names a device: the factory, the numpy right-hand side and
     the solve all land on the CUDA device."""
@@ -1543,6 +1661,7 @@ def _graph_cases(dev):
     Bb = torch.ones((spd.shape[0], 4), device=dev, dtype=torch.float64)
     grid = _grid_poisson_f32(64)  # a true grid: ILU(0)'s levels are its wavefront
     grid128 = _grid_poisson_f32(128)
+    grid64, b64 = grid.astype(np.float64), b[:grid.shape[0]].double()  # CSROperator
     pet16 = PETOperator.from_scipy(sp, data_dtype=torch.bfloat16, with_rmatvec=False,
                                    device=dev)
     wl = dict(backend="while_loop")
@@ -1639,10 +1758,8 @@ def _graph_cases(dev):
                                               Ml=kt.ILUPreconditioner.from_scipy(
                                                   grid, device=dev), tol=1e-5, maxiter=100,
                                               **wl),
-        # the 16,384-row grid: its adjoint is K10's (PET); CSROperator's
-        # index_add_ adjoint sums in no fixed order on the card
-        "qmr + ilu": lambda: kt.qmr(grid128, b, Ml=kt.ILUPreconditioner.from_scipy(
-            grid128, with_rmatvec=True, device=dev), tol=1e-5, maxiter=100, **wl),
+        "qmr + ilu": lambda: kt.qmr(grid64, b64, Ml=kt.ILUPreconditioner.from_scipy(
+            grid64, with_rmatvec=True, device=dev), tol=1e-10, maxiter=100, **wl),
     }
 
 
