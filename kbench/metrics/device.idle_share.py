@@ -1,0 +1,7 @@
+"""1 - (the union of the device's operations) / (the traced window)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 1.0 - run.trace.busy_s / run.trace.window_s
